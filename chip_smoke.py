@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from spt_tpu_torch/csrc with nvcc,
-holds each against its plain PyTorch version on the card, drives the main
-path (the progressive render facade, ``create_path_tracer("cuda")``) at the
-repo's headline size, and times the kernels.  Each phase prints one JSON
-line; any failure exits nonzero and prints no result.  The last two lines
-are the kernels table and ``{"ok": true, "device": {...}}``.
+holds each against its plain PyTorch version on the card, drives the two
+main paths at the repo's headline size (the progressive render facade,
+``create_path_tracer("cuda")``, through K1; and inverse rendering,
+``InverseRenderer(backend="cuda")``, through K1 forward and K2 backward),
+and times the kernels.  Each phase prints one JSON line; any failure exits
+nonzero and prints no result.  The last two lines are the kernels table and
+``{"ok": true, "device": {...}}``.
 
 Exits nonzero without a CUDA device, and when the package is not beside it.
 """
@@ -36,6 +38,17 @@ HBM_RATE = 3.35e12       # H100 SXM HBM3 bytes/s
 # (not 1%).  Both round alike (same libdevice, --fmad=false) and have
 # agreed bit for bit on an H100; the slack is for a kernel that reorders.
 RTOL, ATOL, MIN_CLOSE, MAX_MEAN_REL = 2e-3, 2e-4, 0.999, 1e-3
+# K2's gradient against its plain version: every field (12 sphere attributes
+# over all spheres, and the sky) within 1e-3 relative L2, or 1e-6 absolute
+# where the plain field is 0.  K2 sums lanes with float atomics in an order
+# that changes from run to run, and its adjoint associates some products
+# otherwise than the plain version; both are float32 rounding.
+GRAD_REL, GRAD_ABS = 1e-3, 1e-6
+# One bounce's adjoint, K2's per-lane code against the plain version: state
+# cotangents allclose(rtol 1e-3, atol 1e-4 times the channel's largest
+# magnitude) on at least 99.9% of lanes.
+VJP_RTOL, VJP_ATOL_REL, VJP_MIN_CLOSE = 1e-3, 1e-4, 0.999
+TRAIN_SPP, TRAIN_STEPS, TRAIN_LR, K2_SPP = 16, 10, 0.02, 1024
 
 
 def emit(obj) -> None:
@@ -73,6 +86,64 @@ def cornell(pkg):
     return scene
 
 
+def grad_scene(pkg):
+    """tests/test_pallas_grad.py's scene under a gradient sky: Lambert,
+    GGX metal, a lamp, and glass of albedo exactly 0.95 (a unit throughput
+    refracting there puts Russian roulette's clip on its bound)."""
+    scene = pkg.Scene()
+    scene.set_sky(pkg.SKY_GRADIENT, horizon=(0.9, 0.9, 1.0),
+                  zenith=(0.3, 0.5, 1.0))
+    white = scene.add_material("lambert", albedo=(0.7, 0.65, 0.6))
+    lamp = scene.add_material("lambert", albedo=(0.8,) * 3,
+                              emission=(11.0,) * 3)
+    metal = scene.add_material("metal", albedo=(0.85, 0.85, 0.9),
+                               roughness=0.3)
+    glass = scene.add_material("glass", albedo=(0.95,) * 3, ior=1.5)
+    scene.create_sphere("floor", (0, -1000, 4), 1000.0, white)
+    scene.create_sphere("lamp", (0, 2.8, 4), 0.7, lamp)
+    scene.create_sphere("m", (-0.6, 0.6, 4.0), 0.6, metal)
+    scene.create_sphere("g", (0.7, 0.5, 3.6), 0.5, glass)
+    return scene
+
+
+def vjp_lanes(torch, dev, n, seed):
+    """Random bounce-entry lanes around grad_scene's spheres: (state (13, n),
+    aux (2, n), pid, sample, state_ct (13, n)).  A quarter carry a unit
+    throughput, so glass refractions land on the roulette clip's bound."""
+    r = np.random.default_rng(seed)
+    o = np.stack([r.uniform(-1.5, 1.5, n), r.uniform(0.2, 2.0, n),
+                  r.uniform(2.0, 5.0, n)])
+    d = r.normal(size=(3, n))
+    d /= np.linalg.norm(d, axis=0)
+    th = np.where(r.random(n) < 0.25, 1.0, r.uniform(0.2, 1.0, (3, n)))
+    state = np.concatenate([o, d, th, r.uniform(0, 1, (3, n)),
+                            np.where(r.random(n) < 0.2, 0.0,
+                                     r.uniform(0, 2, n))[None]])
+    aux = np.stack([r.random(n) < 0.9, r.random(n) < 0.3])
+    ids = r.integers(0, 2**32, (2, n), dtype=np.uint64).astype(np.int64)
+    ct = r.normal(size=(13, n))
+    t = [torch.from_numpy(a).to(dev) for a in (state.astype(np.float32), aux,
+                                               ids[0], ids[1],
+                                               ct.astype(np.float32))]
+    return t[0].contiguous(), t[1], t[2], t[3], t[4].contiguous()
+
+
+def grad_errors(got, want, n_prims):
+    """Per field of gvec (12 sphere attributes over the spheres, then the
+    sky): relative L2 error, or absolute where the plain field is 0."""
+    got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
+    fields = [(got[a:12 * n_prims:12], want[a:12 * n_prims:12])
+              for a in range(12)] + [(got[12 * n_prims:], want[12 * n_prims:])]
+    out = []
+    for g, w in fields:
+        norm, err = np.linalg.norm(w), np.linalg.norm(g - w)
+        out.append(dict(rel=err / norm if norm > 0 else None, abs=err,
+                        ok=bool(np.isfinite(g).all()) and (
+                            err <= GRAD_REL * norm if norm > 0
+                            else err <= GRAD_ABS)))
+    return out, float(np.abs(got - want).max())
+
+
 def cuda_ms(torch, fn):
     """(result, milliseconds) of fn() between two CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
@@ -82,6 +153,35 @@ def cuda_ms(torch, fn):
     end.record()
     end.synchronize()
     return out, start.elapsed_time(end)
+
+
+def profiled(torch, fn, kernel):
+    """fn() under torch.profiler: its wall, the device time (the sum of the
+    self times of the events that ran on the card: kernels and copies; a
+    host-side op or autograd node that launched them would count them
+    twice), the named kernel's part, and the top five."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        if e.device_type != DeviceType.CUDA:
+            return 0
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)) or 0
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    avg = prof.key_averages()
+    busy_ms = 1e-3 * sum(dev_us(e) for e in avg)
+    kernel_ms = 1e-3 * sum(dev_us(e) for e in avg if kernel in e.key)
+    return dict(profiled_wall_ms=wall_ms, device_busy_ms=busy_ms or None,
+                kernel=kernel, kernel_device_ms=kernel_ms or None,
+                top=[(e.key[:60], dev_us(e) * 1e-3, e.count) for e in
+                     sorted(avg, key=dev_us, reverse=True)[:5]])
 
 
 def compare(got, want):
@@ -226,6 +326,7 @@ def run() -> int:
               demo38_frames=demo.frame_count, launches=counts,
               cornell_mean=float(img.mean()), demo38_mean=float(img2.mean())))
     check(counts["k1"] > 0, "K1 was not launched on the main path")
+    check(counts["k2"] == 0, "K2 was launched by a forward render")
     check(counts["plain"] == 0, "the plain version ran on the main path")
     check(tracer.frame_count == SPP and demo.frame_count == 8,
           "frame counts")
@@ -236,31 +337,16 @@ def run() -> int:
 
     # Where the Cornell render's time goes: the same render again under
     # torch.profiler; device time is the sum of the kernels' self times.
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def cornell_again():
         again = cornell_tracer()
         again.render_to_completion()
         again.get_render_result()
-        torch.cuda.synchronize()
-        prof_wall_ms = 1e3 * (time.perf_counter() - t0)
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0)) or 0
-
-    avg = prof.key_averages()
-    busy_ms = 1e-3 * sum(dev_us(e) for e in avg)
-    k1_busy_ms = 1e-3 * sum(dev_us(e) for e in avg
-                            if "megakernel_fwd_kernel" in e.key)
-    emit(dict(phase="main_path_profile", profiled_wall_ms=prof_wall_ms,
-              unprofiled_wall_ms=1e3 * cornell_s,
-              device_busy_ms=busy_ms or None, k1_device_ms=k1_busy_ms or None,
-              device_busy_share=(busy_ms / (1e3 * cornell_s)
-                                 if busy_ms else None),
-              top=[(e.key[:60], dev_us(e) * 1e-3, e.count) for e in
-                   sorted(avg, key=dev_us, reverse=True)[:5]]))
+    prof = profiled(torch, cornell_again, "megakernel_fwd_kernel")
+    emit(dict(phase="main_path_profile", unprofiled_wall_ms=1e3 * cornell_s,
+              device_busy_share=(prof["device_busy_ms"] / (1e3 * cornell_s)
+                                 if prof["device_busy_ms"] else None),
+              **prof))
 
     # 6. Timing at the headline size ------------------------------------------
     sd = cornell(T).compile(device=dev)
@@ -294,19 +380,215 @@ def run() -> int:
               fp32_ops=ops, bytes=n_bytes, bound_ms=bound_ms,
               ops_per_path=ops / paths))
 
-    # 7. Kernels line, then the result --------------------------------------
-    emit({"kernels": [dict(
-        name="K1 megakernel_fwd", route="cuda",
-        source="spt_tpu_torch/csrc/megakernel.cu",
-        replaces="spt_tpu/kernels/megakernel.py:194::_kernel",
-        launches=counts["k1"], max_abs_err=max_abs_err, ms=k1_ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by="operations"
-        if ops / FP32_PEAK >= n_bytes / HBM_RATE else "bytes",
-        library_ms=None, checked_against_plain=True)]})
+    k1_bound_by = "operations" if ops / FP32_PEAK >= n_bytes / HBM_RATE \
+        else "bytes"
+    k2 = run_k2_phases(torch, T, mk, dev, card, cam_cornell)
+    k1_launches = {"render": counts["k1"], "train": k2["k1_train"]}
+
+    # 11. Kernels line, then the result ---------------------------------------
+    emit({"kernels": [
+        dict(name="K1 megakernel_fwd", route="cuda",
+             source="spt_tpu_torch/csrc/megakernel.cu",
+             replaces="spt_tpu/kernels/megakernel.py:194::_kernel",
+             launches=sum(k1_launches.values()),
+             launches_by_path=k1_launches, max_abs_err=max_abs_err,
+             ms=k1_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+             bound_by=k1_bound_by, library_ms=None,
+             checked_against_plain=True),
+        dict(name="K2 megakernel_grad", route="cuda",
+             source="spt_tpu_torch/csrc/megakernel_grad.cu",
+             replaces="spt_tpu/kernels/megakernel_grad.py:121::_kernel_grad",
+             launches=k2["k2_train"],
+             launches_by_path={"render": counts["k2"],
+                               "train": k2["k2_train"]},
+             max_abs_err=k2["max_abs_err"], ms=k2["ms"],
+             plain_ms=k2["plain_ms"], plain_size=k2["plain_size"],
+             bound_ms=k2["bound_ms"], bound_by=k2["bound_by"],
+             library_ms=None, checked_against_plain=True)]})
     emit(dict(phase="done", seconds=time.perf_counter() - t_all))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def run_k2_phases(torch, T, mk, dev, card, cam_cornell) -> dict:
+    """K2 against its plain version, the training main path, and K2's
+    timing.  Returns the numbers the kernels line needs."""
+    from spt_tpu_torch.diff import cuda_diff, gradients as G
+    from spt_tpu_torch.kernels import megakernel_grad as mg
+
+    # 7. One bounce's adjoint: K2's per-lane code against the plain one ------
+    sd = grad_scene(T).compile(device=dev)
+    cam = T.Camera.look_at((0, 1.0, -1.2), (0, 0.8, 4.0), fov_degrees=55,
+                           device=dev)
+    blob, meta, lsb, static = mk.pack_uniforms(sd, cam, 0, SEED)
+    max_abs_err = 0.0
+    for k in (0, RR):            # Russian roulette off, then on
+        state, aux, pid, sample, ct = vjp_lanes(torch, dev, 1 << 16, 10 + k)
+        kw = dict(k=k, rr_depth=RR, use_nee=True, use_mis=True,
+                  sky_mode=sd.sky_mode, **static)
+        g_k, ct_k = mg.bounce_vjp(blob, meta, lsb, state, aux, pid, sample,
+                                  ct, **kw)
+        g_p, ct_p = mg.bounce_vjp_plain(blob, meta, lsb, state, aux, pid,
+                                        sample, ct, **kw)
+        torch.cuda.synchronize()
+        a, b = ct_k.cpu().numpy(), ct_p.cpu().numpy()
+        close = np.isclose(a, b, rtol=VJP_RTOL, atol=VJP_ATOL_REL
+                           * np.abs(b).max(axis=1, keepdims=True)).all(0)
+        errs, g_err = grad_errors(g_k, g_p, static["n_prims"])
+        emit(dict(phase="k2_bounce_vs_plain", k=k, lanes=int(a.shape[1]),
+                  frac_close=float(close.mean()),
+                  finite=bool(np.isfinite(a).all()), gvec_max_abs_err=g_err,
+                  gvec_rel=[e["rel"] for e in errs]))
+        check(bool(np.isfinite(a).all()), f"bounce k={k}: not finite")
+        check(close.mean() >= VJP_MIN_CLOSE,
+              f"bounce k={k}: {close.mean():.5f} of lanes close")
+        check(all(e["ok"] for e in errs), f"bounce k={k}: gvec {errs}")
+        check(float(g_p.abs().sum()) > 0, f"bounce k={k}: zero gradient")
+
+    # 8. K2 against its plain version, both on the card -----------------------
+    cam_demo = dict(position=(0, 0, 0), target=(0, 0, 1), fov_degrees=90)
+    ct_img = torch.from_numpy(np.random.default_rng(SEED).uniform(
+        0.5, 1.5, (64, 64, 3)).astype(np.float32)).to(dev)
+    plain_ms = None
+    cases = [("cornell", cornell(T), {}, cam_cornell, {}),
+             ("demo38", T.demo_scene_38_spheres(), dict(capacity=64),
+              cam_demo, {}),
+             ("cornell_thin_lens", cornell(T), {},
+              dict(cam_cornell, aperture=0.15, focus_dist=4.5), {}),
+             ("cornell_nee_off", cornell(T), {}, cam_cornell,
+              dict(use_nee=False)),
+             ("cornell_mis_off", cornell(T), {}, cam_cornell,
+              dict(use_mis=False))]
+    for label, scene, ckw, camkw, opt in cases:
+        sd = scene.compile(device=dev, **ckw)
+        cam = T.Camera.look_at(device=dev, **camkw)
+        blob, meta, lsb, static = mk.pack_uniforms(sd, cam, 0, SEED)
+        kw = dict(dict(width=64, height=64, spp=4, max_bounces=DEPTH,
+                       rr_depth=RR, use_nee=True, use_mis=True,
+                       sky_mode=sd.sky_mode,
+                       dof=float(cam.aperture) > 0, **static), **opt)
+        img_k, g_k = mg.megakernel_grad(blob, meta, lsb, ct_img, **kw)
+        (img_p, g_p), p_ms = cuda_ms(torch, lambda: mg.render_and_grad_plain(
+            blob, meta, lsb, ct_img, **kw))
+        img_1 = mk.megakernel_fwd(blob, meta, lsb, **kw)
+        torch.cuda.synchronize()
+        res = compare(img_k, img_1)
+        errs, g_err = grad_errors(g_k, g_p, static["n_prims"])
+        out = dict(phase="k2_vs_plain", case=label, size=64, spp=4,
+                   image_equals_k1=bool(torch.equal(img_k, img_1)),
+                   image_vs_plain=compare(img_k, img_p), image_vs_k1=res,
+                   gvec_max_abs_err=g_err, plain_ms=p_ms,
+                   gvec_rel=[e["rel"] for e in errs],
+                   gvec_norm=float(g_p.norm()))
+        if label == "cornell":
+            plain_ms = p_ms
+            # Autograd of the plain K1 itself, which does not go through the
+            # hand adjoint: a derivation error shared by both adjoints shows.
+            b = blob.clone().requires_grad_(True)
+            loss = (mk.render_tiles_plain(b, meta, lsb, **kw)
+                    * ct_img).sum()
+            (d_blob,) = torch.autograd.grad(loss, b)
+            auto = torch.cat([d_blob[21:], d_blob[15:21]])
+            a_errs, _ = grad_errors(g_k, auto, static["n_prims"])
+            out["gvec_rel_vs_autograd"] = [e["rel"] for e in a_errs]
+            check(all(e["ok"] for e in a_errs),
+                  f"{label}: gvec vs autograd {a_errs}")
+        emit(out)
+        check(res["finite"] and bool(torch.isfinite(g_k).all()),
+              f"{label}: K2 output not finite")
+        check(res["frac_close"] >= MIN_CLOSE
+              and res["mean_rel"] <= MAX_MEAN_REL,
+              f"{label}: K2 image against K1 {res}")
+        check(all(e["ok"] for e in errs), f"{label}: gvec {errs}")
+        check(float(g_p.abs().sum()) > 0, f"{label}: zero gradient")
+        if label == "demo38":
+            n_sph = 12 * static["n_prims"]
+            check(float(g_p[n_sph:].abs().sum()) > 0, "demo38: no sky grad")
+        max_abs_err = max(max_abs_err, g_err, res["max_abs_err"])
+
+    # 9. Training main path: InverseRenderer through K1 and K2, counted ------
+    sd = cornell(T).compile(device=dev)
+    cam = T.Camera.look_at(device=dev, **cam_cornell)
+    true_p = G.get_params(sd, ("albedo", "roughness"))
+    r = np.random.default_rng(SEED)
+    albedo0 = torch.clamp(true_p["albedo"] + torch.from_numpy(r.uniform(
+        -0.2, 0.2, tuple(true_p["albedo"].shape)).astype(np.float32)).to(dev),
+        0.0, 1.0)
+    sd0 = G.apply_params(sd, {"albedo": albedo0})
+
+    def inverse_renderer(target):
+        return G.InverseRenderer(sd0, cam, target, spp_per_step=TRAIN_SPP,
+                                 learning_rate=TRAIN_LR, max_bounces=DEPTH,
+                                 seed=SEED, rotate_samples=False,
+                                 backend="cuda")
+
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    render = cuda_diff.make_cuda_render_fn(sd, cam, W, H, spp=TRAIN_SPP,
+                                           max_bounces=DEPTH, seed=SEED)
+    with torch.no_grad():
+        target = render(true_p, 0)
+    inv = inverse_renderer(target)
+    err0 = float((inv.params["albedo"].detach() - true_p["albedo"]).abs()
+                 .mean())
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        losses.append(inv.step())          # float(loss) waits for the card
+        step_s.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = dict(mk.LAUNCHES)
+    err1 = float((inv.params["albedo"].detach() - true_p["albedo"]).abs()
+                 .mean())
+    prof = profiled(torch, lambda: inverse_renderer(target).run(TRAIN_STEPS),
+                    "megakernel_grad_kernel")
+    steps_s = sum(step_s)
+    emit(dict(phase="train_main_path", size=W, spp_per_step=TRAIN_SPP,
+              steps=TRAIN_STEPS, losses=losses, albedo_err_start=err0,
+              albedo_err_end=err1, wall_s=train_s, step_s=step_s,
+              wall_per_step_ms=1e3 * steps_s / TRAIN_STEPS,
+              launches=counts, k1_outside_steps=1,
+              device_busy_share=(prof["device_busy_ms"] / (1e3 * steps_s)
+                                 if prof["device_busy_ms"] else None),
+              **prof))
+    check(all(np.isfinite(losses)), "training loss not finite")
+    check(losses[-1] < losses[0], "training did not lower the loss")
+    check(err1 < err0, "training did not lower the albedo error")
+    check(counts["k2"] == TRAIN_STEPS, f"K2 launches {counts['k2']}")
+    check(counts["k1"] == TRAIN_STEPS + 1, f"K1 launches {counts['k1']}")
+    check(counts["plain"] == 0, "the plain version ran on the training path")
+
+    # 10. K2 at the headline size: one 1024-spp render_and_grad launch -------
+    blob, meta, lsb, static = mk.pack_uniforms(sd, cam, 0, SEED)
+    kw = dict(width=W, height=H, spp=K2_SPP, max_bounces=DEPTH, rr_depth=RR,
+              use_nee=True, use_mis=True, sky_mode=sd.sky_mode, dof=False,
+              **static)
+    ones = torch.ones(H, W, 3, device=dev)
+    mg.megakernel_grad(blob, meta, lsb, ones, **kw)        # warm-up
+    k2_ms = min(cuda_ms(torch, lambda: mg.megakernel_grad(
+        blob, meta, lsb, ones, **kw))[1] for _ in range(3))
+    k1_ms = min(cuda_ms(torch, lambda: mk.megakernel_fwd(
+        blob, meta, lsb, **kw))[1] for _ in range(3))
+    stats = {}
+    mk.render_tiles_plain(blob, meta, lsb, stats=stats, **kw)
+    ops = mg.k2_op_count(stats, static["n_prims"])
+    n_bytes = 4 * (blob.numel() + meta.numel() + lsb.numel()
+                   + 2 * W * H * 3 + 12 * static["n_prims"] + 6)
+    bound_ms = 1e3 * max(ops / FP32_PEAK, n_bytes / HBM_RATE)
+    paths = stats["paths"]
+    emit(dict(phase="k2_timing", card=card, size=W, spp=K2_SPP, k2_ms=k2_ms,
+              k1_ms_same_spp=k1_ms, k2_over_k1=k2_ms / k1_ms,
+              pixel_samples_per_s=paths / (k2_ms * 1e-3), fp32_ops=ops,
+              bytes=n_bytes, bound_ms=bound_ms, ops_per_path=ops / paths,
+              lit_per_path=sum(stats["lit"]) / paths,
+              plain_ms=plain_ms, plain_size="64x64 x 4 spp (Cornell)"))
+    return dict(k1_train=counts["k1"], k2_train=counts["k2"],
+                max_abs_err=max_abs_err, ms=k2_ms, plain_ms=plain_ms,
+                plain_size="64x64 x 4 spp", bound_ms=bound_ms,
+                bound_by="operations" if ops / FP32_PEAK >= n_bytes / HBM_RATE
+                else "bytes")
 
 
 def main() -> int:

@@ -1,9 +1,9 @@
-"""Build the port's scene and camera from plain numpy arrays.
+"""Build the port's scene, camera and parameters from plain numpy arrays.
 
 The arrays are the fields of the JAX package's ``SceneData`` and ``Camera``
-(materials as ``materials.<field>``), so a test can hand one scene to both
-packages and compare like with like.  ``Scene.compile`` goes through the
-same function.
+(materials as ``materials.<field>``) and its parameter dicts, so a test can
+hand one scene to both packages and compare like with like.
+``Scene.compile`` goes through the same function.
 """
 
 from __future__ import annotations
@@ -55,3 +55,11 @@ def camera_from_arrays(arrays: Mapping[str, np.ndarray], *, device) -> Camera:
         f: torch.from_numpy(np.array(arrays[f], np.float32)).to(device)
         for f in ("position", "forward", "right", "up", "tan_half_fov",
                   "aperture", "focus_dist")})
+
+
+def params_from_arrays(arrays: Mapping[str, np.ndarray], *,
+                       device) -> dict:
+    """A parameter dict (``diff.gradients.get_params``'s keys) of float32
+    tensors on ``device`` from numpy arrays, e.g. a JAX parameter dict."""
+    return {k: torch.from_numpy(np.array(v, np.float32)).to(device)
+            for k, v in arrays.items()}

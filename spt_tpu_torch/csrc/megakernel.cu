@@ -28,13 +28,13 @@
 
 #include <cstdint>
 
+#include "camera.cuh"
 #include "physics.cuh"
 #include "rng.cuh"
 
 namespace spt {
 
 constexpr int kThreads = 128;
-constexpr uint32_t kCamSlot = 0xFFFFu * kNDims;
 
 struct K1Params {
   float* out;           // (H, W, 3) radiance sum
@@ -47,52 +47,6 @@ struct K1Params {
   float inv_w, inv_h, aspect;  // f32(1/width), f32(1/height), f32(W/H)
   int blob_len, meta_len;
 };
-
-// Jittered pinhole (or thin-lens) primary ray, as the TPU kernel makes it.
-__device__ __forceinline__ void raygen(const K1Params& prm, const float* cam,
-                                       uint32_t pid, float px, float py,
-                                       uint32_t sample, uint32_t seed,
-                                       Path& p) {
-  float jx = counter_uniform(pid, sample, kCamSlot + 0u, seed);
-  float jy = counter_uniform(pid, sample, kCamSlot + 1u, seed);
-  float tanf = cam[12];
-  float sx = (px + jx) * prm.inv_w;
-  float sy = (py + jy) * prm.inv_h;
-  float ndc_x = (2.0f * sx - 1.0f) * prm.aspect * tanf;
-  float ndc_y = (1.0f - 2.0f * sy) * tanf;
-  float dx = ndc_x * cam[3] + ndc_y * cam[6] + cam[9];
-  float dy = ndc_x * cam[4] + ndc_y * cam[7] + cam[10];
-  float dz = ndc_x * cam[5] + ndc_y * cam[8] + cam[11];
-  normalize3(dx, dy, dz);
-  float ox = cam[0], oy = cam[1], oz = cam[2];
-  if (prm.dof) {
-    float lu = counter_uniform(pid, sample, kCamSlot + 2u, seed);
-    float lv = counter_uniform(pid, sample, kCamSlot + 3u, seed);
-    float r = cam[13] * sqrtf(lu);
-    float phi = kTwoPi * lv;
-    float cphi = cosf(phi), sphi = sinf(phi);
-    float offx = r * (cphi * cam[3] + sphi * cam[6]);
-    float offy = r * (cphi * cam[4] + sphi * cam[7]);
-    float offz = r * (cphi * cam[5] + sphi * cam[8]);
-    float denom = fmaxf(dx * cam[9] + dy * cam[10] + dz * cam[11], 1e-6f);
-    float tf = cam[14] / denom;
-    float fx = ox + dx * tf, fy = oy + dy * tf, fz = oz + dz * tf;
-    ox = ox + offx;
-    oy = oy + offy;
-    oz = oz + offz;
-    dx = fx - ox;
-    dy = fy - oy;
-    dz = fz - oz;
-    normalize3(dx, dy, dz);
-  }
-  p.ox = ox; p.oy = oy; p.oz = oz;
-  p.dx = dx; p.dy = dy; p.dz = dz;
-  p.th_r = p.th_g = p.th_b = 1.0f;
-  p.rad_r = p.rad_g = p.rad_b = 0.0f;
-  p.prev_pdf = 0.0f;
-  p.active = true;
-  p.prev_spec = true;  // the camera vertex counts as specular
-}
 
 __global__ void __launch_bounds__(kThreads) megakernel_fwd_kernel(K1Params prm) {
   extern __shared__ float smem[];
@@ -119,7 +73,8 @@ __global__ void __launch_bounds__(kThreads) megakernel_fwd_kernel(K1Params prm) 
   for (int s = 0; s < prm.spp; ++s) {
     const uint32_t sample = start + (uint32_t)s;
     Path p;
-    raygen(prm, s_blob, pid, px, py, sample, seed, p);
+    raygen(s_blob, prm.inv_w, prm.inv_h, prm.aspect, prm.dof, pid, px, py,
+           sample, seed, p);
     for (int k = 0; k < prm.max_bounces && p.active; ++k)
       trace_bounce(sc, p, pid, sample, seed, k, prm.rr_depth, prm.use_nee,
                    prm.use_mis);

@@ -37,6 +37,16 @@ ENTRIES = {
         # out, pixel, sample, dim, seed, n, stream
         "spt_counter_bits": [_P, _P, _P, _P, _P, _I, _P],
     },
+    "megakernel_grad": {
+        # img, gvec, blob, meta, lsb, ct, width, height, spp, n_prims,
+        # n_light_slots, max_bounces, rr_depth, use_nee, use_mis, sky_mode,
+        # dof, inv_w, inv_h, aspect, stream
+        "spt_megakernel_grad": [_P] * 6 + [_I] * 11 + [_F, _F, _F, _P],
+        # gvec, out_ct, state_ct, state, aux, pid, sample, blob, meta, lsb,
+        # n, n_prims, n_light_slots, k, rr_depth, use_nee, use_mis,
+        # sky_mode, stream
+        "spt_bounce_vjp": [_P] * 10 + [_I] * 8 + [_P],
+    },
 }
 
 _LOADED: dict = {}

@@ -11,12 +11,16 @@ order s = 0 … spp-1.
   the hand-written kernel ``csrc/megakernel.cu`` and raises if it cannot;
   on CPU tensors it runs ``render_tiles_plain``.
 * ``render_tiles_plain`` is the plain PyTorch version: the same raygen as
-  the kernel, then ``physics.trace_bounce``.
+  the kernel, then ``physics.trace_bounce``.  ``render_samples_plain`` is
+  the same over any list of sample ids, and is differentiable with respect
+  to the blob.
 * ``render_tiles`` packs a scene and camera and calls the wrapper; it is
-  what the engine calls.
+  what the engine calls.  ``pack_blob_torch`` packs the blob with tensor
+  ops, for gradients with respect to the scene.
 
-``LAUNCHES`` counts K1 launches (``"k1"``) and plain-version runs
-(``"plain"``), so a caller can see which path a render took.
+``LAUNCHES`` counts K1 launches (``"k1"``), K2 launches (``"k2"``, see
+``megakernel_grad``) and plain-version runs of either (``"plain"``), so a
+caller can see which path a render took.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ _META_FIXED = 3
 # and every ray tests every sphere.
 MAX_PRIMS = 128
 
-LAUNCHES = {"k1": 0, "plain": 0}
+LAUNCHES = {"k1": 0, "k2": 0, "plain": 0}
 
 
 def reset_launch_counts() -> None:
@@ -70,40 +74,37 @@ def pack_scene_static(scene: SceneData):
     return mtypes, light_prims
 
 
+def pack_blob_torch(scene: SceneData, camera) -> torch.Tensor:
+    """The uniform blob (camera, sky, one 12-float row per sphere) as tensor
+    ops on the scene's device, differentiable with respect to the scene's
+    tensors: the counterpart of JAX's ``pack_blob_jnp``, and bit for bit
+    its ``pack_scene`` blob.  Material rows are gathered by ``mat_id`` and
+    multiplied by ``valid``; an invalid row holds ior 1.5.  Camera fields
+    may be tensors or arrays."""
+    dev = scene.device
+
+    def field(v):
+        if not isinstance(v, torch.Tensor):
+            v = torch.from_numpy(np.array(v, np.float32))
+        return v.to(dev, torch.float32).reshape(-1)
+
+    cam = torch.cat([field(getattr(camera, f)) for f in (
+        "position", "right", "up", "forward", "tan_half_fov", "aperture",
+        "focus_dist")])
+    valid = scene.prim_valid.to(torch.float32)[:, None]
+    m = scene.mat_id.long()
+    mats = scene.materials
+    ior = torch.where(scene.prim_valid, mats.ior[m], 1.5)[:, None]
+    rows = torch.cat([scene.centers * valid, scene.radii[:, None] * valid,
+                      mats.albedo[m] * valid, mats.emission[m] * valid,
+                      mats.roughness[m][:, None] * valid, ior], dim=1)
+    return torch.cat([cam, scene.sky_params.reshape(-1), rows.reshape(-1)])
+
+
 def pack_scene(scene: SceneData, camera):
     """Host-side packing of scene+camera uniforms -> (blob, mtypes, lights)."""
-    cap = scene.capacity
-    blob = np.zeros(_SPH_OFF + _SPH_STRIDE * cap, np.float32)
-    blob[0:3] = _np(camera.position)
-    blob[3:6] = _np(camera.right)
-    blob[6:9] = _np(camera.up)
-    blob[9:12] = _np(camera.forward)
-    blob[12] = float(_np(camera.tan_half_fov))
-    blob[13] = float(_np(getattr(camera, "aperture", 0.0)))
-    blob[14] = float(_np(getattr(camera, "focus_dist", 1.0)))
-    sky = _np(scene.sky_params)
-    blob[_SKY_OFF:_SKY_OFF + 3] = sky[0]
-    blob[_SKY_OFF + 3:_SKY_OFF + 6] = sky[1]
-    centers, radii = _np(scene.centers), _np(scene.radii)
-    valid, mat_id = _np(scene.prim_valid), _np(scene.mat_id)
-    albedo = _np(scene.materials.albedo)
-    emission = _np(scene.materials.emission)
-    rough = _np(scene.materials.roughness)
-    ior = _np(scene.materials.ior)
-    for i in range(cap):
-        off = _SPH_OFF + _SPH_STRIDE * i
-        if valid[i]:
-            m = int(mat_id[i])
-            blob[off:off + 4] = [centers[i, 0], centers[i, 1], centers[i, 2],
-                                 radii[i]]
-            blob[off + 4:off + 7] = albedo[m]
-            blob[off + 7:off + 10] = emission[m]
-            blob[off + 10] = rough[m]
-            blob[off + 11] = ior[m]
-        else:
-            blob[off + 11] = 1.5
     mtypes, light_prims = pack_scene_static(scene)
-    return blob, mtypes, light_prims
+    return _np(pack_blob_torch(scene, camera)), mtypes, light_prims
 
 
 def pack_meta(start_sample: int, seed: int, mtypes, light_prims) -> np.ndarray:
@@ -124,117 +125,170 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def render_tiles_plain(blob: torch.Tensor, meta: torch.Tensor,
-                       lsb: torch.Tensor, *, width: int, height: int,
-                       spp: int, n_prims: int, n_light_slots: int,
-                       max_bounces: int, rr_depth: int, use_nee: bool,
-                       use_mis: bool, sky_mode: int, dof: bool,
-                       stats: dict | None = None) -> torch.Tensor:
-    """Plain PyTorch version of K1 on the packed uniforms -> (H, W, 3).
+# Lanes the plain versions trace at once: consecutive samples are batched
+# into one set of (pixel, sample) lanes up to this many, so the loop of small
+# ops makes fewer and larger launches on the card.  Each lane's arithmetic is
+# unchanged, and the image still sums samples in order.
+PLAIN_LANES = 1 << 20
 
-    ``stats``, if given, receives per-bounce counts summed over the samples
-    (lists of ints): ``"active"`` rays traced, ``"hit"`` rays that hit, and
-    ``"shadow"`` shadow rays K1 traces (NEE on a non-dielectric hit); and
-    ``"paths"``, the number of camera paths."""
-    LAUNCHES["plain"] += 1
+
+class PlainScene:
+    """The packed uniforms as the plain versions read them: ``theta``
+    (spheres (P, 12), sky (6,), lights (L, 7) gathered from the spheres),
+    the live light count, seed, start sample and per-sphere material types,
+    and the light-cell grid bounds."""
+
+    def __init__(self, blob, meta, lsb, n_prims: int, n_light_slots: int):
+        meta_h = _np(meta).astype(np.int64)
+        self.start_sample = int(meta_h[0])
+        self.seed = int(meta_h[1]) & rng.MASK32
+        self.nl = int(meta_h[2])
+        self.mtypes = meta[_META_FIXED:_META_FIXED + n_prims].to(torch.int32)
+        self.light_prims = [int(p) for p in meta_h[
+            _META_FIXED + n_prims:_META_FIXED + n_prims + n_light_slots]]
+        spheres = blob[_SPH_OFF:_SPH_OFF + _SPH_STRIDE * n_prims].reshape(
+            n_prims, _SPH_STRIDE)
+        lights = spheres[self.light_prims][:, list(
+            physics.LIGHT_TO_SPHERE_ATTR)]
+        self.theta = (spheres, blob[_SKY_OFF:_SKY_OFF + 6], lights)
+        self.lsel_lo = tuple(lsb[a] for a in range(3))
+        self.lsel_ext = tuple(lsb[3 + a] for a in range(3))
+
+    def uniforms(self, pid, sample, k: int) -> dict:
+        """Bounce k's uniforms, keyed as K1 and K2 key them."""
+        def u(dim):
+            return rng.counter_uniform(pid, sample, k * _NDIMS + dim,
+                                       self.seed)
+        return dict(rr=u(physics.DIM_RR), u1=u(physics.DIM_U1),
+                    u2=u(physics.DIM_U2), lobe=u(physics.DIM_LOBE),
+                    lu1=u(physics.DIM_LU1), lu2=u(physics.DIM_LU2),
+                    lsel_lo=self.lsel_lo, lsel_ext=self.lsel_ext,
+                    sample=sample, seed=self.seed)
+
+
+def sample_chunks(samples, n_pix: int):
+    """Consecutive runs of ``samples`` of at most ``PLAIN_LANES`` lanes."""
+    m = max(1, PLAIN_LANES // n_pix)
+    return [samples[i:i + m] for i in range(0, len(samples), m)]
+
+
+def camera_paths(blob, samples, *, width: int, height: int, seed: int,
+                 dof: bool):
+    """Entry state and masks of bounce 0 for every (sample, pixel) lane,
+    samples outermost: K1's jittered pinhole or thin-lens raygen.
+    Returns (pid, sample, state, aux)."""
     dev = blob.device
-    meta_h = _np(meta).astype(np.int64)
-    start_sample, seed, nl = int(meta_h[0]), int(meta_h[1]) & rng.MASK32, \
-        int(meta_h[2])
-    mtypes = meta[_META_FIXED:_META_FIXED + n_prims].to(torch.int32)
-    spheres = blob[_SPH_OFF:_SPH_OFF + _SPH_STRIDE * n_prims].reshape(
-        n_prims, _SPH_STRIDE)
-    sky = blob[_SKY_OFF:_SKY_OFF + 6]
-    lprims = meta[_META_FIXED + n_prims:
-                  _META_FIXED + n_prims + n_light_slots].long()
-    lights = spheres[lprims][:, list(physics.LIGHT_TO_SPHERE_ATTR)]
-    theta = (spheres, sky, lights)
-    lsel_lo = tuple(lsb[a] for a in range(3))
-    lsel_ext = tuple(lsb[3 + a] for a in range(3))
-
     n_pix = width * height
-    pid = torch.arange(n_pix, dtype=torch.int64, device=dev)
+    pid = torch.arange(n_pix, dtype=torch.int64, device=dev).repeat(
+        len(samples))
+    sample = torch.tensor(samples, dtype=torch.int64,
+                          device=dev).repeat_interleave(n_pix)
     px = (pid % width).to(torch.float32)
     py = (pid // width).to(torch.float32)
     aspect, inv_w, inv_h = (_f32(width / height), _f32(1.0 / width),
                             _f32(1.0 / height))
+
+    def u(dim):
+        return rng.counter_uniform(pid, sample, dim, seed)
+
+    # Camera ray generation, as the kernel does it (1/width multiply).
     tanf = blob[12]
-    acc = torch.zeros(3, n_pix, dtype=torch.float32, device=dev)
-    if stats is not None:
-        act_n, hit_n, shadow_n = (
-            torch.zeros(max_bounces, dtype=torch.int64, device=dev)
-            for _ in range(3))
+    jx, jy = u(_CAM_SLOT + 0), u(_CAM_SLOT + 1)
+    sx = (px + jx) * inv_w
+    sy = (py + jy) * inv_h
+    ndc_x = (2.0 * sx - 1.0) * aspect * tanf
+    ndc_y = (1.0 - 2.0 * sy) * tanf
+    dx = ndc_x * blob[3] + ndc_y * blob[6] + blob[9]
+    dy = ndc_x * blob[4] + ndc_y * blob[7] + blob[10]
+    dz = ndc_x * blob[5] + ndc_y * blob[8] + blob[11]
+    dx, dy, dz = physics._normalize(dx, dy, dz)
+    ox, oy, oz = (blob[a].expand(pid.shape[0]) for a in range(3))
+    if dof:
+        lu, lv = u(_CAM_SLOT + 2), u(_CAM_SLOT + 3)
+        r = blob[13] * torch.sqrt(lu)
+        phi = _f32(2.0 * np.pi) * lv
+        cphi, sphi = torch.cos(phi), torch.sin(phi)
+        offx = r * (cphi * blob[3] + sphi * blob[6])
+        offy = r * (cphi * blob[4] + sphi * blob[7])
+        offz = r * (cphi * blob[5] + sphi * blob[8])
+        denom = physics._max(
+            dx * blob[9] + dy * blob[10] + dz * blob[11], 1e-6)
+        tf = blob[14] / denom
+        fx, fy, fz = ox + dx * tf, oy + dy * tf, oz + dz * tf
+        ox, oy, oz = ox + offx, oy + offy, oz + offz
+        dx, dy, dz = physics._normalize(fx - ox, fy - oy, fz - oz)
+    ones = torch.ones_like(dx)
+    zero = torch.zeros_like(dx)
+    state = (ox, oy, oz, dx, dy, dz, ones, ones, ones, zero, zero, zero, zero)
+    aux = (torch.ones_like(dx, dtype=torch.bool),
+           torch.ones_like(dx, dtype=torch.bool))
+    return pid, sample, state, aux
 
-    for s in range(spp):
-        sample = (start_sample + s) & rng.MASK32
 
-        def u(dim):
-            return rng.counter_uniform(pid, sample, dim, seed)
+def add_samples(acc, state, m: int) -> None:
+    """acc (3, n_pix) += the radiance of m samples, in sample order."""
+    rad = torch.stack(state[9:12]).reshape(3, m, -1)
+    for s in range(m):
+        acc += rad[:, s]
 
-        # Camera ray generation, as the kernel does it (1/width multiply).
-        jx, jy = u(_CAM_SLOT + 0), u(_CAM_SLOT + 1)
-        sx = (px + jx) * inv_w
-        sy = (py + jy) * inv_h
-        ndc_x = (2.0 * sx - 1.0) * aspect * tanf
-        ndc_y = (1.0 - 2.0 * sy) * tanf
-        dx = ndc_x * blob[3] + ndc_y * blob[6] + blob[9]
-        dy = ndc_x * blob[4] + ndc_y * blob[7] + blob[10]
-        dz = ndc_x * blob[5] + ndc_y * blob[8] + blob[11]
-        dx, dy, dz = physics._normalize(dx, dy, dz)
-        ox, oy, oz = (blob[a].expand(n_pix) for a in range(3))
-        if dof:
-            lu, lv = u(_CAM_SLOT + 2), u(_CAM_SLOT + 3)
-            r = blob[13] * torch.sqrt(lu)
-            phi = _f32(2.0 * np.pi) * lv
-            cphi, sphi = torch.cos(phi), torch.sin(phi)
-            offx = r * (cphi * blob[3] + sphi * blob[6])
-            offy = r * (cphi * blob[4] + sphi * blob[7])
-            offz = r * (cphi * blob[5] + sphi * blob[8])
-            denom = torch.clamp_min(
-                dx * blob[9] + dy * blob[10] + dz * blob[11], 1e-6)
-            tf = blob[14] / denom
-            fx, fy, fz = ox + dx * tf, oy + dy * tf, oz + dz * tf
-            ox, oy, oz = ox + offx, oy + offy, oz + offz
-            dx, dy, dz = physics._normalize(fx - ox, fy - oy, fz - oz)
 
-        ones = torch.ones_like(dx)
-        zero = torch.zeros_like(dx)
-        state = (ox, oy, oz, dx, dy, dz, ones, ones, ones, zero, zero, zero,
-                 zero)
-        aux = (torch.ones(n_pix, dtype=torch.bool, device=dev),
-               torch.ones(n_pix, dtype=torch.bool, device=dev))
+def render_samples_plain(blob: torch.Tensor, meta: torch.Tensor,
+                         lsb: torch.Tensor, samples, *, width: int,
+                         height: int, n_prims: int, n_light_slots: int,
+                         max_bounces: int, rr_depth: int, use_nee: bool,
+                         use_mis: bool, sky_mode: int, dof: bool,
+                         stats: dict | None = None) -> torch.Tensor:
+    """Plain PyTorch version of K1 over the given sample ids (uint32 values)
+    -> (H, W, 3) radiance sum, samples added in the order given.
+
+    Differentiable with ``torch.autograd`` with respect to ``blob``.
+    ``stats``, if given, receives per-bounce counts summed over the samples
+    (lists of ints): ``"active"`` rays traced, ``"hit"`` rays that hit,
+    ``"shadow"`` shadow rays K1 traces (NEE on a non-dielectric hit) and
+    ``"lit"`` lanes whose light sample arrives; and ``"paths"``, the number
+    of camera paths."""
+    LAUNCHES["plain"] += 1
+    sc = PlainScene(blob, meta, lsb, n_prims, n_light_slots)
+    n_pix = width * height
+    acc = torch.zeros(3, n_pix, dtype=torch.float32, device=blob.device)
+    counts = np.zeros((4, max_bounces), np.int64)
+    nee = use_nee and n_light_slots > 0 and sc.nl > 0
+    for chunk in sample_chunks([int(s) & rng.MASK32 for s in samples],
+                               n_pix):
+        pid, sample, state, aux = camera_paths(
+            blob, chunk, width=width, height=height, seed=sc.seed, dof=dof)
         for k in range(max_bounces):
-            uni = dict(rr=u(k * _NDIMS + physics.DIM_RR),
-                       u1=u(k * _NDIMS + physics.DIM_U1),
-                       u2=u(k * _NDIMS + physics.DIM_U2),
-                       lobe=u(k * _NDIMS + physics.DIM_LOBE),
-                       lu1=u(k * _NDIMS + physics.DIM_LU1),
-                       lu2=u(k * _NDIMS + physics.DIM_LU2),
-                       lsel_lo=lsel_lo, lsel_ext=lsel_ext,
-                       sample=sample, seed=seed)
             cfg = physics.BounceCfg(
-                mtypes=mtypes, k=k, rr_depth=rr_depth, use_nee=use_nee,
+                mtypes=sc.mtypes, k=k, rr_depth=rr_depth, use_nee=use_nee,
                 use_mis=use_mis, sky_mode=sky_mode,
                 n_light_slots=n_light_slots)
-            if stats is not None:
-                t, _, _, _, m_die, _ = physics.intersect_spheres_unrolled(
-                    spheres, mtypes, *state[:6])
-                hit = aux[0] & (t < physics.BIG)
-                act_n[k] += aux[0].sum()
-                hit_n[k] += hit.sum()
-                shadow_n[k] += (hit & ~m_die).sum()
-            state, aux = physics.trace_bounce(theta, state, aux, uni, nl, cfg)
-        acc[0] += state[9]
-        acc[1] += state[10]
-        acc[2] += state[11]
-
+            tape = None if stats is None else {}
+            active = aux[0]
+            state, aux = physics.trace_bounce(
+                sc.theta, state, aux, sc.uniforms(pid, sample, k), sc.nl,
+                cfg, tape)
+            if tape is not None:
+                counts[:, k] += [int(active.sum()), int(tape["hit"].sum()),
+                                 int((tape["hit"] & ~tape["m_die"]).sum())
+                                 if nee else 0,
+                                 int(tape["nee_ok"].sum()) if nee else 0]
+        add_samples(acc, state, len(chunk))
     if stats is not None:
-        nee = use_nee and n_light_slots > 0 and nl > 0
-        stats["active"] = act_n.tolist()
-        stats["hit"] = hit_n.tolist()
-        stats["shadow"] = shadow_n.tolist() if nee else [0] * max_bounces
-        stats["paths"] = n_pix * spp
+        for name, row in zip(("active", "hit", "shadow", "lit"), counts):
+            stats[name] = row.tolist()
+        stats["paths"] = n_pix * len(samples)
     return acc.T.reshape(height, width, 3)
+
+
+def render_tiles_plain(blob: torch.Tensor, meta: torch.Tensor,
+                       lsb: torch.Tensor, *, spp: int,
+                       **kw) -> torch.Tensor:
+    """Plain PyTorch version of K1 on the packed uniforms -> (H, W, 3):
+    samples ``meta[0] .. meta[0] + spp - 1``, as the kernel renders them.
+    Keywords and ``stats`` as ``render_samples_plain``."""
+    start = int(_np(meta[0]))
+    return render_samples_plain(blob, meta, lsb,
+                                [start + s for s in range(spp)], **kw)
 
 
 # fp32 operations of K1 (csrc/megakernel.cu, csrc/physics.cuh), counted by
@@ -336,13 +390,13 @@ def counter_bits_cuda(pixel: torch.Tensor, sample: torch.Tensor,
 
 def pack_uniforms(scene: SceneData, camera, start_sample: int, seed: int):
     """(blob, meta, lsb) tensors on the scene's device + static ints."""
-    blob, mtypes, light_prims = pack_scene(scene, camera)
+    mtypes, light_prims = pack_scene_static(scene)
     meta = pack_meta(start_sample, seed, mtypes, light_prims)
     dev = scene.device
     lsb = physics.lsel_bounds(scene.centers, scene.radii, scene.prim_valid)
-    return (torch.from_numpy(blob).to(dev), torch.from_numpy(meta).to(dev),
-            lsb.to(dev), dict(n_prims=scene.capacity,
-                              n_light_slots=len(light_prims)))
+    return (pack_blob_torch(scene, camera).detach(),
+            torch.from_numpy(meta).to(dev), lsb.to(dev),
+            dict(n_prims=scene.capacity, n_light_slots=len(light_prims)))
 
 
 def render_tiles(scene: SceneData, camera, width: int, height: int,

@@ -22,6 +22,15 @@ Where the JAX package unrolls over spheres in index order, this version
 tests all spheres at once as (P, N) tensors and takes the first index of
 the least distance, which is the sequential strict ``t < t_best`` scan's
 answer.
+
+Gradients: ``torch.autograd`` through this code is JAX's ``jax.vjp`` of
+the same bounce.  Every clamp of a value that can carry a gradient is
+``_max`` / ``_min`` / ``_clip`` (JAX's ``maximum`` / ``minimum`` / ``clip``,
+which split the cotangent at an exact tie), and the floors and double
+``where`` guards that keep a zero cotangent away from an infinite local
+derivative (sqrt of a grazing discriminant, ``stl``, ``sth``, the
+half-vector, the ``d2`` floors) are the JAX package's.  The hand-written
+reverse mode is ``physics_adjoint.trace_bounce_vjp``.
 """
 
 from __future__ import annotations
@@ -101,12 +110,31 @@ def lsel_uniform(kx, ky, kz, u, k: int) -> torch.Tensor:
                                u["seed"])
 
 
+def _max(x, c: float):
+    """``jnp.maximum(x, c)``: clamp_min's value, but at an exact tie the
+    cotangent splits 0.5/0.5 as JAX's does (``torch.clamp_min`` passes all
+    of it to ``x``)."""
+    return torch.maximum(x, torch.full((), c, dtype=x.dtype, device=x.device))
+
+
+def _min(x, c: float):
+    """``jnp.minimum(x, c)``, splitting ties as ``_max`` does."""
+    return torch.minimum(x, torch.full((), c, dtype=x.dtype, device=x.device))
+
+
+def _clip(x, lo: float, hi: float):
+    """``jnp.clip(x, lo, hi)`` = ``minimum(maximum(x, lo), hi)``: a value
+    exactly at a bound gets half the cotangent, not all of it as with
+    ``torch.clamp``."""
+    return _min(_max(x, lo), hi)
+
+
 def _dot(ax, ay, az, bx, by, bz):
     return ax * bx + ay * by + az * bz
 
 
 def _normalize(x, y, z):
-    inv = 1.0 / torch.sqrt(torch.clamp_min(x * x + y * y + z * z, 1e-20))
+    inv = 1.0 / torch.sqrt(_max(x * x + y * y + z * z, 1e-20))
     return x * inv, y * inv, z * inv
 
 
@@ -126,21 +154,21 @@ def _onb(nx, ny, nz):
 
 
 def _schlick1(cos_i, f0):
-    m = torch.clamp(1.0 - cos_i, 0.0, 1.0)
+    m = _clip(1.0 - cos_i, 0.0, 1.0)
     m2 = m * m
     return f0 + (1.0 - f0) * m2 * m2 * m
 
 
 def _fresnel_dielectric(cos_i, eta_ti):
-    cos_i = torch.clamp(cos_i, 0.0, 1.0)
-    sin2_t = (1.0 / (eta_ti * eta_ti)) * torch.clamp_min(1.0 - cos_i * cos_i,
+    cos_i = _clip(cos_i, 0.0, 1.0)
+    sin2_t = (1.0 / (eta_ti * eta_ti)) * _max(1.0 - cos_i * cos_i,
                                                          0.0)
     tir = sin2_t >= 1.0
     safe = torch.where(tir, 1.0, 1.0 - sin2_t)
-    cos_t = torch.where(tir, 0.0, torch.sqrt(torch.clamp_min(safe, 1e-12)))
-    rs = (cos_i - eta_ti * cos_t) / torch.clamp_min(cos_i + eta_ti * cos_t,
+    cos_t = torch.where(tir, 0.0, torch.sqrt(_max(safe, 1e-12)))
+    rs = (cos_i - eta_ti * cos_t) / _max(cos_i + eta_ti * cos_t,
                                                     1e-8)
-    rp = (eta_ti * cos_i - cos_t) / torch.clamp_min(eta_ti * cos_i + cos_t,
+    rp = (eta_ti * cos_i - cos_t) / _max(eta_ti * cos_i + cos_t,
                                                     1e-8)
     f = 0.5 * (rs * rs + rp * rp)
     return torch.where(tir, 1.0, f)
@@ -168,7 +196,7 @@ def _sphere_t(spheres, ox, oy, oz, dx, dy, dz):
     c = _dot(ocx, ocy, ocz, ocx, ocy, ocz) - r * r
     disc = b * b - c
     pos = disc > 0.0
-    sq = torch.where(pos, torch.sqrt(torch.clamp_min(
+    sq = torch.where(pos, torch.sqrt(_max(
         torch.where(pos, disc, 1.0), 1e-12)), 0.0)
     t0 = b - sq
     t1 = b + sq
@@ -202,11 +230,11 @@ def occluded_unrolled(spheres, ox, oy, oz, dx, dy, dz, tmax):
 
 
 def nee_shadow_setup(ox, oy, oz, hx, hy, hz, nsx, nsy, nsz, u, lights, nl,
-                     nlf, k):
+                     nlf, k, tape: dict | None = None):
     """Light pick + sphere-cone sample + shadow-ray construction.
 
     Returns (pox, poy, poz, ldx, ldy, ldz, t_l, pdf_l, inside_l,
-    ler, leg, leb)."""
+    ler, leg, leb).  ``tape``, if given, receives the local variables."""
     if k == 0:
         ul = lsel_uniform(hx, hy, hz, u, k)
     else:   # (ox, oy, oz) hold the bounce's INPUT ray origins
@@ -232,15 +260,15 @@ def nee_shadow_setup(ox, oy, oz, hx, hy, hz, nsx, nsy, nsz, u, lights, nl,
     poy = hy + EPS * nsy
     poz = hz + EPS * nsz
     tocx, tocy, tocz = lcx - pox, lcy - poy, lcz - poz
-    d2 = torch.clamp_min(_dot(tocx, tocy, tocz, tocx, tocy, tocz), 1e-12)
+    d2 = _max(_dot(tocx, tocy, tocz, tocx, tocy, tocz), 1e-12)
     dist = torch.sqrt(d2)
     inside_l = dist <= lrr
-    sin2m = torch.clamp(lrr * lrr / d2, 0.0, 1.0)
+    sin2m = _clip(lrr * lrr / d2, 0.0, 1.0)
     degm = sin2m >= 1.0
     cosm_l = torch.where(degm, 0.0,
                          torch.sqrt(torch.where(degm, 1.0, 1.0 - sin2m)))
     ctl = 1.0 - lu1 * (1.0 - cosm_l)
-    stl = torch.sqrt(torch.clamp_min(1.0 - ctl * ctl, 1e-12))
+    stl = torch.sqrt(_max(1.0 - ctl * ctl, 1e-12))
     phil = (2.0 * math.pi) * lu2
     wlx, wly, wlz = tocx / dist, tocy / dist, tocz / dist
     ltx, lty, ltz, lbx, lby, lbz = _onb(wlx, wly, wlz)
@@ -249,18 +277,26 @@ def nee_shadow_setup(ox, oy, oz, hx, hy, hz, nsx, nsy, nsz, u, lights, nl,
     ldx = stl * cpl * ltx + stl * spl * lbx + ctl * wlx
     ldy = stl * cpl * lty + stl * spl * lby + ctl * wly
     ldz = stl * cpl * ltz + stl * spl * lbz + ctl * wlz
-    pdf_l = 1.0 / torch.clamp_min(2.0 * math.pi * (1.0 - cosm_l), 1e-9)
+    pdf_l = 1.0 / _max(2.0 * math.pi * (1.0 - cosm_l), 1e-9)
     pdf_l = pdf_l / nlf
     bl = _dot(ldx, ldy, ldz, tocx, tocy, tocz)
     cl = _dot(tocx, tocy, tocz, tocx, tocy, tocz) - lrr * lrr
-    discl = torch.clamp_min(bl * bl - cl, 0.0)
-    t_l = bl - torch.sqrt(torch.clamp_min(discl, 1e-20))
+    discl = _max(bl * bl - cl, 0.0)
+    t_l = bl - torch.sqrt(_max(discl, 1e-20))
+    if tape is not None:
+        tape.update((n, v) for n, v in locals().items() if n != "tape")
     return (pox, poy, poz, ldx, ldy, ldz, t_l, pdf_l, inside_l,
             ler, leg, leb)
 
 
-def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg):
-    """One bounce: (state, aux) -> (new_state, new_aux)."""
+def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg,
+                 tape: dict | None = None):
+    """One bounce: (state, aux) -> (new_state, new_aux).
+
+    ``tape``, if given, receives the bounce's intermediates (its local
+    variables, and ``nee_shadow_setup``'s under ``"nee"``) for the adjoint
+    ``physics_adjoint.trace_bounce_vjp``.  A name assigned twice keeps its
+    last value."""
     spheres, sky, lights = theta
     (ox, oy, oz, dx, dy, dz, th_r, th_g, th_b,
      rad_r, rad_g, rad_b, prev_pdf) = state
@@ -269,7 +305,7 @@ def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg):
     use_nee = cfg.use_nee and cfg.n_light_slots > 0
     use_mis = cfg.use_mis
 
-    t, h, m_lam, m_met, m_die, _ = intersect_spheres_unrolled(
+    t, h, m_lam, m_met, m_die, j_best = intersect_spheres_unrolled(
         spheres, cfg.mtypes, ox, oy, oz, dx, dy, dz)
     found = t < BIG
     hit = active & found
@@ -292,15 +328,15 @@ def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg):
     nlf = max(float(nl), 1.0)
     if use_nee and use_mis:
         tocx, tocy, tocz = h["cx"] - ox, h["cy"] - oy, h["cz"] - oz
-        d2 = torch.clamp_min(_dot(tocx, tocy, tocz, tocx, tocy, tocz), 1e-12)
-        sin2 = torch.clamp(h["r"] * h["r"] / d2, 0.0, 1.0)
+        d2 = _max(_dot(tocx, tocy, tocz, tocx, tocy, tocz), 1e-12)
+        sin2 = _clip(h["r"] * h["r"] / d2, 0.0, 1.0)
         deg = sin2 >= 1.0
         cosm = torch.where(deg, 0.0,
                            torch.sqrt(torch.where(deg, 1.0, 1.0 - sin2)))
-        pdf_lh = 1.0 / torch.clamp_min(2.0 * math.pi * (1.0 - cosm), 1e-9)
+        pdf_lh = 1.0 / _max(2.0 * math.pi * (1.0 - cosm), 1e-9)
         pdf_lh = pdf_lh / nlf
         pp2 = prev_pdf * prev_pdf
-        w_b = pp2 / torch.clamp_min(pp2 + pdf_lh * pdf_lh, 1e-20)
+        w_b = pp2 / _max(pp2 + pdf_lh * pdf_lh, 1e-20)
         w_emit = torch.where(prev_spec, 1.0, w_b)
     elif use_nee:
         w_emit = torch.where(prev_spec, 1.0, 0.0)
@@ -321,35 +357,35 @@ def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg):
 
     # Lambert cosine sample.
     ct = torch.sqrt(u1)
-    st = torch.sqrt(torch.clamp_min(1.0 - u1, 0.0))
+    st = torch.sqrt(_max(1.0 - u1, 0.0))
     phi = (2.0 * math.pi) * u2
     cphi = torch.cos(phi)
     sphi = torch.sin(phi)
     dl_x = st * cphi * tx + st * sphi * bx + ct * nsx
     dl_y = st * cphi * ty + st * sphi * by + ct * nsy
     dl_z = st * cphi * tz + st * sphi * bz + ct * nsz
-    pdf_lam = torch.clamp_min(_dot(nsx, nsy, nsz, dl_x, dl_y, dl_z), 0.0) \
+    pdf_lam = _max(_dot(nsx, nsy, nsz, dl_x, dl_y, dl_z), 0.0) \
         * (1.0 / math.pi)
 
     # GGX metal.
-    alpha = torch.clamp_min(h["rough"] * h["rough"], 1e-4)
+    alpha = _max(h["rough"] * h["rough"], 1e-4)
     a2g = alpha * alpha
     cos2h = (1.0 - u1) / (1.0 + (a2g - 1.0) * u1)
-    cth = torch.sqrt(torch.clamp_min(cos2h, 0.0))
-    sth = torch.sqrt(torch.clamp_min(1.0 - cos2h, 1e-12))
+    cth = torch.sqrt(_max(cos2h, 0.0))
+    sth = torch.sqrt(_max(1.0 - cos2h, 1e-12))
     hwx = sth * cphi * tx + sth * sphi * bx + cth * nsx
     hwy = sth * cphi * ty + sth * sphi * by + cth * nsy
     hwz = sth * cphi * tz + sth * sphi * bz + cth * nsz
-    odoth = torch.clamp_min(_dot(wox, woy, woz, hwx, hwy, hwz), 1e-6)
+    odoth = _max(_dot(wox, woy, woz, hwx, hwy, hwz), 1e-6)
     dm_x = 2.0 * odoth * hwx - wox
     dm_y = 2.0 * odoth * hwy - woy
     dm_z = 2.0 * odoth * hwz - woz
     ndotl_m = _dot(nsx, nsy, nsz, dm_x, dm_y, dm_z)
-    ndotv = torch.clamp_min(_dot(nsx, nsy, nsz, wox, woy, woz), 1e-6)
-    ndoth = torch.clamp_min(_dot(nsx, nsy, nsz, hwx, hwy, hwz), 1e-6)
+    ndotv = _max(_dot(nsx, nsy, nsz, wox, woy, woz), 1e-6)
+    ndoth = _max(_dot(nsx, nsy, nsz, hwx, hwy, hwz), 1e-6)
     kg = alpha * 0.5
     g1v = ndotv / (ndotv * (1.0 - kg) + kg)
-    ndotl_mc = torch.clamp_min(ndotl_m, 1e-6)
+    ndotl_mc = _max(ndotl_m, 1e-6)
     g1l = ndotl_mc / (ndotl_mc * (1.0 - kg) + kg)
     gterm = g1v * g1l
     met_ok = ndotl_m > 1e-6
@@ -358,21 +394,21 @@ def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg):
     f_met_b = _schlick1(odoth, h["ab"])
     w_met_scale = torch.where(met_ok, gterm * odoth / (ndotv * ndoth), 0.0)
     q = ndoth * ndoth * (a2g - 1.0) + 1.0
-    dggx = a2g / torch.clamp_min(math.pi * (q * q), 1e-12)
+    dggx = a2g / _max(math.pi * (q * q), 1e-12)
     pdf_met = dggx * ndoth / (4.0 * odoth)
 
     # Dielectric.
-    ior = torch.clamp_min(h["ior"], 1.001)
+    ior = _max(h["ior"], 1.001)
     eta = torch.where(front, 1.0 / ior, ior)
-    cos_i = torch.clamp_min(_dot(wox, woy, woz, nsx, nsy, nsz), 1e-6)
+    cos_i = _max(_dot(wox, woy, woz, nsx, nsy, nsz), 1e-6)
     f_die = _fresnel_dielectric(cos_i, 1.0 / eta)
     dr_x = 2.0 * cos_i * nsx - wox
     dr_y = 2.0 * cos_i * nsy - woy
     dr_z = 2.0 * cos_i * nsz - woz
-    sin2_t = eta * eta * torch.clamp_min(1.0 - cos_i * cos_i, 0.0)
+    sin2_t = eta * eta * _max(1.0 - cos_i * cos_i, 0.0)
     tir = sin2_t >= 1.0
     safe = torch.where(tir, 1.0, 1.0 - sin2_t)
-    cos_t = torch.where(tir, 0.0, torch.sqrt(torch.clamp_min(safe, 1e-12)))
+    cos_t = torch.where(tir, 0.0, torch.sqrt(_max(safe, 1e-12)))
     dt_x = eta * (-wox) + (eta * cos_i - cos_t) * nsx
     dt_y = eta * (-woy) + (eta * cos_i - cos_t) * nsy
     dt_z = eta * (-woz) + (eta * cos_i - cos_t) * nsz
@@ -400,11 +436,13 @@ def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg):
     if use_nee:
         (pox, poy, poz, ldx, ldy, ldz, t_l, pdf_l, inside_l,
          ler, leg, leb) = nee_shadow_setup(ox, oy, oz, hx, hy, hz, nsx, nsy,
-                                           nsz, u, lights, nl, nlf, k)
+                                           nsz, u, lights, nl, nlf, k,
+                                           None if tape is None else
+                                           tape.setdefault("nee", {}))
         blocked = occluded_unrolled(spheres, pox, poy, poz, ldx, ldy, ldz,
                                     t_l - 1e-3)
         lit = ~blocked & ~inside_l & (t_l > TMIN)
-        ndotl = torch.clamp_min(_dot(nsx, nsy, nsz, ldx, ldy, ldz), 0.0)
+        ndotl = _max(_dot(nsx, nsy, nsz, ldx, ldy, ldz), 0.0)
         pdf_b_lam = ndotl * (1.0 / math.pi)
         hsx, hsy, hsz = wox + ldx, woy + ldy, woz + ldz
         hlen2 = hsx * hsx + hsy * hsy + hsz * hsz
@@ -413,11 +451,11 @@ def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg):
         hhx = torch.where(h_ok, hsx, 0.0) * hinv
         hhy = torch.where(h_ok, hsy, 0.0) * hinv
         hhz = torch.where(h_ok, hsz, 0.0) * hinv
-        ndoth_e = torch.clamp_min(_dot(nsx, nsy, nsz, hhx, hhy, hhz), 1e-6)
-        odoth_e = torch.clamp_min(_dot(wox, woy, woz, hhx, hhy, hhz), 1e-6)
+        ndoth_e = _max(_dot(nsx, nsy, nsz, hhx, hhy, hhz), 1e-6)
+        odoth_e = _max(_dot(wox, woy, woz, hhx, hhy, hhz), 1e-6)
         qe = ndoth_e * ndoth_e * (a2g - 1.0) + 1.0
-        dggx_e = a2g / torch.clamp_min(math.pi * (qe * qe), 1e-12)
-        ndotl_c = torch.clamp_min(ndotl, 1e-6)
+        dggx_e = a2g / _max(math.pi * (qe * qe), 1e-12)
+        ndotl_c = _max(ndotl, 1e-6)
         g1l_e = ndotl_c / (ndotl_c * (1.0 - kg) + kg)
         g_e = g1v * g1l_e
         fmr = _schlick1(odoth_e, h["ar"])
@@ -437,11 +475,11 @@ def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg):
             0.0))
         if use_mis:
             pl2 = pdf_l * pdf_l
-            w_nee = pl2 / torch.clamp_min(pl2 + pdf_b_at_l * pdf_b_at_l,
+            w_nee = pl2 / _max(pl2 + pdf_b_at_l * pdf_b_at_l,
                                           1e-20)
         else:
             w_nee = torch.ones_like(pdf_l)
-        scale = w_nee / torch.clamp_min(pdf_l, 1e-12)
+        scale = w_nee / _max(pdf_l, 1e-12)
         nee_ok = hit & lit & ~spec_new & (pdf_l > 0.0)
         rad_r = torch.where(nee_ok, rad_r + th_r * fcos_r * ler * scale, rad_r)
         rad_g = torch.where(nee_ok, rad_g + th_g * fcos_g * leg * scale, rad_g)
@@ -453,7 +491,7 @@ def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg):
     th_b_n = th_b * w_b2
     active_n = hit & ~dead
     if k >= cfg.rr_depth:
-        p_cont = torch.clamp(torch.maximum(th_r_n, torch.maximum(th_g_n,
+        p_cont = _clip(torch.maximum(th_r_n, torch.maximum(th_g_n,
                                                                  th_b_n)),
                              0.05, 0.95)
         active_n = active_n & ~(u["rr"] > p_cont)
@@ -476,4 +514,6 @@ def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg):
 
     new_state = (ox, oy, oz, dx, dy, dz, th_r, th_g, th_b,
                  rad_r, rad_g, rad_b, prev_pdf)
+    if tape is not None:
+        tape.update((n, v) for n, v in locals().items() if n != "tape")
     return new_state, (active_n, prev_spec)

@@ -7,7 +7,9 @@ has neither.  There, from the repo root (the suite's conftest imports jax):
 
 Tolerance: the RNG bits are equal exactly; K1 against its plain version is
 held to chip_smoke.py's bar (99.9% of pixels isclose(rtol=2e-3,
-atol=2e-4), means within 0.1%).
+atol=2e-4), means within 0.1%).  K2's image equals K1's bit for bit; its
+gradient and its per-lane bounce adjoint are held to chip_smoke.py's bars
+(``GRAD_REL`` / ``GRAD_ABS`` per field, ``VJP_*`` per lane).
 """
 
 import numpy as np
@@ -15,9 +17,13 @@ import pytest
 import torch
 
 import spt_tpu_torch as T
-from chip_smoke import ATOL, MAX_MEAN_REL, MIN_CLOSE, RTOL, cornell
+from chip_smoke import (ATOL, MAX_MEAN_REL, MIN_CLOSE, RTOL, VJP_ATOL_REL,
+                        VJP_MIN_CLOSE, VJP_RTOL, cornell, grad_errors,
+                        grad_scene, vjp_lanes)
 from spt_tpu_torch.core import rng
+from spt_tpu_torch.diff import cuda_diff, gradients as G
 from spt_tpu_torch.kernels import megakernel as mk
+from spt_tpu_torch.kernels import megakernel_grad as mg
 
 
 @pytest.fixture
@@ -34,18 +40,23 @@ def test_counter_bits_kernel_exact(cuda):
     assert torch.equal(mk.counter_bits_cuda(*args), rng.counter_bits(*args))
 
 
-@pytest.mark.parametrize("case", ["cornell", "demo38", "thin_lens"])
-def test_k1_matches_plain(cuda, case):
+def _case(case, dev):
     if case == "demo38":
-        sd = T.demo_scene_38_spheres().compile(capacity=64, device=cuda)
+        sd = T.demo_scene_38_spheres().compile(capacity=64, device=dev)
         cam = T.Camera.look_at((0, 0, 0), (0, 0, 1), fov_degrees=90,
-                               device=cuda)
+                               device=dev)
     else:
-        sd = cornell(T).compile(device=cuda)
+        sd = cornell(T).compile(device=dev)
         lens = dict(aperture=0.15, focus_dist=4.5) if case == "thin_lens" \
             else {}
         cam = T.Camera.look_at((0, 1.0, -1.5), (0, 1.0, 3.0),
-                               fov_degrees=55, device=cuda, **lens)
+                               fov_degrees=55, device=dev, **lens)
+    return sd, cam
+
+
+@pytest.mark.parametrize("case", ["cornell", "demo38", "thin_lens"])
+def test_k1_matches_plain(cuda, case):
+    sd, cam = _case(case, cuda)
     blob, meta, lsb, static = mk.pack_uniforms(sd, cam, 7, 3)
     kw = dict(width=48, height=32, spp=4, max_bounces=8, rr_depth=3,
               use_nee=True, use_mis=True, sky_mode=sd.sky_mode,
@@ -86,3 +97,65 @@ def test_k1_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError):
         mk.megakernel_fwd(blob, meta, lsb, **kw, n_prims=256,
                           n_light_slots=1)
+
+
+@pytest.mark.parametrize("k", [0, 3])
+def test_bounce_vjp_kernel_matches_plain(cuda, k):
+    sd = grad_scene(T).compile(device=cuda)
+    cam = T.Camera.look_at((0, 1.0, -1.2), (0, 0.8, 4.0), device=cuda)
+    blob, meta, lsb, static = mk.pack_uniforms(sd, cam, 0, 3)
+    lanes = vjp_lanes(torch, cuda, 1 << 14, k)
+    kw = dict(k=k, rr_depth=3, use_nee=True, use_mis=True,
+              sky_mode=sd.sky_mode, **static)
+    g_k, ct_k = mg.bounce_vjp(blob, meta, lsb, *lanes, **kw)
+    g_p, ct_p = mg.bounce_vjp_plain(blob, meta, lsb, *lanes, **kw)
+    a, b = ct_k.cpu().numpy(), ct_p.cpu().numpy()
+    close = np.isclose(a, b, rtol=VJP_RTOL, atol=VJP_ATOL_REL
+                       * np.abs(b).max(axis=1, keepdims=True)).all(0)
+    assert close.mean() >= VJP_MIN_CLOSE
+    errs, _ = grad_errors(g_k, g_p, static["n_prims"])
+    assert all(e["ok"] for e in errs), errs
+
+
+@pytest.mark.parametrize("case", ["cornell", "demo38", "thin_lens"])
+def test_k2_matches_plain(cuda, case):
+    sd, cam = _case(case, cuda)
+    blob, meta, lsb, static = mk.pack_uniforms(sd, cam, 7, 3)
+    kw = dict(width=48, height=32, spp=4, max_bounces=8, rr_depth=3,
+              use_nee=True, use_mis=True, sky_mode=sd.sky_mode,
+              dof=case == "thin_lens", **static)
+    ct = torch.from_numpy(np.random.default_rng(0).uniform(
+        0.5, 1.5, (32, 48, 3)).astype(np.float32)).to(cuda)
+    before = dict(mk.LAUNCHES)
+    img, gvec = mg.megakernel_grad(blob, meta, lsb, ct, **kw)
+    assert mk.LAUNCHES == dict(before, k2=before["k2"] + 1)
+    assert torch.equal(img, mk.megakernel_fwd(blob, meta, lsb, **kw))
+    _, want = mg.render_and_grad_plain(blob, meta, lsb, ct, **kw)
+    errs, _ = grad_errors(gvec, want, static["n_prims"])
+    assert all(e["ok"] for e in errs), errs
+    assert float(want.abs().sum()) > 0
+
+
+def test_kernel_render_launches_k1_then_k2(cuda):
+    sd = cornell(T).compile(device=cuda)
+    cam = T.Camera.look_at((0, 1.0, -1.5), (0, 1.0, 3.0), fov_degrees=55,
+                           device=cuda)
+    render = cuda_diff.make_cuda_render_fn(sd, cam, 16, 16, spp=2)
+    p = {k: v.clone().requires_grad_(True)
+         for k, v in G.get_params(sd, cuda_diff.PARAM_KEYS).items()}
+    before = dict(mk.LAUNCHES)
+    render(p, 0).sum().backward()
+    assert mk.LAUNCHES == dict(before, k1=before["k1"] + 1,
+                               k2=before["k2"] + 1)
+    assert all(bool(torch.isfinite(v.grad).all()) for v in p.values())
+
+
+def test_k2_rejects_depth_above_its_cap():
+    sd = cornell(T).compile(device="cpu")
+    cam = T.Camera.look_at((0, 1, -1.5), (0, 1, 3), device="cpu")
+    blob, meta, lsb, static = mk.pack_uniforms(sd, cam, 0, 3)
+    with pytest.raises(ValueError, match="at most 16 bounces"):
+        mg.megakernel_grad(blob, meta, lsb, torch.ones(4, 4, 3), width=4,
+                           height=4, spp=1, max_bounces=mg.MAX_DEPTH + 1,
+                           rr_depth=3, use_nee=True, use_mis=True,
+                           sky_mode=sd.sky_mode, dof=False, **static)
