@@ -125,13 +125,6 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-# Lanes the plain versions trace at once: consecutive samples are batched
-# into one set of (pixel, sample) lanes up to this many, so the loop of small
-# ops makes fewer and larger launches on the card.  Each lane's arithmetic is
-# unchanged, and the image still sums samples in order.
-PLAIN_LANES = 1 << 20
-
-
 class PlainScene:
     """The packed uniforms as the plain versions read them: ``theta``
     (spheres (P, 12), sky (6,), lights (L, 7) gathered from the spheres),
@@ -166,23 +159,13 @@ class PlainScene:
                     sample=sample, seed=self.seed)
 
 
-def sample_chunks(samples, n_pix: int):
-    """Consecutive runs of ``samples`` of at most ``PLAIN_LANES`` lanes."""
-    m = max(1, PLAIN_LANES // n_pix)
-    return [samples[i:i + m] for i in range(0, len(samples), m)]
-
-
-def camera_paths(blob, samples, *, width: int, height: int, seed: int,
+def camera_paths(blob, sample: int, *, width: int, height: int, seed: int,
                  dof: bool):
-    """Entry state and masks of bounce 0 for every (sample, pixel) lane,
-    samples outermost: K1's jittered pinhole or thin-lens raygen.
-    Returns (pid, sample, state, aux)."""
+    """Entry state and masks of bounce 0 for every pixel of one sample:
+    K1's jittered pinhole or thin-lens raygen.  Returns (pid, state, aux)."""
     dev = blob.device
     n_pix = width * height
-    pid = torch.arange(n_pix, dtype=torch.int64, device=dev).repeat(
-        len(samples))
-    sample = torch.tensor(samples, dtype=torch.int64,
-                          device=dev).repeat_interleave(n_pix)
+    pid = torch.arange(n_pix, dtype=torch.int64, device=dev)
     px = (pid % width).to(torch.float32)
     py = (pid // width).to(torch.float32)
     aspect, inv_w, inv_h = (_f32(width / height), _f32(1.0 / width),
@@ -202,7 +185,7 @@ def camera_paths(blob, samples, *, width: int, height: int, seed: int,
     dy = ndc_x * blob[4] + ndc_y * blob[7] + blob[10]
     dz = ndc_x * blob[5] + ndc_y * blob[8] + blob[11]
     dx, dy, dz = physics._normalize(dx, dy, dz)
-    ox, oy, oz = (blob[a].expand(pid.shape[0]) for a in range(3))
+    ox, oy, oz = (blob[a].expand(n_pix) for a in range(3))
     if dof:
         lu, lv = u(_CAM_SLOT + 2), u(_CAM_SLOT + 3)
         r = blob[13] * torch.sqrt(lu)
@@ -220,16 +203,9 @@ def camera_paths(blob, samples, *, width: int, height: int, seed: int,
     ones = torch.ones_like(dx)
     zero = torch.zeros_like(dx)
     state = (ox, oy, oz, dx, dy, dz, ones, ones, ones, zero, zero, zero, zero)
-    aux = (torch.ones_like(dx, dtype=torch.bool),
-           torch.ones_like(dx, dtype=torch.bool))
-    return pid, sample, state, aux
-
-
-def add_samples(acc, state, m: int) -> None:
-    """acc (3, n_pix) += the radiance of m samples, in sample order."""
-    rad = torch.stack(state[9:12]).reshape(3, m, -1)
-    for s in range(m):
-        acc += rad[:, s]
+    aux = (torch.ones(n_pix, dtype=torch.bool, device=dev),
+           torch.ones(n_pix, dtype=torch.bool, device=dev))
+    return pid, state, aux
 
 
 def render_samples_plain(blob: torch.Tensor, meta: torch.Tensor,
@@ -246,36 +222,39 @@ def render_samples_plain(blob: torch.Tensor, meta: torch.Tensor,
     (lists of ints): ``"active"`` rays traced, ``"hit"`` rays that hit,
     ``"shadow"`` shadow rays K1 traces (NEE on a non-dielectric hit) and
     ``"lit"`` lanes whose light sample arrives; and ``"paths"``, the number
-    of camera paths."""
+    of camera paths.  The counts are summed on the tensors' device."""
     LAUNCHES["plain"] += 1
     sc = PlainScene(blob, meta, lsb, n_prims, n_light_slots)
     n_pix = width * height
     acc = torch.zeros(3, n_pix, dtype=torch.float32, device=blob.device)
-    counts = np.zeros((4, max_bounces), np.int64)
+    counts = None if stats is None else torch.zeros(
+        max_bounces, 4, dtype=torch.int64, device=blob.device)
     nee = use_nee and n_light_slots > 0 and sc.nl > 0
-    for chunk in sample_chunks([int(s) & rng.MASK32 for s in samples],
-                               n_pix):
-        pid, sample, state, aux = camera_paths(
-            blob, chunk, width=width, height=height, seed=sc.seed, dof=dof)
+    for s in samples:
+        sample = int(s) & rng.MASK32
+        pid, state, aux = camera_paths(blob, sample, width=width,
+                                       height=height, seed=sc.seed, dof=dof)
         for k in range(max_bounces):
             cfg = physics.BounceCfg(
                 mtypes=sc.mtypes, k=k, rr_depth=rr_depth, use_nee=use_nee,
                 use_mis=use_mis, sky_mode=sky_mode,
                 n_light_slots=n_light_slots)
-            tape = None if stats is None else {}
             active = aux[0]
-            state, aux = physics.trace_bounce(
+            state, aux, tape = physics.trace_bounce_tape(
                 sc.theta, state, aux, sc.uniforms(pid, sample, k), sc.nl,
-                cfg, tape)
-            if tape is not None:
-                counts[:, k] += [int(active.sum()), int(tape["hit"].sum()),
-                                 int((tape["hit"] & ~tape["m_die"]).sum())
-                                 if nee else 0,
-                                 int(tape["nee_ok"].sum()) if nee else 0]
-        add_samples(acc, state, len(chunk))
+                cfg)
+            if counts is not None:
+                zero = torch.zeros_like(tape.hit)
+                counts[k] += torch.stack([
+                    active, tape.hit, tape.hit & ~tape.m_die if nee else zero,
+                    tape.nee.nee_ok if nee else zero]).sum(1)
+        acc[0] += state[9]
+        acc[1] += state[10]
+        acc[2] += state[11]
     if stats is not None:
-        for name, row in zip(("active", "hit", "shadow", "lit"), counts):
-            stats[name] = row.tolist()
+        for name, row in zip(("active", "hit", "shadow", "lit"),
+                             counts.T.tolist()):
+            stats[name] = row
         stats["paths"] = n_pix * len(samples)
     return acc.T.reshape(height, width, 3)
 

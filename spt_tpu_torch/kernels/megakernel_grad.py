@@ -35,9 +35,8 @@ from ..core import rng
 from ..core.scene import SceneData
 from . import physics
 from .megakernel import (_META_FIXED, _SPH_STRIDE, LAUNCHES, MAX_PRIMS,
-                         K1_OPS, PlainScene, _check, _f32, _np, add_samples,
-                         camera_paths, k1_op_count, pack_uniforms,
-                         sample_chunks)
+                         K1_OPS, PlainScene, _check, _f32, _np, camera_paths,
+                         k1_op_count, pack_uniforms)
 from .physics_adjoint import trace_bounce_vjp
 
 N_STATE = 13
@@ -72,26 +71,27 @@ def render_and_grad_plain(blob: torch.Tensor, meta: torch.Tensor,
     acc = torch.zeros(3, n_pix, dtype=torch.float32, device=blob.device)
     ct_pix = ct.reshape(n_pix, 3).T.to(torch.float32)
     theta_ct = [torch.zeros_like(t) for t in sc.theta]
-    start = sc.start_sample
-    samples = [(start + s) & rng.MASK32 for s in range(spp)]
-    for chunk in sample_chunks(samples, n_pix):
-        pid, sample, state, aux = camera_paths(
-            blob, chunk, width=width, height=height, seed=sc.seed, dof=dof)
-        tape = []
+    for s in range(spp):
+        sample = (sc.start_sample + s) & rng.MASK32
+        pid, state, aux = camera_paths(blob, sample, width=width,
+                                       height=height, seed=sc.seed, dof=dof)
+        entries = []
         for k in range(max_bounces):
             cfg = physics.BounceCfg(
                 mtypes=sc.mtypes, k=k, rr_depth=rr_depth, use_nee=use_nee,
                 use_mis=use_mis, sky_mode=sky_mode,
                 n_light_slots=n_light_slots)
             u = sc.uniforms(pid, sample, k)
-            tape.append((state, aux, u, cfg))
+            entries.append((state, aux, u, cfg))
             state, aux = physics.trace_bounce(sc.theta, state, aux, u, sc.nl,
                                               cfg)
-        add_samples(acc, state, len(chunk))
+        acc[0] += state[9]
+        acc[1] += state[10]
+        acc[2] += state[11]
         zero = torch.zeros_like(state[0])
         state_ct = [zero] * N_STATE
-        state_ct[9:12] = ct_pix.repeat(1, len(chunk))
-        for st_k, aux_k, u, cfg in reversed(tape):
+        state_ct[9:12] = ct_pix
+        for st_k, aux_k, u, cfg in reversed(entries):
             th_k, state_ct = trace_bounce_vjp(sc.theta, st_k, aux_k, u,
                                               sc.nl, cfg, state_ct)
             for acc_ct, t in zip(theta_ct, th_k):

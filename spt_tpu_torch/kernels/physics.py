@@ -229,12 +229,43 @@ def occluded_unrolled(spheres, ox, oy, oz, dx, dy, dz, tmax):
     return (ok & (tj < tmax)).any(dim=0)
 
 
+class LightTape(NamedTuple):
+    """The light sample's intermediates that the adjoint reads: the picked
+    slot, its radius, the squared distance and distance to its centre and
+    the offset ``toc`` (centre - shading point), the cone's cosine (``degm``
+    where the point is inside the cone's sphere), the sampled cosine and
+    sine, the azimuth's cos/sin, the cone frame (axis ``wl``, ``lt``,
+    ``lb``) and the uniform ``lu1``.  3-vectors are (x, y, z) tuples."""
+    li: torch.Tensor
+    lu1: torch.Tensor
+    lrr: torch.Tensor
+    d2: torch.Tensor
+    dist: torch.Tensor
+    toc: tuple
+    cosm_l: torch.Tensor
+    degm: torch.Tensor
+    ctl: torch.Tensor
+    stl: torch.Tensor
+    cpl: torch.Tensor
+    spl: torch.Tensor
+    wl: tuple
+    lt: tuple
+    lb: tuple
+
+
 def nee_shadow_setup(ox, oy, oz, hx, hy, hz, nsx, nsy, nsz, u, lights, nl,
-                     nlf, k, tape: dict | None = None):
+                     nlf, k):
     """Light pick + sphere-cone sample + shadow-ray construction.
 
     Returns (pox, poy, poz, ldx, ldy, ldz, t_l, pdf_l, inside_l,
-    ler, leg, leb).  ``tape``, if given, receives the local variables."""
+    ler, leg, leb)."""
+    return light_sample(ox, oy, oz, hx, hy, hz, nsx, nsy, nsz, u, lights, nl,
+                        nlf, k)[0]
+
+
+def light_sample(ox, oy, oz, hx, hy, hz, nsx, nsy, nsz, u, lights, nl, nlf,
+                 k):
+    """``nee_shadow_setup``'s outputs and its ``LightTape``."""
     if k == 0:
         ul = lsel_uniform(hx, hy, hz, u, k)
     else:   # (ox, oy, oz) hold the bounce's INPUT ray origins
@@ -283,20 +314,141 @@ def nee_shadow_setup(ox, oy, oz, hx, hy, hz, nsx, nsy, nsz, u, lights, nl,
     cl = _dot(tocx, tocy, tocz, tocx, tocy, tocz) - lrr * lrr
     discl = _max(bl * bl - cl, 0.0)
     t_l = bl - torch.sqrt(_max(discl, 1e-20))
-    if tape is not None:
-        tape.update((n, v) for n, v in locals().items() if n != "tape")
+    tape = LightTape(li=li, lu1=lu1, lrr=lrr, d2=d2, dist=dist,
+                     toc=(tocx, tocy, tocz), cosm_l=cosm_l, degm=degm,
+                     ctl=ctl, stl=stl, cpl=cpl, spl=spl, wl=(wlx, wly, wlz),
+                     lt=(ltx, lty, ltz), lb=(lbx, lby, lbz))
     return (pox, poy, poz, ldx, ldy, ldz, t_l, pdf_l, inside_l,
-            ler, leg, leb)
+            ler, leg, leb), tape
 
 
-def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg,
-                 tape: dict | None = None):
-    """One bounce: (state, aux) -> (new_state, new_aux).
+class MisTape(NamedTuple):
+    """Emission's MIS weight against the light sample that could have
+    found this hit: the offset ``toc`` (hit sphere's centre - ray origin),
+    its clamped squared length, the cone's cosine (``deg`` inside it), the
+    light pdf, the squared previous BSDF pdf, and the weight ``w_b``."""
+    toc: tuple
+    d2: torch.Tensor
+    cosm: torch.Tensor
+    deg: torch.Tensor
+    pdf_lh: torch.Tensor
+    pp2: torch.Tensor
+    w_b: torch.Tensor
 
-    ``tape``, if given, receives the bounce's intermediates (its local
-    variables, and ``nee_shadow_setup``'s under ``"nee"``) for the adjoint
-    ``physics_adjoint.trace_bounce_vjp``.  A name assigned twice keeps its
-    last value."""
+
+class NeeTape(NamedTuple):
+    """Next-event estimation: the light sample (``light``), its direction
+    ``ld``, the lanes it lights (``nee_ok``), the BSDF times cosine
+    ``fcos`` and light radiance ``le``, the scale ``w_nee / pdf_l``, the
+    MIS terms (``pl2`` is None without MIS), and the GGX terms at the light
+    direction (half-vector ``hs`` before and ``hh`` after normalizing,
+    ``h_ok`` where it has a length)."""
+    light: LightTape
+    ld: tuple
+    nee_ok: torch.Tensor
+    fcos: tuple
+    le: tuple
+    scale: torch.Tensor
+    pdf_l: torch.Tensor
+    w_nee: torch.Tensor
+    pl2: torch.Tensor | None
+    pdf_b_at_l: torch.Tensor
+    ndotl: torch.Tensor
+    ndotl_c: torch.Tensor
+    hs: tuple
+    hh: tuple
+    h_ok: torch.Tensor
+    ndoth_e: torch.Tensor
+    odoth_e: torch.Tensor
+    dggx_e: torch.Tensor
+    g1l_e: torch.Tensor
+    g_e: torch.Tensor
+    fm: tuple
+    spec_e: torch.Tensor
+
+
+class BounceTape(NamedTuple):
+    """The forward intermediates of one bounce that its reverse mode
+    (``physics_adjoint.trace_bounce_vjp``) reads, named as in
+    ``trace_bounce``.  3-vectors are (x, y, z) tuples; ``h`` is the winning
+    sphere's row as a dict of its attributes.  ``mis``, ``nee``, ``p_cont``
+    and ``inv_p`` are None where the bounce does not run that part."""
+    # the hit, its material and the lobe choice
+    hit: torch.Tensor
+    miss: torch.Tensor
+    active_n: torch.Tensor
+    t: torch.Tensor
+    j_best: torch.Tensor
+    h: dict
+    m_lam: torch.Tensor
+    m_met: torch.Tensor
+    m_die: torch.Tensor
+    refl: torch.Tensor
+    front: torch.Tensor
+    emitting: torch.Tensor
+    # geometry and the shading frame
+    hp: tuple
+    ns: tuple
+    wo: tuple
+    tb: tuple
+    bb: tuple
+    sgn: torch.Tensor
+    off_sign: torch.Tensor
+    nlf: float
+    # sky, emission and the throughput weight
+    sk: tuple
+    w_emit: torch.Tensor
+    mis: MisTape | None
+    w: tuple
+    # Lambert
+    dl: tuple
+    u1: torch.Tensor
+    ct: torch.Tensor
+    st: torch.Tensor
+    cphi: torch.Tensor
+    sphi: torch.Tensor
+    # GGX metal
+    alpha: torch.Tensor
+    a2g: torch.Tensor
+    kg: torch.Tensor
+    cos2h: torch.Tensor
+    cth: torch.Tensor
+    sth: torch.Tensor
+    hw: tuple
+    odoth: torch.Tensor
+    dm: tuple
+    ndotl_m: torch.Tensor
+    ndotl_mc: torch.Tensor
+    ndotv: torch.Tensor
+    ndoth: torch.Tensor
+    g1v: torch.Tensor
+    g1l: torch.Tensor
+    gterm: torch.Tensor
+    met_ok: torch.Tensor
+    f_met: tuple
+    w_met_scale: torch.Tensor
+    dggx: torch.Tensor
+    pdf_met: torch.Tensor
+    # smooth dielectric
+    ior: torch.Tensor
+    eta: torch.Tensor
+    cos_i: torch.Tensor
+    safe: torch.Tensor
+    cos_t: torch.Tensor
+    # next-event estimation and Russian roulette
+    nee: NeeTape | None
+    p_cont: torch.Tensor | None
+    inv_p: torch.Tensor | None
+
+
+def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg):
+    """One bounce: (state, aux) -> (new_state, new_aux)."""
+    return trace_bounce_tape(theta, state, aux, u, nl, cfg)[:2]
+
+
+def trace_bounce_tape(theta, state, aux, u, nl: int, cfg: BounceCfg):
+    """``trace_bounce`` -> (new_state, new_aux, ``BounceTape``): the bounce
+    and the intermediates its adjoint reads."""
     spheres, sky, lights = theta
     (ox, oy, oz, dx, dy, dz, th_r, th_g, th_b,
      rad_r, rad_g, rad_b, prev_pdf) = state
@@ -326,6 +478,7 @@ def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg,
     emitting = hit & ((h["er"] + h["eg"] + h["eb"]) > 0.0) \
         & (_dot(wox, woy, woz, ngx, ngy, ngz) > 0.0)
     nlf = max(float(nl), 1.0)
+    mis = None
     if use_nee and use_mis:
         tocx, tocy, tocz = h["cx"] - ox, h["cy"] - oy, h["cz"] - oz
         d2 = _max(_dot(tocx, tocy, tocz, tocx, tocy, tocz), 1e-12)
@@ -338,6 +491,8 @@ def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg,
         pp2 = prev_pdf * prev_pdf
         w_b = pp2 / _max(pp2 + pdf_lh * pdf_lh, 1e-20)
         w_emit = torch.where(prev_spec, 1.0, w_b)
+        mis = MisTape(toc=(tocx, tocy, tocz), d2=d2, cosm=cosm, deg=deg,
+                      pdf_lh=pdf_lh, pp2=pp2, w_b=w_b)
     elif use_nee:
         w_emit = torch.where(prev_spec, 1.0, 0.0)
     else:
@@ -433,12 +588,11 @@ def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg,
     off_sign = torch.where(m_die & ~refl, -1.0, 1.0)
 
     # -- next-event estimation ---------------------------------------------
+    nee = None
     if use_nee:
         (pox, poy, poz, ldx, ldy, ldz, t_l, pdf_l, inside_l,
-         ler, leg, leb) = nee_shadow_setup(ox, oy, oz, hx, hy, hz, nsx, nsy,
-                                           nsz, u, lights, nl, nlf, k,
-                                           None if tape is None else
-                                           tape.setdefault("nee", {}))
+         ler, leg, leb), light = light_sample(ox, oy, oz, hx, hy, hz, nsx,
+                                              nsy, nsz, u, lights, nl, nlf, k)
         blocked = occluded_unrolled(spheres, pox, poy, poz, ldx, ldy, ldz,
                                     t_l - 1e-3)
         lit = ~blocked & ~inside_l & (t_l > TMIN)
@@ -473,6 +627,7 @@ def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg,
         pdf_b_at_l = torch.where(m_lam, pdf_b_lam, torch.where(
             m_met, torch.where(h_ok, dggx_e * ndoth_e / (4.0 * odoth_e), 0.0),
             0.0))
+        pl2 = None
         if use_mis:
             pl2 = pdf_l * pdf_l
             w_nee = pl2 / _max(pl2 + pdf_b_at_l * pdf_b_at_l,
@@ -484,12 +639,21 @@ def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg,
         rad_r = torch.where(nee_ok, rad_r + th_r * fcos_r * ler * scale, rad_r)
         rad_g = torch.where(nee_ok, rad_g + th_g * fcos_g * leg * scale, rad_g)
         rad_b = torch.where(nee_ok, rad_b + th_b * fcos_b * leb * scale, rad_b)
+        nee = NeeTape(
+            light=light, ld=(ldx, ldy, ldz), nee_ok=nee_ok,
+            fcos=(fcos_r, fcos_g, fcos_b), le=(ler, leg, leb), scale=scale,
+            pdf_l=pdf_l, w_nee=w_nee, pl2=pl2, pdf_b_at_l=pdf_b_at_l,
+            ndotl=ndotl, ndotl_c=ndotl_c, hs=(hsx, hsy, hsz),
+            hh=(hhx, hhy, hhz), h_ok=h_ok, ndoth_e=ndoth_e, odoth_e=odoth_e,
+            dggx_e=dggx_e, g1l_e=g1l_e, g_e=g_e, fm=(fmr, fmg, fmb),
+            spec_e=spec_e)
 
     # -- throughput update + Russian roulette ------------------------------
     th_r_n = th_r * w_r
     th_g_n = th_g * w_g
     th_b_n = th_b * w_b2
     active_n = hit & ~dead
+    p_cont = inv_p = None
     if k >= cfg.rr_depth:
         p_cont = _clip(torch.maximum(th_r_n, torch.maximum(th_g_n,
                                                                  th_b_n)),
@@ -514,6 +678,19 @@ def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg,
 
     new_state = (ox, oy, oz, dx, dy, dz, th_r, th_g, th_b,
                  rad_r, rad_g, rad_b, prev_pdf)
-    if tape is not None:
-        tape.update((n, v) for n, v in locals().items() if n != "tape")
-    return new_state, (active_n, prev_spec)
+    tape = BounceTape(
+        hit=hit, miss=miss, active_n=active_n, t=t, j_best=j_best, h=h,
+        m_lam=m_lam, m_met=m_met, m_die=m_die, refl=refl, front=front,
+        emitting=emitting, hp=(hx, hy, hz), ns=(nsx, nsy, nsz),
+        wo=(wox, woy, woz), tb=(tx, ty, tz), bb=(bx, by, bz), sgn=sgn,
+        off_sign=off_sign, nlf=nlf, sk=(sk_r, sk_g, sk_b), w_emit=w_emit,
+        mis=mis, w=(w_r, w_g, w_b2), dl=(dl_x, dl_y, dl_z), u1=u1, ct=ct,
+        st=st, cphi=cphi, sphi=sphi, alpha=alpha, a2g=a2g, kg=kg,
+        cos2h=cos2h, cth=cth, sth=sth, hw=(hwx, hwy, hwz), odoth=odoth,
+        dm=(dm_x, dm_y, dm_z), ndotl_m=ndotl_m, ndotl_mc=ndotl_mc,
+        ndotv=ndotv, ndoth=ndoth, g1v=g1v, g1l=g1l, gterm=gterm,
+        met_ok=met_ok, f_met=(f_met_r, f_met_g, f_met_b),
+        w_met_scale=w_met_scale, dggx=dggx, pdf_met=pdf_met, ior=ior,
+        eta=eta, cos_i=cos_i, safe=safe, cos_t=cos_t, nee=nee,
+        p_cont=p_cont, inv_p=inv_p)
+    return new_state, (active_n, prev_spec), tape

@@ -7,7 +7,8 @@ here in plain PyTorch; K2 (``csrc/physics_adj.cuh``) transcribes it term for
 term.  It is JAX's ``vjp`` of the same bounce:
 
 * The forward is recomputed from the bounce's entry state
-  (``physics.trace_bounce`` with a tape), then run in reverse.
+  (``physics.trace_bounce_tape``, which names the intermediates it
+  keeps), then run in reverse.
 * Discrete choices carry no gradient: the nearest hit, the material lobe,
   reflect or refract (and TIR), the Russian-roulette kill, the light pick
   and its cell, the shadow verdict, the light-cell bounds.  ``p_cont`` is
@@ -147,28 +148,23 @@ def trace_bounce_vjp(theta, state, aux, u, nl: int, cfg: P.BounceCfg,
 
 def _bounce_vjp(theta, state, aux, u, nl, cfg, state_ct):
     spheres, sky, lights = theta
-    f = {}
-    P.trace_bounce(theta, state, aux, u, nl, cfg, tape=f)
-
-    def vec(x, y, z):
-        return _v(f[x], f[y], f[z])
+    _, _, f = P.trace_bounce_tape(theta, state, aux, u, nl, cfg)
 
     o, d, th = _v(*state[0:3]), _v(*state[3:6]), _v(*state[6:9])
     prev_pdf = state[12]
     o_o, d_o, th_o, rad_o = (_v(*state_ct[i:i + 3]) for i in (0, 3, 6, 9))
     pdf_o = state_ct[12]
     active, prev_spec = aux
-    hit, miss, an = f["hit"], f["miss"], f["active_n"]
-    lam, met, die, refl = f["m_lam"], f["m_met"], f["m_die"], f["refl"]
+    hit, miss, an = f.hit, f.miss, f.active_n
+    lam, met, die, refl = f.m_lam, f.m_met, f.m_die, f.refl
     rt = die & ~refl                       # refracted through a dielectric
-    hd = f["h"]
+    hd = f.h
     C, r = _v(hd["cx"], hd["cy"], hd["cz"]), hd["r"]
     alb, emi = _v(hd["ar"], hd["ag"], hd["ab"]), _v(hd["er"], hd["eg"],
                                                      hd["eb"])
-    h, ns, wo = vec("hx", "hy", "hz"), vec("nsx", "nsy", "nsz"), \
-        vec("wox", "woy", "woz")
-    T, B = vec("tx", "ty", "tz"), vec("bx", "by", "bz")
-    nlf = f["nlf"]
+    h, ns, wo = _v(*f.hp), _v(*f.ns), _v(*f.wo)
+    T, B = _v(*f.tb), _v(*f.bb)
+    nlf = f.nlf
     z = torch.zeros_like(prev_pdf)
     z3 = torch.zeros_like(o)
 
@@ -178,18 +174,18 @@ def _bounce_vjp(theta, state, aux, u, nl, cfg, state_ct):
     th_ct = torch.where(an, 0.0, th_o)
     pdf_ct = torch.where(an, 0.0, pdf_o)
     h_b = torch.where(an, o_o, 0.0)
-    ns_b = torch.where(an, (P.EPS * f["off_sign"]) * o_o, 0.0)
+    ns_b = torch.where(an, (P.EPS * f.off_sign) * o_o, 0.0)
     nd_b = torch.where(an, d_o, 0.0)
     thn_b = torch.where(an, th_o, 0.0)
     pdfn_b = torch.where(an, pdf_o, 0.0)
 
     # -- throughput update and Russian roulette -----------------------------
-    w = vec("w_r", "w_g", "w_b2")
+    w = _v(*f.w)
     thn = th * w
     if cfg.k >= cfg.rr_depth:
-        p = f["p_cont"]
+        p = f.p_cont
         p_b = -_dot3(thn_b, thn) / (p * p)
-        thn_b = thn_b * f["inv_p"]
+        thn_b = thn_b * f.inv_p
         m1 = torch.maximum(thn[1], thn[2])
         m0_b = p_b * _dclip(torch.maximum(thn[0], m1), 0.05, 0.95)
         m1_b = m0_b * _dmax(m1, thn[0])
@@ -201,9 +197,9 @@ def _bounce_vjp(theta, state, aux, u, nl, cfg, state_ct):
 
     # -- seeds of each material's branch --------------------------------------
     a_b = torch.where(lam | rt, w_b, 0.0)
-    f_met = vec("f_met_r", "f_met_g", "f_met_b")
-    fmet_b = torch.where(met, w_b * f["w_met_scale"], 0.0)
-    wms_b = torch.where(met & f["met_ok"], _dot3(w_b, f_met), 0.0)
+    f_met = _v(*f.f_met)
+    fmet_b = torch.where(met, w_b * f.w_met_scale, 0.0)
+    wms_b = torch.where(met & f.met_ok, _dot3(w_b, f_met), 0.0)
     dl_b = torch.where(lam, nd_b, 0.0)
     dm_b = torch.where(met, nd_b, 0.0)
     dr_b = torch.where(die & refl, nd_b, 0.0)
@@ -213,11 +209,12 @@ def _bounce_vjp(theta, state, aux, u, nl, cfg, state_ct):
     light_b = None
 
     # -- next-event estimation ------------------------------------------------
-    if f["use_nee"] and nl > 0:
-        fn = f["nee"]
-        g = torch.where(f["nee_ok"], rad_o, 0.0)
-        fcos, le = vec("fcos_r", "fcos_g", "fcos_b"), vec("ler", "leg", "leb")
-        scale, pdf_l, w_nee = f["scale"], f["pdf_l"], f["w_nee"]
+    if f.nee is not None and nl > 0:
+        n = f.nee
+        fn = n.light
+        g = torch.where(n.nee_ok, rad_o, 0.0)
+        fcos, le = _v(*n.fcos), _v(*n.le)
+        scale, pdf_l, w_nee = n.scale, n.pdf_l, n.w_nee
         th_ct = th_ct + g * fcos * le * scale
         fcos_b = g * th * le * scale
         le_b = g * th * fcos * scale
@@ -225,23 +222,23 @@ def _bounce_vjp(theta, state, aux, u, nl, cfg, state_ct):
         ml = P._max(pdf_l, 1e-12)
         wnee_b = scale_b / ml
         pdfl_b = -scale_b * w_nee / (ml * ml) * _dmax(pdf_l, 1e-12)
-        pb, pb_b = f["pdf_b_at_l"], z
+        pb, pb_b = n.pdf_b_at_l, z
         if cfg.use_mis:
-            s2 = f["pl2"] + pb * pb
+            s2 = n.pl2 + pb * pb
             den = P._max(s2, 1e-20)
             den_b = -wnee_b * w_nee / den * _dmax(s2, 1e-20)
             pdfl_b = pdfl_b + 2.0 * pdf_l * (wnee_b / den + den_b)
             pb_b = 2.0 * pb * den_b
-        ndotl, spec_e = f["ndotl"], f["spec_e"]
-        fm = vec("fmr", "fmg", "fmb")
+        ndotl, spec_e = n.ndotl, n.spec_e
+        fm = _v(*n.fm)
         base = torch.where(lam, alb * _FL, torch.where(met, fm * spec_e, 0.0))
         base_b = fcos_b * ndotl
         ndotl_b = _dot3(fcos_b, base) + torch.where(lam, pb_b * _FL, 0.0)
         a_b = a_b + torch.where(lam, base_b * _FL, 0.0)
         # GGX at the light direction (metal hits).
-        ndoth_e, odoth_e, dggx_e = f["ndoth_e"], f["odoth_e"], f["dggx_e"]
-        ndotl_c, ndotv = f["ndotl_c"], f["ndotv"]
-        mh = met & f["h_ok"]
+        ndoth_e, odoth_e, dggx_e = n.ndoth_e, n.odoth_e, n.dggx_e
+        ndotl_c, ndotv = n.ndotl_c, f.ndotv
+        mh = met & n.h_ok
         pbm_b = torch.where(mh, pb_b, 0.0)
         spec_b = torch.where(mh, _dot3(base_b, fm), 0.0)
         a_m, odothe_b = _schlick_adj(odoth_e, alb,
@@ -251,76 +248,74 @@ def _bounce_vjp(theta, state, aux, u, nl, cfg, state_ct):
         ndothe_b = pbm_b * dggx_e / (4.0 * odoth_e)
         odothe_b = odothe_b - pbm_b * pb / odoth_e
         den = 4.0 * ndotv * ndotl_c
-        dggxe_b = dggxe_b + spec_b * f["g_e"] / den
+        dggxe_b = dggxe_b + spec_b * n.g_e / den
         ge_b = spec_b * dggx_e / den
         den_b = -spec_b * spec_e / den
         ndotv_b = ndotv_b + den_b * 4.0 * ndotl_c
-        g1v_b = g1v_b + ge_b * f["g1l_e"]
-        x_b, k_b = _g1_adj(ndotl_c, f["kg"], ge_b * f["g1v"])
+        g1v_b = g1v_b + ge_b * n.g1l_e
+        x_b, k_b = _g1_adj(ndotl_c, f.kg, ge_b * f.g1v)
         kg_b = kg_b + k_b
         ndotl_b = ndotl_b + (den_b * 4.0 * ndotv + x_b) * _dmax(ndotl, 1e-6)
-        nh_b, a_b2 = _ggx_d_adj(ndoth_e, f["a2g"], dggxe_b)
+        nh_b, a_b2 = _ggx_d_adj(ndoth_e, f.a2g, dggxe_b)
         a2g_b = a2g_b + a_b2
-        hh = vec("hhx", "hhy", "hhz")
+        hh = _v(*n.hh)
         x = (ndothe_b + nh_b) * _dmax(_dot3(ns, hh), 1e-6)
         y = odothe_b * _dmax(_dot3(wo, hh), 1e-6)
         ns_b = ns_b + hh * x
-        hs_b = torch.where(f["h_ok"], _normalize_adj(
-            vec("hsx", "hsy", "hsz"), ns * x + wo * y, None), 0.0)
+        hs_b = torch.where(n.h_ok, _normalize_adj(
+            _v(*n.hs), ns * x + wo * y, None), 0.0)
         wo_b = wo_b + hh * y + hs_b
-        ld = vec("ldx", "ldy", "ldz")
+        ld = _v(*n.ld)
         x = ndotl_b * _dmax(_dot3(ns, ld), 0.0)
         ns_b = ns_b + ld * x
         ld_b = hs_b + ns * x
         # The cone sample and its pdf, back to the light and the point.
-        stl, ctl, cpl, spl = fn["stl"], fn["ctl"], fn["cpl"], fn["spl"]
-        lt, lb = _v(fn["ltx"], fn["lty"], fn["ltz"]), \
-            _v(fn["lbx"], fn["lby"], fn["lbz"])
-        wl = _v(fn["wlx"], fn["wly"], fn["wlz"])
+        stl, ctl, cpl, spl = fn.stl, fn.ctl, fn.cpl, fn.spl
+        lt, lb, wl = _v(*fn.lt), _v(*fn.lb), _v(*fn.wl)
         stl_b = cpl * _dot3(lt, ld_b) + spl * _dot3(lb, ld_b)
         ctl_b = _dot3(wl, ld_b) - 2.0 * ctl * _sqrt_adj(stl, stl_b) \
             * _dmax(1.0 - ctl * ctl, 1e-12)
         wl_b = ctl * ld_b + _onb_adj(wl, (stl * cpl) * ld_b,
                                      (stl * spl) * ld_b)
-        lrr_b, d2_b = _cone_adj(fn["lrr"], fn["d2"], fn["cosm_l"], fn["degm"],
-                                pdfl_b, ctl_b * fn["lu1"], nlf)
-        toc, dist = _v(fn["tocx"], fn["tocy"], fn["tocz"]), fn["dist"]
+        lrr_b, d2_b = _cone_adj(fn.lrr, fn.d2, fn.cosm_l, fn.degm, pdfl_b,
+                                ctl_b * fn.lu1, nlf)
+        toc, dist = _v(*fn.toc), fn.dist
         d2_b = d2_b + _sqrt_adj(dist, -_dot3(toc, wl_b) / (dist * dist))
         toc_b = wl_b / dist + 2.0 * toc * (d2_b * _dmax(_dot3(toc, toc),
                                                         1e-12))
         h_b = h_b - toc_b                   # toc = light center - (h + EPS ns)
         ns_b = ns_b - P.EPS * toc_b
-        light_b = torch.where(f["nee_ok"], torch.cat([toc_b, lrr_b[None],
+        light_b = torch.where(n.nee_ok, torch.cat([toc_b, lrr_b[None],
                                                       le_b]), 0.0)
 
     # -- Lambert: cosine sample and its pdf -----------------------------------
-    dl = vec("dl_x", "dl_y", "dl_z")
+    dl = _v(*f.dl)
     x = torch.where(lam, pdfn_b, 0.0) * _FL * _dmax(_dot3(ns, dl), 0.0)
     dl_b = dl_b + ns * x
-    ns_b = ns_b + dl * x + f["ct"] * dl_b
-    T_b = T_b + (f["st"] * f["cphi"]) * dl_b
-    B_b = B_b + (f["st"] * f["sphi"]) * dl_b
+    ns_b = ns_b + dl * x + f.ct * dl_b
+    T_b = T_b + (f.st * f.cphi) * dl_b
+    B_b = B_b + (f.st * f.sphi) * dl_b
 
     # -- GGX metal: sampled half-vector, weight, pdf --------------------------
-    cphi, sphi, kg = f["cphi"], f["sphi"], f["kg"]
-    odoth, ndotv, ndoth = f["odoth"], f["ndotv"], f["ndoth"]
-    hw, dm = vec("hwx", "hwy", "hwz"), vec("dm_x", "dm_y", "dm_z")
+    cphi, sphi, kg = f.cphi, f.sphi, f.kg
+    odoth, ndotv, ndoth = f.odoth, f.ndotv, f.ndoth
+    hw, dm = _v(*f.hw), _v(*f.dm)
     den = ndotv * ndoth
     gterm_b = wms_b * odoth / den
-    odoth_b = wms_b * f["gterm"] / den
-    den_b = -wms_b * f["w_met_scale"] / den
+    odoth_b = wms_b * f.gterm / den
+    den_b = -wms_b * f.w_met_scale / den
     ndotv_b = ndotv_b + den_b * ndoth
     ndoth_b = den_b * ndotv
     a_m, c_b = _schlick_adj(odoth, alb, fmet_b)
     a_b = a_b + a_m
     pm_b = torch.where(met, pdfn_b, 0.0)
-    nh_b, a_b2 = _ggx_d_adj(ndoth, f["a2g"], pm_b * ndoth / (4.0 * odoth))
+    nh_b, a_b2 = _ggx_d_adj(ndoth, f.a2g, pm_b * ndoth / (4.0 * odoth))
     a2g_b = a2g_b + a_b2
-    ndoth_b = ndoth_b + nh_b + pm_b * f["dggx"] / (4.0 * odoth)
-    odoth_b = odoth_b + c_b - pm_b * f["pdf_met"] / odoth
-    g1v_b = g1v_b + gterm_b * f["g1l"]
-    x_b, k_b = _g1_adj(f["ndotl_mc"], kg, gterm_b * f["g1v"])
-    ndotlm_b = x_b * _dmax(f["ndotl_m"], 1e-6)
+    ndoth_b = ndoth_b + nh_b + pm_b * f.dggx / (4.0 * odoth)
+    odoth_b = odoth_b + c_b - pm_b * f.pdf_met / odoth
+    g1v_b = g1v_b + gterm_b * f.g1l
+    x_b, k_b = _g1_adj(f.ndotl_mc, kg, gterm_b * f.g1v)
+    ndotlm_b = x_b * _dmax(f.ndotl_m, 1e-6)
     x_b, k_b2 = _g1_adj(ndotv, kg, g1v_b)
     ndotv_b = ndotv_b + x_b
     kg_b = kg_b + k_b + k_b2
@@ -333,7 +328,7 @@ def _bounce_vjp(theta, state, aux, u, nl, cfg, state_ct):
     ns_b = ns_b + wo * x + hw * y
     wo_b = wo_b - dm_b + ns * x + hw * zz
     hw_b = (2.0 * odoth) * dm_b + ns * y + wo * zz
-    sth, cth, cos2h = f["sth"], f["cth"], f["cos2h"]
+    sth, cth, cos2h = f.sth, f.cth, f.cos2h
     sth_b = cphi * _dot3(T, hw_b) + sphi * _dot3(B, hw_b)
     T_b = T_b + (sth * cphi) * hw_b
     B_b = B_b + (sth * sphi) * hw_b
@@ -341,28 +336,28 @@ def _bounce_vjp(theta, state, aux, u, nl, cfg, state_ct):
     cos2h_b = torch.where(cth > 0.0, _sqrt_adj(cth, _dot3(ns, hw_b)), 0.0) \
         * _dmax(cos2h, 0.0) \
         - _sqrt_adj(sth, sth_b) * _dmax(1.0 - cos2h, 1e-12)
-    a2g = f["a2g"]
-    a2g_b = a2g_b - cos2h_b * cos2h / (1.0 + (a2g - 1.0) * f["u1"]) * f["u1"]
-    alpha = f["alpha"]
+    a2g = f.a2g
+    a2g_b = a2g_b - cos2h_b * cos2h / (1.0 + (a2g - 1.0) * f.u1) * f.u1
+    alpha = f.alpha
     alpha_b = 0.5 * kg_b + 2.0 * alpha * a2g_b
     rough = hd["rough"]
     rough_b = torch.where(met, alpha_b * 2.0 * rough
                           * _dmax(rough * rough, 1e-4), 0.0)
 
     # -- smooth dielectric: mirror or refracted direction ---------------------
-    cos_i, eta, cos_t = f["cos_i"], f["eta"], f["cos_t"]
+    cos_i, eta, cos_t = f.cos_i, f.eta, f.cos_t
     kk = eta * cos_i - cos_t
     dtr_b = _normalize_adj(eta * (-wo) + kk * ns, dt_b)
     kk_b = _dot3(ns, dtr_b)
     sin2t_b = torch.where(rt, _sqrt_adj(cos_t, kk_b), 0.0) \
-        * _dmax(f["safe"], 1e-12)
+        * _dmax(f.safe, 1e-12)
     mm_arg = 1.0 - cos_i * cos_i
     eta_b = -_dot3(wo, dtr_b) + cos_i * kk_b \
         + sin2t_b * P._max(mm_arg, 0.0) * 2.0 * eta
     cosi_b = 2.0 * _dot3(ns, dr_b) + eta * kk_b \
         - 2.0 * cos_i * (sin2t_b * eta * eta) * _dmax(mm_arg, 0.0)
-    ior = f["ior"]
-    ior_b = torch.where(rt, torch.where(f["front"], -eta_b / (ior * ior),
+    ior = f.ior
+    ior_b = torch.where(rt, torch.where(f.front, -eta_b / (ior * ior),
                                         eta_b), 0.0) * _dmax(hd["ior"], 1.001)
     x = torch.where(die, cosi_b, 0.0) * _dmax(_dot3(wo, ns), 1e-6)
     ns_b = ns_b + (2.0 * cos_i) * dr_b + kk * dtr_b + wo * x
@@ -372,31 +367,32 @@ def _bounce_vjp(theta, state, aux, u, nl, cfg, state_ct):
     ns_b = ns_b + _onb_adj(ns, T_b, B_b)
 
     # -- emission, MIS-weighted against the last light sample -----------------
-    g = torch.where(f["emitting"], rad_o, 0.0)
-    w_emit = f["w_emit"]
+    g = torch.where(f.emitting, rad_o, 0.0)
+    w_emit = f.w_emit
     th_ct = th_ct + g * emi * w_emit
     e_b = g * th * w_emit
-    if f["use_nee"] and f["use_mis"] and nl > 0:
+    if f.mis is not None and nl > 0:
+        m = f.mis
         wb_b = torch.where(prev_spec, 0.0, _dot3(g * th, emi))
-        pp2, pl = f["pp2"], f["pdf_lh"]
+        pp2, pl = m.pp2, m.pdf_lh
         s2 = pp2 + pl * pl
         den = P._max(s2, 1e-20)
-        den_b = -wb_b * f["w_b"] / den * _dmax(s2, 1e-20)
+        den_b = -wb_b * m.w_b / den * _dmax(s2, 1e-20)
         pdf_ct = pdf_ct + 2.0 * prev_pdf * (wb_b / den + den_b)
-        r_b2, d2_b = _cone_adj(r, f["d2"], f["cosm"], f["deg"],
+        r_b2, d2_b = _cone_adj(r, m.d2, m.cosm, m.deg,
                                2.0 * pl * den_b, z, nlf)
         r_b = r_b + r_b2
-        toc = vec("tocx", "tocy", "tocz")
+        toc = _v(*m.toc)
         toc_b = 2.0 * toc * (d2_b * _dmax(_dot3(toc, toc), 1e-12))
         C_b = C_b + toc_b
         o_ct = o_ct - toc_b
 
     # -- normal, hit point, and the winner's distance -------------------------
-    v_b = _normalize_adj(h - C, ns_b * f["sgn"])
+    v_b = _normalize_adj(h - C, ns_b * f.sgn)
     h_b = h_b + v_b
     C_b = C_b - v_b
     d_ct = d_ct - wo_b
-    t = torch.where(hit, f["t"], 0.0)
+    t = torch.where(hit, f.t, 0.0)
     t_b = torch.where(hit, _dot3(h_b, d), 0.0)
     o_ct = o_ct + torch.where(hit, h_b, 0.0)
     d_ct = d_ct + t * h_b
@@ -418,7 +414,7 @@ def _bounce_vjp(theta, state, aux, u, nl, cfg, state_ct):
     sky_ct = torch.zeros_like(sky)
     if cfg.sky_mode in (SKY_GRADIENT, SKY_CONSTANT):
         g = torch.where(miss, rad_o, 0.0)
-        th_ct = th_ct + g * vec("sk_r", "sk_g", "sk_b")
+        th_ct = th_ct + g * _v(*f.sk)
         sk_b = g * th
         if cfg.sky_mode == SKY_GRADIENT:
             ts = 0.5 * (d[1] + 1.0)
@@ -433,10 +429,10 @@ def _bounce_vjp(theta, state, aux, u, nl, cfg, state_ct):
     row = torch.where(hit, torch.cat([C_b, r_b[None], a_b, e_b, rough_b[None],
                                       ior_b[None]]), 0.0)
     spheres_ct = torch.zeros_like(spheres).index_add_(
-        0, f["j_best"].long(), row.T)
+        0, f.j_best.long(), row.T)
     lights_ct = torch.zeros_like(lights)
     if light_b is not None:
-        lights_ct.index_add_(0, f["nee"]["li"].long(), light_b.T)
+        lights_ct.index_add_(0, f.nee.light.li.long(), light_b.T)
 
     o_ct, d_ct, th_ct = (torch.where(active, a, b) for a, b in
                          ((o_ct, o_o), (d_ct, d_o), (th_ct, th_o)))

@@ -3,8 +3,9 @@
 On the CPU the kernel render (``make_cuda_render_fn``, K1 forward and K2
 backward) takes both kernels' plain versions.  Tolerances:
 
-* ``pack_blob_torch`` equals ``pack_scene``'s blob and JAX's
-  ``pack_blob_jnp`` bit for bit.
+* ``pack_blob_torch`` equals JAX's ``pack_blob_jnp`` bit for bit (the
+  scene, sky and sphere rows; test_torch_scene.py holds ``pack_scene``,
+  camera included, against JAX's).
 * The autograd render against ``render_and_grad`` / spp (the same plain K2):
   rtol 1e-5; against autograd through ``pack_blob_torch`` and the plain K1:
   rtol 1e-4 with an atol of 1e-4 times the field's largest magnitude (float32
@@ -41,15 +42,13 @@ def _cornell():
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
-def test_pack_blob_torch_matches_pack_scene_and_jax(name):
+def test_pack_blob_torch_matches_jax(name):
     build, ckw = SCENES[name]
     sdt = build(spt_tpu_torch).compile(device="cpu", **ckw)
     sdj = build(spt_tpu).compile(**ckw)
     cam = cornell_camera(spt_tpu_torch, aperture=0.1, focus_dist=4.0)
     got = tmega.pack_blob_torch(sdt, cam)
-    want, _, _ = tmega.pack_scene(sdt, cam)
     assert got.dtype == torch.float32
-    np.testing.assert_array_equal(got.numpy(), want)
     jblob = jmega.pack_blob_jnp(sdj, cornell_camera(spt_tpu, aperture=0.1,
                                                     focus_dist=4.0))
     np.testing.assert_array_equal(got.numpy()[15:], np.asarray(jblob)[15:])
@@ -201,7 +200,9 @@ def test_make_render_fn_takes_any_sample_ids():
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-7)
 
 
-def test_k2_op_count_adds_recompute_and_adjoint():
+def test_plain_work_counts_are_nested():
+    """The counts k1_op_count and k2_op_count read: every hit was an active
+    ray, every shadow ray left a hit, every lit lane traced a shadow ray."""
     sd, cam = _cornell()
     blob, meta, lsb, static = tmega.pack_uniforms(sd, cam, 0, 3)
     stats = {}
@@ -209,12 +210,8 @@ def test_k2_op_count_adds_recompute_and_adjoint():
                              height=H, spp=2, max_bounces=3, rr_depth=1,
                              use_nee=True, use_mis=True, sky_mode=sd.sky_mode,
                              dof=False, **static)
+    assert stats["paths"] == 2 * W * H and stats["active"][0] == 2 * W * H
     for a, h, sh, lit in zip(*(stats[k] for k in ("active", "hit", "shadow",
                                                    "lit"))):
         assert a >= h >= sh >= lit >= 0
     assert sum(stats["lit"]) > 0
-    k1 = tmega.k1_op_count(stats, static["n_prims"])
-    k2 = tmg.k2_op_count(stats, static["n_prims"])
-    assert k2 == (2 * k1 - stats["paths"] * tmega.K1_OPS["raygen"]
-                  + sum(stats["hit"]) * tmg.K2_OPS["hit"]
-                  + sum(stats["lit"]) * tmg.K2_OPS["lit"])
