@@ -579,12 +579,15 @@ def run_k2_phases(torch, T, mk, dev, card, cam_cornell, k1_work) -> dict:
     k1_ms = min(cuda_ms(torch, lambda: mk.megakernel_fwd(
         blob, meta, lsb, **kw))[1] for _ in range(3))
     # The work of samples 0..1023: the plain version's counts of samples
-    # 256..1023 added to those of 0..255 from the K1 timing.
+    # 256..1023 added to those of 0..255 from the K1 timing.  This count is
+    # not timed; inference mode only drops autograd's bookkeeping.
     blob_256, stats_256 = k1_work
     check(torch.equal(blob, blob_256), "K1 and K2 timings differ in scene")
     stats = {}
-    mk.render_samples_plain(blob, meta, lsb, range(SPP, K2_SPP), stats=stats,
-                            **{k: v for k, v in kw.items() if k != "spp"})
+    with torch.inference_mode():
+        mk.render_samples_plain(
+            blob, meta, lsb, range(SPP, K2_SPP), stats=stats,
+            **{k: v for k, v in kw.items() if k != "spp"})
     stats = {k: (v + stats_256[k] if k == "paths" else
                  [a + b for a, b in zip(v, stats_256[k])])
              for k, v in stats.items()}
