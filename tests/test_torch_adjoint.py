@@ -22,6 +22,10 @@ from spt_tpu_torch.kernels import physics as tp
 from spt_tpu_torch.kernels.physics_adjoint import trace_bounce_vjp
 from test_torch_physics import _open_scene
 
+# One intra-op thread: these tests trace small tensors, where torch's
+# idle OpenMP workers would only spin against the other test processes.
+torch.set_num_threads(1)
+
 N = 256
 SEED = 3
 RR_DEPTH = 2

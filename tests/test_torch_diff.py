@@ -32,6 +32,10 @@ from spt_tpu_torch.kernels import megakernel as tmega
 from spt_tpu_torch.kernels import megakernel_grad as tmg
 from test_torch_scene import SCENES, cornell_camera, cornell_scene
 
+# One intra-op thread: these tests trace small tensors, where torch's
+# idle OpenMP workers would only spin against the other test processes.
+torch.set_num_threads(1)
+
 W = H = 8
 KW = dict(max_bounces=3, use_nee=True, use_mis=True, seed=3)
 

@@ -20,6 +20,10 @@ from spt_tpu_torch import RenderSettings, create_path_tracer
 from spt_tpu_torch.kernels import megakernel as tmega
 from test_torch_scene import cornell_camera, cornell_scene
 
+# One intra-op thread: these tests trace small tensors, where torch's
+# idle OpenMP workers would only spin against the other test processes.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 
 

@@ -43,6 +43,10 @@ from test_torch_adjoint import (N, RR_DEPTH, SEED, _autograd, _cfg, _lanes,
                                 _scene_uniforms, _torch_args)
 from test_torch_scene import cornell_camera, cornell_scene
 
+# One intra-op thread: these tests trace small tensors, where torch's
+# idle OpenMP workers would only spin against the other test processes.
+torch.set_num_threads(1)
+
 
 def _jax_vjp(x, cfg, dtype=jnp.float32):
     f = dtype

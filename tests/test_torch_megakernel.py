@@ -22,6 +22,10 @@ from spt_tpu.kernels import megakernel as jmega
 from spt_tpu_torch.kernels import megakernel as tmega
 from test_torch_scene import cornell_camera, cornell_scene
 
+# One intra-op thread: these tests trace small tensors, where torch's
+# idle OpenMP workers would only spin against the other test processes.
+torch.set_num_threads(1)
+
 W = H = 16
 KW = dict(max_bounces=3, rr_depth=2, use_nee=True, use_mis=True, seed=3)
 

@@ -21,6 +21,10 @@ from spt_tpu.kernels import physics as jp
 from spt_tpu_torch.kernels import megakernel as tmega
 from spt_tpu_torch.kernels import physics as tp
 
+# One intra-op thread: these tests trace small tensors, where torch's
+# idle OpenMP workers would only spin against the other test processes.
+torch.set_num_threads(1)
+
 N = 1024
 SEED = 3
 RR_DEPTH = 3

@@ -12,6 +12,10 @@ import torch
 from spt_tpu.core import rng as jrng
 from spt_tpu_torch.core import rng as trng
 
+# One intra-op thread: these tests trace small tensors, where torch's
+# idle OpenMP workers would only spin against the other test processes.
+torch.set_num_threads(1)
+
 N = 4096
 SEEDS = [0, 1, 3, 7, 42, 12345, 2**31 - 1, 2**31, 2**32 - 1]
 

@@ -20,6 +20,10 @@ from spt_tpu_torch.core.convert import camera_from_arrays, scene_data_from_array
 from spt_tpu_torch.kernels import megakernel as tmega
 from spt_tpu_torch.kernels import physics as tphys
 
+# One intra-op thread: these tests trace small tensors, where torch's
+# idle OpenMP workers would only spin against the other test processes.
+torch.set_num_threads(1)
+
 CPU = "cpu"
 
 
