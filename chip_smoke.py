@@ -4,13 +4,14 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from spt_tpu_torch/csrc with nvcc,
-holds each against its plain PyTorch version on the card, drives the two
-main paths at the repo's headline size (the progressive render facade,
-``create_path_tracer("cuda")``, through K1; and inverse rendering,
-``InverseRenderer(backend="cuda")``, through K1 forward and K2 backward),
-and times the kernels.  Each phase prints one JSON line; any failure exits
-nonzero and prints no result.  The last two lines are the kernels table and
-``{"ok": true, "device": {...}}``.
+holds each against its plain PyTorch version on the card, drives the three
+main paths (the progressive render facade, ``create_path_tracer("cuda")``,
+through K1 at the repo's headline size; inverse rendering,
+``InverseRenderer(backend="cuda")``, through K1 forward and K2 backward;
+and the facade on the repo's large scene, 10,000 spheres at 1920x1080,
+through K3), and times the kernels.  Each phase prints one JSON line; any
+failure exits nonzero and prints no result.  The last two lines are the
+kernels table and ``{"ok": true, "device": {...}}``.
 
 Exits nonzero without a CUDA device, and when the package is not beside it.
 """
@@ -49,6 +50,10 @@ GRAD_REL, GRAD_ABS = 1e-3, 1e-6
 # magnitude) on at least 99.9% of lanes.
 VJP_RTOL, VJP_ATOL_REL, VJP_MIN_CLOSE = 1e-3, 1e-4, 0.999
 TRAIN_SPP, TRAIN_STEPS, TRAIN_LR, K2_SPP = 16, 10, 0.02, 1024
+# The large scene (BASELINE config 5, bench_suite.py's scene_10k): 10,000
+# spheres, 1920x1080, 4 spp, depth 8, RR 3, NEE+MIS, seed 5.
+BIG_W, BIG_H, BIG_SPP, BIG_SEED = 1920, 1080, 4, 5
+CAM_10K = dict(position=(0, 0, -10), target=(0, 0, 60), fov_degrees=65)
 
 
 def emit(obj) -> None:
@@ -103,6 +108,58 @@ def grad_scene(pkg):
     scene.create_sphere("lamp", (0, 2.8, 4), 0.7, lamp)
     scene.create_sphere("m", (-0.6, 0.6, 4.0), 0.6, metal)
     scene.create_sphere("g", (0.7, 0.5, 3.6), 0.5, glass)
+    return scene
+
+
+def scene_10k(pkg, n=10_000, seed=42):
+    """bench_suite.py's scene_10k (BASELINE config 5) through the port's
+    Scene API, from the same numpy seed: n spheres in an 80-unit cube
+    centred 60 ahead, 8 Lambert materials, a metal, a glass, an emitter on
+    every 500th sphere, sky gradient."""
+    rng = np.random.default_rng(seed)
+    scene = pkg.Scene()
+    scene.set_sky(pkg.SKY_GRADIENT)
+    mats = [scene.add_material("lambert",
+                               albedo=tuple(rng.uniform(0.2, 0.9, 3)))
+            for _ in range(8)]
+    mats += [scene.add_material("metal", albedo=(0.85, 0.85, 0.9),
+                                roughness=0.25),
+             scene.add_material("glass", albedo=(0.97,) * 3, ior=1.5)]
+    emit_m = scene.add_material("lambert", albedo=(0.8,) * 3,
+                                emission=(40.0, 36.0, 30.0))
+    pos = rng.uniform(-40, 40, (n, 3)).astype(np.float32)
+    pos[:, 2] += 60.0
+    rad = rng.uniform(0.2, 0.9, n).astype(np.float32)
+    for i in range(n):
+        m = emit_m if i % 500 == 0 else mats[i % len(mats)]
+        scene.create_sphere(f"s{i}", tuple(pos[i]), float(rad[i]), m)
+    return scene
+
+
+def scene_200(pkg, n=200, seed=9):
+    """tests/test_pallas_bvh.py's large-scene test: n random spheres, a
+    ground sphere and two lamps."""
+    rng = np.random.default_rng(seed)
+    scene = pkg.Scene()
+    scene.set_sky(pkg.SKY_GRADIENT)
+    mats = [scene.add_material("lambert",
+                               albedo=tuple(rng.uniform(0.2, 0.9, 3)))
+            for _ in range(5)]
+    mats.append(scene.add_material("metal", albedo=(0.85, 0.85, 0.9),
+                                   roughness=0.3))
+    mats.append(scene.add_material("glass", albedo=(0.97,) * 3, ior=1.5))
+    emit_m = scene.add_material("lambert", albedo=(0.8,) * 3,
+                                emission=(22.0, 18.0, 14.0))
+    scene.create_sphere("ground", (0, -101.0, 12), 100.0, mats[0])
+    pos = rng.uniform(-8, 8, (n, 3)).astype(np.float32)
+    pos[:, 1] = rng.uniform(-0.8, 5.0, n)
+    pos[:, 2] += 14.0
+    rad = rng.uniform(0.25, 0.8, n).astype(np.float32)
+    for i in range(n):
+        scene.create_sphere(f"s{i}", tuple(pos[i]), float(rad[i]),
+                            mats[i % len(mats)])
+    scene.create_sphere("lampA", (-4, 7, 12), 1.2, emit_m)
+    scene.create_sphere("lampB", (5, 6, 18), 1.0, emit_m)
     return scene
 
 
@@ -226,10 +283,12 @@ def run() -> int:
         list(pool.map(_build.build, _build.ENTRIES))
     for lib in _build.ENTRIES:
         _build.load_library(lib)
+    from spt_tpu_torch.core import bvh
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               libraries={k: dict(seconds=v["seconds"], cached=v["cached"],
                                  ptxas=v["ptxas"])
-                         for k, v in _build.BUILD_INFO.items()}))
+                         for k, v in _build.BUILD_INFO.items()},
+              bvh_builder="native" if bvh._load_native() else "numpy"))
 
     # 3. RNG bits: kernel hash == plain hash, exactly ---------------------
     r = np.random.default_rng(SEED)
@@ -329,6 +388,7 @@ def run() -> int:
               cornell_mean=float(img.mean()), demo38_mean=float(img2.mean())))
     check(counts["k1"] > 0, "K1 was not launched on the main path")
     check(counts["k2"] == 0, "K2 was launched by a forward render")
+    check(counts["k3"] == 0, "K3 was launched for a small scene")
     check(counts["plain"] == 0, "the plain version ran on the main path")
     check(tracer.frame_count == SPP and demo.frame_count == 8,
           "frame counts")
@@ -383,27 +443,43 @@ def run() -> int:
     k1_bound_by = "operations" if ops / FP32_PEAK >= n_bytes / HBM_RATE \
         else "bytes"
     k2 = run_k2_phases(torch, T, mk, dev, card, cam_cornell, (blob, stats))
-    k1_launches = {"render": counts["k1"], "train": k2["k1_train"]}
+    k3 = run_k3_phases(torch, T, mk, dev, card, cam_cornell, cam_demo)
+    k1_launches = {"render": counts["k1"], "train": k2["k1_train"],
+                   "bvh": k3["launches"]["k1"]}
+    k2_launches = {"render": counts["k2"], "train": k2["k2_train"],
+                   "bvh": k3["launches"]["k2"]}
+    k3_launches = {"render": counts["k3"], "train": k2["k3_train"],
+                   "bvh": k3["launches"]["k3"]}
 
-    # 11. Kernels line, then the result ---------------------------------------
+    # 16. Kernels line, then the result ---------------------------------------
     emit({"kernels": [
         dict(name="K1 megakernel_fwd", route="cuda",
              source="spt_tpu_torch/csrc/megakernel.cu",
              replaces="spt_tpu/kernels/megakernel.py:194::_kernel",
              launches=sum(k1_launches.values()),
              launches_by_path=k1_launches, max_abs_err=max_abs_err,
-             ms=k1_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+             ms=k1_ms, plain_ms=plain_ms,
+             plain_size=f"{W}x{H} x {SPP} spp (Cornell, counting its work)",
+             bound_ms=bound_ms,
              bound_by=k1_bound_by, library_ms=None,
              checked_against_plain=True),
         dict(name="K2 megakernel_grad", route="cuda",
              source="spt_tpu_torch/csrc/megakernel_grad.cu",
              replaces="spt_tpu/kernels/megakernel_grad.py:121::_kernel_grad",
-             launches=k2["k2_train"],
-             launches_by_path={"render": counts["k2"],
-                               "train": k2["k2_train"]},
+             launches=sum(k2_launches.values()),
+             launches_by_path=k2_launches,
              max_abs_err=k2["max_abs_err"], ms=k2["ms"],
              plain_ms=k2["plain_ms"], plain_size=k2["plain_size"],
              bound_ms=k2["bound_ms"], bound_by=k2["bound_by"],
+             library_ms=None, checked_against_plain=True),
+        dict(name="K3 megakernel_bvh_fwd", route="cuda",
+             source="spt_tpu_torch/csrc/megakernel_bvh.cu",
+             replaces="spt_tpu/kernels/megakernel_bvh.py:1137::_kernel_bvh",
+             launches=sum(k3_launches.values()),
+             launches_by_path=k3_launches,
+             max_abs_err=k3["max_abs_err"], ms=k3["ms"],
+             plain_ms=k3["plain_ms"], plain_size=k3["plain_size"],
+             bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],
              library_ms=None, checked_against_plain=True)]})
     emit(dict(phase="done", seconds=time.perf_counter() - t_all))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -566,6 +642,7 @@ def run_k2_phases(torch, T, mk, dev, card, cam_cornell, k1_work) -> dict:
     check(counts["k2"] == TRAIN_STEPS, f"K2 launches {counts['k2']}")
     check(counts["k1"] == TRAIN_STEPS + 1, f"K1 launches {counts['k1']}")
     check(counts["plain"] == 0, "the plain version ran on the training path")
+    check(counts["k3"] == 0, "K3 was launched on the training path")
 
     # 10. K2 at the headline size: one 1024-spp render_and_grad launch -------
     blob, meta, lsb, static = mk.pack_uniforms(sd, cam, 0, SEED)
@@ -579,18 +656,13 @@ def run_k2_phases(torch, T, mk, dev, card, cam_cornell, k1_work) -> dict:
     k1_ms = min(cuda_ms(torch, lambda: mk.megakernel_fwd(
         blob, meta, lsb, **kw))[1] for _ in range(3))
     # The work of samples 0..1023: the plain version's counts of samples
-    # 256..1023 added to those of 0..255 from the K1 timing.  This count is
-    # not timed; inference mode only drops autograd's bookkeeping.
+    # 0..255 from the K1 timing (67M paths), times 4.  An average over 67M
+    # paths moves far less than the bound's own looseness.
     blob_256, stats_256 = k1_work
     check(torch.equal(blob, blob_256), "K1 and K2 timings differ in scene")
-    stats = {}
-    with torch.inference_mode():
-        mk.render_samples_plain(
-            blob, meta, lsb, range(SPP, K2_SPP), stats=stats,
-            **{k: v for k, v in kw.items() if k != "spp"})
-    stats = {k: (v + stats_256[k] if k == "paths" else
-                 [a + b for a, b in zip(v, stats_256[k])])
-             for k, v in stats.items()}
+    scale = K2_SPP // SPP
+    stats = {k: (v * scale if k == "paths" else [a * scale for a in v])
+             for k, v in stats_256.items()}
     ops = mg.k2_op_count(stats, static["n_prims"])
     n_bytes = 4 * (blob.numel() + meta.numel() + lsb.numel()
                    + 2 * W * H * 3 + 12 * static["n_prims"] + 6)
@@ -603,8 +675,200 @@ def run_k2_phases(torch, T, mk, dev, card, cam_cornell, k1_work) -> dict:
               lit_per_path=sum(stats["lit"]) / paths,
               plain_ms=plain_ms, plain_size=f"{W}x{H} x 4 spp (Cornell)"))
     return dict(k1_train=counts["k1"], k2_train=counts["k2"],
+                k3_train=counts["k3"],
                 max_abs_err=max_abs_err, ms=k2_ms, plain_ms=plain_ms,
                 plain_size=f"{W}x{H} x 4 spp", bound_ms=bound_ms,
+                bound_by="operations" if ops / FP32_PEAK >= n_bytes / HBM_RATE
+                else "bytes")
+
+
+def k3_inputs(torch, mb, sd, cam, seed, block=None):
+    """K3's packed inputs for a compiled scene and camera (samples from 0),
+    its keywords and the packing's static dict."""
+    block = block or mb.BLOCK
+    t, st = mb.packed(sd, cam, block)
+    meta = torch.tensor([0, seed, st["n_light_slots"]], dtype=torch.int32,
+                        device=sd.device)
+    args = (t["blob"], meta, t["lsb"], t["nodef"], t["nodei"], t["prims"],
+            t["mtypes"])
+    return args, dict(block=block, n_mats=st["n_mats"],
+                      n_light_slots=st["n_light_slots"]), st
+
+
+def run_k3_phases(torch, T, mk, dev, card, cam_cornell, cam_demo) -> dict:
+    """K3 against K1 and against its plain version, the large-scene main
+    path, and K3's timing.  Returns the numbers the kernels line needs."""
+    from spt_tpu_torch.kernels import megakernel_bvh as mb
+
+    def check_close(res, label):
+        check(res["finite"], f"{label}: K3 image not finite")
+        check(res["frac_close"] >= MIN_CLOSE,
+              f"{label}: {res['frac_close']:.4f} of pixels close")
+        check(res["mean_rel"] <= MAX_MEAN_REL,
+              f"{label}: means differ by {res['mean_rel']:.4f}")
+
+    # 12. K3 against K1 on the small scenes, packed for the BVH walk -------
+    max_abs_err = 0.0
+    for label, scene, ckw, camkw, size, spp in [
+            ("cornell", cornell(T), {}, cam_cornell, 64, 8),
+            ("demo38", T.demo_scene_38_spheres(), dict(capacity=64),
+             cam_demo, 64, 8),
+            ("cornell", cornell(T), {}, cam_cornell, W, 4),
+            ("demo38", T.demo_scene_38_spheres(), dict(capacity=64),
+             cam_demo, W, 4)]:
+        sd = scene.compile(device=dev, **ckw)
+        cam = T.Camera.look_at(device=dev, **camkw)
+        blob, meta, lsb, static = mk.pack_uniforms(sd, cam, 0, SEED)
+        kw = dict(width=size, height=size, spp=spp, max_bounces=DEPTH,
+                  rr_depth=RR, use_nee=True, use_mis=True,
+                  sky_mode=sd.sky_mode, dof=False)
+        want = mk.megakernel_fwd(blob, meta, lsb, **kw, **static)
+        args, k3kw, st = k3_inputs(torch, mb, sd, cam, SEED)
+        got = mb.megakernel_bvh_fwd(*args, **kw, **k3kw)
+        torch.cuda.synchronize()
+        res = compare(got, want)
+        emit(dict(phase="k3_vs_k1", case=label, size=size, spp=spp,
+                  n_blocks=st["n_blocks"],
+                  pixels_differ=int((got != want).any(-1).sum()), **res))
+        check_close(res, f"{label} K3 vs K1")
+        check(float(want.mean()) > 0.01, f"{label}: K1 image is black")
+        max_abs_err = max(max_abs_err, res["max_abs_err"])
+
+    # 13. K3 against its plain version, both on the card -------------------
+    cam10 = T.Camera.look_at(device=dev, **CAM_10K)
+    sd10 = scene_10k(T).compile(device=dev)
+    cam200 = T.Camera.look_at((0, 2.0, -4.0), (0, 1.0, 14.0), fov_degrees=60,
+                              aperture=0.3, focus_dist=14.0, device=dev)
+    plain_small = {}
+    for label, sd, cam, w, h, spp, seed in [
+            ("config5", sd10, cam10, 240, 136, 2, BIG_SEED),
+            ("scene200_thin_lens", scene_200(T).compile(device=dev), cam200,
+             64, 64, 8, SEED)]:
+        args, k3kw, st = k3_inputs(torch, mb, sd, cam, seed)
+        kw = dict(width=w, height=h, spp=spp, max_bounces=DEPTH, rr_depth=RR,
+                  use_nee=True, use_mis=True, sky_mode=sd.sky_mode,
+                  dof=float(cam.aperture) > 0)
+        got, k_ms = cuda_ms(torch, lambda: mb.megakernel_bvh_fwd(
+            *args, **kw, **k3kw))
+        want, p_ms = cuda_ms(torch, lambda: mb.render_tiles_bvh_plain(
+            *args, **kw, **k3kw))
+        res = compare(got, want)
+        emit(dict(phase="k3_vs_plain", case=label, width=w, height=h,
+                  spp=spp, k3_ms=k_ms, plain_ms=p_ms, n_nodes=st["n_nodes"],
+                  n_blocks=st["n_blocks"], builder=st["builder"],
+                  pixels_differ=int((got != want).any(-1).sum()), **res))
+        check_close(res, f"{label} K3 vs plain")
+        check(float(want.mean()) > 0.01, f"{label}: plain image is black")
+        max_abs_err = max(max_abs_err, res["max_abs_err"])
+        plain_small[label] = p_ms
+
+    # 14. Main path: the facade on config 5 at 1920x1080, counted ----------
+    def big_tracer(scene):
+        tracer = T.create_path_tracer("cuda")
+        tracer.set_scene(scene)
+        tracer.set_camera(T.Camera.look_at(device=dev, **CAM_10K))
+        s = T.RenderSettings()
+        s.set_resolution(BIG_W, BIG_H)
+        s.samples_per_pixel = BIG_SPP
+        s.max_bounces, s.russian_roulette_depth = DEPTH, RR
+        s.use_nee = s.use_mis = True
+        s.seed = BIG_SEED
+        tracer.set_settings(s)
+        return tracer
+
+    mb._PACK_CACHE.clear()           # the facade packs its scene afresh
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    scene = scene_10k(T)
+    scene_s = time.perf_counter() - t0
+    tracer = big_tracer(scene)
+    tracer.render_to_completion()
+    img = tracer.get_render_result().image_f32
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = dict(mk.LAUNCHES)
+    sd = tracer.scene_data
+    pack = mb.packed(sd, cam10)[1]["seconds"]    # the facade's own pack
+    emit(dict(phase="bvh_main_path", wall_s=wall_s, scene_build_s=scene_s,
+              compile_s=tracer.compile_seconds,
+              compile_bvh_build_s=sd.bvh.seconds, bvh_builder=sd.bvh.builder,
+              pack_s=pack["pack"], pack_bvh_build_s=pack["bvh_build"],
+              pack_octant_tables_s=pack["octant_tables"],
+              rest_s=wall_s - scene_s - tracer.compile_seconds - pack["pack"],
+              launches=counts, spp=tracer.frame_count, capacity=sd.capacity,
+              mean=float(img.mean())))
+    check(counts["k3"] > 0, "K3 was not launched on the large-scene path")
+    check(counts["k1"] == 0 and counts["k2"] == 0,
+          "K1 or K2 was launched on the large-scene path")
+    check(counts["plain"] == 0, "the plain version ran on the large path")
+    check(tracer.frame_count == BIG_SPP, "frame count")
+    check(tuple(img.shape) == (BIG_H, BIG_W, 3), f"config5: shape {img.shape}")
+    check(bool(torch.isfinite(img).all()), "config5: image not finite")
+    check(float(img.mean()) > 0.01, "config5: image is black")
+
+    def big_again():
+        again = big_tracer(scene)
+        again.render_to_completion()
+        again.get_render_result()
+
+    prof = profiled(torch, big_again, "megakernel_bvh_kernel")
+    emit(dict(phase="bvh_main_path_profile", unprofiled_wall_ms=1e3 * wall_s,
+              packing_cached=True, **prof))
+
+    # 15. K3 at the full size: one 4-spp launch ------------------------------
+    kw = dict(width=BIG_W, height=BIG_H, spp=BIG_SPP, max_bounces=DEPTH,
+              rr_depth=RR, use_nee=True, use_mis=True, sky_mode=sd.sky_mode,
+              dof=False)
+    args, k3kw, st = k3_inputs(torch, mb, sd, cam10, BIG_SEED)
+    mb.megakernel_bvh_fwd(*args, **kw, **k3kw)          # warm-up
+    k3_ms = min(cuda_ms(torch, lambda: mb.megakernel_bvh_fwd(
+        *args, **kw, **k3kw))[1] for _ in range(3))
+    # The plain version's counts of sample 0 of the four (2.07M paths),
+    # times 4; the run is timed, in inference mode.
+    one = {}
+    with torch.inference_mode():
+        _, plain_ms = cuda_ms(torch, lambda: mb.render_tiles_bvh_plain(
+            *args, **dict(kw, spp=1), **k3kw, stats=one))
+    stats = {k: (v * BIG_SPP if k == "paths" else [a * BIG_SPP for a in v])
+             for k, v in one.items()}
+    ops = mb.k3_op_count(stats)
+    n_bytes = 4 * (sum(a.numel() for a in args) + BIG_W * BIG_H * 3)
+    bound_ms = 1e3 * max(ops / FP32_PEAK, n_bytes / HBM_RATE)
+    paths = stats["paths"]
+    nodes = sum(stats["nodes"]) + sum(stats["shadow_nodes"])
+    spheres = sum(stats["spheres"]) + sum(stats["shadow_spheres"])
+    block_ms = {}
+    for block in (8, 128):
+        args_b, kw_b, st_b = k3_inputs(torch, mb, sd, cam10, BIG_SEED, block)
+        mb.megakernel_bvh_fwd(*args_b, **kw, **kw_b)
+        block_ms[block] = dict(n_nodes=st_b["n_nodes"],
+                               n_blocks=st_b["n_blocks"], ms=min(
+            cuda_ms(torch, lambda: mb.megakernel_bvh_fwd(
+                *args_b, **kw, **kw_b))[1] for _ in range(3)))
+    emit(dict(phase="k3_timing", card=card, size=f"{BIG_W}x{BIG_H}",
+              spp=BIG_SPP, block=mb.BLOCK, k3_ms=k3_ms,
+              pixel_samples_per_s=paths / (k3_ms * 1e-3),
+              segments_per_path=(sum(stats["active"]) + sum(stats["hit"]))
+              / paths,
+              path_segments_per_path=sum(stats["active"]) / paths,
+              shadow_rays_per_path=sum(stats["shadow"]) / paths,
+              node_tests_per_path=nodes / paths,
+              sphere_tests_per_path=spheres / paths,
+              nearest_nodes_per_bounce=stats["nodes"],
+              shadow_nodes_per_bounce=stats["shadow_nodes"],
+              active_per_bounce=stats["active"],
+              # node rows (40 bytes read) and leaf slots (16) the walks
+              # touch, served by L1/L2: not the bound's bytes
+              walk_bytes=40 * nodes + 16 * spheres,
+              fp32_ops=ops, bytes=n_bytes, bound_ms=bound_ms,
+              ops_per_path=ops / paths, plain_ms_1spp=plain_ms,
+              plain_ms_small=plain_small, n_nodes=st["n_nodes"],
+              n_blocks=st["n_blocks"], other_blocks=block_ms))
+    return dict(launches=counts, max_abs_err=max_abs_err, ms=k3_ms,
+                plain_ms=plain_ms,
+                plain_size=f"{BIG_W}x{BIG_H} x 1 spp (config 5, counting "
+                           "its work)",
+                bound_ms=bound_ms,
                 bound_by="operations" if ops / FP32_PEAK >= n_bytes / HBM_RATE
                 else "bytes")
 

@@ -9,7 +9,10 @@ beside its plain PyTorch version for the CPU:
 * slice 2: the differentiable render of scenes of up to 128 spheres
   (``diff``): the fused forward+backward kernel K2 with a hand-written
   adjoint of the bounce, a ``torch.autograd.Function`` with K1 forward and
-  K2 backward, and ``diff.gradients.InverseRenderer``.
+  K2 backward, and ``diff.gradients.InverseRenderer``;
+* slice 3: the forward render of scenes above 128 spheres through the
+  same facade: a BVH (``core.bvh``), its packing, and K3, which walks it
+  per pixel.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 See ROADMAP.md for what comes next.

@@ -7,9 +7,10 @@ as area lights) is the same as ``spt_tpu.core.scene``'s.
 
 ``Scene.compile()`` lowers the graph to ``SceneData``: flat SoA tensors on
 an explicit device, sphere centers/radii/material ids padded to a
-power-of-two capacity, the material table, the light index list and the sky
-parameters.  The arrays are built in numpy with the same code as the JAX
-package, so both packages compile a scene to the same bits.
+power-of-two capacity, the material table, the light index list, the sky
+parameters and, for large scenes, a BVH (``core/bvh.py``).  The arrays are
+built in numpy with the same code as the JAX package, so both packages
+compile a scene to the same bits.
 """
 
 from __future__ import annotations
@@ -22,10 +23,11 @@ import numpy as np
 import torch
 
 from ..utils.device import DeviceLike, resolve_device
+from .bvh import BVH
 from .materials import MaterialBuilder, MaterialTable
 
-# Scenes larger than this would get a BVH at compile time.  The BVH is not
-# ported yet (ROADMAP.md item 4, "BVH and leaf-block packing").
+# Scenes larger than this get a BVH at compile time; smaller ones use the
+# brute-force sphere list.
 BVH_AUTO_THRESHOLD = 512
 
 # Sky modes.
@@ -132,6 +134,7 @@ class SceneData:
     light_idx: torch.Tensor    # (L,) i32 — prim indices of emissive spheres
     light_valid: torch.Tensor  # (L,) bool
     sky_params: torch.Tensor   # (2, 3) f32 — [horizon/constant, zenith]
+    bvh: Optional[BVH]         # None for small scenes
     env_map: Optional[torch.Tensor]  # (He, We, 3) f32 equirect radiance
     num_prims: int
     num_lights: int
@@ -291,16 +294,18 @@ class Scene:
         out = self.compile_arrays(capacity, light_capacity)
         if use_bvh is None:
             use_bvh = out["num_prims"] > BVH_AUTO_THRESHOLD
-        if use_bvh:
-            raise NotImplementedError(
-                "BVH scenes (more than BVH_AUTO_THRESHOLD = "
-                f"{BVH_AUTO_THRESHOLD} spheres) are not ported yet: "
-                "ROADMAP.md item 4, 'BVH and leaf-block packing'")
         from .convert import scene_data_from_arrays
-        return scene_data_from_arrays(
+        sd = scene_data_from_arrays(
             out["arrays"], num_prims=out["num_prims"],
             num_lights=out["num_lights"], sky_mode=out["sky_mode"],
             device=device)
+        if not use_bvh:
+            return sd
+        from .bvh import MAX_LEAF, build_bvh
+        a = out["arrays"]
+        return dataclasses.replace(sd, bvh=build_bvh(
+            a["centers"], a["radii"], valid=a["prim_valid"],
+            max_leaf=MAX_LEAF, device=device))
 
 
 def demo_scene_38_spheres() -> Scene:

@@ -6,7 +6,9 @@
 // is built with --fmad=false, so kernel and plain version round alike.
 // Where the plain version evaluates every material branch and selects, this
 // code takes the one branch the hit's material needs; the selected values
-// are the same.
+// are the same.  trace_bounce takes its geometry (nearest hit, shadow test,
+// light slots) as a template parameter: SphereList for K1 and K2, the BVH
+// walk for K3 (megakernel_bvh.cu).
 #pragma once
 
 #include <cstdint>
@@ -101,13 +103,15 @@ __device__ __forceinline__ float fresnel_dielectric(float cos_i, float eta_ti) {
   return 0.5f * (rs * rs + rp * rp);
 }
 
-// Entry distance along (o, d) into sphere s, or a value <= kTmin if none.
-__device__ __forceinline__ bool sphere_t(const float* s, float ox, float oy,
-                                         float oz, float dx, float dy, float dz,
-                                         float& tj) {
-  float ocx = s[0] - ox, ocy = s[1] - oy, ocz = s[2] - oz;
+// Entry distance tj along (o, d) into the sphere (c, r); false if the ray
+// misses it or tj <= kTmin.
+__device__ __forceinline__ bool sphere_t4(float cx, float cy, float cz,
+                                          float r, float ox, float oy,
+                                          float oz, float dx, float dy,
+                                          float dz, float& tj) {
+  float ocx = cx - ox, ocy = cy - oy, ocz = cz - oz;
   float b = dot3(dx, dy, dz, ocx, ocy, ocz);
-  float c = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - s[3] * s[3];
+  float c = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - r * r;
   float disc = b * b - c;
   if (!(disc > 0.0f)) return false;
   float sq = sqrtf(fmaxf(disc, 1e-12f));
@@ -115,6 +119,13 @@ __device__ __forceinline__ bool sphere_t(const float* s, float ox, float oy,
   float t1 = b + sq;
   tj = (t0 > kTmin) ? t0 : t1;
   return tj > kTmin;
+}
+
+// The same for sphere row s (cx cy cz r ...).
+__device__ __forceinline__ bool sphere_t(const float* s, float ox, float oy,
+                                         float oz, float dx, float dy, float dz,
+                                         float& tj) {
+  return sphere_t4(s[0], s[1], s[2], s[3], ox, oy, oz, dx, dy, dz, tj);
 }
 
 // Nearest sphere; strict '<' so ties go to the lowest index.  -1 on a miss.
@@ -149,6 +160,48 @@ __device__ __forceinline__ bool occluded(const SceneView& sc, float ox, float oy
   return blocked;
 }
 
+// A bounce's nearest hit, as a geometry reports it: the sphere's centre and
+// radius, its material row (ar ag ab er eg eb rough ior) and type.
+struct Hit {
+  float cx, cy, cz, r;
+  const float* mat;
+  int mtype;
+};
+
+// The geometry of K1 and K2: every sphere row of the blob, tested in index
+// order.  A geometry gives trace_bounce its nearest hit, its shadow test
+// and the light slots (cx cy cz r at 0..3, emission at kLightEmit..+2).
+struct SphereList {
+  static constexpr int kLightEmit = 7;
+  const SceneView& sc;
+
+  __device__ __forceinline__ bool nearest(float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          float& t, Hit& h) const {
+    const int j = intersect(sc, ox, oy, oz, dx, dy, dz, t);
+    if (j < 0) return false;
+    const float* s = sc.blob + kSphOff + kSphStride * j;
+    h.cx = s[0];
+    h.cy = s[1];
+    h.cz = s[2];
+    h.r = s[3];
+    h.mat = s + 4;
+    h.mtype = sc.meta[kMetaFixed + j];
+    return true;
+  }
+
+  __device__ __forceinline__ bool occluded(float ox, float oy, float oz,
+                                           float dx, float dy, float dz,
+                                           float tmax) const {
+    return spt::occluded(sc, ox, oy, oz, dx, dy, dz, tmax);
+  }
+
+  __device__ __forceinline__ const float* light(int l) const {
+    return sc.blob + kSphOff +
+           kSphStride * sc.meta[kMetaFixed + sc.n_prims + l];
+  }
+};
+
 // Quantized shading-point cell: the light pick's stream key.
 __device__ __forceinline__ uint32_t lsel_cell(const float* lsb, float hx,
                                               float hy, float hz) {
@@ -179,14 +232,16 @@ __device__ __forceinline__ void sky_radiance(const SceneView& sc, float dy,
   }
 }
 
-// One bounce of an active path.  Leaves p.active false when the path ends.
-__device__ void trace_bounce(const SceneView& sc, Path& p, uint32_t pid,
-                             uint32_t sample, uint32_t seed, int k,
-                             int rr_depth, bool use_nee, bool use_mis) {
+// One bounce of an active path against geometry geo (SphereList, or K3's
+// BVH walk).  Leaves p.active false when the path ends.
+template <class Geometry>
+__device__ void trace_bounce(const SceneView& sc, const Geometry& geo, Path& p,
+                             uint32_t pid, uint32_t sample, uint32_t seed,
+                             int k, int rr_depth, bool use_nee, bool use_mis) {
   const uint32_t kdim = (uint32_t)(k * kNDims);
   float t;
-  int j = intersect(sc, p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, t);
-  if (j < 0) {
+  Hit hit;
+  if (!geo.nearest(p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, t, hit)) {
     float sr, sg, sb;
     sky_radiance(sc, p.dy, sr, sg, sb);
     p.rad_r = p.rad_r + p.th_r * sr;
@@ -195,11 +250,11 @@ __device__ void trace_bounce(const SceneView& sc, Path& p, uint32_t pid,
     p.active = false;
     return;
   }
-  const float* s = sc.blob + kSphOff + kSphStride * j;
-  const float cx = s[0], cy = s[1], cz = s[2], cr = s[3];
-  const float ar = s[4], ag = s[5], ab = s[6];
-  const float er = s[7], eg = s[8], eb = s[9];
-  const int mtype = sc.meta[kMetaFixed + j];
+  const float* mat = hit.mat;
+  const float cx = hit.cx, cy = hit.cy, cz = hit.cz, cr = hit.r;
+  const float ar = mat[0], ag = mat[1], ab = mat[2];
+  const float er = mat[3], eg = mat[4], eb = mat[5];
+  const int mtype = hit.mtype;
 
   float hx = p.ox + t * p.dx;
   float hy = p.oy + t * p.dy;
@@ -260,7 +315,7 @@ __device__ void trace_bounce(const SceneView& sc, Path& p, uint32_t pid,
       w_g = ag;
       w_b = ab;
     } else {
-      const float rough = s[10];
+      const float rough = mat[6];
       alpha = fmaxf(rough * rough, 1e-4f);
       a2g = alpha * alpha;
       float cos2h = (1.0f - u1) / (1.0f + (a2g - 1.0f) * u1);
@@ -293,7 +348,7 @@ __device__ void trace_bounce(const SceneView& sc, Path& p, uint32_t pid,
     }
   } else {
     const float u_lobe = counter_uniform(pid, sample, kdim + kDimLobe, seed);
-    float ior = fmaxf(s[11], 1.001f);
+    float ior = fmaxf(mat[7], 1.001f);
     float eta = front ? 1.0f / ior : ior;
     float cos_i = fmaxf(dot3(wox, woy, woz, nsx, nsy, nsz), 1e-6f);
     float f_die = fresnel_dielectric(cos_i, 1.0f / eta);
@@ -331,10 +386,10 @@ __device__ void trace_bounce(const SceneView& sc, Path& p, uint32_t pid,
     float ler = 0.0f, leg = 0.0f, leb = 0.0f;
     for (int l = 0; l < sc.n_light_slots; ++l) {
       if (li == l && l < sc.nl) {
-        const float* ls =
-            sc.blob + kSphOff + kSphStride * sc.meta[kMetaFixed + sc.n_prims + l];
+        const float* ls = geo.light(l);
+        constexpr int e = Geometry::kLightEmit;
         lcx = ls[0]; lcy = ls[1]; lcz = ls[2]; lrr = ls[3];
-        ler = ls[7]; leg = ls[8]; leb = ls[9];
+        ler = ls[e]; leg = ls[e + 1]; leb = ls[e + 2];
       }
     }
     const float lu1 = counter_uniform(pid, sample, kdim + kDimLU1, seed);
@@ -364,7 +419,7 @@ __device__ void trace_bounce(const SceneView& sc, Path& p, uint32_t pid,
     float cl = dot3(tocx, tocy, tocz, tocx, tocy, tocz) - lrr * lrr;
     float discl = fmaxf(bl * bl - cl, 0.0f);
     float t_l = bl - sqrtf(fmaxf(discl, 1e-20f));
-    bool blocked = occluded(sc, pox, poy, poz, ldx, ldy, ldz, t_l - 1e-3f);
+    bool blocked = geo.occluded(pox, poy, poz, ldx, ldy, ldz, t_l - 1e-3f);
     bool lit = !blocked && !inside_l && t_l > kTmin && pdf_l > 0.0f;
     if (lit) {
       float ndotl = fmaxf(dot3(nsx, nsy, nsz, ldx, ldy, ldz), 0.0f);
@@ -437,6 +492,16 @@ __device__ void trace_bounce(const SceneView& sc, Path& p, uint32_t pid,
   p.th_b = th_b_n;
   p.prev_pdf = pdf_new;
   p.prev_spec = spec_new;
+}
+
+// K1's and K2's bounce: trace_bounce over the sphere list.
+__device__ __forceinline__ void trace_bounce(const SceneView& sc, Path& p,
+                                             uint32_t pid, uint32_t sample,
+                                             uint32_t seed, int k,
+                                             int rr_depth, bool use_nee,
+                                             bool use_mis) {
+  trace_bounce(sc, SphereList{sc}, p, pid, sample, seed, k, rr_depth,
+               use_nee, use_mis);
 }
 
 }  // namespace spt

@@ -15,6 +15,7 @@ Unknown backends raise ``ValueError``.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, Optional
 
 import torch
@@ -51,6 +52,7 @@ class PathTracerBase:
         self._accum: Optional[torch.Tensor] = None  # (H, W, 3) radiance sum
         self._frame_count: int = 0                  # samples accumulated
         self._accum_shape = (0, 0)
+        self.compile_seconds = 0.0   # host time of the last scene compile
 
     # -- the PathTracer contract -------------------------------------------
     def set_scene(self, scene: Scene) -> None:
@@ -110,8 +112,10 @@ class PathTracerBase:
                            if n.node_type == NodeType.SPHERE_OBJECT)
                 if live <= self._scene_data.capacity:
                     capacity = self._scene_data.capacity
+            t0 = time.perf_counter()
             self._scene_data = self._scene.compile(capacity=capacity,
                                                    device=self.device)
+            self.compile_seconds = time.perf_counter() - t0
             self._scene.mark_changes_processed()
             Log.info(f"Recompiled scene: {self._scene_data.num_prims} prims, "
                      f"{self._scene_data.num_lights} lights, "

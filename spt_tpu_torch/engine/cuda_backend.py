@@ -1,10 +1,11 @@
-"""The "cuda" backend: the progressive facade over the forward megakernel.
+"""The "cuda" backend: the progressive facade over the forward megakernels.
 
 Scenes of at most ``megakernel.MAX_PRIMS`` (128) spheres go to
 ``megakernel.render_tiles`` (kernel K1 on the card, its plain version on
-the CPU).  The 128 is K1's own limit, kept only because K1 is the one
-engine ported so far; every other route raises ``NotImplementedError``
-naming the ROADMAP.md item that ports it.
+the CPU); larger ones to ``megakernel_bvh.render_tiles_bvh`` (K3, the BVH
+walk).  Every size goes to K3: the sorted wavefront that the JAX package
+takes above 2048 spheres is not ported.  Other routes raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..core.scene import SKY_ENVMAP
-from ..kernels import megakernel
+from ..kernels import megakernel, megakernel_bvh
 from .api import PathTracerBase, camera_has_dof, register_backend
 
 
@@ -31,13 +32,11 @@ class CudaPathTracer(PathTracerBase):
                 "environment-map skies need the sorted wavefront (K5-K7), "
                 "not ported yet: ROADMAP.md item 6, 'Sorted wavefront "
                 "forward'")
-        if sd.capacity > megakernel.MAX_PRIMS:
-            raise NotImplementedError(
-                f"scenes above {megakernel.MAX_PRIMS} spheres need the BVH "
-                "megakernel (K3), not ported yet: ROADMAP.md item 5, "
-                "'BVH megakernel (K3)'")
         camera = self._camera or self._default_camera()
-        return megakernel.render_tiles(
+        render = (megakernel_bvh.render_tiles_bvh
+                  if sd.capacity > megakernel.MAX_PRIMS
+                  else megakernel.render_tiles)
+        return render(
             sd, camera, s.width, s.height, start_sample, spp,
             max_bounces=s.max_bounces, rr_depth=s.russian_roulette_depth,
             use_nee=s.use_nee, use_mis=s.use_mis, seed=s.seed,

@@ -47,6 +47,12 @@ ENTRIES = {
         # sky_mode, stream
         "spt_bounce_vjp": [_P] * 10 + [_I] * 8 + [_P],
     },
+    "megakernel_bvh": {
+        # out, blob, meta, lsb, nodef, nodei, prims, mtypes, width, height,
+        # spp, n_nodes, block, n_mats, n_light_slots, max_bounces, rr_depth,
+        # use_nee, use_mis, sky_mode, dof, inv_w, inv_h, aspect, stream
+        "spt_megakernel_bvh_fwd": [_P] * 8 + [_I] * 13 + [_F, _F, _F, _P],
+    },
 }
 
 _LOADED: dict = {}

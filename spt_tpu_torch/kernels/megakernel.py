@@ -19,8 +19,9 @@ order s = 0 … spp-1.
   ops, for gradients with respect to the scene.
 
 ``LAUNCHES`` counts K1 launches (``"k1"``), K2 launches (``"k2"``, see
-``megakernel_grad``) and plain-version runs of either (``"plain"``), so a
-caller can see which path a render took.
+``megakernel_grad``), K3 launches (``"k3"``, see ``megakernel_bvh``) and
+plain-version runs of any of them (``"plain"``), so a caller can see which
+path a render took.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ _META_FIXED = 3
 # and every ray tests every sphere.
 MAX_PRIMS = 128
 
-LAUNCHES = {"k1": 0, "k2": 0, "plain": 0}
+LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "plain": 0}
 
 
 def reset_launch_counts() -> None:
@@ -129,9 +130,11 @@ class PlainScene:
     """The packed uniforms as the plain versions read them: ``theta``
     (spheres (P, 12), sky (6,), lights (L, 7) gathered from the spheres),
     the live light count, seed, start sample and per-sphere material types,
-    and the light-cell grid bounds."""
+    and the light-cell grid bounds.  ``lights`` (L, 7), where given, replaces
+    the rows gathered from the spheres (the BVH blob keeps its own)."""
 
-    def __init__(self, blob, meta, lsb, n_prims: int, n_light_slots: int):
+    def __init__(self, blob, meta, lsb, n_prims: int, n_light_slots: int,
+                 lights=None):
         meta_h = _np(meta).astype(np.int64)
         self.start_sample = int(meta_h[0])
         self.seed = int(meta_h[1]) & rng.MASK32
@@ -141,8 +144,9 @@ class PlainScene:
             _META_FIXED + n_prims:_META_FIXED + n_prims + n_light_slots]]
         spheres = blob[_SPH_OFF:_SPH_OFF + _SPH_STRIDE * n_prims].reshape(
             n_prims, _SPH_STRIDE)
-        lights = spheres[self.light_prims][:, list(
-            physics.LIGHT_TO_SPHERE_ATTR)]
+        if lights is None:
+            lights = spheres[self.light_prims][:, list(
+                physics.LIGHT_TO_SPHERE_ATTR)]
         self.theta = (spheres, blob[_SKY_OFF:_SKY_OFF + 6], lights)
         self.lsel_lo = tuple(lsb[a] for a in range(3))
         self.lsel_ext = tuple(lsb[3 + a] for a in range(3))
@@ -225,6 +229,24 @@ def render_samples_plain(blob: torch.Tensor, meta: torch.Tensor,
     of camera paths.  The counts are summed on the tensors' device."""
     LAUNCHES["plain"] += 1
     sc = PlainScene(blob, meta, lsb, n_prims, n_light_slots)
+    return render_paths_plain(
+        blob, sc, samples, width=width, height=height,
+        n_light_slots=n_light_slots, max_bounces=max_bounces,
+        rr_depth=rr_depth, use_nee=use_nee, use_mis=use_mis,
+        sky_mode=sky_mode, dof=dof, stats=stats)
+
+
+def render_paths_plain(blob: torch.Tensor, sc: PlainScene, samples, *,
+                       width: int, height: int, n_light_slots: int,
+                       max_bounces: int, rr_depth: int, use_nee: bool,
+                       use_mis: bool, sky_mode: int, dof: bool,
+                       stats: dict | None = None,
+                       geometry=None) -> torch.Tensor:
+    """The render loop of the plain versions: camera paths of every sample
+    id, ``max_bounces`` bounces of ``physics.trace_bounce`` each, summed in
+    the order given -> (H, W, 3).  ``geometry(k)``, where given, returns
+    bounce k's ``(intersect_fn, occluded_fn)``; without it the bounce tests
+    ``sc``'s sphere list.  ``stats`` as ``render_samples_plain``."""
     n_pix = width * height
     acc = torch.zeros(3, n_pix, dtype=torch.float32, device=blob.device)
     counts = None if stats is None else torch.zeros(
@@ -240,9 +262,10 @@ def render_samples_plain(blob: torch.Tensor, meta: torch.Tensor,
                 use_mis=use_mis, sky_mode=sky_mode,
                 n_light_slots=n_light_slots)
             active = aux[0]
+            plug = (None, None) if geometry is None else geometry(k)
             state, aux, tape = physics.trace_bounce_tape(
                 sc.theta, state, aux, sc.uniforms(pid, sample, k), sc.nl,
-                cfg)
+                cfg, *plug)
             if counts is not None:
                 zero = torch.zeros_like(tape.hit)
                 counts[k] += torch.stack([

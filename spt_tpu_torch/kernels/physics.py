@@ -93,6 +93,24 @@ def lsel_bounds(centers, radii, valid) -> torch.Tensor:
     return torch.cat([lo, torch.clamp_min(hi - lo, 1e-5)])
 
 
+def lsel_bounds_from_prims(prims) -> torch.Tensor:
+    """``lsel_bounds`` from a packed leaf-block prim table ((n_blocks, 5,
+    block): cx cy cz r mid, mid < 0 marks padding).  The table holds exactly
+    the scene's valid prims' float32 values and min/max are order-free, so
+    this gives the same bits as the scene-array form."""
+    prims = torch.as_tensor(prims, dtype=torch.float32)
+    ok = (prims[:, 4, :] >= 0.0) & (prims[:, 3, :] > 0.0)
+    big = 3e38
+    c = prims[:, 0:3, :]
+    r = prims[:, 3:4, :]
+    lo = torch.where(ok[:, None, :], c - r, big).amin(dim=(0, 2))
+    hi = torch.where(ok[:, None, :], c + r, -big).amax(dim=(0, 2))
+    if not bool(ok.any()):
+        return torch.tensor([0.0, 0.0, 0.0, 1.0, 1.0, 1.0],
+                            dtype=torch.float32, device=prims.device)
+    return torch.cat([lo, torch.clamp_min(hi - lo, 1e-5)])
+
+
 def lsel_cell(hx, hy, hz, lo3, ext3) -> torch.Tensor:
     """Quantized shading-point cell id (uint32 value as int64)."""
     cell = None
@@ -127,6 +145,14 @@ def _clip(x, lo: float, hi: float):
     exactly at a bound gets half the cotangent, not all of it as with
     ``torch.clamp``."""
     return _min(_max(x, lo), hi)
+
+
+def _div(x, c: float):
+    """``x / c`` rounded once, as the kernels divide.  On CUDA, torch divides
+    by a Python number as a product with its reciprocal, which rounds twice
+    unless ``c`` is a power of two; a 0-d tensor on ``x``'s device does
+    not take that path."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
 def _dot(ax, ay, az, bx, by, bz):
@@ -309,7 +335,7 @@ def light_sample(ox, oy, oz, hx, hy, hz, nsx, nsy, nsz, u, lights, nl, nlf,
     ldy = stl * cpl * lty + stl * spl * lby + ctl * wly
     ldz = stl * cpl * ltz + stl * spl * lbz + ctl * wlz
     pdf_l = 1.0 / _max(2.0 * math.pi * (1.0 - cosm_l), 1e-9)
-    pdf_l = pdf_l / nlf
+    pdf_l = _div(pdf_l, nlf)
     bl = _dot(ldx, ldy, ldz, tocx, tocy, tocz)
     cl = _dot(tocx, tocy, tocz, tocx, tocy, tocz) - lrr * lrr
     discl = _max(bl * bl - cl, 0.0)
@@ -441,14 +467,26 @@ class BounceTape(NamedTuple):
     inv_p: torch.Tensor | None
 
 
-def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg):
-    """One bounce: (state, aux) -> (new_state, new_aux)."""
-    return trace_bounce_tape(theta, state, aux, u, nl, cfg)[:2]
+def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg,
+                 intersect_fn=None, occluded_fn=None):
+    """One bounce: (state, aux) -> (new_state, new_aux).
+
+    ``intersect_fn(ox, oy, oz, dx, dy, dz, active) -> (t, h, m_lam, m_met,
+    m_die)`` optionally replaces the nearest hit over ``theta``'s spheres
+    (the BVH walk plugs in here); ``h`` holds the winner's attributes keyed
+    as ``intersect_spheres_unrolled``'s.  ``occluded_fn(ox, oy, oz, dx, dy,
+    dz, tmax, need) -> blocked`` likewise replaces the shadow test; ``need``
+    marks the lanes whose answer is used, so an any-hit walk may skip the
+    others."""
+    return trace_bounce_tape(theta, state, aux, u, nl, cfg, intersect_fn,
+                             occluded_fn)[:2]
 
 
-def trace_bounce_tape(theta, state, aux, u, nl: int, cfg: BounceCfg):
+def trace_bounce_tape(theta, state, aux, u, nl: int, cfg: BounceCfg,
+                      intersect_fn=None, occluded_fn=None):
     """``trace_bounce`` -> (new_state, new_aux, ``BounceTape``): the bounce
-    and the intermediates its adjoint reads."""
+    and the intermediates its adjoint reads.  With ``intersect_fn`` the
+    tape's ``j_best`` is 0: the adjoint takes the sphere list only."""
     spheres, sky, lights = theta
     (ox, oy, oz, dx, dy, dz, th_r, th_g, th_b,
      rad_r, rad_g, rad_b, prev_pdf) = state
@@ -457,8 +495,13 @@ def trace_bounce_tape(theta, state, aux, u, nl: int, cfg: BounceCfg):
     use_nee = cfg.use_nee and cfg.n_light_slots > 0
     use_mis = cfg.use_mis
 
-    t, h, m_lam, m_met, m_die, j_best = intersect_spheres_unrolled(
-        spheres, cfg.mtypes, ox, oy, oz, dx, dy, dz)
+    if intersect_fn is None:
+        t, h, m_lam, m_met, m_die, j_best = intersect_spheres_unrolled(
+            spheres, cfg.mtypes, ox, oy, oz, dx, dy, dz)
+    else:
+        t, h, m_lam, m_met, m_die = intersect_fn(ox, oy, oz, dx, dy, dz,
+                                                 active)
+        j_best = torch.zeros_like(t)
     found = t < BIG
     hit = active & found
     miss = active & ~found
@@ -487,7 +530,7 @@ def trace_bounce_tape(theta, state, aux, u, nl: int, cfg: BounceCfg):
         cosm = torch.where(deg, 0.0,
                            torch.sqrt(torch.where(deg, 1.0, 1.0 - sin2)))
         pdf_lh = 1.0 / _max(2.0 * math.pi * (1.0 - cosm), 1e-9)
-        pdf_lh = pdf_lh / nlf
+        pdf_lh = _div(pdf_lh, nlf)
         pp2 = prev_pdf * prev_pdf
         w_b = pp2 / _max(pp2 + pdf_lh * pdf_lh, 1e-20)
         w_emit = torch.where(prev_spec, 1.0, w_b)
@@ -593,8 +636,12 @@ def trace_bounce_tape(theta, state, aux, u, nl: int, cfg: BounceCfg):
         (pox, poy, poz, ldx, ldy, ldz, t_l, pdf_l, inside_l,
          ler, leg, leb), light = light_sample(ox, oy, oz, hx, hy, hz, nsx,
                                               nsy, nsz, u, lights, nl, nlf, k)
-        blocked = occluded_unrolled(spheres, pox, poy, poz, ldx, ldy, ldz,
-                                    t_l - 1e-3)
+        if occluded_fn is None:
+            blocked = occluded_unrolled(spheres, pox, poy, poz, ldx, ldy,
+                                        ldz, t_l - 1e-3)
+        else:
+            blocked = occluded_fn(pox, poy, poz, ldx, ldy, ldz, t_l - 1e-3,
+                                  hit & ~spec_new)
         lit = ~blocked & ~inside_l & (t_l > TMIN)
         ndotl = _max(_dot(nsx, nsy, nsz, ldx, ldy, ldz), 0.0)
         pdf_b_lam = ndotl * (1.0 / math.pi)

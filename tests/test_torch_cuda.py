@@ -9,7 +9,9 @@ Tolerance: the RNG bits are equal exactly; K1 against its plain version is
 held to chip_smoke.py's bar (99.9% of pixels isclose(rtol=2e-3,
 atol=2e-4), means within 0.1%).  K2's image equals K1's bit for bit; its
 gradient and its per-lane bounce adjoint are held to chip_smoke.py's bars
-(``GRAD_REL`` / ``GRAD_ABS`` per field, ``VJP_*`` per lane).
+(``GRAD_REL`` / ``GRAD_ABS`` per field, ``VJP_*`` per lane).  K3 is held
+to K1's bar against its plain version, and equals K1 bit for bit on
+Cornell packed for the BVH walk (one leaf, the spheres in index order).
 """
 
 import numpy as np
@@ -19,10 +21,11 @@ import torch
 import spt_tpu_torch as T
 from chip_smoke import (ATOL, MAX_MEAN_REL, MIN_CLOSE, RTOL, VJP_ATOL_REL,
                         VJP_MIN_CLOSE, VJP_RTOL, cornell, grad_errors,
-                        grad_scene, vjp_lanes)
+                        grad_scene, k3_inputs, scene_200, vjp_lanes)
 from spt_tpu_torch.core import rng
 from spt_tpu_torch.diff import cuda_diff, gradients as G
 from spt_tpu_torch.kernels import megakernel as mk
+from spt_tpu_torch.kernels import megakernel_bvh as mb
 from spt_tpu_torch.kernels import megakernel_grad as mg
 
 
@@ -159,3 +162,53 @@ def test_k2_rejects_depth_above_its_cap():
                            height=4, spp=1, max_bounces=mg.MAX_DEPTH + 1,
                            rr_depth=3, use_nee=True, use_mis=True,
                            sky_mode=sd.sky_mode, dof=False, **static)
+
+
+def _scene200_camera(dev, lens):
+    kw = dict(aperture=0.3, focus_dist=14.0) if lens else {}
+    return T.Camera.look_at((0, 2.0, -4.0), (0, 1.0, 14.0), fov_degrees=60,
+                            device=dev, **kw)
+
+
+@pytest.mark.parametrize("lens", [False, True])
+def test_k3_matches_plain(cuda, lens):
+    sd = scene_200(T).compile(device=cuda)
+    args, k3kw, _ = k3_inputs(torch, mb, sd, _scene200_camera(cuda, lens), 3)
+    kw = dict(width=48, height=40, spp=4, max_bounces=8, rr_depth=3,
+              use_nee=True, use_mis=True, sky_mode=sd.sky_mode, dof=lens,
+              **k3kw)
+    before = dict(mk.LAUNCHES)
+    got = mb.megakernel_bvh_fwd(*args, **kw)
+    assert mk.LAUNCHES == dict(before, k3=before["k3"] + 1)
+    got = got.cpu().numpy()
+    want = mb.render_tiles_bvh_plain(*args, **kw).cpu().numpy()
+    assert np.isfinite(got).all() and want.mean() > 0.01
+    close = np.isclose(got, want, rtol=RTOL, atol=ATOL).all(axis=-1)
+    assert close.mean() >= MIN_CLOSE
+    assert abs(got.mean() - want.mean()) <= MAX_MEAN_REL * want.mean()
+
+
+def test_k3_equals_k1_on_cornell(cuda):
+    sd, cam = _case("cornell", cuda)
+    blob, meta, lsb, static = mk.pack_uniforms(sd, cam, 0, 3)
+    kw = dict(width=48, height=32, spp=4, max_bounces=8, rr_depth=3,
+              use_nee=True, use_mis=True, sky_mode=sd.sky_mode, dof=False)
+    args, k3kw, _ = k3_inputs(torch, mb, sd, cam, 3)
+    assert torch.equal(mb.megakernel_bvh_fwd(*args, **kw, **k3kw),
+                       mk.megakernel_fwd(blob, meta, lsb, **kw, **static))
+
+
+def test_facade_launches_k3(cuda):
+    tr = T.create_path_tracer("cuda")
+    tr.set_scene(scene_200(T))
+    tr.set_camera(_scene200_camera(cuda, False))
+    s = T.RenderSettings()
+    s.set_resolution(40, 24)
+    tr.set_settings(s)
+    before = dict(mk.LAUNCHES)
+    tr.render()
+    tr.render()
+    img = tr.get_render_result().image_f32
+    assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
+    assert mk.LAUNCHES == dict(before, k3=before["k3"] + 2)
+    assert tr.scene_data.capacity == 256

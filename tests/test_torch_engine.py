@@ -145,18 +145,31 @@ def _many_spheres(n):
 
 @pytest.mark.parametrize("route", ["capacity", "envmap", "reference", "bvh"])
 def test_unported_routes_raise_not_implemented(route):
+    """Env-map skies and the reference integrator raise, naming their
+    ROADMAP.md item.  Scenes above K1's 128 spheres ("capacity") and above
+    the BVH threshold ("bvh") do not: they render through the plain K3."""
     if route == "capacity":
         tr = _tracer(_many_spheres(130))          # capacity 256 > 128
     elif route == "bvh":
-        tr = _tracer(_many_spheres(600))          # compile wants a BVH
+        tr = _tracer(_many_spheres(600))          # compile builds a BVH
     else:
         tr = _tracer()
     if route == "envmap":
         tr._scene.set_environment_map(np.ones((4, 8, 3), np.float32))
     if route == "reference":
         tr.get_settings().integrator = "reference"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tr.render()
+    if route in ("envmap", "reference"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tr.render()
+        return
+    before = dict(tmega.LAUNCHES)
+    tr.render()
+    assert tmega.LAUNCHES == dict(before, plain=before["plain"] + 1)
+    sd = tr.scene_data
+    assert sd.capacity == (256 if route == "capacity" else 1024)
+    assert (sd.bvh is not None) == (route == "bvh")
+    img = tr.get_render_result().image_f32
+    assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 
 
 def test_result_matches_jax_facade():

@@ -200,11 +200,22 @@ def test_camera_generate_rays_matches_jax():
 
 
 def test_bvh_scene_raises_not_implemented():
-    scene = spt_tpu_torch.Scene()
-    for i in range(600):
-        scene.create_sphere(f"s{i}", (i * 0.1, 0.0, 5.0), 0.01)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scene.compile(device=CPU)
+    """A scene above BVH_AUTO_THRESHOLD does not raise: it compiles with
+    its BVH, the JAX package's tree bit for bit."""
+    scenes = []
+    for pkg in (spt_tpu, spt_tpu_torch):
+        scene = pkg.Scene()
+        for i in range(600):
+            scene.create_sphere(f"s{i}", (i * 0.1, 0.0, 5.0), 0.01)
+        scenes.append(scene)
+    sdj = scenes[0].compile()
+    sdt = scenes[1].compile(device=CPU)
+    assert sdt.capacity == 1024 and sdt.bvh is not None
+    assert sdt.bvh.max_leaf == 4 and sdt.bvh.builder == "native"
+    for f in ("node_min", "node_max", "node_skip", "node_first",
+              "node_count", "prim_idx"):
+        np.testing.assert_array_equal(getattr(sdt.bvh, f).numpy(),
+                                      np.asarray(getattr(sdj.bvh, f)))
 
 
 @pytest.mark.parametrize("tonemap,gamma,auto", [
