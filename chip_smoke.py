@@ -824,11 +824,24 @@ def run_k3_phases(torch, T, mk, dev, card, cam_cornell, cam_demo) -> dict:
     k3_ms = min(cuda_ms(torch, lambda: mb.megakernel_bvh_fwd(
         *args, **kw, **k3kw))[1] for _ in range(3))
     # The plain version's counts of sample 0 of the four (2.07M paths),
-    # times 4; the run is timed, in inference mode.
+    # times 4; the run is timed, in inference mode.  Its image holds K3's
+    # launch of that sample at the main path's full size.
     one = {}
+    kw1 = dict(kw, spp=1)
     with torch.inference_mode():
-        _, plain_ms = cuda_ms(torch, lambda: mb.render_tiles_bvh_plain(
-            *args, **dict(kw, spp=1), **k3kw, stats=one))
+        want, plain_ms = cuda_ms(torch, lambda: mb.render_tiles_bvh_plain(
+            *args, **kw1, **k3kw, stats=one))
+    got = mb.megakernel_bvh_fwd(*args, **kw1, **k3kw)
+    torch.cuda.synchronize()
+    res = compare(got, want)
+    emit(dict(phase="k3_vs_plain", case="config5_full", width=BIG_W,
+              height=BIG_H, spp=1, plain_ms=plain_ms, n_nodes=st["n_nodes"],
+              n_blocks=st["n_blocks"], builder=st["builder"],
+              pixels_differ=int((got != want).any(-1).sum()), **res))
+    check_close(res, "config5_full K3 vs plain")
+    check(float(want.mean()) > 0.01, "config5_full: plain image is black")
+    max_abs_err = max(max_abs_err, res["max_abs_err"])
+    del got, want
     stats = {k: (v * BIG_SPP if k == "paths" else [a * BIG_SPP for a in v])
              for k, v in one.items()}
     ops = mb.k3_op_count(stats)
@@ -857,8 +870,8 @@ def run_k3_phases(torch, T, mk, dev, card, cam_cornell, cam_demo) -> dict:
               nearest_nodes_per_bounce=stats["nodes"],
               shadow_nodes_per_bounce=stats["shadow_nodes"],
               active_per_bounce=stats["active"],
-              # node rows (40 bytes read) and leaf slots (16) the walks
-              # touch, served by L1/L2: not the bound's bytes
+              # node rows (40 bytes read) and filled leaf slots (16) the
+              # walks need, served by L1/L2: not the bound's bytes
               walk_bytes=40 * nodes + 16 * spheres,
               fp32_ops=ops, bytes=n_bytes, bound_ms=bound_ms,
               ops_per_path=ops / paths, plain_ms_1spp=plain_ms,

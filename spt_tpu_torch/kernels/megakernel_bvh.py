@@ -268,12 +268,14 @@ def _leaf_t(pr, ox, oy, oz, dx, dy, dz):
 
 class _Walk:
     """The packed tree, walked per lane: ``nearest`` and ``anyhit``.  Each
-    returns the number of node and sphere tests it made."""
+    returns the number of node and sphere tests the data needs: a hit
+    leaf's filled slots, not its padding (which K3 tests too)."""
 
     def __init__(self, nodef, nodei, prims, block: int):
         self.nodef, self.nodei, self.prims = nodef, nodei, prims
         self.n_nodes = nodef.shape[0] // 8
         self.block = block
+        self.filled = (prims[:, 4, :] >= 0.0).sum(dim=1)   # per leaf block
 
     def _start(self, dx, dy, dz, lanes):
         octant = ((dx < 0.0).long() * 4 + (dy < 0.0).long() * 2
@@ -314,14 +316,15 @@ class _Walk:
                 better = tmin < t[li]
                 t[li] = torch.where(better, tmin, t[li])
                 win[li] = torch.where(better, lb * self.block + j, win[li])
-                spheres += li.numel() * self.block
+                spheres += int(self.filled[lb].sum())
             ptr[idx] = nxt
             idx = idx[nxt < self.n_nodes]
         return t, win, nodes, spheres
 
     def anyhit(self, o, d, tmax, need):
         """Blocked lanes: a sphere with TMIN < t < tmax.  A lane stops at
-        its first blocker, and its sphere tests are counted up to it."""
+        its first blocker, and its sphere tests are counted up to it (or
+        over the leaf's filled slots where none blocks)."""
         blocked = torch.zeros_like(need)
         iv = tuple(_safe_inv(a) for a in d)
         base, ptr, idx = self._start(*d, need)
@@ -332,12 +335,13 @@ class _Walk:
             leaf = hit & (blk >= 0)
             li = idx[leaf]
             if li.numel():
-                tj, ok = _leaf_t(self.prims[blk[leaf].long()],
-                                 *(a[li] for a in o), *(a[li] for a in d))
+                lb = blk[leaf].long()
+                tj, ok = _leaf_t(self.prims[lb], *(a[li] for a in o),
+                                 *(a[li] for a in d))
                 hits = ok & (tj < tmax[li][:, None])
                 any_hit = hits.any(dim=1)
                 first = torch.where(any_hit, hits.int().argmax(dim=1) + 1,
-                                    self.block)
+                                    self.filled[lb])
                 spheres += int(first.sum())
                 blocked[li] = any_hit
                 nxt[leaf] = torch.where(any_hit, self.n_nodes, nxt[leaf])
@@ -427,7 +431,8 @@ def render_tiles_bvh_plain(blob: torch.Tensor, meta: torch.Tensor,
 # by hand as K1_OPS are: the bounce's shading is K1's; a walk adds the
 # safe inverse of the direction (abs, compare, divide per axis) and, per
 # node, the slab test (per axis 2 sub, 2 mul, min, max; 4 min/max to
-# combine; 3 compares).  A lower count of what the data needs.
+# combine; 3 compares).  A lower count of what the data needs: sphere tests
+# are a hit leaf's filled slots (``_Walk``), though K3 tests its padding too.
 K3_OPS = dict(K1_OPS, walk_setup=9, node_test=25)
 
 

@@ -76,7 +76,10 @@ def test_walk_nearest_and_anyhit_match_brute_force():
         torch.clamp_min(win, 0)]
     assert torch.equal(prim[found], ids[j_bf][found])
     assert 0 < nodes < 4096 * static["n_nodes"]
-    assert spheres_tested % static["block"] == 0
+    # Sphere tests count a hit leaf's filled slots: each valid sphere fills
+    # one slot, and no leaf's padding counts.
+    assert int(walk.filled.sum()) == int(sd.prim_valid.sum())
+    assert 0 < spheres_tested < nodes * static["block"]
 
     tmax = torch.from_numpy(np.random.default_rng(12).uniform(
         0.5, 20.0, 4096).astype(np.float32))

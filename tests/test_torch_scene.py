@@ -18,6 +18,7 @@ from spt_tpu.kernels import physics as jphys
 from spt_tpu_torch.core import color as tcolor
 from spt_tpu_torch.core.convert import camera_from_arrays, scene_data_from_arrays
 from spt_tpu_torch.kernels import megakernel as tmega
+from spt_tpu_torch.kernels import megakernel_bvh as tmbvh
 from spt_tpu_torch.kernels import physics as tphys
 
 # One intra-op thread: these tests trace small tensors, where torch's
@@ -200,8 +201,9 @@ def test_camera_generate_rays_matches_jax():
 
 
 def test_bvh_scene_raises_not_implemented():
-    """A scene above BVH_AUTO_THRESHOLD does not raise: it compiles with
-    its BVH, the JAX package's tree bit for bit."""
+    """A scene above BVH_AUTO_THRESHOLD no longer raises (the name dates
+    from when it did): it compiles with its BVH, the JAX package's tree bit
+    for bit, and renders through the plain K3."""
     scenes = []
     for pkg in (spt_tpu, spt_tpu_torch):
         scene = pkg.Scene()
@@ -216,6 +218,13 @@ def test_bvh_scene_raises_not_implemented():
               "node_count", "prim_idx"):
         np.testing.assert_array_equal(getattr(sdt.bvh, f).numpy(),
                                       np.asarray(getattr(sdj.bvh, f)))
+    cam = spt_tpu_torch.Camera.look_at((3.0, 0.0, 0.0), (3.0, 0.0, 5.0),
+                                       fov_degrees=40, device=CPU)
+    before = dict(tmega.LAUNCHES)
+    img = tmbvh.render_tiles_bvh(sdt, cam, 6, 4, 0, 1, max_bounces=2)
+    assert tmega.LAUNCHES == dict(before, plain=before["plain"] + 1)
+    assert img.shape == (4, 6, 3) and bool(torch.isfinite(img).all())
+    assert float(img.mean()) > 0
 
 
 @pytest.mark.parametrize("tonemap,gamma,auto", [
