@@ -175,6 +175,21 @@ struct BvhGeometry {
   }
 };
 
+// One bounce, called rather than inlined into the sample loop.  Inlined,
+// the optimizing back end (ptxas at -O1 and above, and the driver's own
+// compile of the PTX) gave images that part from the plain version's on 16
+// of 2,073,600 pixels at config 5 (NEE shadow decisions only; the PTX is
+// all round-to-nearest operations); built at -O0, or with this call, K3
+// equals the plain version on every pixel.  The cause is not known;
+// spt_tpu_torch/tools/k3_build_bits.py measures both forms.
+__device__ __noinline__ void bvh_bounce(const SceneView& sc,
+                                        const BvhGeometry& geo, Path& p,
+                                        uint32_t pid, uint32_t sample,
+                                        uint32_t seed, int k, int rr_depth,
+                                        bool use_nee, bool use_mis) {
+  trace_bounce(sc, geo, p, pid, sample, seed, k, rr_depth, use_nee, use_mis);
+}
+
 struct K3Params {
   float* out;            // (H, W, 3) radiance sum
   const float* blob;     // 21 + 8 * n_mats + 7 * max(n_light_slots, 1)
@@ -232,8 +247,8 @@ __global__ void __launch_bounds__(kThreadsBvh)
     raygen(s_blob, prm.inv_w, prm.inv_h, prm.aspect, prm.dof, pid, (float)x,
            (float)y, sample, seed, p);
     for (int k = 0; k < prm.max_bounces && p.active; ++k)
-      trace_bounce(sc, geo, p, pid, sample, seed, k, prm.rr_depth,
-                   prm.use_nee, prm.use_mis);
+      bvh_bounce(sc, geo, p, pid, sample, seed, k, prm.rr_depth,
+                 prm.use_nee, prm.use_mis);
     acc_r += p.rad_r;
     acc_g += p.rad_g;
     acc_b += p.rad_b;

@@ -1,24 +1,30 @@
 #!/usr/bin/env python3
-"""K3 built at other optimization levels, held against its plain version.
+"""K3 built other ways, held against its plain version.
 
     python3 spt_tpu_torch/tools/k3_build_bits.py
 
 Renders BASELINE config 5 (chip_smoke.scene_10k, 1920x1080, 1 spp) with the
-plain K3 and with K3 built four ways: the port's own flags
-(``_build.NVCC_FLAGS``), the same with ``-Xptxas -O0``, the same with
-``-Xcicc -O0``, and as PTX only (``code=compute_90a``), which the driver's
-own compiler turns into machine code when the library loads.  For each
-case (depth 8 with NEE+MIS, depth 8 without NEE, depth 3, and Russian
-roulette from bounce 0) it prints one JSON line with the number of pixels
-where each build's image differs from the plain one at all, and whether
-two launches of the default build agree.  Needs one CUDA card and nvcc;
-builds go to spt_tpu_torch/_build/.
+plain K3 and with K3 built several ways: the port's own flags
+(``_build.NVCC_FLAGS``); the same with ``-Xptxas -O0`` or ``-Xcicc -O0``;
+as PTX only (``code=compute_90a``), which the driver's own compiler turns
+into machine code when the library loads; and from copies of the sources
+with one edit that keeps what the kernel computes (the bounce inlined into
+the sample loop, as K3 had it first; the shadow walk not inlined), or, for
+``no_shadow_test``, with the shadow test removed, held against a plain
+version whose shadow walk never blocks.  For each case (depth 8 with
+NEE+MIS, depth 8 without NEE, depth 3, and Russian roulette from bounce 0)
+it prints one JSON line with the number of pixels where each build's image
+differs from its plain one at all, and whether two launches of the default
+build agree; then each build's time for the first case (min of 3
+launches, CUDA events).  Needs one CUDA card and nvcc; builds go to
+spt_tpu_torch/_build/.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -26,8 +32,24 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-VARIANTS = {"ptxas_O0": ["-Xptxas", "-O0"], "cicc_O0": ["-Xcicc", "-O0"],
-            "driver_jit": None}
+_BOUNCE = "__device__ __noinline__ void bvh_bounce("
+_OCCLUDED = ("  __device__ __forceinline__ bool occluded(float ox, float oy, "
+             "float oz,\n")
+_SHADOW = ("    bool blocked = geo.occluded(pox, poy, poz, ldx, ldy, ldz, "
+           "t_l - 1e-3f);")
+# tag -> (extra nvcc flags, None for PTX only), [(file, old, new)]
+VARIANTS = {
+    "ptxas_O0": (["-Xptxas", "-O0"], []),
+    "cicc_O0": (["-Xcicc", "-O0"], []),
+    "driver_jit": (None, []),
+    "bounce_inlined": ([], [("megakernel_bvh.cu", _BOUNCE, _BOUNCE.replace(
+        "__noinline__", "__forceinline__"))]),
+    "occluded_noinline": ([], [("megakernel_bvh.cu", _OCCLUDED,
+                                _OCCLUDED.replace("__forceinline__",
+                                                  "__noinline__"))]),
+    "no_shadow_test": ([], [("physics.cuh", _SHADOW,
+                             "    bool blocked = false;")]),
+}
 CASES = [dict(max_bounces=8, rr_depth=3, use_nee=True, use_mis=True),
          dict(max_bounces=8, rr_depth=3, use_nee=False, use_mis=False),
          dict(max_bounces=3, rr_depth=3, use_nee=True, use_mis=True),
@@ -49,19 +71,30 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    src = _build.CSRC / "megakernel_bvh.cu"
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
 
     def build(tag):
-        out = _build.BUILD_DIR / f"libk3_{tag}.so"
+        extra, edits = VARIANTS[tag]
+        src = _build.CSRC
+        if edits:
+            src = _build.BUILD_DIR / f"k3_{tag}"
+            shutil.rmtree(src, ignore_errors=True)
+            shutil.copytree(_build.CSRC, src)
+            for name, old, new in edits:
+                text = (src / name).read_text()
+                if text.count(old) != 1:
+                    raise RuntimeError(f"{tag}: {name} has no single {old!r}")
+                (src / name).write_text(text.replace(old, new))
         flags = list(_build.NVCC_FLAGS)
-        if VARIANTS[tag] is None:     # PTX only: the driver compiles it
+        if extra is None:             # PTX only: the driver compiles it
             flags[flags.index("arch=compute_90a,code=sm_90a")] = \
                 "arch=compute_90a,code=compute_90a"
         else:
-            flags += VARIANTS[tag]
+            flags += extra
+        out = _build.BUILD_DIR / f"libk3_{tag}.so"
         proc = subprocess.run([_build.find_nvcc(), *flags, "-o", str(out),
-                               str(src)], capture_output=True, text=True)
+                               str(src / "megakernel_bvh.cu")],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(proc.stderr)
         return tag, out, [ln.strip() for ln in
@@ -101,6 +134,15 @@ def main() -> int:
         idx = torch.nonzero(m)[:, 0].tolist()
         return dict(pixels=len(idx), first=[(q // W, q % W) for q in idx[:4]])
 
+    def plain_without_shadow_test(kw):
+        walk_anyhit = mb._Walk.anyhit
+        mb._Walk.anyhit = lambda self, o, d, tmax, need: (
+            torch.zeros_like(need), 0, 0)
+        try:
+            return mb.render_tiles_bvh_plain(*args, **kw)
+        finally:
+            mb._Walk.anyhit = walk_anyhit
+
     with torch.inference_mode():
         for c in CASES:
             kw = dict(width=W, height=H, spp=1, sky_mode=sd.sky_mode,
@@ -111,8 +153,28 @@ def main() -> int:
             res = dict(case=c, default=differ(k3, plain),
                        default_twice_equal=bool(torch.equal(k3, again)))
             for tag, lib in libs.items():
-                res[tag] = differ(launch(lib, c), plain)
+                want = plain_without_shadow_test(kw) \
+                    if tag == "no_shadow_test" else plain
+                res[tag] = differ(launch(lib, c), want)
             print(json.dumps(res), flush=True)
+
+        def ms(fn):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end)
+
+        kw = dict(width=W, height=H, spp=1, sky_mode=sd.sky_mode, dof=False,
+                  **CASES[0], **k3kw)
+        times = {"default": min(ms(lambda: mb.megakernel_bvh_fwd(
+            *args, **kw)) for _ in range(3))}
+        for tag, lib in libs.items():
+            times[tag] = min(ms(lambda: launch(lib, CASES[0]))
+                             for _ in range(3))
+        print(json.dumps(dict(case=CASES[0], spp=1, ms=times)), flush=True)
     print(json.dumps(dict(seconds=time.perf_counter() - t0)))
     return 0
 
