@@ -4,12 +4,15 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from spt_tpu_torch/csrc with nvcc,
-holds each against its plain PyTorch version on the card, drives the three
-main paths (the progressive render facade, ``create_path_tracer("cuda")``,
+holds each against its plain PyTorch version on the card, drives the main
+paths (the progressive render facade, ``create_path_tracer("cuda")``,
 through K1 at the repo's headline size; inverse rendering,
 ``InverseRenderer(backend="cuda")``, through K1 forward and K2 backward;
-and the facade on the repo's large scene, 10,000 spheres at 1920x1080,
-through K3), and times the kernels.  Each phase prints one JSON line; any
+the facade at 1920x1080 on the repo's large scene cut to 2,000 spheres,
+through K3; and the facade on the large scene itself, 10,000 spheres, with
+its gradient sky and with an environment map, through the sorted
+wavefront's K5, K6 and K7), and times the kernels and the wavefront's
+glue.  Each phase prints one JSON line; any
 failure exits nonzero and prints no result.  The last two lines are the
 kernels table and ``{"ok": true, "device": {...}}``.
 
@@ -54,6 +57,9 @@ TRAIN_SPP, TRAIN_STEPS, TRAIN_LR, K2_SPP = 16, 10, 0.02, 1024
 # spheres, 1920x1080, 4 spp, depth 8, RR 3, NEE+MIS, seed 5.
 BIG_W, BIG_H, BIG_SPP, BIG_SEED = 1920, 1080, 4, 5
 CAM_10K = dict(position=(0, 0, -10), target=(0, 0, 60), fov_degrees=65)
+# Config 5 cut to the largest capacity the facade still gives K3 (2048):
+# K3's main path since the wavefront takes capacities above it.
+K3_MAIN_SPHERES = 2000
 
 
 def emit(obj) -> None:
@@ -134,6 +140,22 @@ def scene_10k(pkg, n=10_000, seed=42):
         m = emit_m if i % 500 == 0 else mats[i % len(mats)]
         scene.create_sphere(f"s{i}", tuple(pos[i]), float(rad[i]), m)
     return scene
+
+
+def big_tracer(pkg, dev, scene, spp=BIG_SPP):
+    """The facade at config 5's settings (1920x1080, depth 8, RR 3,
+    NEE+MIS, seed 5, its camera) on ``scene``."""
+    tracer = pkg.create_path_tracer("cuda")
+    tracer.set_scene(scene)
+    tracer.set_camera(pkg.Camera.look_at(device=dev, **CAM_10K))
+    s = pkg.RenderSettings()
+    s.set_resolution(BIG_W, BIG_H)
+    s.samples_per_pixel = spp
+    s.max_bounces, s.russian_roulette_depth = DEPTH, RR
+    s.use_nee = s.use_mis = True
+    s.seed = BIG_SEED
+    tracer.set_settings(s)
+    return tracer
 
 
 def scene_200(pkg, n=200, seed=9):
@@ -388,7 +410,8 @@ def run() -> int:
               cornell_mean=float(img.mean()), demo38_mean=float(img2.mean())))
     check(counts["k1"] > 0, "K1 was not launched on the main path")
     check(counts["k2"] == 0, "K2 was launched by a forward render")
-    check(counts["k3"] == 0, "K3 was launched for a small scene")
+    check(all(counts[k] == 0 for k in ("k3", "k5", "k6", "k7")),
+          "K3 or the wavefront ran for a small scene")
     check(counts["plain"] == 0, "the plain version ran on the main path")
     check(tracer.frame_count == SPP and demo.frame_count == 8,
           "frame counts")
@@ -444,12 +467,15 @@ def run() -> int:
         else "bytes"
     k2 = run_k2_phases(torch, T, mk, dev, card, cam_cornell, (blob, stats))
     k3 = run_k3_phases(torch, T, mk, dev, card, cam_cornell, cam_demo)
-    k1_launches = {"render": counts["k1"], "train": k2["k1_train"],
-                   "bvh": k3["launches"]["k1"]}
-    k2_launches = {"render": counts["k2"], "train": k2["k2_train"],
-                   "bvh": k3["launches"]["k2"]}
-    k3_launches = {"render": counts["k3"], "train": k2["k3_train"],
-                   "bvh": k3["launches"]["k3"]}
+    wf = run_wf_phases(torch, T, mk, dev, card, k3)
+    paths = {"render": counts, "train": k2["launches"],
+             "bvh": k3["launches"], "wavefront": wf["launches"]}
+
+    def by_path(key):
+        return {path: c[key] for path, c in paths.items()}
+
+    k1_launches, k2_launches, k3_launches = (by_path(k) for k in
+                                             ("k1", "k2", "k3"))
 
     # 16. Kernels line, then the result ---------------------------------------
     emit({"kernels": [
@@ -480,7 +506,16 @@ def run() -> int:
              max_abs_err=k3["max_abs_err"], ms=k3["ms"],
              plain_ms=k3["plain_ms"], plain_size=k3["plain_size"],
              bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],
-             library_ms=None, checked_against_plain=True)]})
+             library_ms=None, checked_against_plain=True)]
+        + [dict(name=f"K{i} wavefront {fn}", route="cuda",
+                source="spt_tpu_torch/csrc/wavefront.cu",
+                replaces=f"spt_tpu/kernels/wavefront.py:{line}::{tpu}",
+                launches=sum(by_path(f"k{i}").values()),
+                launches_by_path=by_path(f"k{i}"), **wf[f"k{i}"],
+                library_ms=None, checked_against_plain=True)
+           for i, fn, line, tpu in ((5, "raygen", 154, "_raygen_kernel"),
+                                    (6, "isect", 490, "_isect_kernel"),
+                                    (7, "shade", 582, "_shade_kernel"))]})
     emit(dict(phase="done", seconds=time.perf_counter() - t_all))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
@@ -642,7 +677,8 @@ def run_k2_phases(torch, T, mk, dev, card, cam_cornell, k1_work) -> dict:
     check(counts["k2"] == TRAIN_STEPS, f"K2 launches {counts['k2']}")
     check(counts["k1"] == TRAIN_STEPS + 1, f"K1 launches {counts['k1']}")
     check(counts["plain"] == 0, "the plain version ran on the training path")
-    check(counts["k3"] == 0, "K3 was launched on the training path")
+    check(all(counts[k] == 0 for k in ("k3", "k5", "k6", "k7")),
+          "K3 or the wavefront ran on the training path")
 
     # 10. K2 at the headline size: one 1024-spp render_and_grad launch -------
     blob, meta, lsb, static = mk.pack_uniforms(sd, cam, 0, SEED)
@@ -674,9 +710,7 @@ def run_k2_phases(torch, T, mk, dev, card, cam_cornell, k1_work) -> dict:
               bytes=n_bytes, bound_ms=bound_ms, ops_per_path=ops / paths,
               lit_per_path=sum(stats["lit"]) / paths,
               plain_ms=plain_ms, plain_size=f"{W}x{H} x 4 spp (Cornell)"))
-    return dict(k1_train=counts["k1"], k2_train=counts["k2"],
-                k3_train=counts["k3"],
-                max_abs_err=max_abs_err, ms=k2_ms, plain_ms=plain_ms,
+    return dict(launches=counts, max_abs_err=max_abs_err, ms=k2_ms, plain_ms=plain_ms,
                 plain_size=f"{W}x{H} x 4 spp", bound_ms=bound_ms,
                 bound_by="operations" if ops / FP32_PEAK >= n_bytes / HBM_RATE
                 else "bytes")
@@ -762,26 +796,14 @@ def run_k3_phases(torch, T, mk, dev, card, cam_cornell, cam_demo) -> dict:
         max_abs_err = max(max_abs_err, res["max_abs_err"])
         plain_small[label] = p_ms
 
-    # 14. Main path: the facade on config 5 at 1920x1080, counted ----------
-    def big_tracer(scene):
-        tracer = T.create_path_tracer("cuda")
-        tracer.set_scene(scene)
-        tracer.set_camera(T.Camera.look_at(device=dev, **CAM_10K))
-        s = T.RenderSettings()
-        s.set_resolution(BIG_W, BIG_H)
-        s.samples_per_pixel = BIG_SPP
-        s.max_bounces, s.russian_roulette_depth = DEPTH, RR
-        s.use_nee = s.use_mis = True
-        s.seed = BIG_SEED
-        tracer.set_settings(s)
-        return tracer
-
+    # 14. Main path: the facade at 1920x1080 on config 5 cut to the largest
+    # capacity the facade gives K3 (2,000 spheres, capacity 2048), counted
     mb._PACK_CACHE.clear()           # the facade packs its scene afresh
     mk.reset_launch_counts()
     t0 = time.perf_counter()
-    scene = scene_10k(T)
+    scene = scene_10k(T, n=K3_MAIN_SPHERES)
     scene_s = time.perf_counter() - t0
-    tracer = big_tracer(scene)
+    tracer = big_tracer(T, dev, scene)
     tracer.render_to_completion()
     img = tracer.get_render_result().image_f32
     torch.cuda.synchronize()
@@ -800,6 +822,8 @@ def run_k3_phases(torch, T, mk, dev, card, cam_cornell, cam_demo) -> dict:
     check(counts["k3"] > 0, "K3 was not launched on the large-scene path")
     check(counts["k1"] == 0 and counts["k2"] == 0,
           "K1 or K2 was launched on the large-scene path")
+    check(all(counts[k] == 0 for k in ("k5", "k6", "k7")),
+          "the wavefront ran for a scene K3 takes")
     check(counts["plain"] == 0, "the plain version ran on the large path")
     check(tracer.frame_count == BIG_SPP, "frame count")
     check(tuple(img.shape) == (BIG_H, BIG_W, 3), f"config5: shape {img.shape}")
@@ -807,7 +831,7 @@ def run_k3_phases(torch, T, mk, dev, card, cam_cornell, cam_demo) -> dict:
     check(float(img.mean()) > 0.01, "config5: image is black")
 
     def big_again():
-        again = big_tracer(scene)
+        again = big_tracer(T, dev, scene)
         again.render_to_completion()
         again.get_render_result()
 
@@ -815,7 +839,8 @@ def run_k3_phases(torch, T, mk, dev, card, cam_cornell, cam_demo) -> dict:
     emit(dict(phase="bvh_main_path_profile", unprofiled_wall_ms=1e3 * wall_s,
               packing_cached=True, **prof))
 
-    # 15. K3 at the full size: one 4-spp launch ------------------------------
+    # 15. K3 at the full size: one 4-spp launch on config 5 ---------------
+    sd = sd10
     kw = dict(width=BIG_W, height=BIG_H, spp=BIG_SPP, max_bounces=DEPTH,
               rr_depth=RR, use_nee=True, use_mis=True, sky_mode=sd.sky_mode,
               dof=False)
@@ -878,12 +903,331 @@ def run_k3_phases(torch, T, mk, dev, card, cam_cornell, cam_demo) -> dict:
               plain_ms_small=plain_small, n_nodes=st["n_nodes"],
               n_blocks=st["n_blocks"], other_blocks=block_ms))
     return dict(launches=counts, max_abs_err=max_abs_err, ms=k3_ms,
-                plain_ms=plain_ms,
+                plain_ms=plain_ms, sd10=sd10, cam10=cam10,
                 plain_size=f"{BIG_W}x{BIG_H} x 1 spp (config 5, counting "
                            "its work)",
                 bound_ms=bound_ms,
                 bound_by="operations" if ops / FP32_PEAK >= n_bytes / HBM_RATE
                 else "bytes")
+
+
+# The environment map of the wavefront's main path: tests/test_wavefront.py's
+# smooth gradient at 512x1024, made here (no file to read).
+ENV_H, ENV_W = 512, 1024
+# The crossover scenes: config 5 at fewer spheres, K3 against the wavefront.
+CROSSOVER_SPHERES = (2_500, 5_000)
+
+
+def env_gradient(he=ENV_H, we=ENV_W):
+    """A smooth anisotropic (he, we, 3) environment map."""
+    v = np.linspace(0.0, 1.0, he, dtype=np.float32)[:, None]
+    u = np.linspace(0.0, 1.0, we, dtype=np.float32)[None, :]
+    r = 0.2 + 0.8 * v * np.ones_like(u)
+    g = 0.3 + 0.5 * np.sin(2 * np.pi * u) ** 2 * np.ones_like(v)
+    b = 0.6 + 0.4 * u * np.ones_like(v)
+    return np.stack([r, g, b], axis=-1)
+
+
+def wf_inputs(torch, wf, mb, sd, cam, seed):
+    """The wavefront's packed tensors, static dict and meta (samples from
+    0) for a compiled scene and camera."""
+    t, st = mb.packed(sd, cam, wf.BLOCK)
+    meta = torch.tensor([0, seed, st["n_light_slots"]], dtype=torch.int32,
+                        device=sd.device)
+    return t, st, meta
+
+
+def wf_bounce(torch, wf, t, stc, meta, width, height, k, seed):
+    """The inputs of one wavefront bounce's kernels as ``render_wavefront``
+    makes them, 2 spp of a scene after raygen (K5), a sort and the
+    precull: the stream and its alive prefix ``n`` (lanes), the nearest-hit
+    lists, K6's residual and the shadow lists.  Returns a dict."""
+    block, prims = stc["block"], t["prims"]
+    st, ids = wf.raygen(t["blob"], meta, width=width, height=height,
+                        chunk_spp=2, dof=False)
+    buf = wf._stream_buffer(st, ids)
+    n = wf._sort_rays(buf, buf.shape[1], *wf._scene_sort_bounds(
+        t["nodef"])) * wf.TILE
+    lob, hib = wf._leaf_block_bounds(prims.reshape(-1, 5, block))
+    cand, ctn = wf.precull_tiles(
+        tuple(st[c, :n] for c in range(3)),
+        tuple(st[c, :n] for c in range(3, 6)), st[wf.C_ALIVE, :n], None,
+        lob, hib)
+    res = wf.isect(prims, cand, ctn, st, n, block=block)
+    nls = stc["n_light_slots"]
+    so3, sd3, stmax, sneed = wf.shadow_rays(
+        st[:, :n], ids[:, :n], res, t["blob"], t["lsb"], nls, k=k,
+        seed=seed, n_mats=stc["n_mats"], mtypes=stc["mtypes"],
+        n_light_slots=nls)
+    scand, sctn = wf.precull_tiles(so3, sd3, sneed, stmax, lob, hib)
+    return dict(st=st, ids=ids, buf=buf, n=n, cand=cand, ctn=ctn, res=res,
+                scand=scand, sctn=sctn)
+
+
+def bound(ops, n_bytes):
+    """(bound_ms, bound_by) of fp32 operations and bytes on one H100."""
+    t_ops, t_bytes = ops / FP32_PEAK, n_bytes / HBM_RATE
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes \
+        else "bytes"
+
+
+def run_wf_phases(torch, T, mk, dev, card, k3) -> dict:
+    """The sorted wavefront (K5-K7): each kernel against its plain version,
+    the whole render against its plain version and against K3, the facade
+    on config 5 with its gradient sky and with an environment map, and the
+    timing.  Returns the launch counts of the facade runs and the kernels
+    line's numbers."""
+    from spt_tpu_torch.kernels import _build, megakernel_bvh as mb
+    from spt_tpu_torch.kernels import wavefront as wf
+
+    def check_close(res, label):
+        check(res["finite"], f"{label}: not finite")
+        check(res["frac_close"] >= MIN_CLOSE,
+              f"{label}: {res['frac_close']:.5f} close")
+        check(res["mean_rel"] <= MAX_MEAN_REL,
+              f"{label}: means differ by {res['mean_rel']:.5f}")
+
+    info = _build.BUILD_INFO["wavefront"]
+    emit(dict(phase="wf_build", seconds=info["seconds"],
+              cached=info["cached"], ptxas=info["ptxas"]))
+    sd10, cam10 = k3["sd10"], k3["cam10"]
+    out = {}
+
+    # 17. K5 against its plain version, bit for bit -------------------------
+    cam_lens = T.Camera.look_at(device=dev, aperture=0.5, focus_dist=50.0,
+                                **CAM_10K)
+    for label, cam, w, h in (("config5", cam10, BIG_W, BIG_H),
+                             ("config5_thin_lens", cam_lens, 240, 136)):
+        t, st, meta = wf_inputs(torch, wf, mb, sd10, cam, BIG_SEED)
+        kw = dict(width=w, height=h, chunk_spp=2,
+                  dof=float(cam.aperture) > 0)
+        (st_k, ids_k), k_ms = cuda_ms(torch, lambda: wf.raygen(
+            t["blob"], meta, **kw))
+        (st_p, ids_p), p_ms = cuda_ms(torch, lambda: wf.raygen_plain(
+            t["blob"], meta, **kw))
+        a = wf._stream_buffer(st_k, ids_k).view(torch.int32)
+        b = wf._stream_buffer(st_p, ids_p).view(torch.int32)
+        differ = int((a != b).any(dim=0).sum())
+        emit(dict(phase="k5_vs_plain", case=label, width=w, height=h, spp=2,
+                  lanes=a.shape[1], lanes_differ=differ, k5_ms=k_ms,
+                  plain_ms=p_ms))
+        check(differ == 0, f"{label}: K5 differs on {differ} lanes")
+        if label == "config5":
+            lanes = a.shape[1]
+            k5_ms = min(cuda_ms(torch, lambda: wf.raygen(
+                t["blob"], meta, **kw))[1] for _ in range(3))
+            out["k5"] = dict(ms=k5_ms, plain_ms=p_ms, max_abs_err=0.0,
+                             plain_size=f"{w}x{h} x 2 spp (config 5)",
+                             lanes=lanes)
+            out["k5"]["bound_ms"], out["k5"]["bound_by"] = bound(
+                0, 4 * (wf.N_CH + wf.N_IDS) * lanes + 4 * (15 + 3))
+        del st_k, ids_k, st_p, ids_p, a, b
+
+    # 18. One config-5 bounce at full size: K6 and K7 against their plain
+    # versions, after raygen, a sort and the precull ---------------------
+    t, stc, meta = wf_inputs(torch, wf, mb, sd10, cam10, BIG_SEED)
+    block, prims = stc["block"], t["prims"]
+    b0 = wf_bounce(torch, wf, t, stc, meta, BIG_W, BIG_H, 0, BIG_SEED)
+    st, n, cand, ctn, res_k = (b0[k] for k in ("st", "n", "cand", "ctn",
+                                               "res"))
+    k6_ms = min(cuda_ms(torch, lambda: wf.isect(
+        prims, cand, ctn, st, n, block=block))[1] for _ in range(3))
+    k6_stats = {}
+    with torch.inference_mode():
+        res_p, k6_plain_ms = cuda_ms(torch, lambda: wf.isect_plain(
+            prims, cand, ctn, st, n, block=block, stats=k6_stats))
+    differ = int((res_k.view(torch.int32) != res_p.view(torch.int32))
+                 .any(dim=0).sum())
+    hits = int((res_k[4] >= 0).sum())
+    pad_wins = int(((res_k[4] < 0) & (res_k[5] >= 0)).sum())
+    n_cand = cand[:, 0, 0].double()
+    emit(dict(phase="k6_vs_plain", case="config5_bounce0", lanes=n,
+              lanes_differ=differ, hits=hits, padding_winners=pad_wins,
+              k6_ms=k6_ms, plain_ms=k6_plain_ms,
+              candidates_per_tile=float(n_cand.mean()),
+              blocks_swept_per_lane=k6_stats["blocks"] / n,
+              spheres_per_lane=k6_stats["spheres"] / n))
+    check(differ == 0, f"K6 winners differ from the plain K6 on {differ}")
+    check(hits > 0, "K6 found no hit")
+    k6_ops = wf.k6_op_count(k6_stats)
+    k6_bytes = 4 * (prims.numel() + cand.numel() + ctn.numel()
+                    + 7 * n + wf.N_RES * n)
+    out["k6"] = dict(ms=k6_ms, plain_ms=k6_plain_ms, max_abs_err=0.0,
+                     plain_size=f"{n} rays (config 5, bounce 0, counting "
+                                "its work)", fp32_ops=k6_ops)
+    out["k6"]["bound_ms"], out["k6"]["bound_by"] = bound(k6_ops, k6_bytes)
+
+    scand, sctn = b0["scand"], b0["sctn"]
+    base = b0["buf"].clone()
+    kw7 = dict(k=0, block=block, n_mats=stc["n_mats"],
+               n_light_slots=stc["n_light_slots"],
+               rr_depth=RR, use_nee=True, use_mis=True,
+               sky_mode=sd10.sky_mode)
+
+    def fresh():
+        b = base.clone()
+        return b[:wf.N_CH], b[wf.N_CH:].view(torch.int32)
+
+    args7 = (t["blob"], meta, t["lsb"], prims, t["mtypes"], scand, sctn)
+    st_k, ids_k = fresh()
+    k7_ms = []
+    for _ in range(3):
+        wf._stream_buffer(st_k, ids_k).copy_(base)
+        k7_ms.append(cuda_ms(torch, lambda: wf.shade(
+            *args7, st_k, ids_k, res_k, n, **kw7))[1])
+    st_p, ids_p = fresh()
+    k7_stats = {}
+    with torch.inference_mode():
+        _, k7_plain_ms = cuda_ms(torch, lambda: wf.shade_plain(
+            *args7, st_p, ids_p, res_k, n, stats=k7_stats, **kw7))
+    a, b = st_k[:, :n], st_p[:, :n]
+    lanes_differ = int((a.view(torch.int32) != b.view(torch.int32))
+                       .any(dim=0).sum())
+    close = torch.isclose(a, b, rtol=RTOL, atol=ATOL)
+    mean_rel = max(abs(float(a[c].double().mean() - b[c].double().mean()))
+                   / max(abs(float(b[c].double().mean())), 1e-12)
+                   for c in range(wf.C_TR, wf.C_LB + 1))
+    res7 = dict(max_abs_err=float((a - b).abs().max()),
+                frac_close=float(close.double().mean()), mean_rel=mean_rel,
+                finite=bool(torch.isfinite(a).all()))
+    emit(dict(phase="k7_vs_plain", case="config5_bounce0", lanes=n,
+              lanes_differ=lanes_differ, k7_ms=k7_ms, plain_ms=k7_plain_ms,
+              shadow_candidates_per_tile=float(scand[:, 0, 0].double()
+                                               .mean()),
+              shadow_blocks_per_ray=k7_stats["shadow_blocks"]
+              / max(k7_stats["shadow"], 1),
+              alive_after=int((a[wf.C_ALIVE] > 0.5).sum()), **res7))
+    check_close(res7, "K7 vs plain")
+    check(int((a[wf.C_ALIVE] > 0.5).sum()) > 0, "K7 left no ray alive")
+    k7_ops = wf.k7_op_count(k7_stats)
+    k7_bytes = 4 * (2 * wf.N_CH * n + wf.N_IDS * n + wf.N_RES * n
+                    + scand.numel() + sctn.numel() + prims.numel())
+    out["k7"] = dict(ms=min(k7_ms), plain_ms=k7_plain_ms,
+                     max_abs_err=res7["max_abs_err"],
+                     plain_size=f"{n} rays (config 5, bounce 0, counting "
+                                "its work)", fp32_ops=k7_ops)
+    out["k7"]["bound_ms"], out["k7"]["bound_by"] = bound(k7_ops, k7_bytes)
+    del b0, base, st, st_k, ids_k, st_p, ids_p, a, b, close
+    del cand, ctn, scand, sctn, res_k, res_p
+
+    # 19. The whole wavefront against its plain version ---------------------
+    cam200 = T.Camera.look_at((0, 2.0, -4.0), (0, 1.0, 14.0), fov_degrees=60,
+                              aperture=0.3, focus_dist=14.0, device=dev)
+    for label, sd, cam, w, h, spp, seed in [
+            ("config5", sd10, cam10, 240, 136, 2, BIG_SEED),
+            ("scene200_thin_lens", scene_200(T).compile(device=dev), cam200,
+             64, 64, 8, SEED)]:
+        kw = dict(max_bounces=DEPTH, rr_depth=RR, seed=seed, sort_min_rays=0)
+        got, k_ms = cuda_ms(torch, lambda: wf.render_wavefront(
+            sd, cam, w, h, 0, spp, **kw))
+        want, p_ms = cuda_ms(torch, lambda: wf.render_wavefront(
+            sd, cam, w, h, 0, spp, plain=True, **kw))
+        res = compare(got, want)
+        emit(dict(phase="wf_vs_plain", case=label, width=w, height=h,
+                  spp=spp, wavefront_ms=k_ms, plain_ms=p_ms,
+                  pixels_differ=int((got != want).any(-1).sum()), **res))
+        check_close(res, f"{label} wavefront vs plain")
+        check(float(want.mean()) > 0.01, f"{label}: plain image is black")
+        out["k7"]["max_abs_err"] = max(out["k7"]["max_abs_err"],
+                                       res["max_abs_err"])
+
+    # 20. The wavefront against K3 on config 5, 1920x1080 x 1 spp ----------
+    kw = dict(max_bounces=DEPTH, rr_depth=RR, seed=BIG_SEED)
+    got = wf.render_wavefront(sd10, cam10, BIG_W, BIG_H, 0, 1, **kw)
+    args, k3kw, _ = k3_inputs(torch, mb, sd10, cam10, BIG_SEED)
+    want = mb.megakernel_bvh_fwd(
+        *args, width=BIG_W, height=BIG_H, spp=1, max_bounces=DEPTH,
+        rr_depth=RR, use_nee=True, use_mis=True, sky_mode=sd10.sky_mode,
+        dof=False, **k3kw)
+    torch.cuda.synchronize()
+    res = compare(got, want)
+    emit(dict(phase="wf_vs_k3", case="config5_full", width=BIG_W,
+              height=BIG_H, spp=1,
+              pixels_differ=int((got != want).any(-1).sum()), **res))
+    check_close(res, "wavefront vs K3")
+    del got, want
+
+    # 21. Main path: the facade on config 5, with its gradient sky and with
+    # an environment map, 4 spp at 1920x1080, counted ----------------------
+    out["launches"] = {k: 0 for k in mk.LAUNCHES}
+    walls = {}
+    for label in ("config5", "config5_envmap"):
+        mb._PACK_CACHE.clear()       # the facade packs its scene afresh
+        mk.reset_launch_counts()
+        t0 = time.perf_counter()
+        scene = scene_10k(T)
+        if label == "config5_envmap":
+            scene.set_environment_map(env_gradient())
+        scene_s = time.perf_counter() - t0
+        tracer = big_tracer(T, dev, scene)
+        tracer.render_to_completion()
+        img = tracer.get_render_result().image_f32
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = dict(mk.LAUNCHES)
+        sd = tracer.scene_data
+        pack = mb.packed(sd, cam10)[1]["seconds"]
+        walls[label] = wall_s
+        emit(dict(phase="wf_main_path", case=label, wall_s=wall_s,
+                  scene_build_s=scene_s, compile_s=tracer.compile_seconds,
+                  pack_s=pack["pack"], launches=counts,
+                  spp=tracer.frame_count, capacity=sd.capacity,
+                  sky_mode=sd.sky_mode, mean=float(img.mean())))
+        check(all(counts[k] > 0 for k in ("k5", "k6", "k7")),
+              f"{label}: K5, K6 or K7 was not launched")
+        check(counts["k5"] == 2, f"{label}: {counts['k5']} raygen launches")
+        check(all(counts[k] == 0 for k in ("k1", "k2", "k3")),
+              f"{label}: K1, K2 or K3 was launched")
+        check(counts["plain"] == 0, f"{label}: a plain version ran")
+        check(tracer.frame_count == BIG_SPP, f"{label}: frame count")
+        check(tuple(img.shape) == (BIG_H, BIG_W, 3), f"{label}: shape")
+        check(bool(torch.isfinite(img).all()), f"{label}: not finite")
+        check(float(img.mean()) > 0.01, f"{label}: image is black")
+        for k, v in counts.items():
+            out["launches"][k] += v
+
+    def wf_again():
+        again = big_tracer(T, dev, scene)
+        again.render_to_completion()
+        again.get_render_result()
+
+    prof = profiled(torch, wf_again, "shade_kernel")
+    emit(dict(phase="wf_main_path_profile", case="config5_envmap",
+              unprofiled_wall_ms=1e3 * walls["config5_envmap"],
+              packing_cached=True, **prof))
+
+    # 22. Timing: each stage of a config-5 render, and K3 against the
+    # wavefront on the crossover scenes -----------------------------------
+    sd_env = tracer.scene_data
+    for label, sd in (("config5", sd10), ("config5_envmap", sd_env)):
+        times = {}
+        t0 = time.perf_counter()
+        wf.render_wavefront(sd, cam10, BIG_W, BIG_H, 0, BIG_SPP,
+                            times=times, **kw)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        emit(dict(phase="wf_timing", case=label, card=card,
+                  spp=BIG_SPP, wall_ms_synced=wall_ms,
+                  stage_ms={k: sum(v) for k, v in times.items()},
+                  per_launch_ms=times))
+    crossover = {}
+    for n_sph in CROSSOVER_SPHERES + (10_000,):
+        sd = sd10 if n_sph == 10_000 else \
+            scene_10k(T, n=n_sph).compile(device=dev)
+        args, k3kw, st3 = k3_inputs(torch, mb, sd, cam10, BIG_SEED)
+        k3kw.update(width=BIG_W, height=BIG_H, spp=BIG_SPP,
+                    max_bounces=DEPTH, rr_depth=RR, use_nee=True,
+                    use_mis=True, sky_mode=sd.sky_mode, dof=False)
+        mb.megakernel_bvh_fwd(*args, **k3kw)
+        k3_ms = cuda_ms(torch, lambda: mb.megakernel_bvh_fwd(
+            *args, **k3kw))[1]
+        t0 = time.perf_counter()
+        wf.render_wavefront(sd, cam10, BIG_W, BIG_H, 0, BIG_SPP, **kw)
+        torch.cuda.synchronize()
+        crossover[n_sph] = dict(k3_ms=k3_ms, n_blocks=st3["n_blocks"],
+                                wavefront_ms=1e3 * (time.perf_counter() - t0))
+    emit(dict(phase="wf_crossover", card=card, size=f"{BIG_W}x{BIG_H}",
+              spp=BIG_SPP, scenes=crossover))
+    return out
 
 
 def main() -> int:

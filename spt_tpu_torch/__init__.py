@@ -12,7 +12,10 @@ beside its plain PyTorch version for the CPU:
   K2 backward, and ``diff.gradients.InverseRenderer``;
 * slice 3: the forward render of scenes above 128 spheres through the
   same facade: a BVH (``core.bvh``), its packing, and K3, which walks it
-  per pixel.
+  per pixel;
+* slice 4: the sorted wavefront (``kernels.wavefront``: K5 raygen, K6
+  intersect, K7 shade, with torch-op glue between them), which the facade
+  takes for environment-map skies and scenes above 2048 spheres.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 See ROADMAP.md for what comes next.

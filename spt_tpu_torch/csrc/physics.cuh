@@ -232,10 +232,13 @@ __device__ __forceinline__ void sky_radiance(const SceneView& sc, float dy,
   }
 }
 
-// One bounce of an active path against geometry geo (SphereList, or K3's
-// BVH walk).  Leaves p.active false when the path ends.
+// One bounce of an active path against geometry geo (SphereList, K3's BVH
+// walk or K7's rebuilt winner).  Leaves p.active false when the path ends.
+// Returns whether the path missed every sphere this bounce: the plain
+// version's want_miss flag, which the wavefront turns into environment-map
+// radiance between its kernels (K1-K3 drop it).
 template <class Geometry>
-__device__ void trace_bounce(const SceneView& sc, const Geometry& geo, Path& p,
+__device__ bool trace_bounce(const SceneView& sc, const Geometry& geo, Path& p,
                              uint32_t pid, uint32_t sample, uint32_t seed,
                              int k, int rr_depth, bool use_nee, bool use_mis) {
   const uint32_t kdim = (uint32_t)(k * kNDims);
@@ -248,7 +251,7 @@ __device__ void trace_bounce(const SceneView& sc, const Geometry& geo, Path& p,
     p.rad_g = p.rad_g + p.th_g * sg;
     p.rad_b = p.rad_b + p.th_b * sb;
     p.active = false;
-    return;
+    return true;
   }
   const float* mat = hit.mat;
   const float cx = hit.cx, cy = hit.cy, cz = hit.cz, cr = hit.r;
@@ -478,7 +481,7 @@ __device__ void trace_bounce(const SceneView& sc, const Geometry& geo, Path& p,
   }
   if (!active_n) {
     p.active = false;
-    return;
+    return false;
   }
   const float eo = kEps * off_sign;
   p.ox = hx + eo * nsx;
@@ -492,6 +495,7 @@ __device__ void trace_bounce(const SceneView& sc, const Geometry& geo, Path& p,
   p.th_b = th_b_n;
   p.prev_pdf = pdf_new;
   p.prev_spec = spec_new;
+  return false;
 }
 
 // K1's and K2's bounce: trace_bounce over the sphere list.

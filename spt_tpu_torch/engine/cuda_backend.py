@@ -1,11 +1,13 @@
-"""The "cuda" backend: the progressive facade over the forward megakernels.
+"""The "cuda" backend: the progressive facade over the forward kernels.
 
-Scenes of at most ``megakernel.MAX_PRIMS`` (128) spheres go to
-``megakernel.render_tiles`` (kernel K1 on the card, its plain version on
-the CPU); larger ones to ``megakernel_bvh.render_tiles_bvh`` (K3, the BVH
-walk).  Every size goes to K3: the sorted wavefront that the JAX package
-takes above 2048 spheres is not ported.  Other routes raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+Routed as the JAX package's "pallas" backend routes
+(``spt_tpu/engine/pallas_backend.py``): every environment-map scene, and
+every scene whose capacity is above ``WAVEFRONT_MIN_PRIMS``, goes to the
+sorted wavefront (``wavefront.render_wavefront``: K5-K7); capacities from
+129 to 2048 to ``megakernel_bvh.render_tiles_bvh`` (K3, the BVH walk); the
+rest to ``megakernel.render_tiles`` (K1).  On the card each runs its CUDA
+kernels, on the CPU their plain versions.  The ``"reference"`` integrator
+raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -13,8 +15,13 @@ from __future__ import annotations
 import torch
 
 from ..core.scene import SKY_ENVMAP
-from ..kernels import megakernel, megakernel_bvh
+from ..kernels import megakernel, megakernel_bvh, wavefront
 from .api import PathTracerBase, camera_has_dof, register_backend
+
+# Above this capacity scenes go to the wavefront, as in the JAX package
+# (where the number has no measurement behind it; ROADMAP.md keeps moving it
+# for a benchmark with cells on both sides).
+WAVEFRONT_MIN_PRIMS = 2048
 
 
 class CudaPathTracer(PathTracerBase):
@@ -27,15 +34,13 @@ class CudaPathTracer(PathTracerBase):
             raise NotImplementedError(
                 "integrator='reference' is not ported yet: ROADMAP.md "
                 "item 13, 'The \"reference\" integrator mode'")
-        if sd.sky_mode == SKY_ENVMAP:
-            raise NotImplementedError(
-                "environment-map skies need the sorted wavefront (K5-K7), "
-                "not ported yet: ROADMAP.md item 6, 'Sorted wavefront "
-                "forward'")
         camera = self._camera or self._default_camera()
-        render = (megakernel_bvh.render_tiles_bvh
-                  if sd.capacity > megakernel.MAX_PRIMS
-                  else megakernel.render_tiles)
+        if sd.sky_mode == SKY_ENVMAP or sd.capacity > WAVEFRONT_MIN_PRIMS:
+            render = wavefront.render_wavefront
+        elif sd.capacity > megakernel.MAX_PRIMS:
+            render = megakernel_bvh.render_tiles_bvh
+        else:
+            render = megakernel.render_tiles
         return render(
             sd, camera, s.width, s.height, start_sample, spp,
             max_bounces=s.max_bounces, rr_depth=s.russian_roulette_depth,

@@ -53,6 +53,17 @@ ENTRIES = {
         # use_nee, use_mis, sky_mode, dof, inv_w, inv_h, aspect, stream
         "spt_megakernel_bvh_fwd": [_P] * 8 + [_I] * 13 + [_F, _F, _F, _P],
     },
+    "wavefront": {
+        # st, ids, blob, meta, width, height, tiles_x, tiles_per_img,
+        # n_tiles, n_lanes, dof, inv_w, inv_h, aspect, stream
+        "spt_wavefront_raygen": [_P] * 4 + [_I] * 7 + [_F, _F, _F, _P],
+        # res, st, prims, cand, ctn, stride, n_lanes, n_blocks, block, stream
+        "spt_wavefront_isect": [_P] * 5 + [_I] * 4 + [_P],
+        # st, ids, res, blob, meta, lsb, prims, mtypes, scand, sctn, stride,
+        # n_lanes, n_blocks, block, n_mats, n_light_slots, k, rr_depth,
+        # use_nee, use_mis, sky_mode, stream
+        "spt_wavefront_shade": [_P] * 10 + [_I] * 11 + [_P],
+    },
 }
 
 _LOADED: dict = {}

@@ -19,9 +19,11 @@ order s = 0 … spp-1.
   ops, for gradients with respect to the scene.
 
 ``LAUNCHES`` counts K1 launches (``"k1"``), K2 launches (``"k2"``, see
-``megakernel_grad``), K3 launches (``"k3"``, see ``megakernel_bvh``) and
-plain-version runs of any of them (``"plain"``), so a caller can see which
-path a render took.
+``megakernel_grad``), K3 launches (``"k3"``, see ``megakernel_bvh``), the
+wavefront's K5, K6 and K7 launches (``"k5"``, ``"k6"``, ``"k7"``, see
+``wavefront``) and plain-version runs of any of them (``"plain"``: one per
+call of a plain version, so a wavefront render on the CPU adds one per
+raygen and two per bounce), so a caller can see which path a render took.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ _META_FIXED = 3
 # and every ray tests every sphere.
 MAX_PRIMS = 128
 
-LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "plain": 0}
+LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "k5": 0, "k6": 0, "k7": 0,
+            "plain": 0}
 
 
 def reset_launch_counts() -> None:
@@ -163,15 +166,12 @@ class PlainScene:
                     sample=sample, seed=self.seed)
 
 
-def camera_paths(blob, sample: int, *, width: int, height: int, seed: int,
-                 dof: bool):
-    """Entry state and masks of bounce 0 for every pixel of one sample:
-    K1's jittered pinhole or thin-lens raygen.  Returns (pid, state, aux)."""
-    dev = blob.device
-    n_pix = width * height
-    pid = torch.arange(n_pix, dtype=torch.int64, device=dev)
-    px = (pid % width).to(torch.float32)
-    py = (pid // width).to(torch.float32)
+def camera_rays(blob, pid, px, py, sample, *, width: int, height: int,
+                seed: int, dof: bool):
+    """K1's jittered pinhole or thin-lens camera ray of each lane: pixel id
+    ``pid`` (uint32 values as int64) at column ``px`` and row ``py``
+    (float32), sample id ``sample`` (an int or per-lane values).  Returns
+    (ox, oy, oz, dx, dy, dz)."""
     aspect, inv_w, inv_h = (_f32(width / height), _f32(1.0 / width),
                             _f32(1.0 / height))
 
@@ -189,7 +189,7 @@ def camera_paths(blob, sample: int, *, width: int, height: int, seed: int,
     dy = ndc_x * blob[4] + ndc_y * blob[7] + blob[10]
     dz = ndc_x * blob[5] + ndc_y * blob[8] + blob[11]
     dx, dy, dz = physics._normalize(dx, dy, dz)
-    ox, oy, oz = (blob[a].expand(n_pix) for a in range(3))
+    ox, oy, oz = (blob[a].expand(dx.shape) for a in range(3))
     if dof:
         lu, lv = u(_CAM_SLOT + 2), u(_CAM_SLOT + 3)
         r = blob[13] * torch.sqrt(lu)
@@ -204,9 +204,23 @@ def camera_paths(blob, sample: int, *, width: int, height: int, seed: int,
         fx, fy, fz = ox + dx * tf, oy + dy * tf, oz + dz * tf
         ox, oy, oz = ox + offx, oy + offy, oz + offz
         dx, dy, dz = physics._normalize(fx - ox, fy - oy, fz - oz)
-    ones = torch.ones_like(dx)
-    zero = torch.zeros_like(dx)
-    state = (ox, oy, oz, dx, dy, dz, ones, ones, ones, zero, zero, zero, zero)
+    return ox, oy, oz, dx, dy, dz
+
+
+def camera_paths(blob, sample: int, *, width: int, height: int, seed: int,
+                 dof: bool):
+    """Entry state and masks of bounce 0 for every pixel of one sample:
+    K1's jittered pinhole or thin-lens raygen.  Returns (pid, state, aux)."""
+    dev = blob.device
+    n_pix = width * height
+    pid = torch.arange(n_pix, dtype=torch.int64, device=dev)
+    px = (pid % width).to(torch.float32)
+    py = (pid // width).to(torch.float32)
+    rays = camera_rays(blob, pid, px, py, sample, width=width, height=height,
+                       seed=seed, dof=dof)
+    ones = torch.ones_like(rays[3])
+    zero = torch.zeros_like(rays[3])
+    state = (*rays, ones, ones, ones, zero, zero, zero, zero)
     aux = (torch.ones(n_pix, dtype=torch.bool, device=dev),
            torch.ones(n_pix, dtype=torch.bool, device=dev))
     return pid, state, aux

@@ -74,6 +74,11 @@ class BounceCfg(NamedTuple):
     use_mis: bool
     sky_mode: int
     n_light_slots: int
+    # With want_miss, trace_bounce's aux is (active, prev_spec, missed this
+    # bounce): the wavefront adds environment-map radiance to the missed
+    # lanes between its kernels (sky_radiance gives zero for SKY_ENVMAP, so
+    # nothing counts twice).
+    want_miss: bool = False
 
 
 def lsel_bounds(centers, radii, valid) -> torch.Tensor:
@@ -477,7 +482,8 @@ def trace_bounce(theta, state, aux, u, nl: int, cfg: BounceCfg,
     as ``intersect_spheres_unrolled``'s.  ``occluded_fn(ox, oy, oz, dx, dy,
     dz, tmax, need) -> blocked`` likewise replaces the shadow test; ``need``
     marks the lanes whose answer is used, so an any-hit walk may skip the
-    others."""
+    others.  With ``cfg.want_miss`` the new aux has a third mask, the lanes
+    that missed every sphere this bounce."""
     return trace_bounce_tape(theta, state, aux, u, nl, cfg, intersect_fn,
                              occluded_fn)[:2]
 
@@ -740,4 +746,6 @@ def trace_bounce_tape(theta, state, aux, u, nl: int, cfg: BounceCfg,
         w_met_scale=w_met_scale, dggx=dggx, pdf_met=pdf_met, ior=ior,
         eta=eta, cos_i=cos_i, safe=safe, cos_t=cos_t, nee=nee,
         p_cont=p_cont, inv_p=inv_p)
-    return new_state, (active_n, prev_spec), tape
+    new_aux = (active_n, prev_spec, miss) if cfg.want_miss \
+        else (active_n, prev_spec)
+    return new_state, new_aux, tape

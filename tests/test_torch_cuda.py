@@ -12,6 +12,9 @@ gradient and its per-lane bounce adjoint are held to chip_smoke.py's bars
 (``GRAD_REL`` / ``GRAD_ABS`` per field, ``VJP_*`` per lane).  K3 is held
 to K1's bar against its plain version, and equals K1 bit for bit on
 Cornell packed for the BVH walk (one leaf, the spheres in index order).
+The wavefront: K5 equals its plain version bit for bit, K6's residual
+equals the plain K6's, and K7's state and the whole render meet K1's bar
+against their plain versions.
 """
 
 import numpy as np
@@ -20,8 +23,9 @@ import torch
 
 import spt_tpu_torch as T
 from chip_smoke import (ATOL, MAX_MEAN_REL, MIN_CLOSE, RTOL, VJP_ATOL_REL,
-                        VJP_MIN_CLOSE, VJP_RTOL, cornell, grad_errors,
-                        grad_scene, k3_inputs, scene_200, vjp_lanes)
+                        VJP_MIN_CLOSE, VJP_RTOL, cornell, env_gradient,
+                        grad_errors, grad_scene, k3_inputs, scene_200,
+                        vjp_lanes, wf_bounce, wf_inputs)
 from spt_tpu_torch.core import rng
 from spt_tpu_torch.diff import cuda_diff, gradients as G
 from spt_tpu_torch.kernels import megakernel as mk
@@ -212,3 +216,87 @@ def test_facade_launches_k3(cuda):
     assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
     assert mk.LAUNCHES == dict(before, k3=before["k3"] + 2)
     assert tr.scene_data.capacity == 256
+
+
+def _wf_case(dev, lens=False):
+    """The 200-sphere scene packed for the wavefront, and its meta."""
+    from spt_tpu_torch.kernels import wavefront as wf
+    sd = scene_200(T).compile(device=dev)
+    t, st, meta = wf_inputs(torch, wf, mb, sd, _scene200_camera(dev, lens), 3)
+    return wf, sd, t, st, meta
+
+
+@pytest.mark.parametrize("lens", [False, True])
+def test_k5_equals_plain(cuda, lens):
+    wf, _, t, _, meta = _wf_case(cuda, lens)
+    kw = dict(width=72, height=40, chunk_spp=3, dof=lens)
+    before = dict(mk.LAUNCHES)
+    got = wf._stream_buffer(*wf.raygen(t["blob"], meta, **kw))
+    assert mk.LAUNCHES == dict(before, k5=before["k5"] + 1)
+    want = wf._stream_buffer(*wf.raygen_plain(t["blob"], meta, **kw))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_k6_k7_match_plain(cuda):
+    """One bounce after raygen and a sort: K6's residual equals the plain
+    K6's, and K7's state meets K1's bar against the plain K7's."""
+    wf, sd, t, stc, meta = _wf_case(cuda)
+    b = wf_bounce(torch, wf, t, stc, meta, 96, 64, 1, 3)
+    st, ids, n, res = b["st"], b["ids"], b["n"], b["res"]
+    block, prims = stc["block"], t["prims"]
+    assert torch.equal(res, wf.isect_plain(prims, b["cand"], b["ctn"], st, n,
+                                           block=block))
+    assert int((res[4] >= 0).sum()) > 0
+    other = b["buf"].clone()
+    st2, ids2 = other[:wf.N_CH], other[wf.N_CH:].view(torch.int32)
+    kw = dict(k=1, block=block, n_mats=stc["n_mats"],
+              n_light_slots=stc["n_light_slots"], rr_depth=1, use_nee=True,
+              use_mis=True, sky_mode=sd.sky_mode)
+    args = (t["blob"], meta, t["lsb"], prims, t["mtypes"], b["scand"],
+            b["sctn"])
+    wf.shade(*args, st, ids, res, n, **kw)
+    wf.shade_plain(*args, st2, ids2, res, n, **kw)
+    got, want = st.cpu().numpy(), st2.cpu().numpy()
+    assert np.isfinite(got).all()
+    close = np.isclose(got, want, rtol=RTOL, atol=ATOL)
+    assert close.mean() >= MIN_CLOSE
+    assert not got[wf.C_MISS].any()
+
+
+@pytest.mark.parametrize("case", ["gradient", "envmap"])
+def test_wavefront_matches_plain(cuda, case):
+    wf, sd, t, _, _ = _wf_case(cuda)
+    if case == "envmap":
+        scene = scene_200(T)
+        scene.set_environment_map(env_gradient(16, 32))
+        sd = scene.compile(device=cuda)
+    cam = _scene200_camera(cuda, False)
+    kw = dict(max_bounces=8, rr_depth=3, seed=3, sort_min_rays=0)
+    before = dict(mk.LAUNCHES)
+    got = wf.render_wavefront(sd, cam, 48, 40, 0, 2, **kw)
+    after = dict(mk.LAUNCHES)
+    assert after["plain"] == before["plain"] and after["k5"] == before["k5"] + 1
+    want = wf.render_wavefront(sd, cam, 48, 40, 0, 2, plain=True, **kw)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    assert np.isfinite(got).all() and want.mean() > 0.01
+    close = np.isclose(got, want, rtol=RTOL, atol=ATOL).all(axis=-1)
+    assert close.mean() >= MIN_CLOSE
+    assert abs(got.mean() - want.mean()) <= MAX_MEAN_REL * want.mean()
+
+
+def test_facade_launches_wavefront(cuda):
+    scene = scene_200(T)
+    scene.set_environment_map(env_gradient(16, 32))
+    tr = T.create_path_tracer("cuda")
+    tr.set_scene(scene)
+    tr.set_camera(_scene200_camera(cuda, False))
+    s = T.RenderSettings()
+    s.set_resolution(40, 24)
+    s.max_bounces = 3
+    tr.set_settings(s)
+    before = dict(mk.LAUNCHES)
+    tr.render()
+    img = tr.get_render_result().image_f32
+    assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
+    assert mk.LAUNCHES == dict(before, k5=before["k5"] + 1,
+                               k6=before["k6"] + 3, k7=before["k7"] + 3)

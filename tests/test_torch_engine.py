@@ -143,31 +143,33 @@ def _many_spheres(n):
     return scene
 
 
-@pytest.mark.parametrize("route", ["capacity", "envmap", "reference", "bvh"])
+@pytest.mark.parametrize("route", ["capacity", "envmap", "reference", "bvh",
+                                   "large"])
 def test_unported_routes_raise_not_implemented(route):
-    """Env-map skies and the reference integrator raise, naming their
-    ROADMAP.md item.  Scenes above K1's 128 spheres ("capacity") and above
-    the BVH threshold ("bvh") do not: they render through the plain K3."""
-    if route == "capacity":
-        tr = _tracer(_many_spheres(130))          # capacity 256 > 128
-    elif route == "bvh":
-        tr = _tracer(_many_spheres(600))          # compile builds a BVH
-    else:
-        tr = _tracer()
+    """The reference integrator raises, naming its ROADMAP.md item (the
+    name is older than the routes that now render).  Scenes above K1's 128
+    spheres ("capacity") and above the BVH threshold ("bvh") render through
+    the plain K3; environment-map skies ("envmap") and scenes above 2048
+    spheres ("large") through the plain wavefront (K5-K7)."""
+    n = dict(capacity=130, bvh=600, large=2100).get(route)
+    tr = _tracer(_many_spheres(n) if n else None)
     if route == "envmap":
         tr._scene.set_environment_map(np.ones((4, 8, 3), np.float32))
     if route == "reference":
         tr.get_settings().integrator = "reference"
-    if route in ("envmap", "reference"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tr.render()
         return
     before = dict(tmega.LAUNCHES)
     tr.render()
-    assert tmega.LAUNCHES == dict(before, plain=before["plain"] + 1)
+    # K3's plain version once; the wavefront's raygen once and its K6 and
+    # K7 once a bounce (2 here).
+    runs = 5 if route in ("envmap", "large") else 1
+    assert tmega.LAUNCHES == dict(before, plain=before["plain"] + runs)
     sd = tr.scene_data
-    assert sd.capacity == (256 if route == "capacity" else 1024)
-    assert (sd.bvh is not None) == (route == "bvh")
+    assert sd.capacity == dict(capacity=256, bvh=1024, large=4096).get(
+        route, sd.capacity)
+    assert (sd.bvh is not None) == (route in ("bvh", "large"))
     img = tr.get_render_result().image_f32
     assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 
