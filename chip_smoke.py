@@ -239,7 +239,10 @@ def profiled(torch, fn, kernel):
     self times of the events that ran on the card: kernels and copies; a
     host-side op or autograd node that launched them would count them
     twice), their ratio (the device busy share of that one run), the named
-    kernel's part, and the top five."""
+    kernel's part, and the top five.  On the card's timeline it also
+    counts the host reads (device-to-host copies: each makes the host wait
+    for the card) and the card's idle time right after them, before its
+    next operation, beside its idle time in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -257,10 +260,25 @@ def profiled(torch, fn, kernel):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     avg = prof.key_averages()
     busy_ms = 1e-3 * sum(dev_us(e) for e in avg)
+    reads, idle_us, read_idle_us = 0, 0.0, 0.0
+    end, after_read = None, False
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        gap = 0.0 if end is None else e.time_range.start - end
+        if gap > 0:
+            idle_us += gap
+            read_idle_us += gap if after_read else 0.0
+        is_read = "DtoH" in e.name
+        reads += is_read
+        if end is None or e.time_range.end >= end:
+            end, after_read = e.time_range.end, is_read
     kernel_ms = 1e-3 * sum(dev_us(e) for e in avg if kernel in e.key)
     return dict(profiled_wall_ms=wall_ms, device_busy_ms=busy_ms or None,
                 device_busy_share=busy_ms / wall_ms if busy_ms else None,
                 kernel=kernel, kernel_device_ms=kernel_ms or None,
+                host_reads=reads, idle_after_host_reads_ms=1e-3 * read_idle_us,
+                device_idle_ms=1e-3 * idle_us,
                 top=[(e.key[:60], dev_us(e) * 1e-3, e.count) for e in
                      sorted(avg, key=dev_us, reverse=True)[:5]])
 
@@ -1050,78 +1068,102 @@ def run_wf_phases(torch, T, mk, dev, card, k3) -> dict:
     check(differ == 0, f"K6 winners differ from the plain K6 on {differ}")
     check(hits > 0, "K6 found no hit")
     k6_ops = wf.k6_op_count(k6_stats)
-    k6_bytes = 4 * (prims.numel() + cand.numel() + ctn.numel()
-                    + 7 * n + wf.N_RES * n)
+    k6_bytes = wf.k6_byte_count(k6_stats, n, block)
     out["k6"] = dict(ms=k6_ms, plain_ms=k6_plain_ms, max_abs_err=0.0,
                      plain_size=f"{n} rays (config 5, bounce 0, counting "
-                                "its work)", fp32_ops=k6_ops)
+                                "its work)", fp32_ops=k6_ops,
+                     bytes=k6_bytes)
     out["k6"]["bound_ms"], out["k6"]["bound_by"] = bound(k6_ops, k6_bytes)
 
     scand, sctn = b0["scand"], b0["sctn"]
     base = b0["buf"].clone()
     kw7 = dict(k=0, block=block, n_mats=stc["n_mats"],
                n_light_slots=stc["n_light_slots"],
-               rr_depth=RR, use_nee=True, use_mis=True,
-               sky_mode=sd10.sky_mode)
+               rr_depth=RR, use_nee=True, use_mis=True)
 
     def fresh():
         b = base.clone()
         return b[:wf.N_CH], b[wf.N_CH:].view(torch.int32)
 
     args7 = (t["blob"], meta, t["lsb"], prims, t["mtypes"], scand, sctn)
-    st_k, ids_k = fresh()
-    k7_ms = []
-    for _ in range(3):
-        wf._stream_buffer(st_k, ids_k).copy_(base)
-        k7_ms.append(cuda_ms(torch, lambda: wf.shade(
-            *args7, st_k, ids_k, res_k, n, **kw7))[1])
-    st_p, ids_p = fresh()
-    k7_stats = {}
-    with torch.inference_mode():
-        _, k7_plain_ms = cuda_ms(torch, lambda: wf.shade_plain(
-            *args7, st_p, ids_p, res_k, n, stats=k7_stats, **kw7))
-    a, b = st_k[:, :n], st_p[:, :n]
-    lanes_differ = int((a.view(torch.int32) != b.view(torch.int32))
-                       .any(dim=0).sum())
-    close = torch.isclose(a, b, rtol=RTOL, atol=ATOL)
-    mean_rel = max(abs(float(a[c].double().mean() - b[c].double().mean()))
-                   / max(abs(float(b[c].double().mean())), 1e-12)
-                   for c in range(wf.C_TR, wf.C_LB + 1))
-    res7 = dict(max_abs_err=float((a - b).abs().max()),
-                frac_close=float(close.double().mean()), mean_rel=mean_rel,
-                finite=bool(torch.isfinite(a).all()))
-    emit(dict(phase="k7_vs_plain", case="config5_bounce0", lanes=n,
-              lanes_differ=lanes_differ, k7_ms=k7_ms, plain_ms=k7_plain_ms,
-              shadow_candidates_per_tile=float(scand[:, 0, 0].double()
-                                               .mean()),
-              shadow_blocks_per_ray=k7_stats["shadow_blocks"]
-              / max(k7_stats["shadow"], 1),
-              alive_after=int((a[wf.C_ALIVE] > 0.5).sum()), **res7))
-    check_close(res7, "K7 vs plain")
-    check(int((a[wf.C_ALIVE] > 0.5).sum()) > 0, "K7 left no ray alive")
+
+    def k7_case(label, sky_mode, reps):
+        """K7 and the plain K7 on the bounce from the same state; K1's bar,
+        the miss flag bit for bit.  Returns (K7 ms, plain ms, stats,
+        comparison)."""
+        kw = dict(kw7, sky_mode=sky_mode)
+        st_k, ids_k = fresh()
+        ms = []
+        for _ in range(reps):
+            wf._stream_buffer(st_k, ids_k).copy_(base)
+            ms.append(cuda_ms(torch, lambda: wf.shade(
+                *args7, st_k, ids_k, res_k, n, **kw))[1])
+        st_p, ids_p = fresh()
+        stats = {}
+        with torch.inference_mode():
+            _, p_ms = cuda_ms(torch, lambda: wf.shade_plain(
+                *args7, st_p, ids_p, res_k, n, stats=stats, **kw))
+        a, b = st_k[:, :n], st_p[:, :n]
+        bits_a, bits_b = a.view(torch.int32), b.view(torch.int32)
+        lanes_differ = int((bits_a != bits_b).any(dim=0).sum())
+        miss_differ = int((bits_a[wf.C_MISS] != bits_b[wf.C_MISS]).sum())
+        misses = int((a[wf.C_MISS] > 0.5).sum())
+        alive = int((a[wf.C_ALIVE] > 0.5).sum())
+        close = torch.isclose(a, b, rtol=RTOL, atol=ATOL)
+        mean_rel = max(abs(float(a[c].double().mean() - b[c].double()
+                                 .mean()))
+                       / max(abs(float(b[c].double().mean())), 1e-12)
+                       for c in range(wf.C_TR, wf.C_LB + 1))
+        res = dict(max_abs_err=float((a - b).abs().max()),
+                   frac_close=float(close.double().mean()),
+                   mean_rel=mean_rel, finite=bool(torch.isfinite(a).all()))
+        emit(dict(phase="k7_vs_plain", case=label, lanes=n,
+                  lanes_differ=lanes_differ, miss_differ=miss_differ,
+                  misses=misses, k7_ms=ms, plain_ms=p_ms,
+                  shadow_candidates_per_tile=float(scand[:, 0, 0].double()
+                                                   .mean()),
+                  shadow_blocks_per_ray=stats["shadow_blocks"]
+                  / max(stats["shadow"], 1), alive_after=alive, **res))
+        check_close(res, f"K7 vs plain ({label})")
+        check(miss_differ == 0,
+              f"{label}: K7's miss flag differs on {miss_differ} lanes")
+        check(misses > 0 if sky_mode == wf.SKY_ENVMAP else misses == 0,
+              f"{label}: {misses} lanes flagged as missed")
+        check(alive > 0, f"{label}: K7 left no ray alive")
+        return min(ms), p_ms, stats, res
+
+    k7_ms, k7_plain_ms, k7_stats, res7 = k7_case(
+        "config5_bounce0", sd10.sky_mode, 3)
+    # The env-map sky's branch (the miss flag) on the same bounce.
+    res7e = k7_case("config5_bounce0_envmap", wf.SKY_ENVMAP, 1)[3]
     k7_ops = wf.k7_op_count(k7_stats)
-    k7_bytes = 4 * (2 * wf.N_CH * n + wf.N_IDS * n + wf.N_RES * n
-                    + scand.numel() + sctn.numel() + prims.numel())
-    out["k7"] = dict(ms=min(k7_ms), plain_ms=k7_plain_ms,
-                     max_abs_err=res7["max_abs_err"],
+    k7_bytes = wf.k7_byte_count(k7_stats, n, block) + 4 * (
+        t["blob"].numel() + t["lsb"].numel() + meta.numel() + stc["n_mats"])
+    out["k7"] = dict(ms=k7_ms, plain_ms=k7_plain_ms,
+                     max_abs_err=max(res7["max_abs_err"],
+                                     res7e["max_abs_err"]),
                      plain_size=f"{n} rays (config 5, bounce 0, counting "
-                                "its work)", fp32_ops=k7_ops)
+                                "its work)", fp32_ops=k7_ops,
+                     bytes=k7_bytes)
     out["k7"]["bound_ms"], out["k7"]["bound_by"] = bound(k7_ops, k7_bytes)
-    del b0, base, st, st_k, ids_k, st_p, ids_p, a, b, close
-    del cand, ctn, scand, sctn, res_k, res_p
+    del b0, base, st, cand, ctn, scand, sctn, res_k, res_p
 
     # 19. The whole wavefront against its plain version ---------------------
     cam200 = T.Camera.look_at((0, 2.0, -4.0), (0, 1.0, 14.0), fov_degrees=60,
                               aperture=0.3, focus_dist=14.0, device=dev)
+    scene_env = scene_10k(T)
+    scene_env.set_environment_map(env_gradient())
     for label, sd, cam, w, h, spp, seed in [
             ("config5", sd10, cam10, 240, 136, 2, BIG_SEED),
+            ("config5_envmap", scene_env.compile(device=dev), cam10, 240,
+             136, 2, BIG_SEED),
             ("scene200_thin_lens", scene_200(T).compile(device=dev), cam200,
              64, 64, 8, SEED)]:
         kw = dict(max_bounces=DEPTH, rr_depth=RR, seed=seed, sort_min_rays=0)
         got, k_ms = cuda_ms(torch, lambda: wf.render_wavefront(
             sd, cam, w, h, 0, spp, **kw))
-        want, p_ms = cuda_ms(torch, lambda: wf.render_wavefront(
-            sd, cam, w, h, 0, spp, plain=True, **kw))
+        want, p_ms = cuda_ms(torch, lambda: wf._render(
+            sd, cam, w, h, 0, spp, stages=wf.PLAIN, **kw))
         res = compare(got, want)
         emit(dict(phase="wf_vs_plain", case=label, width=w, height=h,
                   spp=spp, wavefront_ms=k_ms, plain_ms=p_ms,
@@ -1202,8 +1244,7 @@ def run_wf_phases(torch, T, mk, dev, card, k3) -> dict:
     for label, sd in (("config5", sd10), ("config5_envmap", sd_env)):
         times = {}
         t0 = time.perf_counter()
-        wf.render_wavefront(sd, cam10, BIG_W, BIG_H, 0, BIG_SPP,
-                            times=times, **kw)
+        wf._render(sd, cam10, BIG_W, BIG_H, 0, BIG_SPP, times=times, **kw)
         wall_ms = 1e3 * (time.perf_counter() - t0)
         emit(dict(phase="wf_timing", case=label, card=card,
                   spp=BIG_SPP, wall_ms_synced=wall_ms,

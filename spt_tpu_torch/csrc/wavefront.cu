@@ -35,11 +35,12 @@
 //   _cand_sweep_anyhit), each thread stopping at its first blocker or once
 //   the next candidate's entry bound passes its light distance.  Updates
 //   the stream in place (the TPU kernel's alias); a dead lane keeps its
-//   state and has its miss flag cleared.  Bound: bytes, the state it reads
-//   and writes (68 bytes each way a ray) with the ids and the residual; the
-//   fp32 operations of the bounce and the shadow tests come close.  One
-//   thread per ray, its state in registers; the scene uniforms sit in
-//   shared memory.
+//   state and has its miss flag cleared.  Bound: bytes, 152 a ray: an
+//   alive ray reads 15 state channels (all but in_image and miss), its two
+//   ids and 5 residual channels (hcx hcy hcz hr hmid) and writes 16
+//   channels (all but in_image); the fp32 operations of the bounce and the
+//   shadow tests come close.  One thread per ray, its state in registers;
+//   the scene uniforms sit in shared memory.
 //
 // Lanes past the alive prefix (the sorted stream's dead suffix) are not
 // launched: K6 and K7 take the prefix length, where the TPU kernels

@@ -364,17 +364,37 @@ def _sweep_lanes(cand, ctn, tile, bound, lanes, step):
     candidate i while ``ctn[tile, i] < bound[l]`` and i is below its
     tile's count; ``step(idx, blk)`` tests block ``blk[m]`` for lanes
     ``idx[m]`` and returns the lanes that stop there.  ``bound`` is read
-    again at each step, so a lane whose bound drops stops sooner."""
+    again at each step, so a lane whose bound drops stops sooner.
+
+    Returns ``(read, taken)``, (tiles,) int64: per tile, how many entry
+    bounds some lane read, and how many candidates some lane took."""
+    read = torch.zeros(cand.shape[0], dtype=torch.int64, device=cand.device)
+    taken = torch.zeros_like(read)
     ncand = cand[:, 0, 0].long()[tile]
     idx = torch.nonzero(lanes & (ncand > 0))[:, 0]
     i = 0
     while idx.numel():
+        read[tile[idx]] = i + 1
         idx = idx[ctn[tile[idx], 0, i] < bound[idx]]
         if not idx.numel():
             break
+        taken[tile[idx]] = i + 1
         stop = step(idx, cand[tile[idx], 0, 1 + i].long())
         i += 1
         idx = idx[~stop & (ncand[idx] > i)]
+    return read, taken
+
+
+def _list_reads(cand, tile, lanes, read, taken) -> tuple[int, int]:
+    """What a kernel's sweep reads of the lists, each word once: (words of
+    the lists: a tile's count where some lane sweeps, the entry bounds
+    read and the candidates taken; distinct leaf blocks taken)."""
+    swept = torch.zeros(cand.shape[0], dtype=torch.bool, device=cand.device)
+    swept[tile[lanes]] = True
+    nb = cand.shape[2] - 1
+    first = torch.arange(nb, device=cand.device) < taken[:, None]
+    blocks = torch.unique(cand[:, 0, 1:][first]).numel()
+    return int(swept.sum() + read.sum() + taken.sum()), blocks
 
 
 def isect_plain(prims: torch.Tensor, cand: torch.Tensor, ctn: torch.Tensor,
@@ -385,7 +405,9 @@ def isect_plain(prims: torch.Tensor, cand: torch.Tensor, ctn: torch.Tensor,
     each lane testing its candidates in order, a block's ``block`` slots in
     order with a strict ``<``, and stopping once the next candidate's bound
     reaches its nearest distance.  ``stats``, if given, gets ``"spheres"``
-    (filled slots of the blocks tested) and ``"blocks"`` added."""
+    (filled slots of the blocks tested), ``"blocks"``, ``"alive"`` (lanes
+    swept), ``"list_words"`` and ``"blocks_read"`` (``_list_reads``)
+    added."""
     LAUNCHES["plain"] += 1
     dev = st.device
     n = n_lanes
@@ -409,7 +431,8 @@ def isect_plain(prims: torch.Tensor, cand: torch.Tensor, ctn: torch.Tensor,
         work[1] += idx.numel()
         return torch.zeros_like(better)
 
-    _sweep_lanes(cand, ctn, tile, t, st[C_ALIVE, :n] > 0.5, step)
+    alive = st[C_ALIVE, :n] > 0.5
+    reach = _sweep_lanes(cand, ctn, tile, t, alive, step)
     found = t < BIG
     slot = torch.clamp_min(win, 0)
     row = prims[slot // block, :, slot % block]              # (n, 5)
@@ -422,6 +445,10 @@ def isect_plain(prims: torch.Tensor, cand: torch.Tensor, ctn: torch.Tensor,
     if stats is not None:
         stats["spheres"] = stats.get("spheres", 0) + int(work[0])
         stats["blocks"] = stats.get("blocks", 0) + int(work[1])
+        words, blocks = _list_reads(cand, tile, alive, *reach)
+        for name, v in (("alive", int(alive.sum())), ("list_words", words),
+                        ("blocks_read", blocks)):
+            stats[name] = stats.get(name, 0) + v
     return res
 
 
@@ -580,7 +607,8 @@ def shade_plain(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
     missed under an env-map sky, cleared elsewhere.  ``stats``, if given,
     gets ``render_samples_plain``'s per-bounce counts of this bounce
     (``"active"``, ``"hit"``, ``"shadow"``, ``"lit"``) and the shadow
-    sweep's ``"shadow_spheres"`` and ``"shadow_blocks"`` added."""
+    sweep's ``"shadow_spheres"``, ``"shadow_blocks"``,
+    ``"shadow_list_words"`` and ``"shadow_blocks_read"`` added."""
     LAUNCHES["plain"] += 1
     dev = st.device
     n = n_lanes
@@ -595,6 +623,7 @@ def shade_plain(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
     tile = torch.arange(n, device=dev) // TILE
     filled = (prims[:, 4, :] >= 0.0).sum(dim=1)
     work = torch.zeros(2, dtype=torch.int64, device=dev)
+    lists = []
 
     def occluded(ox, oy, oz, dx, dy, dz, tmax, need):
         blocked = torch.zeros_like(need)
@@ -612,7 +641,9 @@ def shade_plain(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
             blocked[idx] = stop
             return stop
 
-        _sweep_lanes(scand, sctn, tile, tmax, need, step)
+        lists.append(_list_reads(
+            scand, tile, need, *_sweep_lanes(scand, sctn, tile, tmax, need,
+                                             step)))
         return blocked
 
     want_miss = sky_mode == SKY_ENVMAP
@@ -641,6 +672,9 @@ def shade_plain(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
         w = work.tolist()
         stats["shadow_spheres"] = stats.get("shadow_spheres", 0) + w[0]
         stats["shadow_blocks"] = stats.get("shadow_blocks", 0) + w[1]
+        for name, v in zip(("shadow_list_words", "shadow_blocks_read"),
+                           lists[0] if lists else (0, 0)):
+            stats[name] = stats.get(name, 0) + v
 
 
 def shade(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
@@ -749,11 +783,10 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
                       height: int, chunk_spp: int, max_bounces: int,
                       rr_depth: int, use_nee: bool, use_mis: bool,
                       sky_mode: int, dof: bool, compact: bool,
-                      sort_min_rays: int, plain: bool,
-                      times: dict | None = None) -> torch.Tensor:
+                      sort_min_rays: int, stages: tuple,
+                      times: dict | None) -> torch.Tensor:
     """One chunk of ``chunk_spp`` images -> (H, W, 3) radiance sum."""
-    k5, k6, k7 = ((raygen_plain, isect_plain, shade_plain) if plain
-                  else (raygen, isect, shade))
+    k5, k6, k7 = stages
     block, n_mats = static["block"], static["n_mats"]
     n_light_slots = static["n_light_slots"]
     blob, prims = t["blob"], t["prims"]
@@ -839,20 +872,38 @@ def render_wavefront(scene: SceneData, camera, width: int, height: int,
                      rr_depth=3, use_nee=True, use_mis=True, seed=0,
                      dof=None, block: int = BLOCK, compact: bool = True,
                      sort_min_rays: int = 1 << 17,
-                     chunk_rays: int = 4 << 20, plain: bool = False,
-                     times: dict | None = None) -> torch.Tensor:
+                     chunk_rays: int = 4 << 20) -> torch.Tensor:
     """Render ``spp`` samples with the sorted wavefront; returns the (H, W,
     3) radiance sum.
 
     Runs on the scene's device: K5-K7 for a scene on the card, their plain
-    versions for a scene on the CPU, or with ``plain=True`` on either.  The
-    stream holds at most ``chunk_rays`` rays: samples go in chunks of as
-    many whole images.  A sort runs before bounces 1.. while more than
-    ``sort_min_rays`` rays were alive; ``compact=False`` keeps every lane
-    in every launch and sorts the whole stream (for tests).  ``dof=None``
-    takes the thin lens iff the camera has an aperture.  ``times``, if
-    given, gets each stage's device milliseconds (CUDA events; it
-    synchronizes after every stage)."""
+    versions for a scene on the CPU.  The stream holds at most
+    ``chunk_rays`` rays: samples go in chunks of as many whole images.  A
+    sort runs before bounces 1.. while more than ``sort_min_rays`` rays
+    were alive; ``compact=False`` keeps every lane in every launch and
+    sorts the whole stream (for tests).  ``dof=None`` takes the thin lens
+    iff the camera has an aperture."""
+    return _render(scene, camera, width, height, start_sample, spp,
+                   max_bounces=max_bounces, rr_depth=rr_depth,
+                   use_nee=use_nee, use_mis=use_mis, seed=seed, dof=dof,
+                   block=block, compact=compact, sort_min_rays=sort_min_rays,
+                   chunk_rays=chunk_rays)
+
+
+KERNELS = (raygen, isect, shade)
+PLAIN = (raygen_plain, isect_plain, shade_plain)
+
+
+def _render(scene: SceneData, camera, width: int, height: int,
+            start_sample: int, spp: int, *, stages: tuple = KERNELS,
+            times: dict | None = None, max_bounces=8, rr_depth=3,
+            use_nee=True, use_mis=True, seed=0, dof=None, block: int = BLOCK,
+            compact: bool = True, sort_min_rays: int = 1 << 17,
+            chunk_rays: int = 4 << 20) -> torch.Tensor:
+    """``render_wavefront`` with its K5-K7 stages given (``PLAIN`` runs
+    the plain versions on either device, to hold the kernels against them
+    on the card).  ``times``, if given, gets each stage's device
+    milliseconds (CUDA events; it synchronizes after every stage)."""
     t, static = packed(scene, camera, block)
     if dof is None:
         dof = bool(float(_np(camera.aperture)) > 0.0)
@@ -873,8 +924,8 @@ def render_wavefront(scene: SceneData, camera, width: int, height: int,
             t, static, env, meta, width=width, height=height, chunk_spp=n,
             max_bounces=max_bounces, rr_depth=rr_depth, use_nee=bool(use_nee),
             use_mis=bool(use_mis), sky_mode=scene.sky_mode, dof=bool(dof),
-            compact=compact, sort_min_rays=sort_min_rays,
-            plain=plain, times=times)
+            compact=compact, sort_min_rays=sort_min_rays, stages=stages,
+            times=times)
         img = part if img is None else img + part
         s += n
     return img
@@ -902,3 +953,24 @@ def k7_op_count(stats: dict) -> int:
             + stats["shadow"] * WF_OPS["shadow"]
             + stats["shadow_spheres"] * WF_OPS["sphere_test"]
             + stats["shadow_blocks"] * WF_OPS["block"])
+
+
+def k6_byte_count(stats: dict, n_lanes: int, block: int) -> int:
+    """Bytes K6 must move, each word once, for ``isect_plain``'s stats:
+    every lane reads its alive flag and writes its residual, an alive lane
+    reads its origin and direction, plus the list words read and the four
+    float rows of each distinct leaf block swept."""
+    return 4 * ((1 + N_RES) * n_lanes + 6 * stats["alive"]
+                + stats["list_words"] + 4 * block * stats["blocks_read"])
+
+
+def k7_byte_count(stats: dict, n_lanes: int, block: int) -> int:
+    """Bytes K7 must move, each word once, for ``shade_plain``'s stats: an
+    alive lane reads 15 state channels (all but in_image and miss), its ids
+    and 5 residual channels and writes 16 channels; a dead lane reads its
+    alive flag and writes its miss flag; plus the shadow list words read
+    and the four float rows of each distinct leaf block swept."""
+    a = stats["active"]
+    return 4 * ((15 + N_IDS + 5 + 16) * a + 2 * (n_lanes - a)
+                + stats["shadow_list_words"]
+                + 4 * block * stats["shadow_blocks_read"])

@@ -276,7 +276,7 @@ def test_wavefront_matches_plain(cuda, case):
     got = wf.render_wavefront(sd, cam, 48, 40, 0, 2, **kw)
     after = dict(mk.LAUNCHES)
     assert after["plain"] == before["plain"] and after["k5"] == before["k5"] + 1
-    want = wf.render_wavefront(sd, cam, 48, 40, 0, 2, plain=True, **kw)
+    want = wf._render(sd, cam, 48, 40, 0, 2, stages=wf.PLAIN, **kw)
     got, want = got.cpu().numpy(), want.cpu().numpy()
     assert np.isfinite(got).all() and want.mean() > 0.01
     close = np.isclose(got, want, rtol=RTOL, atol=ATOL).all(axis=-1)

@@ -15,7 +15,8 @@
   normal and the light sample's frame go through the same rsqrt, sin and
   cos, and t_max cancels where a shadow ray grazes its light).
 * The plain K6's winner equals brute force over every sphere exactly, its
-  per-lane early exit included.
+  per-lane early exit included; what the sweeps read of the lists (the
+  kernels' byte counts) equals a walk of each lane on its own.
 * The plain wavefront against the plain K3 at the JAX suite's bar (97% of
   pixels ``isclose(rtol=2e-3, atol=2e-4)``, means within 1%); and, as
   tests/test_wavefront.py pins JAX's, exactly invariant to the sort, to
@@ -276,6 +277,52 @@ def test_isect_plain_matches_brute_force(big):
     # The early exit stops sweeps: fewer blocks than the lists hold.
     listed = int(cand[torch.arange(n) // twf.TILE, 0, 0][alive].sum())
     assert 0 < stats["blocks"] < listed
+
+
+def test_sweep_list_reads_match_per_lane_walk():
+    """``_sweep_lanes``' per-tile reads and ``_list_reads``' words and
+    blocks equal those of each lane walking its tile's list alone."""
+    r = np.random.default_rng(4)
+    n_tiles, nb = 3, 6
+    n = n_tiles * twf.TILE
+    ncand = np.array([4, 0, 6])
+    cand = np.full((n_tiles, 1, nb + 1), -1, np.int32)
+    ctn = np.full((n_tiles, 1, nb), twf.BIG, np.float32)
+    for tt, c in enumerate(ncand):
+        cand[tt, 0, 0] = c
+        cand[tt, 0, 1:1 + c] = r.permutation(nb)[:c]
+        ctn[tt, 0, :c] = np.sort(r.uniform(0, 10, c))
+    bound = r.uniform(0, 12, n).astype(np.float32)
+    lanes = r.random(n) < 0.8
+    lanes[2 * twf.TILE:] &= r.random(twf.TILE) < 0.01
+    stop_at = r.random((n, nb)) < 0.3
+
+    def step(idx, blk):
+        return torch.from_numpy(stop_at[idx.numpy(), blk.numpy()])
+
+    tile = torch.arange(n) // twf.TILE
+    args = (torch.from_numpy(cand), tile, torch.from_numpy(lanes))
+    read, taken = twf._sweep_lanes(args[0], torch.from_numpy(ctn), tile,
+                                   torch.from_numpy(bound), args[2], step)
+    want_read, want_taken = np.zeros(n_tiles, int), np.zeros(n_tiles, int)
+    for lane in np.nonzero(lanes)[0]:
+        tt = lane // twf.TILE
+        for i in range(ncand[tt]):
+            want_read[tt] = max(want_read[tt], i + 1)
+            if not ctn[tt, 0, i] < bound[lane]:
+                break
+            want_taken[tt] = max(want_taken[tt], i + 1)
+            if stop_at[lane, cand[tt, 0, 1 + i]]:
+                break
+    assert read.tolist() == want_read.tolist()
+    assert taken.tolist() == want_taken.tolist()
+    assert 0 < want_taken.sum() < ncand.sum()
+    words, blocks = twf._list_reads(*args, read, taken)
+    swept = sum(lanes[tt * twf.TILE:(tt + 1) * twf.TILE].any()
+                for tt in range(n_tiles))
+    assert words == swept + want_read.sum() + want_taken.sum()
+    assert blocks == len({int(cand[tt, 0, 1 + i]) for tt in range(n_tiles)
+                          for i in range(want_taken[tt])})
 
 
 def _render(sd, cam, w, h, spp, **kw):
