@@ -11,8 +11,12 @@ through K1 at the repo's headline size; inverse rendering,
 the facade at 1920x1080 on the repo's large scene cut to 2,000 spheres,
 through K3; and the facade on the large scene itself, 10,000 spheres, with
 its gradient sky and with an environment map, through the sorted
-wavefront's K5, K6 and K7), and times the kernels and the wavefront's
-glue.  Each phase prints one JSON line; any
+wavefront's K5, K6 and K7; and the large-scene gradients at 1920x1080 x 4
+spp, one backward and 3 ``InverseRenderer`` steps each: config 5 cut to
+2,000 spheres through K3 forward and K4 backward, and config 5 itself
+through the differentiable wavefront, K5, K6 and K9 forward and K10
+backward), and times the kernels and the wavefront's glue.  Each phase
+prints one JSON line; any
 failure exits nonzero and prints no result.  The last two lines are the
 kernels table and ``{"ok": true, "device": {...}}``.
 
@@ -53,6 +57,8 @@ GRAD_REL, GRAD_ABS = 1e-3, 1e-6
 # magnitude) on at least 99.9% of lanes.
 VJP_RTOL, VJP_ATOL_REL, VJP_MIN_CLOSE = 1e-3, 1e-4, 0.999
 TRAIN_SPP, TRAIN_STEPS, TRAIN_LR, K2_SPP = 16, 10, 0.02, 1024
+# InverseRenderer steps of each large-scene gradient main path.
+GRAD_STEPS = 3
 # The large scene (BASELINE config 5, bench_suite.py's scene_10k): 10,000
 # spheres, 1920x1080, 4 spp, depth 8, RR 3, NEE+MIS, seed 5.
 BIG_W, BIG_H, BIG_SPP, BIG_SEED = 1920, 1080, 4, 5
@@ -208,19 +214,38 @@ def vjp_lanes(torch, dev, n, seed):
 
 
 def grad_errors(got, want, n_prims):
-    """Per field of gvec (12 sphere attributes over the spheres, then the
-    sky): relative L2 error, or absolute where the plain field is 0."""
-    got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
-    fields = [(got[a:12 * n_prims:12], want[a:12 * n_prims:12])
-              for a in range(12)] + [(got[12 * n_prims:], want[12 * n_prims:])]
-    out = []
-    for g, w in fields:
+    """field_errors per field of gvec (12 sphere attributes over the
+    spheres, then the sky), as a list."""
+    def fields(g):
+        return dict({a: g[a:12 * n_prims:12] for a in range(12)},
+                    sky=g[12 * n_prims:])
+    errs, worst = field_errors(fields(got), fields(want))
+    return list(errs.values()), worst
+
+
+def field_errors(got: dict, want: dict):
+    """Per named gradient field: relative L2 error, or absolute where the
+    plain field is 0, and ok against GRAD_REL / GRAD_ABS; and the largest
+    absolute difference."""
+    out, worst = {}, 0.0
+    for key, w in want.items():
+        g = got[key].double().cpu().numpy()
+        w = w.double().cpu().numpy()
         norm, err = np.linalg.norm(w), np.linalg.norm(g - w)
-        out.append(dict(rel=err / norm if norm > 0 else None, abs=err,
+        out[key] = dict(rel=err / norm if norm > 0 else None, abs=err,
                         ok=bool(np.isfinite(g).all()) and (
                             err <= GRAD_REL * norm if norm > 0
-                            else err <= GRAD_ABS)))
-    return out, float(np.abs(got - want).max())
+                            else err <= GRAD_ABS))
+        if g.size:
+            worst = max(worst, float(np.abs(g - w).max()))
+    return out, worst
+
+
+def raw_fields(grad_s, grad_g, n_mats):
+    """K4's raw gradients (or K10's scalars and per-lane geometry) as named
+    fields: sky, material rows, light slots, geometry."""
+    return dict(sky=grad_s[:6], materials=grad_s[6:6 + 8 * n_mats],
+                lights=grad_s[6 + 8 * n_mats:], geometry=grad_g)
 
 
 def cuda_ms(torch, fn):
@@ -428,8 +453,9 @@ def run() -> int:
               cornell_mean=float(img.mean()), demo38_mean=float(img2.mean())))
     check(counts["k1"] > 0, "K1 was not launched on the main path")
     check(counts["k2"] == 0, "K2 was launched by a forward render")
-    check(all(counts[k] == 0 for k in ("k3", "k5", "k6", "k7")),
-          "K3 or the wavefront ran for a small scene")
+    check(all(counts[k] == 0 for k in ("k3", "k4", "k5", "k6", "k7", "k9",
+                                       "k10")),
+          "K3, K4 or the wavefront ran for a small scene")
     check(counts["plain"] == 0, "the plain version ran on the main path")
     check(tracer.frame_count == SPP and demo.frame_count == 8,
           "frame counts")
@@ -486,8 +512,11 @@ def run() -> int:
     k2 = run_k2_phases(torch, T, mk, dev, card, cam_cornell, (blob, stats))
     k3 = run_k3_phases(torch, T, mk, dev, card, cam_cornell, cam_demo)
     wf = run_wf_phases(torch, T, mk, dev, card, k3)
+    gr = run_grad_phases(torch, T, mk, dev, card, k3)
     paths = {"render": counts, "train": k2["launches"],
-             "bvh": k3["launches"], "wavefront": wf["launches"]}
+             "bvh": k3["launches"], "wavefront": wf["launches"],
+             "grad_bvh": gr["launches"]["bvh"],
+             "grad_wavefront": gr["launches"]["wavefront"]}
 
     def by_path(key):
         return {path: c[key] for path, c in paths.items()}
@@ -533,7 +562,20 @@ def run() -> int:
                 library_ms=None, checked_against_plain=True)
            for i, fn, line, tpu in ((5, "raygen", 154, "_raygen_kernel"),
                                     (6, "isect", 490, "_isect_kernel"),
-                                    (7, "shade", 582, "_shade_kernel"))]})
+                                    (7, "shade", 582, "_shade_kernel"))]
+        + [dict(name=name, route="cuda", source=f"spt_tpu_torch/csrc/{src}",
+                replaces=replaces, launches=sum(by_path(key).values()),
+                launches_by_path=by_path(key), **gr[key], library_ms=None,
+                checked_against_plain=True)
+           for key, name, src, replaces in (
+               ("k4", "K4 megakernel_bvh_grad", "megakernel_bvh_grad.cu",
+                "spt_tpu/kernels/megakernel_bvh_grad.py:108::"
+                "_kernel_bvh_grad"),
+               ("k9", "K9 wavefront shade_fwd", "wavefront.cu",
+                "spt_tpu/kernels/wavefront_grad.py:264::_shade_fwd_kernel"),
+               ("k10", "K10 wavefront bounce_bwd", "wavefront.cu",
+                "spt_tpu/kernels/wavefront_grad.py:171::"
+                "_bounce_bwd_kernel"))]})
     emit(dict(phase="done", seconds=time.perf_counter() - t_all))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
@@ -695,8 +737,9 @@ def run_k2_phases(torch, T, mk, dev, card, cam_cornell, k1_work) -> dict:
     check(counts["k2"] == TRAIN_STEPS, f"K2 launches {counts['k2']}")
     check(counts["k1"] == TRAIN_STEPS + 1, f"K1 launches {counts['k1']}")
     check(counts["plain"] == 0, "the plain version ran on the training path")
-    check(all(counts[k] == 0 for k in ("k3", "k5", "k6", "k7")),
-          "K3 or the wavefront ran on the training path")
+    check(all(counts[k] == 0 for k in ("k3", "k4", "k5", "k6", "k7", "k9",
+                                       "k10")),
+          "K3, K4 or the wavefront ran on the training path")
 
     # 10. K2 at the headline size: one 1024-spp render_and_grad launch -------
     blob, meta, lsb, static = mk.pack_uniforms(sd, cam, 0, SEED)
@@ -840,8 +883,9 @@ def run_k3_phases(torch, T, mk, dev, card, cam_cornell, cam_demo) -> dict:
     check(counts["k3"] > 0, "K3 was not launched on the large-scene path")
     check(counts["k1"] == 0 and counts["k2"] == 0,
           "K1 or K2 was launched on the large-scene path")
-    check(all(counts[k] == 0 for k in ("k5", "k6", "k7")),
-          "the wavefront ran for a scene K3 takes")
+    check(all(counts[k] == 0 for k in ("k4", "k5", "k6", "k7", "k9",
+                                       "k10")),
+          "K4 or the wavefront ran for a scene K3 takes")
     check(counts["plain"] == 0, "the plain version ran on the large path")
     check(tracer.frame_count == BIG_SPP, "frame count")
     check(tuple(img.shape) == (BIG_H, BIG_W, 3), f"config5: shape {img.shape}")
@@ -1218,8 +1262,9 @@ def run_wf_phases(torch, T, mk, dev, card, k3) -> dict:
         check(all(counts[k] > 0 for k in ("k5", "k6", "k7")),
               f"{label}: K5, K6 or K7 was not launched")
         check(counts["k5"] == 2, f"{label}: {counts['k5']} raygen launches")
-        check(all(counts[k] == 0 for k in ("k1", "k2", "k3")),
-              f"{label}: K1, K2 or K3 was launched")
+        check(all(counts[k] == 0 for k in ("k1", "k2", "k3", "k4", "k9",
+                                           "k10")),
+              f"{label}: K1-K4, K9 or K10 was launched")
         check(counts["plain"] == 0, f"{label}: a plain version ran")
         check(tracer.frame_count == BIG_SPP, f"{label}: frame count")
         check(tuple(img.shape) == (BIG_H, BIG_W, 3), f"{label}: shape")
@@ -1268,6 +1313,375 @@ def run_wf_phases(torch, T, mk, dev, card, k3) -> dict:
                                 wavefront_ms=1e3 * (time.perf_counter() - t0))
     emit(dict(phase="wf_crossover", card=card, size=f"{BIG_W}x{BIG_H}",
               spp=BIG_SPP, scenes=crossover))
+    return out
+
+
+def ptxas_of(build_info, lib, kernel):
+    """Registers, stack frame and spill bytes of one kernel from its
+    library's ``-Xptxas -v`` lines."""
+    out, entry, props = {}, False, False
+    for line in build_info[lib]["ptxas"]:
+        if "Compiling entry function" in line:
+            entry = props = kernel in line
+        elif "Function properties for" in line:
+            props = kernel in line
+        elif props and "stack frame" in line:
+            words = line.split()
+            out.update(stack_bytes=int(words[0]),
+                       spill_store_bytes=int(words[4]),
+                       spill_load_bytes=int(words[8]))
+        elif entry and "registers" in line:
+            out["registers"] = int(line.split("Used")[1].split()[0])
+    return out
+
+
+def ct_image(torch, dev, w, h, seed=SEED):
+    """A fixed random cotangent image (H, W, 3) on the card."""
+    return torch.from_numpy(np.random.default_rng(seed).uniform(
+        0.5, 1.5, (h, w, 3)).astype(np.float32)).to(dev)
+
+
+def run_grad_phases(torch, T, mk, dev, card, k3) -> dict:
+    """The large-scene gradients: K4 against its plain version and against
+    K3, K9 against K7 and its plain version and K10 against its plain
+    version on a full config-5 bounce, the differentiable wavefront
+    against its plain stages, both full-width gradient main paths (one
+    backward and 3 InverseRenderer steps each), the kernels' timing and K4
+    against the wavefront at 2,000 spheres.  Returns the launch counts of
+    the main paths and the kernels line's numbers."""
+    from spt_tpu_torch.diff import cuda_diff, gradients as G
+    from spt_tpu_torch.kernels import _build, megakernel_bvh as mb
+    from spt_tpu_torch.kernels import megakernel_bvh_grad as mbg
+    from spt_tpu_torch.kernels import wavefront as wf
+    from spt_tpu_torch.kernels import wavefront_grad as wg
+
+    out = {}
+    sd10, cam10 = k3["sd10"], k3["cam10"]
+    sd2k = scene_10k(T, n=K3_MAIN_SPHERES).compile(device=dev)
+
+    # 23. K4 against K3 and its plain version: config 5 cut to 2,000
+    # spheres, 240x136 x 1 spp ----------------------------------------------
+    args, k3kw, st = k3_inputs(torch, mb, sd2k, cam10, BIG_SEED)
+    w, h = 240, 136
+    kw = dict(width=w, height=h, spp=1, max_bounces=DEPTH, rr_depth=RR,
+              use_nee=True, use_mis=True, sky_mode=sd2k.sky_mode, dof=False,
+              **k3kw)
+    ct = mbg.swizzle_ct(ct_image(torch, dev, w, h), w, h)
+    (img, gs, gg), k_ms = cuda_ms(torch, lambda: mbg.megakernel_bvh_grad(
+        *args, ct, **kw))
+    img3 = mb.megakernel_bvh_fwd(*args, **kw)
+    wins = {}
+    with torch.inference_mode():
+        (_, p_gs, p_gg), p_ms = cuda_ms(
+            torch, lambda: mbg.render_and_grad_bvh_plain(*args, ct, **kw,
+                                                         stats=wins))
+    res = compare(img, img3)
+    errs, g_err = field_errors(raw_fields(gs, gg, k3kw["n_mats"]),
+                               raw_fields(p_gs, p_gg, k3kw["n_mats"]))
+    emit(dict(phase="k4_vs_plain", case="config5_2000", width=w, height=h,
+              spp=1, k4_ms=k_ms, plain_ms=p_ms, n_blocks=st["n_blocks"],
+              **wins,
+              image_pixels_differ_from_k3=int((img != img3).any(-1).sum()),
+              image_vs_k3=res, grad_max_abs_err=g_err,
+              grad_rel={k: e["rel"] for k, e in errs.items()}))
+    check(res["finite"] and res["frac_close"] >= MIN_CLOSE
+          and res["mean_rel"] <= MAX_MEAN_REL, f"K4 image vs K3: {res}")
+    check(all(e["ok"] for e in errs.values()), f"K4 vs plain: {errs}")
+    check(float(p_gg.abs().sum()) > 0 and float(p_gs.abs().sum()) > 0,
+          "plain K4: zero gradient")
+    out["k4"] = dict(max_abs_err=max(g_err, res["max_abs_err"]),
+                     plain_ms=p_ms,
+                     plain_size=f"{w}x{h} x 1 spp (config 5 cut to "
+                                f"{K3_MAIN_SPHERES} spheres)")
+    del img, gs, gg, img3, p_gs, p_gg
+
+    # 24. K9 and K10 on a full config-5 bounce (gradient sky, env map) -----
+    t, stc, meta = wf_inputs(torch, wf, mb, sd10, cam10, BIG_SEED)
+    b0 = wf_bounce(torch, wf, t, stc, meta, BIG_W, BIG_H, 0, BIG_SEED)
+    n, res_k = b0["n"], b0["res"]
+    base = b0["buf"].clone()
+    args9 = (t["blob"], meta, t["lsb"], t["prims"], t["mtypes"], b0["scand"],
+             b0["sctn"])
+
+    def fresh():
+        b = base.clone()
+        return b[:wf.N_CH], b[wf.N_CH:].view(torch.int32)
+
+    k9_ms = k10_ms = None
+    for label, sky_mode in (("config5_bounce0", sd10.sky_mode),
+                            ("config5_bounce0_envmap", wf.SKY_ENVMAP)):
+        kw9 = dict(k=0, block=stc["block"], n_mats=stc["n_mats"],
+                   n_light_slots=stc["n_light_slots"], rr_depth=RR,
+                   use_nee=True, use_mis=True, sky_mode=sky_mode)
+        st_in, ids = fresh()
+        reps = 3 if label == "config5_bounce0" else 1
+        ms = []
+        for _ in range(reps):
+            (out9, blocked), m = cuda_ms(torch, lambda: wg.shade_fwd(
+                *args9, st_in, ids, res_k, n, **kw9))
+            ms.append(m)
+        st7, _ = fresh()
+        wf.shade(*args9, st7, ids, res_k, n, **kw9)
+        stats = {}
+        with torch.inference_mode():
+            (out_p, blocked_p), p9_ms = cuda_ms(
+                torch, lambda: wg.shade_fwd_plain(*args9, st_in, ids, res_k,
+                                                  n, stats=stats, **kw9))
+        bits = out9.view(torch.int32)
+        k7_differ = int((bits != st7.view(torch.int32)).any(0).sum())
+        plain_differ = int((bits[:, :n] != out_p.view(torch.int32)[:, :n])
+                           .any(0).sum())
+        blocked_differ = int((blocked != blocked_p).sum())
+        emit(dict(phase="k9_vs_plain", case=label, lanes=n,
+                  hits=int((res_k[4] >= 0).sum()),
+                  padding_winners=int(((res_k[4] < 0) & (res_k[5] >= 0))
+                                      .sum()),
+                  lanes_differ_from_k7=k7_differ,
+                  lanes_differ_from_plain=plain_differ,
+                  blocked_differ=blocked_differ,
+                  blocked=int(blocked.sum()), k9_ms=ms, plain_ms=p9_ms))
+        check(k7_differ == 0, f"{label}: K9 differs from K7 on {k7_differ}")
+        check(blocked_differ == 0,
+              f"{label}: blocked mask differs on {blocked_differ} lanes")
+        check(int(blocked.sum()) > 0, f"{label}: no shadow ray blocked")
+        a, b = out9[:, :n], out_p[:, :n]
+        close = float(torch.isclose(a, b, rtol=RTOL, atol=ATOL).double()
+                      .mean())
+        check(close >= MIN_CLOSE, f"{label}: K9 vs plain {close}")
+
+        # K10 on this bounce, at full width.
+        res8 = res_k.clone()
+        res8[7] = blocked
+        ctb = torch.from_numpy(np.random.default_rng(11).normal(
+            size=tuple(st_in.shape)).astype(np.float32)).to(dev)
+        kw10 = {k: v for k, v in kw9.items() if k != "block"}
+        bargs = (t["blob"], meta, t["lsb"], t["mtypes"], st_in, ids, res8,
+                 ctb, n)
+        ms10 = []
+        for _ in range(reps):
+            (din, dgeo, dscal), m = cuda_ms(
+                torch, lambda: wg.bounce_bwd(*bargs, **kw10))
+            ms10.append(m)
+        with torch.inference_mode():
+            (din_p, dgeo_p, dscal_p), p10_ms = cuda_ms(
+                torch, lambda: wg.bounce_bwd_plain(*bargs, **kw10))
+        fr = {}
+        for name_, a, b in (("din", din[:13, :n], din_p[:13, :n]),
+                            ("dgeo", dgeo, dgeo_p)):
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            close = np.isclose(a, b, rtol=VJP_RTOL, atol=VJP_ATOL_REL * np.abs(
+                b).max(axis=1, keepdims=True)).all(0)
+            fr[name_] = float(close.mean())
+            check(np.isfinite(a).all(), f"{label}: K10 {name_} not finite")
+        errs, g_err = field_errors({"dscal": dscal}, {"dscal": dscal_p})
+        flags_equal = bool(torch.equal(din[13:], din_p[13:])
+                           and torch.equal(din[:, n:], din_p[:, n:]))
+        emit(dict(phase="k10_vs_plain", case=label, lanes=n,
+                  frac_close=fr, flags_and_suffix_equal=flags_equal,
+                  dscal_rel=errs["dscal"]["rel"], dscal_max_abs_err=g_err,
+                  k10_ms=ms10, plain_ms=p10_ms))
+        check(all(v >= VJP_MIN_CLOSE for v in fr.values()),
+              f"{label}: K10 vs plain {fr}")
+        check(flags_equal, f"{label}: K10 flag or suffix cotangents differ")
+        check(errs["dscal"]["ok"], f"{label}: K10 dscal {errs}")
+        if label == "config5_bounce0":
+            k9_ms, k10_ms = min(ms), min(ms10)
+            k9_bytes = wf.k7_byte_count(stats, n, stc["block"]) + 4 * n \
+                + 4 * (t["blob"].numel() + t["lsb"].numel() + meta.numel()
+                       + stc["n_mats"])
+            n_scal = dscal.numel()
+            k10_bytes = wg.k10_byte_count(stats, n, st_in.shape[1], n_scal)
+            out["k9"] = dict(ms=k9_ms, plain_ms=p9_ms, max_abs_err=float(
+                (out9[:, :n] - out_p[:, :n]).abs().max()),
+                plain_size=f"{n} rays (config 5, bounce 0)",
+                fp32_ops=wf.k7_op_count(stats), bytes=k9_bytes)
+            out["k9"]["bound_ms"], out["k9"]["bound_by"] = bound(
+                out["k9"]["fp32_ops"], k9_bytes)
+            out["k10"] = dict(ms=k10_ms, plain_ms=p10_ms, max_abs_err=max(
+                g_err, float((din[:13, :n] - din_p[:13, :n]).abs().max()),
+                float((dgeo - dgeo_p).abs().max())),
+                plain_size=f"{n} rays (config 5, bounce 0)",
+                fp32_ops=wg.k10_op_count(stats), bytes=k10_bytes)
+            out["k10"]["bound_ms"], out["k10"]["bound_by"] = bound(
+                out["k10"]["fp32_ops"], k10_bytes)
+            k9_stats = stats
+        del out9, out_p, st7, din, din_p, dgeo, dgeo_p, ctb, res8
+    winfo = _build.BUILD_INFO["wavefront"]
+    emit(dict(phase="k9_timing", card=card, k9_ms=k9_ms,
+              alive=k9_stats["active"],
+              **ptxas_of(_build.BUILD_INFO, "wavefront", "shade_kernel"),
+              **{k: out["k9"][k] for k in ("fp32_ops", "bytes", "bound_ms",
+                                           "bound_by", "plain_ms")}))
+    emit(dict(phase="k10_timing", card=card, k10_ms=k10_ms,
+              hits=k9_stats["hit"], lit=k9_stats["lit"],
+              **ptxas_of(_build.BUILD_INFO, "wavefront", "bounce_bwd_kernel"),
+              **{k: out["k10"][k] for k in ("fp32_ops", "bytes", "bound_ms",
+                                            "bound_by", "plain_ms")},
+              build_seconds=winfo["seconds"]))
+    del b0, base, res_k, args9
+    torch.cuda.empty_cache()
+
+    # 25. The differentiable wavefront against its plain stages -------------
+    keys = cuda_diff.PARAM_KEYS
+    w, h = 240, 136
+    ctw = ct_image(torch, dev, w, h)
+    runs = []
+    for stages in (wg.KERNELS, wg.PLAIN):
+        render = wg._make_render_fn(
+            sd10, cam10, w, h, stages=stages, spp=2, max_bounces=DEPTH,
+            rr_depth=RR, use_nee=True, use_mis=True, seed=BIG_SEED,
+            sort_min_rays=0, chunk_rays=2 << 20)
+        params = {k: v.clone().requires_grad_(True)
+                  for k, v in G.get_params(sd10, keys).items()}
+        (img, ms) = cuda_ms(torch, lambda: render(params, 0))
+        (img * ctw).sum().backward()
+        torch.cuda.synchronize()
+        runs.append((img.detach(), {k: p.grad for k, p in params.items()},
+                     ms))
+    (img, grads, w_ms), (img_p, grads_p, p_ms) = runs
+    res = compare(img, img_p)
+    errs, g_err = field_errors(grads, grads_p)
+    emit(dict(phase="wfgrad_vs_plain", case="config5", width=w, height=h,
+              spp=2, forward_ms=w_ms, plain_forward_ms=p_ms,
+              pixels_differ=int((img != img_p).any(-1).sum()), **res,
+              grad_max_abs_err=g_err,
+              grad_rel={k: e["rel"] for k, e in errs.items()}))
+    check(res["finite"] and res["frac_close"] >= MIN_CLOSE
+          and res["mean_rel"] <= MAX_MEAN_REL, f"wavefront grad image {res}")
+    check(all(e["ok"] for e in errs.values()), f"wavefront grad {errs}")
+
+    # 26. Main paths: one backward of sum(ct * image) and 3 InverseRenderer
+    # steps at config 5's settings, on 2,000 spheres (K3/K4) and on 10,000
+    # (the wavefront: K5, K6, K9, K10) --------------------------------------
+    ct_big = ct_image(torch, dev, BIG_W, BIG_H)
+    out["launches"] = {}
+    for label, sd, want, kernel in (
+            ("bvh", sd2k, ("k3", "k4"), "megakernel_bvh_grad_kernel"),
+            ("wavefront", sd10, ("k5", "k6", "k9", "k10"),
+             "bounce_bwd_kernel")):
+        mb._PACK_CACHE.clear()           # the render fn packs afresh
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mk.reset_launch_counts()
+        t0 = time.perf_counter()
+        render = cuda_diff.make_cuda_render_fn(
+            sd, cam10, BIG_W, BIG_H, spp=BIG_SPP, max_bounces=DEPTH,
+            rr_depth=RR, seed=BIG_SEED)
+        params = {k: v.clone().requires_grad_(True)
+                  for k, v in G.get_params(sd, keys).items()}
+        img = render(params, 0)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        (img * ct_big).sum().backward()
+        torch.cuda.synchronize()
+        backward_wall_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for k, p in params.items():
+            check(bool(torch.isfinite(p.grad).all()), f"{label}: {k} grad")
+        check(float(params["albedo"].grad.abs().sum()) > 0
+              and float(params["centers"].grad.abs().sum()) > 0,
+              f"{label}: zero gradient")
+        img_mean = float(img.detach().mean())
+        del img, params
+        true_p = G.get_params(sd, ("albedo",))
+        with torch.no_grad():
+            target = render(true_p, 0)
+        r = np.random.default_rng(SEED)
+        albedo0 = torch.clamp(true_p["albedo"] + torch.from_numpy(r.uniform(
+            -0.2, 0.2, tuple(true_p["albedo"].shape)).astype(np.float32))
+            .to(dev), 0.0, 1.0)
+        inv = G.InverseRenderer(
+            G.apply_params(sd, {"albedo": albedo0}), cam10, target,
+            fields=("albedo", "roughness", "centers", "radii"),
+            spp_per_step=BIG_SPP, learning_rate=TRAIN_LR,
+            max_bounces=DEPTH, seed=BIG_SEED, rotate_samples=False,
+            backend="cuda")
+        err0 = float((inv.params["albedo"].detach() - true_p["albedo"])
+                     .abs().mean())
+        losses, step_s = [], []
+        for _ in range(GRAD_STEPS):
+            t1 = time.perf_counter()
+            losses.append(inv.step())        # float(loss) waits for the card
+            step_s.append(time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        counts = dict(mk.LAUNCHES)
+        peak_gb = max(peak_gb, torch.cuda.max_memory_allocated() / 1e9)
+        err1 = float((inv.params["albedo"].detach() - true_p["albedo"])
+                     .abs().mean())
+        prof = profiled(torch, inv.step, kernel)
+        emit(dict(phase="grad_main_path", case=label, capacity=sd.capacity,
+                  size=f"{BIG_W}x{BIG_H}", spp=BIG_SPP, depth=DEPTH,
+                  forward_wall_s=fwd_s, forward_backward_wall_s=
+                  backward_wall_s, image_mean=img_mean, losses=losses,
+                  step_s=step_s, wall_per_step_s=sum(step_s) / GRAD_STEPS,
+                  albedo_err_start=err0, albedo_err_end=err1,
+                  peak_memory_gb=peak_gb, launches=counts,
+                  profiled_step_wall_ms=prof["profiled_wall_ms"], **prof))
+        check(all(np.isfinite(losses)), f"{label}: loss not finite")
+        check(err1 < err0, f"{label}: the albedo error did not fall")
+        check(all(counts[k] > 0 for k in want),
+              f"{label}: {want} not all launched: {counts}")
+        check(all(v == 0 for k, v in counts.items() if k not in want),
+              f"{label}: other kernels or plain versions ran: {counts}")
+        out["launches"][label] = counts
+        del render, inv, target
+        torch.cuda.empty_cache()
+
+    # 27. Timing: K4 at the K4 main path's shape (2,000 spheres, 1080p x 4
+    # spp); its bound from the plain K3's work of sample 0, times 4 -------
+    args, k3kw, st = k3_inputs(torch, mb, sd2k, cam10, BIG_SEED)
+    kw = dict(width=BIG_W, height=BIG_H, spp=BIG_SPP, max_bounces=DEPTH,
+              rr_depth=RR, use_nee=True, use_mis=True, sky_mode=sd2k.sky_mode,
+              dof=False, **k3kw)
+    ct = mbg.swizzle_ct(ct_big, BIG_W, BIG_H)
+    mbg.megakernel_bvh_grad(*args, ct, **kw)          # warm-up
+    k4_ms = min(cuda_ms(torch, lambda: mbg.megakernel_bvh_grad(
+        *args, ct, **kw))[1] for _ in range(2))
+    k3_ms = min(cuda_ms(torch, lambda: mb.megakernel_bvh_fwd(
+        *args, **kw))[1] for _ in range(2))
+    one = {}
+    with torch.inference_mode():
+        mb.render_tiles_bvh_plain(*args, **dict(kw, spp=1), stats=one)
+    stats = {k: (v * BIG_SPP if k == "paths" else [a * BIG_SPP for a in v])
+             for k, v in one.items()}
+    ops = mbg.k4_op_count(stats)
+    n_scal = mbg.n_scalars(k3kw["n_mats"], k3kw["n_light_slots"])
+    n_bytes = 4 * (sum(a.numel() for a in args) + ct.numel()
+                   + 3 * BIG_W * BIG_H + n_scal
+                   + st["n_blocks"] * 8 * k3kw["block"])
+    out["k4"].update(ms=k4_ms, fp32_ops=ops, bytes=n_bytes)
+    out["k4"]["bound_ms"], out["k4"]["bound_by"] = bound(ops, n_bytes)
+    emit(dict(phase="k4_timing", card=card, size=f"{BIG_W}x{BIG_H}",
+              spp=BIG_SPP, spheres=K3_MAIN_SPHERES, k4_ms=k4_ms,
+              k3_ms_same_launch=k3_ms, k4_over_k3=k4_ms / k3_ms,
+              pixel_samples_per_s=stats["paths"] / (k4_ms * 1e-3),
+              fp32_ops=ops, bytes=n_bytes, bound_ms=out["k4"]["bound_ms"],
+              bound_by=out["k4"]["bound_by"],
+              **ptxas_of(_build.BUILD_INFO, "megakernel_bvh_grad",
+                         "megakernel_bvh_grad_kernel"),
+              build_seconds=_build.BUILD_INFO["megakernel_bvh_grad"][
+                  "seconds"]))
+
+    # 28. K4 against the differentiable wavefront at 2,000 spheres, both
+    # forced, one forward+backward each, in turns --------------------------
+    walls = {"fused": [], "wavefront": []}
+    for engine in ("fused", "wavefront", "wavefront", "fused"):
+        render = cuda_diff.make_cuda_render_fn(
+            sd2k, cam10, BIG_W, BIG_H, spp=BIG_SPP, max_bounces=DEPTH,
+            rr_depth=RR, seed=BIG_SEED, engine=engine)
+        params = {k: v.clone().requires_grad_(True)
+                  for k, v in G.get_params(sd2k, keys).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (render(params, 0) * ct_big).sum().backward()
+        torch.cuda.synchronize()
+        walls[engine].append(1e3 * (time.perf_counter() - t0))
+    emit(dict(phase="grad_crossover", card=card, spheres=K3_MAIN_SPHERES,
+              size=f"{BIG_W}x{BIG_H}", spp=BIG_SPP,
+              fused_k3_k4_ms=walls["fused"],
+              wavefront_ms=walls["wavefront"],
+              wavefront_over_fused=min(walls["wavefront"])
+              / min(walls["fused"])))
     return out
 
 

@@ -161,11 +161,14 @@ __device__ __forceinline__ bool occluded(const SceneView& sc, float ox, float oy
 }
 
 // A bounce's nearest hit, as a geometry reports it: the sphere's centre and
-// radius, its material row (ar ag ab er eg eb rough ior) and type.
+// radius, its material row (ar ag ab er eg eb rough ior) and type, and the
+// row's id where the adjoint adds its gradient (SphereList: the sphere's
+// index; a recorded winner: its material's).
 struct Hit {
   float cx, cy, cz, r;
   const float* mat;
   int mtype;
+  int id;
 };
 
 // The geometry of K1 and K2: every sphere row of the blob, tested in index
@@ -187,6 +190,7 @@ struct SphereList {
     h.r = s[3];
     h.mat = s + 4;
     h.mtype = sc.meta[kMetaFixed + j];
+    h.id = j;
     return true;
   }
 

@@ -13,6 +13,14 @@
 //  * p_cont is detached for the kill test only, 1/p_cont is differentiated.
 // Where the plain version evaluates every material's branch and masks, this
 // code takes the hit material's branch only; the others contribute zero.
+//
+// bounce_vjp is generic in its geometry, as trace_bounce is, and in where
+// theta's cotangent goes (a sink): K2 recomputes the nearest hit and the
+// shadow test over the sphere list and adds into sphere rows (SphereList,
+// SphereSink); K4 and K10 rebuild the hit from a recorded winner, take the
+// recorded shadow verdict and add into the scalar vector of sky, material
+// rows and light slots, keeping the winner's centre and radius cotangent
+// per lane (RebuiltGeometry, ScalarSink).
 #pragma once
 
 #include <cstdint>
@@ -144,16 +152,144 @@ __device__ __forceinline__ void grad_add(float* g, int i, float v) {
   if (v != 0.0f) atomicAdd(g + i, v);
 }
 
-// Reverse mode of trace_bounce for an active path p (its entry state) at
-// bounce k.  ct holds the cotangent of the 13 output channels (o, d,
-// throughput, radiance, prev_pdf) and receives that of the entry channels.
-// theta's cotangent is added into g (shared memory): sphere j's 12
+// K2's sink: theta's cotangent into g (shared memory): sphere j's 12
 // attributes at 12 j, the sky at 12 n_prims; a light slot's attributes go
 // to its owning sphere's row.
-__device__ void bounce_vjp(const SceneView& sc, const Path& p, uint32_t pid,
+struct SphereSink {
+  float* g;
+  const SceneView& sc;
+
+  __device__ __forceinline__ void sky(int i, float v) const {
+    grad_add(g, kSphStride * sc.n_prims + i, v);
+  }
+  __device__ __forceinline__ void light(int l, V3 toc_b, float lrr_b,
+                                        V3 le_b) const {
+    float* row = g + kSphStride * sc.meta[kMetaFixed + sc.n_prims + l];
+    grad_add(row, 0, toc_b.x);
+    grad_add(row, 1, toc_b.y);
+    grad_add(row, 2, toc_b.z);
+    grad_add(row, 3, lrr_b);
+    grad_add(row, 7, le_b.x);
+    grad_add(row, 8, le_b.y);
+    grad_add(row, 9, le_b.z);
+  }
+  __device__ __forceinline__ void hit(int j, V3 C_b, float r_b, V3 a_b,
+                                      V3 e_b, float rough_b,
+                                      float ior_b) const {
+    float* row = g + kSphStride * j;
+    grad_add(row, 0, C_b.x);
+    grad_add(row, 1, C_b.y);
+    grad_add(row, 2, C_b.z);
+    grad_add(row, 3, r_b);
+    grad_add(row, 4, a_b.x);
+    grad_add(row, 5, a_b.y);
+    grad_add(row, 6, a_b.z);
+    grad_add(row, 7, e_b.x);
+    grad_add(row, 8, e_b.y);
+    grad_add(row, 9, e_b.z);
+    grad_add(row, 10, rough_b);
+    grad_add(row, 11, ior_b);
+  }
+};
+
+// A winner recorded by a forward sweep (K4's walk, K6), rebuilt: the
+// plain version's wavefront._rebuilt_intersect.  hmid < 0: no hit;
+// hmid == n_mats: a padding slot, which takes K1's row of an invalid
+// sphere as K3 does.  The shadow verdict is the recorded one.
+struct RebuiltGeometry {
+  static constexpr int kLightEmit = 4;
+  float hcx, hcy, hcz, hr, hmid;
+  bool blocked;
+  const float* mats;     // n_mats rows of 8
+  const int* mtypes;     // n_mats
+  const float* invalid;  // K1's invalid row
+  const float* lights;   // 7 per slot
+  int n_mats;
+
+  __device__ __forceinline__ bool nearest(float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          float& t, Hit& h) const {
+    if (!(hmid >= 0.0f)) return false;
+    const float ocx = hcx - ox, ocy = hcy - oy, ocz = hcz - oz;
+    const float b = dot3(dx, dy, dz, ocx, ocy, ocz);
+    const float cterm = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - hr * hr;
+    const float disc = b * b - cterm;
+    if (!(disc > 0.0f)) return false;
+    const float sq = sqrtf(fmaxf(disc, 1e-12f));
+    t = (b - sq > kTmin) ? b - sq : b + sq;
+    const int mid = (int)hmid;
+    h.cx = hcx;
+    h.cy = hcy;
+    h.cz = hcz;
+    h.r = hr;
+    h.mat = mid < n_mats ? mats + 8 * mid : invalid;
+    h.mtype = mid < n_mats ? mtypes[mid] : kLambert;
+    h.id = mid;
+    return true;
+  }
+
+  __device__ __forceinline__ bool occluded(float, float, float, float, float,
+                                           float, float) const {
+    return blocked;
+  }
+
+  __device__ __forceinline__ const float* light(int l) const {
+    return lights + 7 * l;
+  }
+};
+
+// K4's and K10's sink: the sky, material rows and light slots into g
+// (shared memory: sky 6, then 8 per material, then 7 per light slot, the
+// blob's order from its sky on), the winner's centre and radius cotangent
+// kept in dgeo for the caller.  A padding winner (id n_mats) gets none.
+struct ScalarSink {
+  float* g;
+  int n_mats;
+  float dgeo[4];
+
+  __device__ __forceinline__ void sky(int i, float v) { grad_add(g, i, v); }
+  __device__ __forceinline__ void light(int l, V3 toc_b, float lrr_b,
+                                        V3 le_b) {
+    float* row = g + 6 + 8 * n_mats + 7 * l;
+    grad_add(row, 0, toc_b.x);
+    grad_add(row, 1, toc_b.y);
+    grad_add(row, 2, toc_b.z);
+    grad_add(row, 3, lrr_b);
+    grad_add(row, 4, le_b.x);
+    grad_add(row, 5, le_b.y);
+    grad_add(row, 6, le_b.z);
+  }
+  __device__ __forceinline__ void hit(int m, V3 C_b, float r_b, V3 a_b,
+                                      V3 e_b, float rough_b, float ior_b) {
+    if (m >= n_mats) return;
+    dgeo[0] = C_b.x;
+    dgeo[1] = C_b.y;
+    dgeo[2] = C_b.z;
+    dgeo[3] = r_b;
+    float* row = g + 6 + 8 * m;
+    grad_add(row, 0, a_b.x);
+    grad_add(row, 1, a_b.y);
+    grad_add(row, 2, a_b.z);
+    grad_add(row, 3, e_b.x);
+    grad_add(row, 4, e_b.y);
+    grad_add(row, 5, e_b.z);
+    grad_add(row, 6, rough_b);
+    grad_add(row, 7, ior_b);
+  }
+};
+
+// Reverse mode of trace_bounce for an active path p (its entry state) at
+// bounce k, against geometry geo.  ct holds the cotangent of the 13 output
+// channels (o, d, throughput, radiance, prev_pdf) and receives that of the
+// entry channels.  theta's cotangent goes to sink: sky(i, v) for sky float
+// i, light(l, ...) for light slot l's centre, radius and emission, hit(id,
+// ...) for the winner's centre, radius and material row.
+template <class Geometry, class Sink>
+__device__ void bounce_vjp(const SceneView& sc, const Geometry& geo,
+                           Sink& sink, const Path& p, uint32_t pid,
                            uint32_t sample, uint32_t seed, int k,
                            int rr_depth, bool use_nee, bool use_mis,
-                           float* ct, float* g) {
+                           float* ct) {
   const uint32_t kdim = (uint32_t)(k * kNDims);
   const V3 o = {p.ox, p.oy, p.oz}, d = {p.dx, p.dy, p.dz};
   const V3 th = {p.th_r, p.th_g, p.th_b};
@@ -161,11 +297,10 @@ __device__ void bounce_vjp(const SceneView& sc, const Path& p, uint32_t pid,
   const V3 th_o = {ct[6], ct[7], ct[8]}, rad_o = {ct[9], ct[10], ct[11]};
   const float pdf_o = ct[12];
   const float* sky = sc.blob + 15;
-  const int gsky = kSphStride * sc.n_prims;
 
   float t;
-  const int j = intersect(sc, p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, t);
-  if (j < 0) {
+  Hit hit;
+  if (!geo.nearest(p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, t, hit)) {
     // Miss: the outputs pass through, radiance gains throughput * sky.
     V3 th_ct = th_o, d_ct = d_o;
     if (sc.sky_mode == kSkyGradient || sc.sky_mode == kSkyConstant) {
@@ -175,19 +310,19 @@ __device__ void bounce_vjp(const SceneView& sc, const Path& p, uint32_t pid,
       V3 sk_b = rad_o * th;
       if (sc.sky_mode == kSkyGradient) {
         float ts = 0.5f * (p.dy + 1.0f);
-        grad_add(g, gsky + 0, sk_b.x * (1.0f - ts));
-        grad_add(g, gsky + 1, sk_b.y * (1.0f - ts));
-        grad_add(g, gsky + 2, sk_b.z * (1.0f - ts));
-        grad_add(g, gsky + 3, sk_b.x * ts);
-        grad_add(g, gsky + 4, sk_b.y * ts);
-        grad_add(g, gsky + 5, sk_b.z * ts);
+        sink.sky(0, sk_b.x * (1.0f - ts));
+        sink.sky(1, sk_b.y * (1.0f - ts));
+        sink.sky(2, sk_b.z * (1.0f - ts));
+        sink.sky(3, sk_b.x * ts);
+        sink.sky(4, sk_b.y * ts);
+        sink.sky(5, sk_b.z * ts);
         float ts_b = sk_b.x * (sky[3] - sky[0]) + sk_b.y * (sky[4] - sky[1])
                      + sk_b.z * (sky[5] - sky[2]);
         d_ct.y += 0.5f * ts_b;
       } else {
-        grad_add(g, gsky + 0, sk_b.x);
-        grad_add(g, gsky + 1, sk_b.y);
-        grad_add(g, gsky + 2, sk_b.z);
+        sink.sky(0, sk_b.x);
+        sink.sky(1, sk_b.y);
+        sink.sky(2, sk_b.z);
       }
     }
     ct[3] = d_ct.x; ct[4] = d_ct.y; ct[5] = d_ct.z;
@@ -196,11 +331,11 @@ __device__ void bounce_vjp(const SceneView& sc, const Path& p, uint32_t pid,
   }
 
   // ---- forward recompute: physics.cuh's expressions, kept ------------------
-  const float* s = sc.blob + kSphOff + kSphStride * j;
-  const V3 C = {s[0], s[1], s[2]};
-  const float r = s[3];
-  const V3 alb = {s[4], s[5], s[6]}, emi = {s[7], s[8], s[9]};
-  const int mtype = sc.meta[kMetaFixed + j];
+  const float* s = hit.mat;      // ar ag ab er eg eb rough ior
+  const V3 C = {hit.cx, hit.cy, hit.cz};
+  const float r = hit.r;
+  const V3 alb = {s[0], s[1], s[2]}, emi = {s[3], s[4], s[5]};
+  const int mtype = hit.mtype;
   const V3 h = {p.ox + t * p.dx, p.oy + t * p.dy, p.oz + t * p.dz};
   V3 ng = h - C;
   normalize3(ng.x, ng.y, ng.z);
@@ -245,7 +380,7 @@ __device__ void bounce_vjp(const SceneView& sc, const Path& p, uint32_t pid,
       pdf_new = fmaxf(dot(ns, dl), 0.0f) * kInvPi;
       w = alb;
     } else {
-      alpha = fmaxf(s[10] * s[10], 1e-4f);
+      alpha = fmaxf(s[6] * s[6], 1e-4f);
       a2g = alpha * alpha;
       cos2h = (1.0f - u1) / (1.0f + (a2g - 1.0f) * u1);
       cth = sqrtf(fmaxf(cos2h, 0.0f));
@@ -277,7 +412,7 @@ __device__ void bounce_vjp(const SceneView& sc, const Path& p, uint32_t pid,
     }
   } else {
     const float u_lobe = counter_uniform(pid, sample, kdim + kDimLobe, seed);
-    ior = fmaxf(s[11], 1.001f);
+    ior = fmaxf(s[7], 1.001f);
     eta = front ? 1.0f / ior : ior;
     cos_i = fmaxf(dot(wo, ns), 1e-6f);
     const float f_die = fresnel_dielectric(cos_i, 1.0f / eta);
@@ -347,16 +482,17 @@ __device__ void bounce_vjp(const SceneView& sc, const Path& p, uint32_t pid,
                              : lsel_cell(sc.lsb, p.ox, p.oy, p.oz);
     float ul = counter_uniform(cell, sample, kdim + kDimLsel, seed);
     int li = min((int)(ul * nlf), sc.nl - 1);
-    int lprim = -1;
+    int lslot = -1;
     V3 lc = zero3, le = zero3;
     float lrr = 0.0f;
     for (int l = 0; l < sc.n_light_slots; ++l) {
       if (li == l && l < sc.nl) {
-        lprim = sc.meta[kMetaFixed + sc.n_prims + l];
-        const float* ls = sc.blob + kSphOff + kSphStride * lprim;
+        lslot = l;
+        const float* ls = geo.light(l);
+        constexpr int e = Geometry::kLightEmit;
         lc = {ls[0], ls[1], ls[2]};
         lrr = ls[3];
-        le = {ls[7], ls[8], ls[9]};
+        le = {ls[e], ls[e + 1], ls[e + 2]};
       }
     }
     const float lu1 = counter_uniform(pid, sample, kdim + kDimLU1, seed);
@@ -386,7 +522,7 @@ __device__ void bounce_vjp(const SceneView& sc, const Path& p, uint32_t pid,
     const float discl = fmaxf(bl * bl - cl, 0.0f);
     const float t_l = bl - sqrtf(fmaxf(discl, 1e-20f));
     const bool blocked =
-        occluded(sc, po.x, po.y, po.z, ld.x, ld.y, ld.z, t_l - 1e-3f);
+        geo.occluded(po.x, po.y, po.z, ld.x, ld.y, ld.z, t_l - 1e-3f);
     const bool lit = !blocked && !inside_l && t_l > kTmin && pdf_l > 0.0f;
     if (lit) {
       const float ndotl = fmaxf(dot(ns, ld), 0.0f);
@@ -487,16 +623,7 @@ __device__ void bounce_vjp(const SceneView& sc, const Path& p, uint32_t pid,
                                      * toc;
       h_b -= toc_b;
       ns_b -= kEps * toc_b;
-      if (lprim >= 0) {
-        float* row = g + kSphStride * lprim;
-        grad_add(row, 0, toc_b.x);
-        grad_add(row, 1, toc_b.y);
-        grad_add(row, 2, toc_b.z);
-        grad_add(row, 3, lrr_b);
-        grad_add(row, 7, le_b.x);
-        grad_add(row, 8, le_b.y);
-        grad_add(row, 9, le_b.z);
-      }
+      if (lslot >= 0) sink.light(lslot, toc_b, lrr_b, le_b);
     }
   }
 
@@ -543,7 +670,7 @@ __device__ void bounce_vjp(const SceneView& sc, const Path& p, uint32_t pid,
         - sqrt_adj(sth, sth_b) * dmax(1.0f - cos2h, 1e-12f);
     a2g_b -= cos2h_b * cos2h / (1.0f + (a2g - 1.0f) * u1) * u1;
     const float alpha_b = 0.5f * kg_b + 2.0f * alpha * a2g_b;
-    rough_b = alpha_b * 2.0f * s[10] * dmax(s[10] * s[10], 1e-4f);
+    rough_b = alpha_b * 2.0f * s[6] * dmax(s[6] * s[6], 1e-4f);
   } else {
     float cosi_b = 0.0f;
     if (refl) {
@@ -560,7 +687,7 @@ __device__ void bounce_vjp(const SceneView& sc, const Path& p, uint32_t pid,
                           + sin2t_b * fmaxf(mm_arg, 0.0f) * 2.0f * eta;
       cosi_b = eta * kk_b
                - 2.0f * cos_i * (sin2t_b * eta * eta) * dmax(mm_arg, 0.0f);
-      ior_b = (front ? -eta_b / (ior * ior) : eta_b) * dmax(s[11], 1.001f);
+      ior_b = (front ? -eta_b / (ior * ior) : eta_b) * dmax(s[7], 1.001f);
       ns_b += kk * dtr_b;
       wo_b -= eta * dtr_b;
     }
@@ -626,24 +753,23 @@ __device__ void bounce_vjp(const SceneView& sc, const Path& p, uint32_t pid,
   o_ct -= oc_b;
 
   // ---- theta: the winner's row -----------------------------------------------
-  float* row = g + kSphStride * j;
-  grad_add(row, 0, C_b.x);
-  grad_add(row, 1, C_b.y);
-  grad_add(row, 2, C_b.z);
-  grad_add(row, 3, r_b);
-  grad_add(row, 4, a_b.x);
-  grad_add(row, 5, a_b.y);
-  grad_add(row, 6, a_b.z);
-  grad_add(row, 7, e_b.x);
-  grad_add(row, 8, e_b.y);
-  grad_add(row, 9, e_b.z);
-  grad_add(row, 10, rough_b);
-  grad_add(row, 11, ior_b);
+  sink.hit(hit.id, C_b, r_b, a_b, e_b, rough_b, ior_b);
 
   ct[0] = o_ct.x; ct[1] = o_ct.y; ct[2] = o_ct.z;
   ct[3] = d_ct.x; ct[4] = d_ct.y; ct[5] = d_ct.z;
   ct[6] = th_ct.x; ct[7] = th_ct.y; ct[8] = th_ct.z;
   ct[12] = pdf_ct;
+}
+
+// K2's adjoint: the sphere list, theta's cotangent into sphere rows of g.
+__device__ __forceinline__ void bounce_vjp(const SceneView& sc, const Path& p,
+                                           uint32_t pid, uint32_t sample,
+                                           uint32_t seed, int k, int rr_depth,
+                                           bool use_nee, bool use_mis,
+                                           float* ct, float* g) {
+  SphereSink sink{g, sc};
+  bounce_vjp(sc, SphereList{sc}, sink, p, pid, sample, seed, k, rr_depth,
+             use_nee, use_mis, ct);
 }
 
 }  // namespace spt

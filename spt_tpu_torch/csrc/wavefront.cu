@@ -42,9 +42,28 @@
 //   shadow tests come close.  One thread per ray, its state in registers;
 //   the scene uniforms sit in shared memory.
 //
+// * K9 replaces spt_tpu/kernels/wavefront_grad.py::_shade_fwd_kernel
+//   (launched by _shade_op): K7 on a copy of the stream (kernels/
+//   wavefront_grad.py clones it, since the backward keeps the pre-bounce
+//   state), also writing each lane's NEE shadow verdict, the one record
+//   the backward needs that K6 does not make.  The same kernel and the same
+//   called bounce as K7, given a verdict row, so K9's state is K7's bit
+//   for bit.  Bound: K7's bytes and 4 more a lane.
+// * K10 replaces wavefront_grad.py::_bounce_bwd_kernel (launched by
+//   _bwd_pallas_call): one bounce's adjoint.  One thread per lane replays
+//   its bounce through bounce_vjp (physics_adj.cuh) on the winner rebuilt
+//   from the residual and the recorded verdict (RebuiltGeometry), taking
+//   the post-bounce cotangent to the pre-bounce one, and writes its
+//   winner's centre and radius cotangent; the sky, material and light
+//   gradients are summed per block in shared memory (shared atomics) and
+//   added to the global vector once a block, as K2 adds them.  Bound: fp32
+//   operations of the replay and its adjoint (the bytes, some 230 a lane,
+//   come close).
+//
 // Lanes past the alive prefix (the sorted stream's dead suffix) are not
-// launched: K6 and K7 take the prefix length, where the TPU kernels
-// redirect those grid steps to the pad tile.
+// launched: K6, K7 and K9 take the prefix length, where the TPU kernels
+// redirect those grid steps to the pad tile.  K10 copies their cotangent
+// through, as the TPU kernel's alias does.
 //
 // Built with nvcc for sm_90a without --use_fast_math and with --fmad=false
 // (see kernels/_build.py); entries return cudaGetLastError().
@@ -55,6 +74,7 @@
 
 #include "camera.cuh"
 #include "physics.cuh"
+#include "physics_adj.cuh"
 #include "rng.cuh"
 
 namespace spt {
@@ -63,7 +83,7 @@ constexpr int kTile = 1024;                // lanes of a stream tile
 constexpr int kTileW = 32;                 // its pixels: 32 x 32, swizzled
 constexpr int kThreadsWf = 256;
 constexpr int kNCh = 17;                   // float channels of the stream
-constexpr int kChAlive = 13, kChSpec = 14, kChMiss = 16;
+constexpr int kChAlive = 13, kChSpec = 14, kChInimg = 15, kChMiss = 16;
 constexpr int kWfMatOff = 21;              // blob: camera 15, sky 6, mats
 constexpr int kWfMatStride = 8;            // ar ag ab er eg eb rough ior
 constexpr int kWfLightStride = 7;          // cx cy cz r er eg eb
@@ -178,7 +198,8 @@ __global__ void __launch_bounds__(kThreadsWf) isect_kernel(IsectParams prm) {
 // ---------------------------------------------------------------------------
 
 // K7's geometry: the lane's nearest hit rebuilt from K6's winner, and its
-// tile's shadow candidate list.
+// tile's shadow candidate list.  With `blocked` (K9) the shadow test also
+// writes its verdict there.
 struct WavefrontGeometry {
   static constexpr int kLightEmit = 4;
   float hcx, hcy, hcz, hr, hmid;
@@ -189,6 +210,7 @@ struct WavefrontGeometry {
   const int* mtypes;    // n_mats
   const float* lights;  // kWfLightStride per slot
   int block;
+  float* blocked;       // K9: this lane's verdict; K7: null
 
   // The winner's quadratic again, on the same floats K6 used (the TPU's
   // _rebuilt_intersect); no hit where K6 found none (hmid < 0, which is
@@ -217,6 +239,14 @@ struct WavefrontGeometry {
   __device__ __forceinline__ bool occluded(float ox, float oy, float oz,
                                            float dx, float dy, float dz,
                                            float tmax) const {
+    const bool hit = sweep(ox, oy, oz, dx, dy, dz, tmax);
+    if (blocked) *blocked = hit ? 1.0f : 0.0f;
+    return hit;
+  }
+
+  __device__ __forceinline__ bool sweep(float ox, float oy, float oz,
+                                        float dx, float dy, float dz,
+                                        float tmax) const {
     const int ncand = __ldg(scl);
     for (int c = 0; c < ncand; ++c) {
       if (__ldg(stl + c) >= tmax) break;  // every later box is past the light
@@ -263,6 +293,7 @@ struct ShadeParams {
   const int* mtypes;    // n_mats
   const int* scand;     // (tiles, 1, n_blocks + 1), unread without NEE
   const float* sctn;    // (tiles, 1, n_blocks)
+  float* blocked;       // K9: (n_lanes,) shadow verdicts; K7: null
   int stride, n_lanes, n_blocks, block, n_mats, n_light_slots, k, rr_depth;
   int sky_mode, blob_len;
   bool use_nee, use_mis;
@@ -286,6 +317,7 @@ __global__ void __launch_bounds__(kThreadsWf) shade_kernel(ShadeParams prm) {
   if (i >= prm.n_lanes) return;
   const size_t s = (size_t)prm.stride;
   float* st = prm.st + i;
+  if (prm.blocked) prm.blocked[i] = 0.0f;
   if (!(st[kChAlive * s] > 0.5f)) {
     st[kChMiss * s] = 0.0f;
     return;
@@ -316,7 +348,8 @@ __global__ void __launch_bounds__(kThreadsWf) shade_kernel(ShadeParams prm) {
       res[0], res[n], res[2 * n], res[3 * n], res[4 * n], prm.prims,
       nee ? prm.scand + (size_t)tile * (prm.n_blocks + 1) : prm.scand,
       nee ? prm.sctn + (size_t)tile * prm.n_blocks : prm.sctn, mats,
-      s_mtypes, mats + kWfMatStride * prm.n_mats, prm.block};
+      s_mtypes, mats + kWfMatStride * prm.n_mats, prm.block,
+      prm.blocked ? prm.blocked + i : nullptr};
   const SceneView sc{s_blob, s_meta, s_lsb, 0, prm.n_light_slots, s_meta[2],
                      prm.sky_mode};
   const uint32_t pid = (uint32_t)prm.ids[i];
@@ -340,6 +373,103 @@ __global__ void __launch_bounds__(kThreadsWf) shade_kernel(ShadeParams prm) {
   st[kChAlive * s] = p.active ? 1.0f : 0.0f;
   st[kChSpec * s] = p.prev_spec ? 1.0f : 0.0f;
   st[kChMiss * s] = (missed && prm.sky_mode == kSkyEnvmap) ? 1.0f : 0.0f;
+}
+
+// ---------------------------------------------------------------------------
+// K10: one bounce's adjoint.
+// ---------------------------------------------------------------------------
+
+struct BounceBwdParams {
+  float* din;           // (17, stride): cotangent of the pre-bounce stream
+  float* dgeo;          // (4, n_lanes): d(cx, cy, cz, r) of each winner
+  float* dscal;         // sky 6, materials 8 n_mats, lights 7 L; zeroed
+  const float* st;      // (17, stride): the pre-bounce stream
+  const int* ids;       // (2, stride)
+  const float* res;     // (8, n_lanes): winner record, verdict in row 7
+  const float* ct;      // (17, stride): cotangent of the post-bounce stream
+  const float* blob;    // 21 + 8 * n_mats + 7 * max(n_light_slots, 1)
+  const int* meta;      // start_sample, seed, n_lights
+  const float* lsb;     // 6
+  const int* mtypes;    // n_mats
+  int stride, n_lanes, n_mats, n_light_slots, k, rr_depth, sky_mode;
+  int blob_len, n_scal;
+  bool use_nee, use_mis;
+};
+
+__global__ void __launch_bounds__(kThreadsWf)
+    bounce_bwd_kernel(BounceBwdParams prm) {
+  extern __shared__ float smem[];
+  float* s_blob = smem;
+  float* s_invalid = s_blob + prm.blob_len;             // 8
+  float* s_lsb = s_invalid + kWfMatStride;              // 6
+  int* s_meta = reinterpret_cast<int*>(s_lsb + 6);      // 3
+  int* s_mtypes = s_meta + 3;                           // n_mats
+  float* s_grad = reinterpret_cast<float*>(s_mtypes + prm.n_mats);  // n_scal
+  for (int a = threadIdx.x; a < prm.blob_len; a += blockDim.x)
+    s_blob[a] = prm.blob[a];
+  for (int a = threadIdx.x; a < prm.n_mats; a += blockDim.x)
+    s_mtypes[a] = prm.mtypes[a];
+  for (int a = threadIdx.x; a < prm.n_scal; a += blockDim.x)
+    s_grad[a] = 0.0f;
+  if (threadIdx.x < kWfMatStride)
+    s_invalid[threadIdx.x] = threadIdx.x == kWfMatStride - 1 ? 1.5f : 0.0f;
+  if (threadIdx.x < 6) s_lsb[threadIdx.x] = prm.lsb[threadIdx.x];
+  if (threadIdx.x < 3) s_meta[threadIdx.x] = prm.meta[threadIdx.x];
+  __syncthreads();
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t s = (size_t)prm.stride;
+  if (i < prm.n_lanes) {
+    const float* st = prm.st + i;
+    const float* cti = prm.ct + i;
+    float ct[13];
+    for (int c = 0; c < 13; ++c) ct[c] = cti[c * s];
+    float dgeo[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (st[kChAlive * s] > 0.5f) {
+      Path p;
+      p.ox = st[0];
+      p.oy = st[s];
+      p.oz = st[2 * s];
+      p.dx = st[3 * s];
+      p.dy = st[4 * s];
+      p.dz = st[5 * s];
+      p.th_r = st[6 * s];
+      p.th_g = st[7 * s];
+      p.th_b = st[8 * s];
+      p.rad_r = st[9 * s];
+      p.rad_g = st[10 * s];
+      p.rad_b = st[11 * s];
+      p.prev_pdf = st[12 * s];
+      p.active = true;
+      p.prev_spec = st[kChSpec * s] > 0.5f;
+      const size_t n = (size_t)prm.n_lanes;
+      const float* res = prm.res + i;
+      const float* mats = s_blob + kWfMatOff;
+      const RebuiltGeometry geo{res[0],     res[n],       res[2 * n],
+                                res[3 * n], res[4 * n],   res[7 * n] > 0.5f,
+                                mats,       s_mtypes,     s_invalid,
+                                mats + kWfMatStride * prm.n_mats, prm.n_mats};
+      const SceneView sc{s_blob, s_meta, s_lsb, 0, prm.n_light_slots,
+                         s_meta[2], prm.sky_mode};
+      ScalarSink sink{s_grad, prm.n_mats, {0.0f, 0.0f, 0.0f, 0.0f}};
+      bounce_vjp(sc, geo, sink, p, (uint32_t)prm.ids[i],
+                 (uint32_t)prm.ids[s + i], (uint32_t)s_meta[1], prm.k,
+                 prm.rr_depth, prm.use_nee, prm.use_mis, ct);
+      for (int a = 0; a < 4; ++a) dgeo[a] = sink.dgeo[a];
+    }
+    float* din = prm.din + i;
+    for (int c = 0; c < 13; ++c) din[c * s] = ct[c];
+    din[kChAlive * s] = 0.0f;
+    din[kChSpec * s] = 0.0f;
+    din[kChInimg * s] = cti[kChInimg * s];
+    din[kChMiss * s] = 0.0f;
+    for (int a = 0; a < 4; ++a) prm.dgeo[a * (size_t)prm.n_lanes + i] = dgeo[a];
+  } else if (i < prm.stride) {
+    for (int c = 0; c < kNCh; ++c) prm.din[c * s + i] = prm.ct[c * s + i];
+  }
+  __syncthreads();
+  for (int a = threadIdx.x; a < prm.n_scal; a += blockDim.x)
+    if (s_grad[a] != 0.0f) atomicAdd(prm.dscal + a, s_grad[a]);
 }
 
 inline unsigned blocks_for(int n) {
@@ -398,7 +528,8 @@ extern "C" int spt_wavefront_isect(void* res, const void* st,
 extern "C" int spt_wavefront_shade(
     void* st, const void* ids, const void* res, const void* blob,
     const void* meta, const void* lsb, const void* prims, const void* mtypes,
-    const void* scand, const void* sctn, int stride, int n_lanes,
+    const void* scand, const void* sctn, void* blocked, int stride,
+    int n_lanes,
     int n_blocks, int block, int n_mats, int n_light_slots, int k,
     int rr_depth, int use_nee, int use_mis, int sky_mode, void* stream) {
   spt::ShadeParams prm;
@@ -412,6 +543,7 @@ extern "C" int spt_wavefront_shade(
   prm.mtypes = static_cast<const int*>(mtypes);
   prm.scand = static_cast<const int*>(scand);
   prm.sctn = static_cast<const float*>(sctn);
+  prm.blocked = static_cast<float*>(blocked);
   prm.stride = stride;
   prm.n_lanes = n_lanes;
   prm.n_blocks = n_blocks;
@@ -429,5 +561,44 @@ extern "C" int spt_wavefront_shade(
   const size_t smem = sizeof(float) * (prm.blob_len + 6 + 3 + n_mats);
   spt::shade_kernel<<<spt::blocks_for(n_lanes), spt::kThreadsWf, smem,
                       static_cast<cudaStream_t>(stream)>>>(prm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int spt_wavefront_bounce_bwd(
+    void* din, void* dgeo, void* dscal, const void* st, const void* ids,
+    const void* res, const void* ct, const void* blob, const void* meta,
+    const void* lsb, const void* mtypes, int stride, int n_lanes, int n_mats,
+    int n_light_slots, int k, int rr_depth, int use_nee, int use_mis,
+    int sky_mode, void* stream) {
+  spt::BounceBwdParams prm;
+  prm.din = static_cast<float*>(din);
+  prm.dgeo = static_cast<float*>(dgeo);
+  prm.dscal = static_cast<float*>(dscal);
+  prm.st = static_cast<const float*>(st);
+  prm.ids = static_cast<const int*>(ids);
+  prm.res = static_cast<const float*>(res);
+  prm.ct = static_cast<const float*>(ct);
+  prm.blob = static_cast<const float*>(blob);
+  prm.meta = static_cast<const int*>(meta);
+  prm.lsb = static_cast<const float*>(lsb);
+  prm.mtypes = static_cast<const int*>(mtypes);
+  prm.stride = stride;
+  prm.n_lanes = n_lanes;
+  prm.n_mats = n_mats;
+  prm.n_light_slots = n_light_slots;
+  prm.k = k;
+  prm.rr_depth = rr_depth;
+  prm.sky_mode = sky_mode;
+  prm.use_nee = use_nee != 0;
+  prm.use_mis = use_mis != 0;
+  prm.blob_len = spt::kWfMatOff + spt::kWfMatStride * n_mats +
+                 spt::kWfLightStride * (n_light_slots > 1 ? n_light_slots : 1);
+  prm.n_scal = 6 + spt::kWfMatStride * n_mats + spt::kWfLightStride *
+                                                    n_light_slots;
+  if (stride <= 0) return 0;
+  const size_t smem = sizeof(float) * (prm.blob_len + spt::kWfMatStride + 6 +
+                                       3 + n_mats + prm.n_scal);
+  spt::bounce_bwd_kernel<<<spt::blocks_for(stride), spt::kThreadsWf, smem,
+                           static_cast<cudaStream_t>(stream)>>>(prm);
   return static_cast<int>(cudaGetLastError());
 }

@@ -59,10 +59,22 @@ ENTRIES = {
         "spt_wavefront_raygen": [_P] * 4 + [_I] * 7 + [_F, _F, _F, _P],
         # res, st, prims, cand, ctn, stride, n_lanes, n_blocks, block, stream
         "spt_wavefront_isect": [_P] * 5 + [_I] * 4 + [_P],
-        # st, ids, res, blob, meta, lsb, prims, mtypes, scand, sctn, stride,
-        # n_lanes, n_blocks, block, n_mats, n_light_slots, k, rr_depth,
-        # use_nee, use_mis, sky_mode, stream
-        "spt_wavefront_shade": [_P] * 10 + [_I] * 11 + [_P],
+        # st, ids, res, blob, meta, lsb, prims, mtypes, scand, sctn,
+        # blocked (K9; null for K7), stride, n_lanes, n_blocks, block,
+        # n_mats, n_light_slots, k, rr_depth, use_nee, use_mis, sky_mode,
+        # stream
+        "spt_wavefront_shade": [_P] * 11 + [_I] * 11 + [_P],
+        # din, dgeo, dscal, st, ids, res, ct, blob, meta, lsb, mtypes,
+        # stride, n_lanes, n_mats, n_light_slots, k, rr_depth, use_nee,
+        # use_mis, sky_mode, stream
+        "spt_wavefront_bounce_bwd": [_P] * 11 + [_I] * 9 + [_P],
+    },
+    "megakernel_bvh_grad": {
+        # img, grad_s, grad_g, blob, meta, lsb, nodef, nodei, prims, mtypes,
+        # ct, width, height, spp, n_nodes, block, n_mats, n_light_slots,
+        # max_bounces, rr_depth, use_nee, use_mis, sky_mode, dof, inv_w,
+        # inv_h, aspect, stream
+        "spt_megakernel_bvh_grad": [_P] * 11 + [_I] * 13 + [_F, _F, _F, _P],
     },
 }
 

@@ -19,9 +19,11 @@ order s = 0 … spp-1.
   ops, for gradients with respect to the scene.
 
 ``LAUNCHES`` counts K1 launches (``"k1"``), K2 launches (``"k2"``, see
-``megakernel_grad``), K3 launches (``"k3"``, see ``megakernel_bvh``), the
-wavefront's K5, K6 and K7 launches (``"k5"``, ``"k6"``, ``"k7"``, see
-``wavefront``) and plain-version runs of any of them (``"plain"``: one per
+``megakernel_grad``), K3 launches (``"k3"``, see ``megakernel_bvh``), K4
+launches (``"k4"``, see ``megakernel_bvh_grad``), the wavefront's K5, K6
+and K7 launches (``"k5"``, ``"k6"``, ``"k7"``, see ``wavefront``), its
+gradient's K9 and K10 launches (``"k9"``, ``"k10"``, see
+``wavefront_grad``) and plain-version runs of any of them (``"plain"``: one per
 call of a plain version, so a wavefront render on the CPU adds one per
 raygen and two per bounce), so a caller can see which path a render took.
 """
@@ -52,8 +54,8 @@ _META_FIXED = 3
 # and every ray tests every sphere.
 MAX_PRIMS = 128
 
-LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "k5": 0, "k6": 0, "k7": 0,
-            "plain": 0}
+LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0, "k6": 0, "k7": 0,
+            "k9": 0, "k10": 0, "plain": 0}
 
 
 def reset_launch_counts() -> None:

@@ -224,6 +224,88 @@ def pack_bvh_scene(scene: SceneData, camera, block: int = BLOCK):
 
 
 # ---------------------------------------------------------------------------
+# Differentiable packing: the blob and the prim table from scene tensors.
+# ---------------------------------------------------------------------------
+
+
+def pack_blob_torch(scene: SceneData, camera, static) -> torch.Tensor:
+    """``pack_bvh_scene``'s blob (camera, sky, material table, light slots)
+    as tensor ops on the scene's device, differentiable with respect to the
+    scene's tensors: the port of JAX's ``megakernel_bvh.pack_blob_jnp``,
+    bit for bit.  The ior is ``maximum(ior, 1.001)``, whose cotangent
+    splits at a tie as JAX's does (``physics._max``)."""
+    dev = scene.device
+
+    def field(v):
+        if not isinstance(v, torch.Tensor):
+            v = torch.from_numpy(np.array(v, np.float32))
+        return v.to(dev, torch.float32).reshape(-1)
+
+    cam = torch.cat([field(getattr(camera, f)) for f in (
+        "position", "right", "up", "forward", "tan_half_fov", "aperture",
+        "focus_dist")])
+    mats = scene.materials
+    table = torch.cat([mats.albedo, mats.emission, mats.roughness[:, None],
+                       physics._max(mats.ior, 1.001)[:, None]], dim=1)
+    parts = [cam, scene.sky_params.reshape(-1).to(torch.float32),
+             table.reshape(-1).to(torch.float32)]
+    lp = static["light_prims"]
+    if lp:
+        idx = torch.tensor(lp, dtype=torch.long, device=dev)
+        rows = torch.cat([scene.centers[idx], scene.radii[idx][:, None],
+                          mats.emission[scene.mat_id[idx].long()]], dim=1)
+        parts.append(rows.reshape(-1).to(torch.float32))
+    else:
+        parts.append(torch.zeros(_LIGHT_STRIDE, dtype=torch.float32,
+                                 device=dev))
+    return torch.cat(parts)
+
+
+def _block_index(static, device):
+    """(ok, idx): the leaf slots that hold a prim, and its index (0 for a
+    padding slot), both (n_blocks, block), from the static block map."""
+    ids = torch.from_numpy(np.asarray(static["block_prim_ids"])).to(device)
+    return ids >= 0, torch.clamp_min(ids, 0).long()
+
+
+def pack_prims_torch(scene: SceneData, static) -> torch.Tensor:
+    """``pack_bvh_scene``'s (n_blocks, 5, block) prim table gathered from the
+    scene's tensors by the static block map (padding slots zero with id
+    -1), differentiable in the centres and radii: JAX's ``pack_prims_jnp``,
+    bit for bit."""
+    ok, idx = _block_index(static, scene.device)
+    okf = ok.to(torch.float32)
+    rows = [scene.centers[idx, a] * okf for a in range(3)]
+    rows.append(scene.radii[idx] * okf)
+    rows.append(torch.where(ok, scene.mat_id[idx].to(torch.float32), -1.0))
+    return torch.stack(rows, dim=1).to(torch.float32)
+
+
+def refit_nodef_torch(scene: SceneData, static) -> torch.Tensor:
+    """The 8 stacked octant node tables' boxes refit to the scene's current
+    centres and radii over the static topology (8 n_nodes, 8), detached:
+    JAX's ``refit_nodef_jnp``, bit for bit.  Each leaf block's box is the
+    union of its prims' boxes; each node's the union of the blocks it
+    covers (``node_cover``); the octant tables gather them by
+    ``octant_perm``.  Without it the walk would cull against the build's
+    boxes and miss a sphere moved out of its own."""
+    ok, idx = _block_index(static, scene.device)
+    c = scene.centers.detach()[idx]                      # (nb, block, 3)
+    r = scene.radii.detach()[idx][..., None]
+    lo_b = torch.where(ok[..., None], c - r, 3e38).amin(dim=1)
+    hi_b = torch.where(ok[..., None], c + r, -3e38).amax(dim=1)
+    cover = torch.from_numpy(np.asarray(static["node_cover"])).to(
+        scene.device)                                    # (n_nodes, nb)
+    nmin = torch.where(cover[:, :, None], lo_b[None], 3e38).amin(dim=1)
+    nmax = torch.where(cover[:, :, None], hi_b[None], -3e38).amax(dim=1)
+    nodef = torch.cat([nmin, nmax, torch.zeros(
+        (static["n_nodes"], 2), dtype=torch.float32, device=scene.device)],
+        dim=1)
+    perm = torch.from_numpy(np.asarray(static["octant_perm"]).reshape(-1))
+    return nodef[perm.long().to(scene.device)].contiguous()
+
+
+# ---------------------------------------------------------------------------
 # The plain version: K3's walk per lane, in lockstep.
 # ---------------------------------------------------------------------------
 

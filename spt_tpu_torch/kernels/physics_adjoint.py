@@ -138,17 +138,24 @@ def _cone_adj(r, d2, cosm, deg, pdf_b, cosm_b, nlf: float):
 
 
 def trace_bounce_vjp(theta, state, aux, u, nl: int, cfg: P.BounceCfg,
-                     state_ct):
+                     state_ct, geometry=None):
     """Reverse mode of ``physics.trace_bounce`` at (theta, state, aux, u):
     the cotangent ``state_ct`` of the 13 output channels ->
-    ``(theta_ct, state_in_ct)``."""
+    ``(theta_ct, state_in_ct)``.
+
+    ``geometry = (intersect_fn, occluded_fn)``, where given, replaces the
+    sphere list as in ``trace_bounce``; the winner's row then belongs to
+    no table, so ``theta_ct[0]`` is its cotangent per lane, (N, 12) in the
+    row's order (cx cy cz r ar ag ab er eg eb rough ior; zero where a lane
+    hits nothing), and ``theta[0]`` is not read."""
     with torch.no_grad():
-        return _bounce_vjp(theta, state, aux, u, nl, cfg, state_ct)
+        return _bounce_vjp(theta, state, aux, u, nl, cfg, state_ct,
+                           geometry or (None, None))
 
 
-def _bounce_vjp(theta, state, aux, u, nl, cfg, state_ct):
+def _bounce_vjp(theta, state, aux, u, nl, cfg, state_ct, geometry):
     spheres, sky, lights = theta
-    _, _, f = P.trace_bounce_tape(theta, state, aux, u, nl, cfg)
+    _, _, f = P.trace_bounce_tape(theta, state, aux, u, nl, cfg, *geometry)
 
     o, d, th = _v(*state[0:3]), _v(*state[3:6]), _v(*state[6:9])
     prev_pdf = state[12]
@@ -428,8 +435,11 @@ def _bounce_vjp(theta, state, aux, u, nl, cfg, state_ct):
     # -- theta: the winner's row, the picked light's row, the sky -------------
     row = torch.where(hit, torch.cat([C_b, r_b[None], a_b, e_b, rough_b[None],
                                       ior_b[None]]), 0.0)
-    spheres_ct = torch.zeros_like(spheres).index_add_(
-        0, f.j_best.long(), row.T)
+    if geometry[0] is None:
+        spheres_ct = torch.zeros_like(spheres).index_add_(
+            0, f.j_best.long(), row.T)
+    else:
+        spheres_ct = row.T
     lights_ct = torch.zeros_like(lights)
     if light_b is not None:
         lights_ct.index_add_(0, f.nee.light.li.long(), light_b.T)
@@ -439,3 +449,47 @@ def _bounce_vjp(theta, state, aux, u, nl, cfg, state_ct):
     pdf_ct = torch.where(active, pdf_ct, pdf_o)
     return (spheres_ct, sky_ct, lights_ct), (*o_ct, *d_ct, *th_ct, *rad_o,
                                              pdf_ct)
+
+
+# A padding slot's winner takes K1's row of an invalid sphere: black
+# Lambert, ior 1.5 (``megakernel_bvh._resolve``).  The rebuilt-winner
+# tables carry it as material ``n_mats``.
+_INVALID_ROW = (0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.5)
+
+
+def winner_tables(mats, mtypes):
+    """The material table (n_mats, 8) and its types with the invalid row
+    appended as material ``n_mats``: where K4 records a padding winner."""
+    from ..core.materials import LAMBERT
+    inv = torch.tensor(_INVALID_ROW, dtype=mats.dtype, device=mats.device)
+    return (torch.cat([mats, inv[None]]),
+            torch.cat([mtypes.long(), mtypes.new_full((1,), LAMBERT).long()]))
+
+
+def rebuilt_bounce_vjp(sky, mats, mtypes, lights, res, state, aux, u,
+                       nl: int, cfg: P.BounceCfg, state_ct):
+    """Reverse mode of a bounce whose nearest hit is a saved winner and
+    whose shadow verdict is a saved mask: the plain version of K4's and
+    K10's per-lane adjoint.
+
+    ``res`` (8, N): the winner's centre and radius, material id (-1: no
+    hit; ``n_mats``: a padding slot, see ``winner_tables``), leaf block,
+    slot and the NEE blocked mask, as K6 and K9 record them.  The hit is
+    ``wavefront._rebuilt_intersect`` on that record.  Returns ``(sky_ct
+    (6,), mats_ct (n_mats, 8), lights_ct (L, 7), dgeo (4, N), state_in_ct)``:
+    ``dgeo`` is each lane's cotangent of its winner's centre and radius,
+    zero for a padding winner, which no prim owns."""
+    from .wavefront import _rebuilt_intersect
+    n_mats = mats.shape[0]
+    mats_x, mtypes_x = winner_tables(mats, mtypes)
+    blocked = res[7] > 0.5
+    geometry = (_rebuilt_intersect(mats_x, mtypes_x, res),
+                lambda *a: blocked)
+    (row, sky_ct, lights_ct), st_ct = trace_bounce_vjp(
+        (mats.new_zeros((0, 12)), sky, lights), state, aux, u, nl, cfg,
+        state_ct, geometry)
+    m = torch.clamp(res[4], 0.0, float(n_mats)).long()
+    mats_ct = torch.zeros((n_mats + 1, 8), dtype=row.dtype,
+                          device=row.device).index_add_(0, m, row[:, 4:12])
+    dgeo = torch.where(res[4] < n_mats, row[:, 0:4].T, 0.0)
+    return sky_ct, mats_ct[:n_mats], lights_ct, dgeo, st_ct

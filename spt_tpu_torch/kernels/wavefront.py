@@ -597,8 +597,8 @@ def _rebuilt_intersect(mats, mtypes, res):
 def shade_plain(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
                 n_lanes: int, *, k: int, block: int, n_mats: int,
                 n_light_slots: int, rr_depth: int, use_nee: bool,
-                use_mis: bool, sky_mode: int,
-                stats: dict | None = None) -> None:
+                use_mis: bool, sky_mode: int, stats: dict | None = None,
+                blocked: torch.Tensor | None = None) -> None:
     """Plain version of K7: bounce ``k`` of lanes [0, n_lanes) of the
     stream, in place.  ``trace_bounce`` on the hit rebuilt from ``res``;
     each shadow ray tests its tile's shadow list in order and stops at its
@@ -608,7 +608,10 @@ def shade_plain(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
     gets ``render_samples_plain``'s per-bounce counts of this bounce
     (``"active"``, ``"hit"``, ``"shadow"``, ``"lit"``) and the shadow
     sweep's ``"shadow_spheres"``, ``"shadow_blocks"``,
-    ``"shadow_list_words"`` and ``"shadow_blocks_read"`` added."""
+    ``"shadow_list_words"`` and ``"shadow_blocks_read"`` added.
+    ``blocked``, if given, (n_lanes,) float32, receives the NEE shadow
+    verdict: 1 where a traced shadow ray is blocked, 0 elsewhere (K9's
+    record, ``wavefront_grad.shade_fwd_plain``)."""
     LAUNCHES["plain"] += 1
     dev = st.device
     n = n_lanes
@@ -626,7 +629,7 @@ def shade_plain(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
     lists = []
 
     def occluded(ox, oy, oz, dx, dy, dz, tmax, need):
-        blocked = torch.zeros_like(need)
+        verdict = torch.zeros_like(need)
         o, d = (ox, oy, oz), (dx, dy, dz)
 
         def step(idx, blk):
@@ -638,13 +641,15 @@ def shade_plain(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
                                 filled[blk])
             work[0] += first.sum()
             work[1] += idx.numel()
-            blocked[idx] = stop
+            verdict[idx] = stop
             return stop
 
         lists.append(_list_reads(
             scand, tile, need, *_sweep_lanes(scand, sctn, tile, tmax, need,
                                              step)))
-        return blocked
+        if blocked is not None:
+            blocked.copy_(verdict)
+        return verdict
 
     want_miss = sky_mode == SKY_ENVMAP
     cfg = physics.BounceCfg(
@@ -689,13 +694,25 @@ def shade(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
     args = (blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res)
     if st.device.type == "cpu":
         return shade_plain(*args, n_lanes, **kw)
+    _shade_launch("K7", args, n_lanes, None, **kw)
+    LAUNCHES["k7"] += 1
+
+
+def _shade_launch(name, args, n_lanes: int, blocked, *, k: int, block: int,
+                  n_mats: int, n_light_slots: int, rr_depth: int,
+                  use_nee: bool, use_mis: bool, sky_mode: int) -> None:
+    """Checks and launches K7's kernel on CUDA tensors: K7 itself with
+    ``blocked`` None, K9 (which also writes the (n_lanes,) shadow verdict
+    into ``blocked``) otherwise."""
+    blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res = args
     if st.device.type != "cuda":
-        raise NotImplementedError(f"K7 has no kernel for {st.device}")
+        raise NotImplementedError(f"{name} has no kernel for {st.device}")
     if any(a.device != st.device for a in args):
-        raise ValueError("K7's inputs must lie on one device")
+        raise ValueError(f"{name}'s inputs must lie on one device")
     _check_stream(st, ids)
     if not 0 <= n_lanes <= st.shape[1] or n_lanes % TILE:
-        raise ValueError(f"K7: {n_lanes} lanes of a stream of {st.shape[1]}")
+        raise ValueError(f"{name}: {n_lanes} lanes of a stream of "
+                         f"{st.shape[1]}")
     nb = prims.numel() // (_N_PRIM_ATTRS * block)
     _check(blob, "blob", torch.float32, _MAT_OFF + _MAT_STRIDE * n_mats
            + _LIGHT_STRIDE * max(n_light_slots, 1))
@@ -706,18 +723,20 @@ def shade(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
     _check(res, "res", torch.float32, N_RES * n_lanes)
     if use_nee and n_light_slots > 0:
         _check_lists(scand, sctn, n_lanes // TILE, nb)
+    if blocked is not None:
+        _check(blocked, "blocked", torch.float32, n_lanes)
     from ._build import load_library
     lib = load_library("wavefront")
     with torch.cuda.device(st.device):
         err = lib.spt_wavefront_shade(
             *(a.data_ptr() for a in (st, ids, res, blob, meta, lsb, prims,
                                      mtypes, scand, sctn)),
+            0 if blocked is None else blocked.data_ptr(),
             st.shape[1], n_lanes, nb, block, n_mats, n_light_slots, k,
             rr_depth, int(bool(use_nee)), int(bool(use_mis)), int(sky_mode),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"K7 launch failed: CUDA error {err}")
-    LAUNCHES["k7"] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 # ---------------------------------------------------------------------------

@@ -42,9 +42,9 @@ VARIANTS = {
     "ptxas_O0": (["-Xptxas", "-O0"], []),
     "cicc_O0": (["-Xcicc", "-O0"], []),
     "driver_jit": (None, []),
-    "bounce_inlined": ([], [("megakernel_bvh.cu", _BOUNCE, _BOUNCE.replace(
+    "bounce_inlined": ([], [("bvh.cuh", _BOUNCE, _BOUNCE.replace(
         "__noinline__", "__forceinline__"))]),
-    "occluded_noinline": ([], [("megakernel_bvh.cu", _OCCLUDED,
+    "occluded_noinline": ([], [("bvh.cuh", _OCCLUDED,
                                 _OCCLUDED.replace("__forceinline__",
                                                   "__noinline__"))]),
     "no_shadow_test": ([], [("physics.cuh", _SHADOW,

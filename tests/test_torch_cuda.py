@@ -14,7 +14,12 @@ to K1's bar against its plain version, and equals K1 bit for bit on
 Cornell packed for the BVH walk (one leaf, the spheres in index order).
 The wavefront: K5 equals its plain version bit for bit, K6's residual
 equals the plain K6's, and K7's state and the whole render meet K1's bar
-against their plain versions.
+against their plain versions.  The gradients: K4's image equals K3's
+(K1's bar) and its raw gradients meet ``GRAD_REL`` against the plain K4's;
+K9's state equals K7's bit for bit and its blocked mask the plain K9's;
+K10's per-lane cotangents meet the ``VJP_*`` bar and its scalar gradient
+``GRAD_REL``; the differentiable wavefront's image and gradients meet K1's
+bar and ``GRAD_REL`` against its plain stages.
 """
 
 import numpy as np
@@ -24,8 +29,9 @@ import torch
 import spt_tpu_torch as T
 from chip_smoke import (ATOL, MAX_MEAN_REL, MIN_CLOSE, RTOL, VJP_ATOL_REL,
                         VJP_MIN_CLOSE, VJP_RTOL, cornell, env_gradient,
-                        grad_errors, grad_scene, k3_inputs, scene_200,
-                        vjp_lanes, wf_bounce, wf_inputs)
+                        field_errors, grad_errors, grad_scene, k3_inputs,
+                        raw_fields, scene_200, vjp_lanes, wf_bounce,
+                        wf_inputs)
 from spt_tpu_torch.core import rng
 from spt_tpu_torch.diff import cuda_diff, gradients as G
 from spt_tpu_torch.kernels import megakernel as mk
@@ -300,3 +306,148 @@ def test_facade_launches_wavefront(cuda):
     assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
     assert mk.LAUNCHES == dict(before, k5=before["k5"] + 1,
                                k6=before["k6"] + 3, k7=before["k7"] + 3)
+
+
+def _ct(dev, w, h, seed=4):
+    return torch.from_numpy(np.random.default_rng(seed).uniform(
+        0.5, 1.5, (h, w, 3)).astype(np.float32)).to(dev)
+
+
+def test_k4_matches_plain(cuda):
+    """K4's image equals K3's; its raw gradients are held to GRAD_REL
+    against the plain K4's."""
+    from spt_tpu_torch.kernels import megakernel_bvh_grad as mbg
+    sd = scene_200(T).compile(device=cuda)
+    args, k3kw, _ = k3_inputs(torch, mb, sd, _scene200_camera(cuda, False),
+                              3)
+    kw = dict(width=48, height=40, spp=2, max_bounces=8, rr_depth=3,
+              use_nee=True, use_mis=True, sky_mode=sd.sky_mode, dof=False,
+              **k3kw)
+    ct = mbg.swizzle_ct(_ct(cuda, 48, 40), 48, 40)
+    before = dict(mk.LAUNCHES)
+    img, gs, gg = mbg.megakernel_bvh_grad(*args, ct, **kw)
+    assert mk.LAUNCHES == dict(before, k4=before["k4"] + 1)
+    got, want = img.cpu().numpy(), mb.megakernel_bvh_fwd(*args, **kw) \
+        .cpu().numpy()
+    close = np.isclose(got, want, rtol=RTOL, atol=ATOL).all(axis=-1)
+    assert close.mean() >= MIN_CLOSE and want.mean() > 0.01
+    _, p_gs, p_gg = mbg.render_and_grad_bvh_plain(*args, ct, **kw)
+    n_mats = k3kw["n_mats"]
+    errs, _ = field_errors(raw_fields(gs, gg, n_mats),
+                           raw_fields(p_gs, p_gg, n_mats))
+    assert all(e["ok"] for e in errs.values()), errs
+    assert float(p_gg.abs().sum()) > 0 and float(p_gs.abs().sum()) > 0
+
+
+def _grad_bounce(cuda):
+    """A wavefront bounce (k=1) of the 200-sphere scene at 96x64 x 2 spp
+    after raygen, a sort and the precull, and K9's keywords."""
+    wf, sd, t, stc, meta = _wf_case(cuda)
+    b = wf_bounce(torch, wf, t, stc, meta, 96, 64, 1, 3)
+    kw = dict(k=1, block=stc["block"], n_mats=stc["n_mats"],
+              n_light_slots=stc["n_light_slots"], rr_depth=1, use_nee=True,
+              use_mis=True, sky_mode=sd.sky_mode)
+    args = (t["blob"], meta, t["lsb"], t["prims"], t["mtypes"], b["scand"],
+            b["sctn"])
+    return wf, t, meta, b, kw, args
+
+
+def test_k9_matches_k7_and_plain(cuda):
+    """K9's state equals K7's bit for bit; against the plain K9 it meets
+    K1's bar and its blocked mask is equal on every lane."""
+    from spt_tpu_torch.kernels import wavefront_grad as wg
+    wf, t, meta, b, kw, args = _grad_bounce(cuda)
+    st, ids, n, res = b["st"], b["ids"], b["n"], b["res"]
+    before = dict(mk.LAUNCHES)
+    out, blocked = wg.shade_fwd(*args, st, ids, res, n, **kw)
+    assert mk.LAUNCHES == dict(before, k9=before["k9"] + 1)
+    st7 = st.clone()
+    wf.shade(*args, st7, ids, res, n, **kw)
+    assert torch.equal(out.view(torch.int32), st7.view(torch.int32))
+    out_p, blocked_p = wg.shade_fwd_plain(*args, st, ids, res, n, **kw)
+    assert torch.equal(blocked, blocked_p) and float(blocked.sum()) > 0
+    got, want = out.cpu().numpy(), out_p.cpu().numpy()
+    assert np.isclose(got, want, rtol=RTOL, atol=ATOL).mean() >= MIN_CLOSE
+
+
+def test_k10_matches_plain(cuda):
+    """K10 against the plain K10 on one bounce: d(state) and dgeo at the
+    VJP_* bar, the flags' and the suffix's cotangents exactly, dscal
+    within GRAD_REL."""
+    from spt_tpu_torch.kernels import wavefront_grad as wg
+    wf, t, meta, b, kw, args = _grad_bounce(cuda)
+    st, ids, n, res = b["st"], b["ids"], b["n"], b["res"]
+    _, blocked = wg.shade_fwd_plain(*args, st, ids, res, n, **kw)
+    res8 = res.clone()
+    res8[7] = blocked
+    ct = torch.from_numpy(np.random.default_rng(5).normal(
+        size=tuple(st.shape)).astype(np.float32)).to(cuda)
+    kw10 = {k: v for k, v in kw.items() if k != "block"}
+    bargs = (t["blob"], meta, t["lsb"], t["mtypes"], st, ids, res8, ct, n)
+    before = dict(mk.LAUNCHES)
+    din, dgeo, dscal = wg.bounce_bwd(*bargs, **kw10)
+    assert mk.LAUNCHES == dict(before, k10=before["k10"] + 1)
+    din_p, dgeo_p, dscal_p = wg.bounce_bwd_plain(*bargs, **kw10)
+    for a, b_ in ((din[:13, :n], din_p[:13, :n]), (dgeo, dgeo_p)):
+        a, b_ = a.cpu().numpy(), b_.cpu().numpy()
+        close = np.isclose(a, b_, rtol=VJP_RTOL, atol=VJP_ATOL_REL * np.abs(
+            b_).max(axis=1, keepdims=True)).all(0)
+        assert np.isfinite(a).all() and close.mean() >= VJP_MIN_CLOSE
+    assert torch.equal(din[13:], din_p[13:])
+    assert torch.equal(din[:, n:], din_p[:, n:])
+    errs, _ = field_errors({"dscal": dscal}, {"dscal": dscal_p})
+    assert errs["dscal"]["ok"], errs
+
+
+@pytest.mark.parametrize("case", ["gradient", "envmap"])
+def test_wavefront_grad_matches_plain(cuda, case):
+    """The differentiable wavefront through K5, K6, K9 and K10 against its
+    plain versions on the card: image at K1's bar, gradients at GRAD_REL."""
+    from spt_tpu_torch.kernels import wavefront_grad as wg
+    scene = scene_200(T)
+    if case == "envmap":
+        scene.set_environment_map(env_gradient(16, 32))
+    sd = scene.compile(device=cuda)
+    cam = _scene200_camera(cuda, False)
+    ct = _ct(cuda, 48, 40)
+    out = []
+    for stages in (wg.KERNELS, wg.PLAIN):
+        render = wg._make_render_fn(
+            sd, cam, 48, 40, stages=stages, spp=2, max_bounces=8, rr_depth=3,
+            use_nee=True, use_mis=True, seed=3, sort_min_rays=0,
+            chunk_rays=2 << 20)
+        params = {k: v.clone().requires_grad_(True) for k, v in
+                  G.get_params(sd, cuda_diff.PARAM_KEYS).items()}
+        before = dict(mk.LAUNCHES)
+        img = render(params, 0)
+        (img * ct).sum().backward()
+        runs = {k: mk.LAUNCHES[k] - before[k] for k in before}
+        out.append((img.detach(), {k: v.grad for k, v in params.items()},
+                    runs))
+    (img, grads, runs), (img_p, grads_p, runs_p) = out
+    assert runs["k9"] > 0 and runs["k10"] == runs["k9"] and runs["plain"] == 0
+    assert runs_p["k9"] == 0 and runs_p["plain"] > 0
+    got, want = img.cpu().numpy(), img_p.cpu().numpy()
+    close = np.isclose(got, want, rtol=RTOL, atol=ATOL).all(axis=-1)
+    assert close.mean() >= MIN_CLOSE and want.mean() > 0.01
+    errs, _ = field_errors(grads, grads_p)
+    assert all(e["ok"] for e in errs.values()), errs
+
+
+@pytest.mark.parametrize("engine,kernels", [
+    ("auto", ("k3", "k4")), ("wavefront", ("k5", "k6", "k9", "k10"))])
+def test_kernel_render_routes_large_scenes(cuda, engine, kernels):
+    """make_cuda_render_fn on the 200-sphere scene: K3 forward and K4
+    backward, or the differentiable wavefront when forced."""
+    sd = scene_200(T).compile(device=cuda)
+    render = cuda_diff.make_cuda_render_fn(
+        sd, _scene200_camera(cuda, False), 32, 24, spp=1, max_bounces=3,
+        engine=engine)
+    params = {k: v.clone().requires_grad_(True) for k, v in
+              G.get_params(sd, ("albedo", "centers")).items()}
+    before = dict(mk.LAUNCHES)
+    render(params, 0).sum().backward()
+    runs = {k: mk.LAUNCHES[k] - before[k] for k in before}
+    assert all(runs[k] > 0 for k in kernels) and runs["plain"] == 0
+    assert sum(runs.values()) == sum(runs[k] for k in kernels)
+    assert all(bool(torch.isfinite(p.grad).all()) for p in params.values())
