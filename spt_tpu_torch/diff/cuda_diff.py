@@ -37,8 +37,8 @@ SMEM_PRIM_CAP = 128
 # Above this JAX's fused BVH gradient lost to its differentiable wavefront
 # on the TPU; the port keeps JAX's threshold.  On an H100 at 700 W
 # (chip_smoke.py's grad_crossover) one 1920x1080 x 4 spp forward and
-# backward of config 5 cut to 2,000 spheres took 66-68 ms through K3/K4
-# and 814-1050 ms through the wavefront; moving it waits for a benchmark
+# backward of config 5 cut to 2,000 spheres took 65-68 ms through K3/K4
+# and 646-1050 ms through the wavefront; moving it waits for a benchmark
 # with cells on both sides.
 FUSED_GRAD_PRIM_CAP = 2048
 

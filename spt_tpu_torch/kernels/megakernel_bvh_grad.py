@@ -20,9 +20,13 @@ gets no geometry gradient.
 * ``megakernel_bvh_grad`` is the kernel's wrapper.  On CUDA tensors it
   launches ``csrc/megakernel_bvh_grad.cu`` and raises if it cannot; on CPU
   tensors it runs ``render_and_grad_bvh_plain``.
-* ``render_and_grad_bvh`` packs a scene and camera, calls the wrapper and
-  maps the raw gradients to the scene's parameters (``map_raw_grads``), as
-  JAX's ``render_and_grad_bvh`` does.
+* The raw gradients reach the scene's parameters by autograd through
+  the packers (``diff/cuda_diff.py``, ``megakernel_bvh.pack_blob_torch``
+  and ``pack_prims_torch``), which undo the leaf gather and fold each
+  light slot into its sphere and material.  So JAX's hand-written
+  ``map_raw_grads`` and its ``render_and_grad_bvh`` have no counterpart
+  here: ``make_cuda_render_fn(..., engine="fused")`` and ``.backward()``
+  give those gradients.
 * ``swizzle_ct`` lays an (H, W, 3) cotangent out in the kernel's 32x32
   pixel tiles, as JAX's does.
 
@@ -34,16 +38,14 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from ..core import rng
-from ..core.scene import SceneData
 from . import physics
-from .megakernel import (K1_OPS, LAUNCHES, PlainScene, _check, _f32, _np,
+from .megakernel import (K1_OPS, LAUNCHES, PlainScene, _check, _f32,
                          camera_paths)
-from .megakernel_bvh import (BLOCK, BIG, _LIGHT_STRIDE, _MAT_OFF, _MAT_STRIDE,
-                             _N_PRIM_ATTRS, _Walk, k3_op_count, packed)
+from .megakernel_bvh import (BIG, _LIGHT_STRIDE, _MAT_OFF, _MAT_STRIDE,
+                             _N_PRIM_ATTRS, _Walk, k3_op_count)
 from .megakernel_grad import K2_OPS, MAX_DEPTH, N_SKY_ATTRS, N_STATE
 from .physics_adjoint import rebuilt_bounce_vjp, winner_tables
 
@@ -265,66 +267,6 @@ def megakernel_bvh_grad(blob: torch.Tensor, meta: torch.Tensor,
         raise RuntimeError(f"K4 launch failed: CUDA error {err}")
     LAUNCHES["k4"] += 1
     return img, grad_s, grad_g
-
-
-def map_raw_grads(scene: SceneData, static: dict, grad_s, grad_g) -> dict:
-    """K4's raw gradients -> the scene parameters' ('centers' (P, 3),
-    'radii' (P,), 'albedo' / 'emission' (M, 3), 'roughness' / 'ior' (M,),
-    'sky_params' (2, 3)): leaf slots scattered back to their prims, and
-    each light slot folded into its prim (centre, radius) and that prim's
-    material (emission), as JAX's ``map_raw_grads``."""
-    n_mats = static["n_mats"]
-    n_sky = N_SKY_ATTRS
-    mat_rows = grad_s[n_sky:n_sky + _MAT_STRIDE * n_mats].reshape(
-        n_mats, _MAT_STRIDE)
-    emission_g = mat_rows[:, 3:6].clone()
-    P = scene.capacity
-    ids = torch.from_numpy(np.asarray(static["block_prim_ids"]).reshape(-1)) \
-        .to(grad_g.device)
-    idx = torch.where(ids >= 0, ids, P).long()
-    flat = grad_g.reshape(grad_g.shape[0], 8, -1)
-    geo = torch.zeros((P + 1, 4), dtype=torch.float32, device=grad_g.device)
-    for a in range(4):
-        geo[:, a].index_add_(0, idx, flat[:, a, :].reshape(-1))
-    centers_g, radii_g = geo[:P, 0:3], geo[:P, 3]
-    n_l = static["n_light_slots"]
-    if n_l:
-        light_rows = grad_s[n_sky + _MAT_STRIDE * n_mats:].reshape(n_l, 7)
-        mat_id = _np(scene.mat_id)
-        for l, p in enumerate(static["light_prims"]):
-            centers_g[p] += light_rows[l, 0:3]
-            radii_g[p] += light_rows[l, 3]
-            emission_g[int(mat_id[p])] += light_rows[l, 4:7]
-    return {"centers": centers_g, "radii": radii_g,
-            "albedo": mat_rows[:, 0:3], "emission": emission_g,
-            "roughness": mat_rows[:, 6], "ior": mat_rows[:, 7],
-            "sky_params": grad_s[:n_sky].reshape(2, 3)}
-
-
-def render_and_grad_bvh(scene: SceneData, camera, width: int, height: int,
-                        start_sample: int, spp: int, *, ct_image=None,
-                        max_bounces: int = 8, rr_depth: int = 3,
-                        use_nee: bool = True, use_mis: bool = True,
-                        seed: int = 0, dof=None, block: int = BLOCK):
-    """Fused forward+backward on the scene's device -> (radiance sum image,
-    grads): ``map_raw_grads``'s dict of the gradients of ``sum(ct_image *
-    radiance_sum)`` (ct defaults to ones)."""
-    t, static = packed(scene, camera, block)
-    if dof is None:
-        dof = bool(float(_np(camera.aperture)) > 0.0)
-    meta = torch.tensor([start_sample, seed, static["n_light_slots"]],
-                        dtype=torch.int32).to(scene.device)
-    if ct_image is None:
-        ct_image = torch.ones((height, width, 3), dtype=torch.float32)
-    ct = swizzle_ct(torch.as_tensor(ct_image).to(scene.device), width,
-                    height)
-    img, grad_s, grad_g = megakernel_bvh_grad(
-        t["blob"], meta, t["lsb"], t["nodef"], t["nodei"], t["prims"],
-        t["mtypes"], ct, width=width, height=height, spp=spp, block=block,
-        n_mats=static["n_mats"], n_light_slots=static["n_light_slots"],
-        max_bounces=max_bounces, rr_depth=rr_depth, use_nee=bool(use_nee),
-        use_mis=bool(use_mis), sky_mode=scene.sky_mode, dof=bool(dof))
-    return img, map_raw_grads(scene, static, grad_s, grad_g)
 
 
 # fp32 operations of K4 (csrc/megakernel_bvh_grad.cu), counted by hand as

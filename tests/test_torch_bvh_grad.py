@@ -45,12 +45,14 @@ from spt_tpu.kernels import megakernel_bvh_grad as jmbg
 from spt_tpu.kernels import physics as jp
 from spt_tpu_torch.core.convert import (camera_from_arrays,
                                         scene_data_from_arrays)
-from spt_tpu_torch.diff import gradients as TG
+from spt_tpu_torch.diff import cuda_diff, gradients as TG
+from spt_tpu_torch.kernels import megakernel as tmega
 from spt_tpu_torch.kernels import megakernel_bvh as tmb
 from spt_tpu_torch.kernels import megakernel_bvh_grad as tmbg
 from spt_tpu_torch.kernels import physics as tp
 from spt_tpu_torch.kernels.physics_adjoint import rebuilt_bounce_vjp
-from chip_smoke import CAM_10K, scene_10k, scene_200 as big_scene
+from chip_smoke import (CAM_10K, PAD_CAM, padding_scene, scene_10k,
+                         scene_200 as big_scene)
 from test_torch_bvh import big_camera
 
 # One intra-op thread: these tests trace small tensors, where torch's
@@ -255,21 +257,47 @@ def _assert_grads_match(img_sum, grads, val_ref, g_ref, valid):
 
 
 def test_plain_k4_matches_jax_k4_interpret():
+    """The port's K4 wrapper (its plain version here) against JAX's K4 in
+    interpret mode on the same packed inputs, output by output: the image,
+    the scalar gradients (sky, material rows, light slots) and the leaf
+    slots' geometry gradients, before any mapping to parameters."""
     from test_pallas_bvh_grad import CAM, _scene
     sdj = _scene(40).compile()
-    kw = dict(max_bounces=2, rr_depth=5, use_nee=True, use_mis=True, seed=4)
-    img_j, g_j = jmbg.render_and_grad_bvh(sdj, CAM, 8, 8, 0, 1, block=8,
-                                          interpret=True, **kw)
+    w = h = 8
+    kw = dict(width=w, height=h, spp=1, block=8, max_bounces=2, rr_depth=5,
+              use_nee=True, use_mis=True, sky_mode=sdj.sky_mode, dof=False)
+    ct_img = np.random.default_rng(5).uniform(0.5, 1.5, (h, w, 3)) \
+        .astype(np.float32)
+    blob, meta3, nodef, nodei, prims, sj = jmb._packed(sdj, CAM, 8)
+    meta = np.asarray([0, 4, int(meta3[2])], np.int32)
+    img_j, gs_j, gg_j = jmbg._launch_bvh_grad(
+        blob, jnp.asarray(meta), jp.lsel_bounds_from_prims(prims), nodef,
+        nodei, prims, jmbg.swizzle_ct(ct_img, w, h), n_mats=sj["n_mats"],
+        mtypes=sj["mtypes"], n_light_slots=sj["n_light_slots"],
+        interpret=True, **kw)
     sdt = scene_data_from_arrays(
         {k: np.asarray(v) for k, v in _scene_arrays(sdj).items()},
         num_prims=sdj.num_prims, num_lights=sdj.num_lights,
         sky_mode=sdj.sky_mode, device=CPU)
-    camt = _camera(CAM)
-    img_t, g_t = tmbg.render_and_grad_bvh(sdt, camt, 8, 8, 0, 1, block=8,
-                                          **kw)
-    _assert_grads_match(float(img_t.sum()), g_t, jnp.sum(img_j), g_j,
-                        np.asarray(sdj.prim_valid))
-    assert float(img_t.sum()) > 0 and np.abs(g_t["albedo"].numpy()).sum() > 0
+    t, st = tmb.packed(sdt, _camera(CAM), 8)
+    for name, a in (("blob", blob), ("nodef", nodef), ("nodei", nodei),
+                    ("prims", prims)):
+        np.testing.assert_array_equal(t[name].numpy(), np.asarray(a),
+                                      err_msg=name)
+    img_t, gs_t, gg_t = tmbg.megakernel_bvh_grad(
+        t["blob"], torch.from_numpy(meta), t["lsb"], t["nodef"], t["nodei"],
+        t["prims"], t["mtypes"],
+        tmbg.swizzle_ct(torch.from_numpy(ct_img), w, h),
+        n_mats=st["n_mats"], n_light_slots=st["n_light_slots"], **kw)
+    img_j, gs_j, gg_j = (np.asarray(a) for a in (img_j, gs_j, gg_j))
+    np.testing.assert_allclose(float(img_t.sum()), float(img_j.sum()),
+                               rtol=1e-3)
+    np.testing.assert_allclose(gs_t.numpy(), gs_j, rtol=3e-2, atol=3e-3)
+    a, b = gg_t[:, :4].numpy(), gg_j[:, :4]
+    scale = np.abs(b).max() + 1e-6
+    np.testing.assert_allclose(a / scale, b / scale, atol=3e-2)
+    assert float(img_t.sum()) > 0 and np.abs(gs_j).sum() > 0 \
+        and np.abs(b).sum() > 0
 
 
 def _scene_arrays(sd):
@@ -278,6 +306,10 @@ def _scene_arrays(sd):
 
 
 def test_plain_k4_matches_soa_oracle():
+    """The render InverseRenderer takes for 129-2048 spheres
+    (``make_cuda_render_fn``: K3 forward, K4 backward, the raw gradients
+    carried to the parameters by autograd through the packers) against
+    ``jax.grad`` of the SoA oracle."""
     kw = dict(max_bounces=3, rr_depth=5, use_nee=True, use_mis=True, seed=4)
     w = h = 16
     sdj = jax_scene_10k(160).compile(use_bvh=True)
@@ -293,6 +325,42 @@ def test_plain_k4_matches_soa_oracle():
     sdt = scene_10k(spt_tpu_torch, n=160).compile(device=CPU)
     camt = spt_tpu_torch.Camera.look_at(device=CPU, **CAM_10K)
     assert 128 < sdt.capacity <= 2048
-    img, grads = tmbg.render_and_grad_bvh(sdt, camt, w, h, 0, 1, **kw)
-    _assert_grads_match(float(img.sum()), grads, val_ref, g_ref,
-                        np.asarray(sdj.prim_valid))
+    render = cuda_diff.make_cuda_render_fn(sdt, camt, w, h, spp=1,
+                                           engine="fused", **kw)
+    pt = {k: v.clone().requires_grad_(True)
+          for k, v in TG.get_params(sdt, KEYS).items()}
+    before = dict(tmega.LAUNCHES)
+    img = render(pt, 0)
+    img.sum().backward()
+    assert tmega.LAUNCHES["plain"] == before["plain"] + 2   # plain K3, K4
+    _assert_grads_match(float(img.detach().sum()), {k: p.grad for k, p in pt.items()},
+                        val_ref, g_ref, np.asarray(sdj.prim_valid))
+
+
+def test_plain_k4_padding_winners():
+    """Rays that win a leaf's padding slot (centre 0, radius 0: the float
+    quadratic finds a ray through the origin): the plain K4 gives them
+    K1's invalid row, as the plain K3 does (the image bit for bit), and
+    no geometry gradient to any padding slot."""
+    sd = padding_scene(spt_tpu_torch).compile(device=CPU)
+    cam = spt_tpu_torch.Camera.look_at(device=CPU, **PAD_CAM)
+    t, st = tmb.packed(sd, cam)
+    meta = torch.tensor([0, 4, st["n_light_slots"]], dtype=torch.int32)
+    w = h = 16
+    kw = dict(width=w, height=h, spp=1, block=st["block"],
+              n_mats=st["n_mats"], n_light_slots=st["n_light_slots"],
+              max_bounces=2, rr_depth=5, use_nee=True, use_mis=True,
+              sky_mode=sd.sky_mode, dof=False)
+    args = (t["blob"], meta, t["lsb"], t["nodef"], t["nodei"], t["prims"],
+            t["mtypes"])
+    ct = tmbg.swizzle_ct(torch.from_numpy(np.random.default_rng(6).uniform(
+        0.5, 1.5, (h, w, 3)).astype(np.float32)), w, h)
+    stats = {}
+    img, gs, gg = tmbg.render_and_grad_bvh_plain(*args, ct, **kw,
+                                                 stats=stats)
+    assert stats["padding_winners"] > 0
+    assert torch.equal(img, tmb.render_tiles_bvh_plain(*args, **kw))
+    pad = t["prims"].reshape(-1, 5, st["block"])[:, 4, :] < 0
+    assert float(gg[:, :4].abs().sum(1)[pad].sum()) == 0.0
+    assert bool(torch.isfinite(gs).all() and torch.isfinite(gg).all())
+    assert float(gg.abs().sum()) > 0 and float(gs.abs().sum()) > 0

@@ -14,12 +14,18 @@ to K1's bar against its plain version, and equals K1 bit for bit on
 Cornell packed for the BVH walk (one leaf, the spheres in index order).
 The wavefront: K5 equals its plain version bit for bit, K6's residual
 equals the plain K6's, and K7's state and the whole render meet K1's bar
-against their plain versions.  The gradients: K4's image equals K3's
-(K1's bar) and its raw gradients meet ``GRAD_REL`` against the plain K4's;
-K9's state equals K7's bit for bit and its blocked mask the plain K9's;
-K10's per-lane cotangents meet the ``VJP_*`` bar and its scalar gradient
-``GRAD_REL``; the differentiable wavefront's image and gradients meet K1's
-bar and ``GRAD_REL`` against its plain stages.
+against their plain versions.  The gradients, whose fields have heavy
+tails (grazing hits), are held on typical scales (chip_smoke.py's
+``tail_field_errors``: ``GRAD_REL`` in each field's body and in its tail
+above the 99th percentile; ``lanes_close``: the ``VJP_*`` bar with atol
+taken from a channel's median nonzero magnitude, on 99.5% of lanes,
+and body and tail lanes within ``GRAD_REL``).  K4's image equals
+K3's (K1's bar) and its raw gradients meet that bar against the plain
+K4's; K9's state equals K7's bit for bit and its blocked mask the plain
+K9's; K10's per-lane cotangents and its scalar gradient meet theirs; the
+differentiable wavefront's image meets K1's bar and its gradients the
+field bar against its plain stages.  Rays that win padding slots (the
+padding scene) take no geometry gradient in K4 and K10.
 """
 
 import numpy as np
@@ -27,11 +33,11 @@ import pytest
 import torch
 
 import spt_tpu_torch as T
-from chip_smoke import (ATOL, MAX_MEAN_REL, MIN_CLOSE, RTOL, VJP_ATOL_REL,
-                        VJP_MIN_CLOSE, VJP_RTOL, cornell, env_gradient,
-                        field_errors, grad_errors, grad_scene, k3_inputs,
-                        raw_fields, scene_200, vjp_lanes, wf_bounce,
-                        wf_inputs)
+from chip_smoke import (ATOL, MAX_MEAN_REL, MIN_CLOSE, PAD_CAM, RTOL,
+                        VJP_ATOL_REL, VJP_MIN_CLOSE, VJP_RTOL, cornell,
+                        env_gradient, grad_errors, grad_scene, k3_inputs,
+                        lanes_close, padding_scene, raw_fields, scene_200,
+                        tail_field_errors, vjp_lanes, wf_bounce, wf_inputs)
 from spt_tpu_torch.core import rng
 from spt_tpu_torch.diff import cuda_diff, gradients as G
 from spt_tpu_torch.kernels import megakernel as mk
@@ -313,13 +319,19 @@ def _ct(dev, w, h, seed=4):
         0.5, 1.5, (h, w, 3)).astype(np.float32)).to(dev)
 
 
-def test_k4_matches_plain(cuda):
-    """K4's image equals K3's; its raw gradients are held to GRAD_REL
-    against the plain K4's."""
+@pytest.mark.parametrize("case", ["scene200", "padding"])
+def test_k4_matches_plain(cuda, case):
+    """K4's image equals K3's; its raw gradients are held to GRAD_REL in
+    body and tail against the plain K4's.  In the padding case rays win
+    padding slots, which take no geometry gradient."""
     from spt_tpu_torch.kernels import megakernel_bvh_grad as mbg
-    sd = scene_200(T).compile(device=cuda)
-    args, k3kw, _ = k3_inputs(torch, mb, sd, _scene200_camera(cuda, False),
-                              3)
+    if case == "padding":
+        sd = padding_scene(T).compile(device=cuda)
+        cam = T.Camera.look_at(device=cuda, **PAD_CAM)
+    else:
+        sd = scene_200(T).compile(device=cuda)
+        cam = _scene200_camera(cuda, False)
+    args, k3kw, _ = k3_inputs(torch, mb, sd, cam, 3)
     kw = dict(width=48, height=40, spp=2, max_bounces=8, rr_depth=3,
               use_nee=True, use_mis=True, sky_mode=sd.sky_mode, dof=False,
               **k3kw)
@@ -331,20 +343,34 @@ def test_k4_matches_plain(cuda):
         .cpu().numpy()
     close = np.isclose(got, want, rtol=RTOL, atol=ATOL).all(axis=-1)
     assert close.mean() >= MIN_CLOSE and want.mean() > 0.01
-    _, p_gs, p_gg = mbg.render_and_grad_bvh_plain(*args, ct, **kw)
+    stats = {}
+    _, p_gs, p_gg = mbg.render_and_grad_bvh_plain(*args, ct, **kw,
+                                                  stats=stats)
     n_mats = k3kw["n_mats"]
-    errs, _ = field_errors(raw_fields(gs, gg, n_mats),
-                           raw_fields(p_gs, p_gg, n_mats))
+    errs, _ = tail_field_errors(raw_fields(gs, gg, n_mats),
+                                raw_fields(p_gs, p_gg, n_mats))
     assert all(e["ok"] for e in errs.values()), errs
     assert float(p_gg.abs().sum()) > 0 and float(p_gs.abs().sum()) > 0
+    pad = args[5].reshape(-1, 5, k3kw["block"])[:, 4, :] < 0
+    assert float(gg[:, :4].abs().sum(1)[pad].sum()) == 0.0
+    assert (stats["padding_winners"] > 0) == (case == "padding")
 
 
-def _grad_bounce(cuda):
+def _grad_bounce(cuda, case="scene200"):
     """A wavefront bounce (k=1) of the 200-sphere scene at 96x64 x 2 spp
-    after raygen, a sort and the precull, and K9's keywords."""
-    wf, sd, t, stc, meta = _wf_case(cuda)
-    b = wf_bounce(torch, wf, t, stc, meta, 96, 64, 1, 3)
-    kw = dict(k=1, block=stc["block"], n_mats=stc["n_mats"],
+    after raygen, a sort and the precull, or bounce 0 of the padding
+    scene, and K9's keywords."""
+    if case == "padding":
+        from spt_tpu_torch.kernels import wavefront as wf
+        sd = padding_scene(T).compile(device=cuda)
+        t, stc, meta = wf_inputs(torch, wf, mb, sd, T.Camera.look_at(
+            device=cuda, **PAD_CAM), 3)
+        k = 0
+    else:
+        wf, sd, t, stc, meta = _wf_case(cuda)
+        k = 1
+    b = wf_bounce(torch, wf, t, stc, meta, 96, 64, k, 3)
+    kw = dict(k=k, block=stc["block"], n_mats=stc["n_mats"],
               n_light_slots=stc["n_light_slots"], rr_depth=1, use_nee=True,
               use_mis=True, sky_mode=sd.sky_mode)
     args = (t["blob"], meta, t["lsb"], t["prims"], t["mtypes"], b["scand"],
@@ -370,12 +396,16 @@ def test_k9_matches_k7_and_plain(cuda):
     assert np.isclose(got, want, rtol=RTOL, atol=ATOL).mean() >= MIN_CLOSE
 
 
-def test_k10_matches_plain(cuda):
-    """K10 against the plain K10 on one bounce: d(state) and dgeo at the
-    VJP_* bar, the flags' and the suffix's cotangents exactly, dscal
-    within GRAD_REL."""
+@pytest.mark.parametrize("case", ["scene200", "padding"])
+def test_k10_matches_plain(cuda, case):
+    """K10 against the plain K10 on one bounce: d(state) and dgeo by
+    ``lanes_close`` (the VJP_* bar on a typical lane's scale, on
+    K10_MIN_CLOSE of the lanes; GRAD_REL in body and tail), the flags'
+    and the suffix's cotangents exactly, dscal within GRAD_REL in body and
+    tail.  In the padding case lanes that won a padding slot (``hmid`` -1,
+    a block) get no dgeo."""
     from spt_tpu_torch.kernels import wavefront_grad as wg
-    wf, t, meta, b, kw, args = _grad_bounce(cuda)
+    wf, t, meta, b, kw, args = _grad_bounce(cuda, case)
     st, ids, n, res = b["st"], b["ids"], b["n"], b["res"]
     _, blocked = wg.shade_fwd_plain(*args, st, ids, res, n, **kw)
     res8 = res.clone()
@@ -389,14 +419,15 @@ def test_k10_matches_plain(cuda):
     assert mk.LAUNCHES == dict(before, k10=before["k10"] + 1)
     din_p, dgeo_p, dscal_p = wg.bounce_bwd_plain(*bargs, **kw10)
     for a, b_ in ((din[:13, :n], din_p[:13, :n]), (dgeo, dgeo_p)):
-        a, b_ = a.cpu().numpy(), b_.cpu().numpy()
-        close = np.isclose(a, b_, rtol=VJP_RTOL, atol=VJP_ATOL_REL * np.abs(
-            b_).max(axis=1, keepdims=True)).all(0)
-        assert np.isfinite(a).all() and close.mean() >= VJP_MIN_CLOSE
+        res_ = lanes_close(a, b_)
+        assert res_["ok"], res_
     assert torch.equal(din[13:], din_p[13:])
     assert torch.equal(din[:, n:], din_p[:, n:])
-    errs, _ = field_errors({"dscal": dscal}, {"dscal": dscal_p})
+    errs, _ = tail_field_errors({"dscal": dscal}, {"dscal": dscal_p})
     assert errs["dscal"]["ok"], errs
+    padding = ((res[4] < 0) & (res[5] >= 0))[:n]
+    assert (int(padding.sum()) > 0) == (case == "padding")
+    assert float(dgeo[:, padding].abs().sum()) == 0.0
 
 
 @pytest.mark.parametrize("case", ["gradient", "envmap"])
@@ -430,7 +461,7 @@ def test_wavefront_grad_matches_plain(cuda, case):
     got, want = img.cpu().numpy(), img_p.cpu().numpy()
     close = np.isclose(got, want, rtol=RTOL, atol=ATOL).all(axis=-1)
     assert close.mean() >= MIN_CLOSE and want.mean() > 0.01
-    errs, _ = field_errors(grads, grads_p)
+    errs, _ = tail_field_errors(grads, grads_p)
     assert all(e["ok"] for e in errs.values()), errs
 
 

@@ -14,6 +14,8 @@
   its own cotangent back, bit for bit.
 * The forward equals the forward wavefront's (``render_wavefront``) bit for
   bit: K9 is K7 on a copy, recording the shadow verdict.
+* Lanes whose winner is a padding slot: K9 (plain) shades them as K7 does,
+  bit for bit, and K10 (plain) gives them no geometry cotangent.
 """
 
 import jax
@@ -31,7 +33,8 @@ from spt_tpu_torch.diff import gradients as TG
 from spt_tpu_torch.kernels import megakernel as tmega
 from spt_tpu_torch.kernels import wavefront as twf
 from spt_tpu_torch.kernels import wavefront_grad as twg
-from chip_smoke import CAM_10K, env_gradient, scene_10k
+from chip_smoke import (CAM_10K, PAD_CAM, env_gradient, padding_scene,
+                         scene_10k, wf_bounce, wf_inputs)
 
 # One intra-op thread: these tests trace small tensors, where torch's
 # idle OpenMP workers would only spin against the other test processes.
@@ -142,3 +145,38 @@ def test_forward_equals_forward_wavefront():
     want = twf.render_wavefront(sdt, cam, W, H, 0, SPP, sort_min_rays=0,
                                 **SOA_KW) * (1.0 / SPP)
     assert torch.equal(got, want) and float(want.mean()) > 0.01
+
+
+def test_padding_winners_take_no_gradient():
+    """Lanes whose nearest hit is a leaf's padding slot (centre 0, radius
+    0: the float quadratic finds rays through the origin) keep the
+    wavefront's rule under the gradient: K6 stores ``hmid = -1`` with the
+    slot's block, K9 (plain) shades them as the sky, as K7 does, and K10
+    (plain) gives them no geometry cotangent."""
+    sd = padding_scene(spt_tpu_torch).compile(device=CPU)
+    cam = spt_tpu_torch.Camera.look_at(device=CPU, **PAD_CAM)
+    t, stc, meta = wf_inputs(torch, twf, twf, sd, cam, 4)
+    b0 = wf_bounce(torch, twf, t, stc, meta, 16, 16, 0, 4)
+    n, res = b0["n"], b0["res"]
+    padding = ((res[4] < 0) & (res[5] >= 0))[:n]
+    assert int(padding.sum()) > 0
+    st, ids = b0["buf"][:twf.N_CH], b0["buf"][twf.N_CH:].view(torch.int32)
+    kw = dict(k=0, n_mats=stc["n_mats"], n_light_slots=stc["n_light_slots"],
+              rr_depth=5, use_nee=True, use_mis=True, sky_mode=sd.sky_mode)
+    args = (t["blob"], meta, t["lsb"], t["prims"], t["mtypes"], b0["scand"],
+            b0["sctn"])
+    out, blocked = twg.shade_fwd_plain(*args, st, ids, res, n,
+                                       block=stc["block"], **kw)
+    st7 = st.clone()
+    twf.shade_plain(*args, st7, ids, res, n, block=stc["block"], **kw)
+    assert torch.equal(out[:, :n].view(torch.int32),
+                       st7[:, :n].view(torch.int32))
+    res8 = res.clone()
+    res8[7] = blocked
+    ct = torch.from_numpy(np.random.default_rng(7).normal(
+        size=tuple(st.shape)).astype(np.float32))
+    din, dgeo, dscal = twg.bounce_bwd_plain(
+        t["blob"], meta, t["lsb"], t["mtypes"], st, ids, res8, ct, n, **kw)
+    assert float(dgeo[:, padding].abs().sum()) == 0.0
+    assert float(dgeo[:, ~padding].abs().sum()) > 0.0
+    assert bool(torch.isfinite(din).all() and torch.isfinite(dscal).all())
