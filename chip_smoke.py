@@ -15,8 +15,11 @@ wavefront's K5, K6 and K7; and the large-scene gradients at 1920x1080 x 4
 spp, one backward and 3 ``InverseRenderer`` steps each: config 5 cut to
 2,000 spheres through K3 forward and K4 backward, and config 5 itself
 through the differentiable wavefront, K5, K6 and K9 forward and K10
-backward), and times the kernels and the wavefront's glue.  Each phase
-prints one JSON line; any
+backward; and config 5 through the prim-sharded wavefront, K5, K6, K8 and
+K7 reading the merged shadow verdict, under NCCL at world size 1, then on 2
+spawned gloo ranks on the one card prim-sharded, sample-sharded and its
+data-parallel gradient), and times the kernels and the wavefront's glue.
+Each phase prints one JSON line; any
 failure exits nonzero and prints no result.  The last two lines are the
 kernels table and ``{"ok": true, "device": {...}}``.
 
@@ -636,10 +639,13 @@ def run() -> int:
     k3 = run_k3_phases(torch, T, mk, dev, card, cam_cornell, cam_demo)
     wf = run_wf_phases(torch, T, mk, dev, card, k3)
     gr = run_grad_phases(torch, T, mk, dev, card, k3)
+    pr = run_prim_phases(torch, T, mk, dev, card, k3)
+    ds = run_dist_phases(torch, T, mk, dev, card, k3, pr)
     paths = {"render": counts, "train": k2["launches"],
              "bvh": k3["launches"], "wavefront": wf["launches"],
              "grad_bvh": gr["launches"]["bvh"],
-             "grad_wavefront": gr["launches"]["wavefront"]}
+             "grad_wavefront": gr["launches"]["wavefront"],
+             "prim": pr["launches"], "dist": ds["launches"]}
 
     def by_path(key):
         return {path: c[key] for path, c in paths.items()}
@@ -698,7 +704,19 @@ def run() -> int:
                 "spt_tpu/kernels/wavefront_grad.py:264::_shade_fwd_kernel"),
                ("k10", "K10 wavefront bounce_bwd", "wavefront.cu",
                 "spt_tpu/kernels/wavefront_grad.py:171::"
-                "_bounce_bwd_kernel"))]})
+                "_bounce_bwd_kernel"))]
+        + [dict(name=name, route="cuda", source="spt_tpu_torch/csrc/"
+                "wavefront.cu", replaces=replaces,
+                launches=sum(by_path(key).values()),
+                launches_by_path=by_path(key), **pr[key], library_ms=None,
+                checked_against_plain=True)
+           for key, name, replaces in (
+               ("k8", "K8 wavefront anyhit",
+                "spt_tpu/kernels/wavefront.py:556::_anyhit_kernel"),
+               ("k7b", "K7b wavefront shade, blocked_in_res",
+                "spt_tpu/kernels/wavefront.py:582::_shade_kernel "
+                "(blocked_in_res=True; spt_tpu/parallel/wavefront_prim.py"
+                ":214)"))]})
     emit(dict(phase="done", seconds=time.perf_counter() - t_all))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
@@ -1147,6 +1165,46 @@ def wf_bounce(torch, wf, t, stc, meta, width, height, k, seed):
     scand, sctn = wf.precull_tiles(so3, sd3, sneed, stmax, lob, hib)
     return dict(st=st, ids=ids, buf=buf, n=n, cand=cand, ctn=ctn, res=res,
                 scand=scand, sctn=sctn)
+
+
+def wf_advance(torch, wf, t, stc, meta, b, k, seed, sky_mode):
+    """Shade bounce ``k`` of ``wf_bounce``'s (or this function's) inputs
+    ``b`` in place with K7, and return the inputs of bounce k + 1 as
+    ``render_wavefront`` makes them: a sort, the precull, K6's residual
+    and the shadow lists."""
+    block, prims = stc["block"], t["prims"]
+    st, ids, buf, n = b["st"], b["ids"], b["buf"], b["n"]
+    wf.shade(t["blob"], meta, t["lsb"], prims, t["mtypes"], b["scand"],
+             b["sctn"], st, ids, b["res"], n, k=k, block=block,
+             n_mats=stc["n_mats"], n_light_slots=stc["n_light_slots"],
+             rr_depth=RR, use_nee=True, use_mis=True, sky_mode=sky_mode)
+    n = wf._sort_rays(buf, buf.shape[1], *wf._scene_sort_bounds(
+        t["nodef"])) * wf.TILE
+    lob, hib = wf._leaf_block_bounds(prims.reshape(-1, 5, block))
+    cand, ctn = wf.precull_tiles(
+        tuple(st[c, :n] for c in range(3)),
+        tuple(st[c, :n] for c in range(3, 6)), st[wf.C_ALIVE, :n], None,
+        lob, hib)
+    res = wf.isect(prims, cand, ctn, st, n, block=block)
+    nls = stc["n_light_slots"]
+    so3, sd3, stmax, sneed = wf.shadow_rays(
+        st[:, :n], ids[:, :n], res, t["blob"], t["lsb"], nls, k=k + 1,
+        seed=seed, n_mats=stc["n_mats"], mtypes=stc["mtypes"],
+        n_light_slots=nls)
+    scand, sctn = wf.precull_tiles(so3, sd3, sneed, stmax, lob, hib)
+    return dict(st=st, ids=ids, buf=buf, n=n, cand=cand, ctn=ctn, res=res,
+                scand=scand, sctn=sctn)
+
+
+def shadow_sray(torch, wf, t, stc, b, k, seed):
+    """A bounce's shadow rays as K8 takes them: (8, n), pox poy poz ldx
+    ldy ldz tmax need."""
+    n, nls = b["n"], stc["n_light_slots"]
+    so3, sd3, stmax, sneed = wf.shadow_rays(
+        b["st"][:, :n], b["ids"][:, :n], b["res"], t["blob"], t["lsb"], nls,
+        k=k, seed=seed, n_mats=stc["n_mats"], mtypes=stc["mtypes"],
+        n_light_slots=nls)
+    return torch.stack([*so3, *sd3, stmax, sneed])
 
 
 def bound(ops, n_bytes):
@@ -1847,6 +1905,375 @@ def run_grad_phases(torch, T, mk, dev, card, k3) -> dict:
               wavefront_over_fused=min(walls["wavefront"])
               / min(walls["fused"])))
     return out
+
+
+# The prim-sharded wavefront's checks and main paths (slice 6).  The main
+# path runs it under NCCL at world size 1 (one card, one rank: data=1,
+# prim=1); the distributed path spawns 2 gloo ranks on the one card (NCCL
+# takes no two ranks on one device), prim=2 or data=2.
+DIST_RANKS = 2
+DIST_TIMEOUT = 600.0
+GRAD_KEYS = ("albedo", "emission", "roughness", "centers", "radii")
+
+
+def k8_case(torch, wf, wg, t, stc, meta, b, k, sky_mode, label, reps):
+    """K8 against its plain version on one config-5 bounce, on the whole
+    leaf table and on each half (the shards of a prim=2 render, each with
+    its own shadow lists), verdicts bit for bit; the halves' MAX against
+    K9's verdict on the whole table.  Returns the whole table's numbers."""
+    from spt_tpu_torch.parallel.wavefront_prim import _pad_blocks
+    block, n = stc["block"], b["n"]
+    sray = shadow_sray(torch, wf, t, stc, b, k, BIG_SEED)
+    prims = _pad_blocks(t["prims"].reshape(-1, 5, block), 2)
+    half = prims.shape[0] // 2
+    rows, whole = {}, None
+    for part_label, part in (("whole", prims), ("half0", prims[:half]),
+                             ("half1", prims[half:])):
+        part = part.contiguous()
+        scand, sctn = wf.precull_tiles(
+            tuple(sray[:3]), tuple(sray[3:6]), sray[7], sray[6],
+            *wf._leaf_block_bounds(part))
+        ms = [cuda_ms(torch, lambda: wf.anyhit(part, scand, sctn, sray, n,
+                                               block=block))[1]
+              for _ in range(reps)]
+        got = wf.anyhit(part, scand, sctn, sray, n, block=block)
+        stats = {}
+        with torch.inference_mode():
+            want, p_ms = cuda_ms(torch, lambda: wf.anyhit_plain(
+                part, scand, sctn, sray, n, block=block, stats=stats))
+        differ = int((got != want).sum())
+        rows[part_label] = dict(k8_ms=ms, plain_ms=p_ms, lanes_differ=differ,
+                                blocked=int(got.sum()),
+                                shadow_candidates_per_tile=float(
+                                    scand[:, 0, 0].double().mean()),
+                                blocks_per_ray=stats["shadow_blocks"]
+                                / max(stats["shadow"], 1))
+        check(differ == 0, f"{label} {part_label}: K8 differs from its "
+                           f"plain version on {differ} lanes")
+        if part_label == "whole":
+            whole = dict(ms=min(ms), plain_ms=p_ms, stats=stats,
+                         verdict=got)
+        else:
+            rows[part_label]["verdict"] = got
+    merged = torch.maximum(rows["half0"].pop("verdict"),
+                           rows["half1"].pop("verdict"))
+    args9 = (t["blob"], meta, t["lsb"], t["prims"], t["mtypes"], b["scand"],
+             b["sctn"])
+    kw9 = dict(k=k, block=block, n_mats=stc["n_mats"],
+               n_light_slots=stc["n_light_slots"], rr_depth=RR, use_nee=True,
+               use_mis=True, sky_mode=sky_mode)
+    _, blocked9 = wg.shade_fwd(*args9, b["st"], b["ids"], b["res"], n, **kw9)
+    max_differ = int((merged != whole["verdict"]).sum())
+    k9_differ = int((merged != blocked9).sum())
+    emit(dict(phase="k8_vs_plain", case=label, lanes=n,
+              need=int((sray[7] > 0.5).sum()), **rows,
+              halves_max_differ_from_whole=max_differ,
+              halves_max_differ_from_k9=k9_differ))
+    check(max_differ == 0 and k9_differ == 0,
+          f"{label}: the halves' MAX differs from the whole table's K8 on "
+          f"{max_differ} lanes, from K9's verdict on {k9_differ}")
+    check(int(whole["verdict"].sum()) > 0, f"{label}: no shadow ray blocked")
+    whole["blocked9"] = blocked9
+    return whole
+
+
+def run_prim_phases(torch, T, mk, dev, card, k3) -> dict:
+    """K8 and K7's ``blocked_in_res`` mode against their plain versions on
+    config-5 bounces, and the prim-sharded wavefront's main path under
+    NCCL at world size 1 (config 5, 1920x1080 x 4 spp, both skies) against
+    the facade's render of the same samples.  Returns the launch counts,
+    the kernels line's numbers and the facade's images."""
+    import tempfile
+    import torch.distributed as dist
+    from spt_tpu_torch.diff import gradients as G
+    from spt_tpu_torch.kernels import _build, megakernel_bvh as mb
+    from spt_tpu_torch.kernels import wavefront as wf
+    from spt_tpu_torch.kernels import wavefront_grad as wg
+    from spt_tpu_torch.parallel import mesh as pm
+    from spt_tpu_torch.parallel.wavefront_prim import \
+        render_wavefront_prim_sharded
+
+    out = {}
+    sd10, cam10 = k3["sd10"], k3["cam10"]
+    block = wf.BLOCK
+
+    # 29. K8 on a config-5 bounce (1920x1080 x 2 spp) at bounce 0 and
+    # bounce 1, on the whole leaf table and on its halves ------------------
+    t, stc, meta = wf_inputs(torch, wf, mb, sd10, cam10, BIG_SEED)
+    b0 = wf_bounce(torch, wf, t, stc, meta, BIG_W, BIG_H, 0, BIG_SEED)
+    base0 = b0["buf"].clone()
+    sky = sd10.sky_mode
+    k8 = k8_case(torch, wf, wg, t, stc, meta, b0, 0, sky, "config5_bounce0",
+                 3)
+
+    # 30. K7 reading K9's verdict (blocked_in_res) against K7 sweeping, on
+    # every lane of the same bounce, with either sky ----------------------
+    res8 = b0["res"].clone()
+    res8[7] = k8["blocked9"]
+    args = (t["blob"], meta, t["lsb"], t["prims"], t["mtypes"])
+    none = torch.zeros((1, 1, 1), device=dev)
+    n = b0["n"]
+    for label, sky_k7 in (("config5_bounce0", sky),
+                          ("config5_bounce0_envmap", wf.SKY_ENVMAP)):
+        kw7 = dict(k=0, block=block, n_mats=stc["n_mats"],
+                   n_light_slots=stc["n_light_slots"], rr_depth=RR,
+                   use_nee=True, use_mis=True, sky_mode=sky_k7)
+        sweep, read, plain = base0.clone(), base0.clone(), base0.clone()
+
+        def stream(buf):
+            return buf[:wf.N_CH], buf[wf.N_CH:].view(torch.int32)
+
+        wf.shade(*args, b0["scand"], b0["sctn"], *stream(sweep), b0["res"],
+                 n, **kw7)
+        ms = []
+        for _ in range(3):
+            read.copy_(base0)
+            ms.append(cuda_ms(torch, lambda: wf.shade(
+                *args, none.int(), none, *stream(read), res8, n,
+                blocked_in_res=True, **kw7))[1])
+        stats = {}
+        with torch.inference_mode():
+            _, p_ms = cuda_ms(torch, lambda: wf.shade_plain(
+                *args, none.int(), none, *stream(plain), res8, n,
+                blocked_in_res=True, stats=stats, **kw7))
+        differ = int((read.view(torch.int32) != sweep.view(torch.int32))
+                     .any(dim=0).sum())
+        res = compare(read[:wf.N_CH, :n].T, plain[:wf.N_CH, :n].T)
+        emit(dict(phase="k7b_vs_plain", case=label, lanes=n,
+                  lanes_differ_from_k7=differ, k7b_ms=ms, plain_ms=p_ms,
+                  shadow_rays=stats["shadow"], **res))
+        check(differ == 0, f"{label}: K7 reading the verdict differs from "
+                           f"K7 sweeping on {differ} lanes")
+        check(res["finite"] and res["frac_close"] >= MIN_CLOSE,
+              f"{label}: K7b against its plain version: {res}")
+        if label == "config5_bounce0":
+            ops = wf.k7b_op_count(stats)
+            n_bytes = wf.k7b_byte_count(stats, n) + 4 * (
+                t["blob"].numel() + t["lsb"].numel() + meta.numel()
+                + stc["n_mats"])
+            out["k7b"] = dict(ms=min(ms), plain_ms=p_ms,
+                              max_abs_err=res["max_abs_err"],
+                              plain_size=f"{n} rays (config 5, bounce 0, "
+                                         "counting its work)",
+                              fp32_ops=ops, bytes=n_bytes)
+            out["k7b"]["bound_ms"], out["k7b"]["bound_by"] = bound(ops,
+                                                                   n_bytes)
+        del sweep, read, plain
+    k8_1 = k8_case(torch, wf, wg, t, stc, meta,
+                   wf_advance(torch, wf, t, stc, meta, b0, 0, BIG_SEED, sky),
+                   1, sky, "config5_bounce1", 1)
+    ops, n_bytes = wf.k8_op_count(k8["stats"]), wf.k8_byte_count(
+        k8["stats"], n, block)
+    out["k8"] = dict(ms=k8["ms"], plain_ms=k8["plain_ms"], max_abs_err=0.0,
+                     plain_size=f"{n} rays (config 5, bounce 0, whole "
+                                "table, counting its work)",
+                     fp32_ops=ops, bytes=n_bytes)
+    out["k8"]["bound_ms"], out["k8"]["bound_by"] = bound(ops, n_bytes)
+    emit(dict(phase="k8_timing", card=card, k8_ms=k8["ms"],
+              k8_ms_bounce1=k8_1["ms"], need=k8["stats"]["shadow"],
+              **ptxas_of(_build.BUILD_INFO, "wavefront", "anyhit_kernel"),
+              **{k: out["k8"][k] for k in ("fp32_ops", "bytes", "bound_ms",
+                                           "bound_by", "plain_ms")}))
+    del b0, base0, res8, k8, k8_1, t
+    torch.cuda.empty_cache()
+
+    # 31. Main path: the prim-sharded wavefront under NCCL at world size 1,
+    # config 5 at 1920x1080 x 4 spp with its sky and with the env map,
+    # counted; against the facade's render of the same samples -----------
+    rdzv = tempfile.mkdtemp(prefix="spt_nccl_")
+    pm.init_distributed("nccl", f"file://{rdzv}/rendezvous", 1, 0, 300.0)
+    try:
+        mesh = pm.make_render_mesh(data=1, prim=1, device=dev)
+        kw = dict(max_bounces=DEPTH, rr_depth=RR, seed=BIG_SEED)
+        out["launches"] = {k: 0 for k in mk.LAUNCHES}
+        out["facade"] = {}
+        for label in ("config5", "config5_envmap"):
+            scene = scene_10k(T)
+            if label == "config5_envmap":
+                scene.set_environment_map(env_gradient())
+            sd = scene.compile(device=dev)
+            mb._PACK_CACHE.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mk.reset_launch_counts()
+            t0 = time.perf_counter()
+            img = render_wavefront_prim_sharded(sd, cam10, BIG_W, BIG_H, 0,
+                                                BIG_SPP, mesh, **kw)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            counts = dict(mk.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            tracer = big_tracer(T, dev, scene)
+            tracer.render_to_completion()
+            want = tracer.get_state()["accum"]
+            torch.cuda.synchronize()
+            out["facade"][label] = (scene, sd, want)
+            res = compare(img, want)
+            emit(dict(phase="prim_main_path", case=label, backend="nccl",
+                      world_size=1, data=1, prim=1, size=f"{BIG_W}x{BIG_H}",
+                      spp=BIG_SPP, wall_s=wall_s, peak_memory_gb=peak,
+                      launches=counts,
+                      pixels_differ_from_facade=int((img != want).any(-1)
+                                                    .sum()),
+                      vs_facade=res, mean=float(img.mean()) / BIG_SPP))
+            check(all(counts[k] > 0 for k in ("k5", "k6", "k8", "k7b")),
+                  f"{label}: K5, K6, K8 or K7b was not launched: {counts}")
+            check(all(v == 0 for k, v in counts.items()
+                      if k not in ("k5", "k6", "k8", "k7b")),
+                  f"{label}: other kernels or plain versions ran: {counts}")
+            check(tuple(img.shape) == (BIG_H, BIG_W, 3), f"{label}: shape")
+            check(res["finite"] and res["frac_close"] >= MIN_CLOSE
+                  and res["mean_rel"] <= MAX_MEAN_REL,
+                  f"{label}: prim-sharded render against the facade {res}")
+            check(float(want.mean()) > 0.01, f"{label}: image is black")
+            for k, v in counts.items():
+                out["launches"][k] += v
+            del img
+        # The gradient all-reduce of config 5's parameter vector, alone,
+        # under NCCL at world size 1 (CUDA events, 10 launches).
+        numel = sum(v.numel()
+                    for v in G.get_params(sd10, GRAD_KEYS).values())
+        vec = torch.ones(numel, device=dev)
+        pm.all_reduce(vec, dist.ReduceOp.SUM, mesh.data_group, "nccl")
+        _, ms = cuda_ms(torch, lambda: [pm.all_reduce(
+            vec, dist.ReduceOp.SUM, mesh.data_group, "nccl")
+            for _ in range(10)])
+        out["nccl_allreduce_ms"] = ms / 10
+        out["grad_numel"] = numel
+        emit(dict(phase="grad_allreduce", backend="nccl", world_size=1,
+                  numel=numel, ms=ms / 10))
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def run_dist_phases(torch, T, mk, dev, card, k3, prim) -> dict:
+    """The distributed paths on 2 gloo ranks spawned on the one card
+    (``tools/dist_worker``): config 5 at 1920x1080 x 4 spp prim-sharded
+    (prim=2, both skies: the pixels that differ from the unsharded render,
+    each a cross-shard t-tie), sample-sharded (data=2) against the
+    unsharded render, and the DP gradient (one backward and 3 Adam steps
+    through make_wavefront_dp_render_fn) against one process's wavefront
+    gradient.  Returns the launch counts."""
+    from spt_tpu_torch.diff import gradients as G
+    from spt_tpu_torch.kernels import wavefront_grad as wg
+    from spt_tpu_torch.tools import dist_worker
+
+    sd10, cam10 = k3["sd10"], k3["cam10"]
+    facade = prim["facade"]
+    sd_env = facade["config5_envmap"][1]
+    kw = dict(max_bounces=DEPTH, rr_depth=RR, seed=BIG_SEED)
+    size = dict(width=BIG_W, height=BIG_H, spp=BIG_SPP)
+    cases = {
+        "prim2": dict(case="prim_forward", data=1, prim=2, scene="config5",
+                      kw=kw, **size),
+        "prim2_envmap": dict(case="prim_forward", data=1, prim=2,
+                             scene="config5_envmap", kw=kw, **size),
+        "data2": dict(case="forward", data=2, prim=1, scene="config5", kw=kw,
+                      **size),
+        "dp_grad": dict(case="dp_grad", data=2, prim=1, scene="config5",
+                        kw=kw, fields=GRAD_KEYS, ct_seed=SEED,
+                        steps=GRAD_STEPS, perturb=0.2, lr=TRAIN_LR,
+                        step_fields=("albedo", "roughness", "centers",
+                                     "radii"), **size),
+    }
+    t0 = time.perf_counter()
+    try:
+        reports = dict(zip(cases, dist_worker.launch(
+            list(cases.values()), DIST_RANKS,
+            scenes={"config5": (sd10, cam10),
+                    "config5_envmap": (sd_env, cam10)},
+            backend="gloo", device="cuda", timeout=DIST_TIMEOUT)))
+    except (RuntimeError, TimeoutError) as e:
+        raise PhaseFailed(f"dist_main_path: {e}") from e
+    wall_s = time.perf_counter() - t0
+    launches = {k: 0 for k in mk.LAUNCHES}
+    for label, rep in reports.items():
+        for k, v in rep["launches"].items():
+            launches[k] += v
+        check(rep["backend"] == "gloo" and rep["device"].startswith("cuda"),
+              f"{label}: ran on {rep['backend']} / {rep['device']}")
+        check(rep["launches"]["plain"] == 0, f"{label}: a plain version ran")
+
+    # The prim=2 renders: every differing pixel a cross-shard t-tie.
+    for label, want_key in (("prim2", "config5"),
+                            ("prim2_envmap", "config5_envmap")):
+        rep = reports[label]
+        want = facade[want_key][2].cpu().numpy()
+        got = rep["image"]
+        differ = np.flatnonzero((got != want).any(-1))
+        not_ties = sorted(set(differ.tolist()) - set(rep["tie_pixels"]))
+        res = compare(torch.from_numpy(got), torch.from_numpy(want))
+        emit(dict(phase="dist_main_path", case=label, backend="gloo",
+                  ranks=DIST_RANKS, data=1, prim=2, size=f"{BIG_W}x{BIG_H}",
+                  spp=BIG_SPP, walls_s=rep["walls_s"],
+                  peak_memory_gb=rep["peak_memory_gb"],
+                  launches=rep["launches"], pixels_differ=len(differ),
+                  tie_pixels=len(rep["tie_pixels"]),
+                  tie_lanes=rep["tie_lanes"],
+                  differing_pixels_without_a_tie=len(not_ties),
+                  stream_checks=rep["stream_checks"],
+                  collectives=rep["collectives"],
+                  collective_mb=[b / 1e6 for b in rep["collective_bytes"]],
+                  collective_ms=rep["collective_ms"], vs_unsharded=res))
+        check(all(rep["launches"][k] > 0 for k in ("k5", "k6", "k8", "k7b")),
+              f"{label}: K5, K6, K8 or K7b was not launched")
+        check(not not_ties, f"{label}: {len(not_ties)} of {len(differ)} "
+                            f"differing pixels had no cross-shard tie")
+        check(res["finite"] and res["frac_close"] >= MIN_CLOSE,
+              f"{label}: against the unsharded render {res}")
+
+    # The sample-sharded forward against the unsharded render.
+    rep = reports["data2"]
+    want = facade["config5"][2].cpu().numpy()
+    res = compare(torch.from_numpy(rep["image"]), torch.from_numpy(want))
+    emit(dict(phase="dist_main_path", case="data2", backend="gloo",
+              ranks=DIST_RANKS, data=2, prim=1, size=f"{BIG_W}x{BIG_H}",
+              spp=BIG_SPP, walls_s=rep["walls_s"],
+              peak_memory_gb=rep["peak_memory_gb"], launches=rep["launches"],
+              pixels_differ=int((rep["image"] != want).any(-1).sum()),
+              vs_unsharded=res))
+    check(res["finite"] and res["frac_close"] >= MIN_CLOSE
+          and res["mean_rel"] <= MAX_MEAN_REL,
+          f"data2: against the unsharded render {res}")
+
+    # The DP gradient against one process's wavefront gradient.
+    rep = reports["dp_grad"]
+    render = wg.make_wavefront_render_fn(sd10, cam10, BIG_W, BIG_H,
+                                         spp=BIG_SPP, **kw)
+    params = {k: v.clone().requires_grad_(True)
+              for k, v in G.get_params(sd10, GRAD_KEYS).items()}
+    img = render(params, 0)
+    (img * ct_image(torch, dev, BIG_W, BIG_H)).sum().backward()
+    errs, g_err = tail_field_errors(
+        {k: torch.from_numpy(rep[f"grad.{k}"]) for k in GRAD_KEYS},
+        {k: p.grad for k, p in params.items()})
+    res = compare(torch.from_numpy(rep["image"]), img.detach())
+    emit(dict(phase="dist_main_path", case="dp_grad", backend="gloo",
+              ranks=DIST_RANKS, data=2, prim=1, size=f"{BIG_W}x{BIG_H}",
+              spp=BIG_SPP, walls_s=rep["walls_s"],
+              peak_memory_gb=rep["peak_memory_gb"], launches=rep["launches"],
+              losses=rep["losses"], step_s=rep["step_s"],
+              albedo_err_start=rep["albedo_err_start"],
+              albedo_err_end=rep["albedo_err_end"],
+              grad_allreduce_ms=rep["grad_allreduce_ms"],
+              grad_vector_numel=rep["grad_vector_numel"],
+              image_vs_single=res, grad_max_abs_err=g_err, grad=errs))
+    check(all(rep["launches"][k] > 0 for k in ("k5", "k6", "k9", "k10")),
+          "dp_grad: K5, K6, K9 or K10 was not launched")
+    check(all(e["ok"] for e in errs.values()), f"dp_grad: {errs}")
+    check(res["frac_close"] >= MIN_CLOSE, f"dp_grad image: {res}")
+    check(all(np.isfinite(rep["losses"])), "dp_grad: loss not finite")
+    check(rep["albedo_err_end"] < rep["albedo_err_start"],
+          "dp_grad: the albedo error did not fall")
+    emit(dict(phase="grad_allreduce", backend="gloo", world_size=DIST_RANKS,
+              numel=rep["grad_vector_numel"], ms=rep["grad_allreduce_ms"],
+              nccl_world1_ms=prim["nccl_allreduce_ms"]))
+    emit(dict(phase="dist_wall", seconds=wall_s, backend="gloo",
+              ranks=DIST_RANKS, device=card))
+    del render, params, img
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
 
 
 def main() -> int:

@@ -15,7 +15,15 @@ beside its plain PyTorch version for the CPU:
   per pixel;
 * slice 4: the sorted wavefront (``kernels.wavefront``: K5 raygen, K6
   intersect, K7 shade, with torch-op glue between them), which the facade
-  takes for environment-map skies and scenes above 2048 spheres.
+  takes for environment-map skies and scenes above 2048 spheres;
+* slice 5: the gradients of large scenes (``diff.cuda_diff``): K3 forward
+  and K4, its fused backward, up to 2048 spheres, and the differentiable
+  wavefront (``kernels.wavefront_grad``: K5, K6, K9 forward, K10 backward)
+  above it and for environment-map skies;
+* slice 6: distribution over ``torch.distributed`` (``parallel``): the
+  sample-sharded wavefront and its data-parallel gradient, and the
+  primitive-sharded wavefront over K8 (any-hit) and K7 reading the shadow
+  verdict merged over the shards; ``tools/dist_worker.py`` spawns ranks.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 See ROADMAP.md for what comes next.

@@ -42,6 +42,20 @@
 //   shadow tests come close.  One thread per ray, its state in registers;
 //   the scene uniforms sit in shared memory.
 //
+//   With blocked_in_res (K7's mode for the prim-sharded render, the TPU
+//   kernel's blocked_in_res=True, launched at spt_tpu/parallel/
+//   wavefront_prim.py:214) nothing is swept: each shadow verdict is read
+//   from residual row 7, where the glue put the MAX over the prim shards of
+//   K8's verdicts.  Bound: K7's bytes less the lists and leaf blocks, plus
+//   4 bytes a shadow ray.
+// * K8 replaces wavefront.py::_anyhit_kernel (launched at spt_tpu/parallel/
+//   wavefront_prim.py:195): the occlusion verdict of shadow rays given as 8
+//   channels (pox poy poz ldx ldy ldz tmax need) against one prim shard's
+//   leaf blocks, by K7's sweep (WavefrontGeometry::sweep) of the tile's
+//   shadow list; 1 where blocked, 0 where not, for lanes without need and
+//   past the prefix.  One thread per lane, no shared memory, no syncs.
+//   Bound: fp32 operations of the sphere tests (the bytes, 8 channels a
+//   ray in and one out plus the blocks swept, come close).
 // * K9 replaces spt_tpu/kernels/wavefront_grad.py::_shade_fwd_kernel
 //   (launched by _shade_op): K7 on a copy of the stream (kernels/
 //   wavefront_grad.py clones it, since the backward keeps the pre-bounce
@@ -211,6 +225,8 @@ struct WavefrontGeometry {
   const float* lights;  // kWfLightStride per slot
   int block;
   float* blocked;       // K9: this lane's verdict; K7: null
+  const float* verdict; // blocked_in_res: residual row 7 at this lane; else
+                        // null (sweep the shadow list)
 
   // The winner's quadratic again, on the same floats K6 used (the TPU's
   // _rebuilt_intersect); no hit where K6 found none (hmid < 0, which is
@@ -239,7 +255,8 @@ struct WavefrontGeometry {
   __device__ __forceinline__ bool occluded(float ox, float oy, float oz,
                                            float dx, float dy, float dz,
                                            float tmax) const {
-    const bool hit = sweep(ox, oy, oz, dx, dy, dz, tmax);
+    const bool hit =
+        verdict ? *verdict > 0.5f : sweep(ox, oy, oz, dx, dy, dz, tmax);
     if (blocked) *blocked = hit ? 1.0f : 0.0f;
     return hit;
   }
@@ -297,6 +314,7 @@ struct ShadeParams {
   int stride, n_lanes, n_blocks, block, n_mats, n_light_slots, k, rr_depth;
   int sky_mode, blob_len;
   bool use_nee, use_mis;
+  bool blocked_in_res;  // verdicts in residual row 7; scand, sctn unread
 };
 
 __global__ void __launch_bounds__(kThreadsWf) shade_kernel(ShadeParams prm) {
@@ -342,14 +360,16 @@ __global__ void __launch_bounds__(kThreadsWf) shade_kernel(ShadeParams prm) {
   const size_t n = (size_t)prm.n_lanes;
   const float* res = prm.res + i;
   const int tile = i / kTile;
-  const bool nee = prm.use_nee && prm.n_light_slots > 0;
+  const bool lists = prm.use_nee && prm.n_light_slots > 0 &&
+                     !prm.blocked_in_res;
   const float* mats = s_blob + kWfMatOff;
   const WavefrontGeometry geo{
       res[0], res[n], res[2 * n], res[3 * n], res[4 * n], prm.prims,
-      nee ? prm.scand + (size_t)tile * (prm.n_blocks + 1) : prm.scand,
-      nee ? prm.sctn + (size_t)tile * prm.n_blocks : prm.sctn, mats,
+      lists ? prm.scand + (size_t)tile * (prm.n_blocks + 1) : prm.scand,
+      lists ? prm.sctn + (size_t)tile * prm.n_blocks : prm.sctn, mats,
       s_mtypes, mats + kWfMatStride * prm.n_mats, prm.block,
-      prm.blocked ? prm.blocked + i : nullptr};
+      prm.blocked ? prm.blocked + i : nullptr,
+      prm.blocked_in_res ? res + 7 * n : nullptr};
   const SceneView sc{s_blob, s_meta, s_lsb, 0, prm.n_light_slots, s_meta[2],
                      prm.sky_mode};
   const uint32_t pid = (uint32_t)prm.ids[i];
@@ -373,6 +393,38 @@ __global__ void __launch_bounds__(kThreadsWf) shade_kernel(ShadeParams prm) {
   st[kChAlive * s] = p.active ? 1.0f : 0.0f;
   st[kChSpec * s] = p.prev_spec ? 1.0f : 0.0f;
   st[kChMiss * s] = (missed && prm.sky_mode == kSkyEnvmap) ? 1.0f : 0.0f;
+}
+
+// ---------------------------------------------------------------------------
+// K8: any-hit.
+// ---------------------------------------------------------------------------
+
+struct AnyhitParams {
+  float* blocked;       // (stride,)
+  const float* sray;    // (8, stride): pox poy poz ldx ldy ldz tmax need
+  const float* prims;   // (n_blocks, 5, block): this shard's leaf blocks
+  const int* scand;     // (tiles, 1, n_blocks + 1): count, block ids
+  const float* sctn;    // (tiles, 1, n_blocks): entry bounds, nondecreasing
+  int stride, n_lanes, n_blocks, block;
+};
+
+__global__ void __launch_bounds__(kThreadsWf) anyhit_kernel(AnyhitParams prm) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= prm.stride) return;
+  const size_t s = (size_t)prm.stride;
+  const float* r = prm.sray + i;
+  bool hit = false;
+  if (i < prm.n_lanes && r[7 * s] > 0.5f) {
+    const int tile = i / kTile;
+    const WavefrontGeometry geo{
+        0.0f, 0.0f, 0.0f, 0.0f, -1.0f, prm.prims,
+        prm.scand + (size_t)tile * (prm.n_blocks + 1),
+        prm.sctn + (size_t)tile * prm.n_blocks, nullptr, nullptr, nullptr,
+        prm.block, nullptr, nullptr};
+    hit = geo.sweep(r[0], r[s], r[2 * s], r[3 * s], r[4 * s], r[5 * s],
+                    r[6 * s]);
+  }
+  prm.blocked[i] = hit ? 1.0f : 0.0f;
 }
 
 // ---------------------------------------------------------------------------
@@ -531,7 +583,8 @@ extern "C" int spt_wavefront_shade(
     const void* scand, const void* sctn, void* blocked, int stride,
     int n_lanes,
     int n_blocks, int block, int n_mats, int n_light_slots, int k,
-    int rr_depth, int use_nee, int use_mis, int sky_mode, void* stream) {
+    int rr_depth, int use_nee, int use_mis, int sky_mode, int blocked_in_res,
+    void* stream) {
   spt::ShadeParams prm;
   prm.st = static_cast<float*>(st);
   prm.ids = static_cast<const int*>(ids);
@@ -555,12 +608,33 @@ extern "C" int spt_wavefront_shade(
   prm.sky_mode = sky_mode;
   prm.use_nee = use_nee != 0;
   prm.use_mis = use_mis != 0;
+  prm.blocked_in_res = blocked_in_res != 0;
   prm.blob_len = spt::kWfMatOff + spt::kWfMatStride * n_mats +
                  spt::kWfLightStride * (n_light_slots > 1 ? n_light_slots : 1);
   if (n_lanes <= 0) return 0;
   const size_t smem = sizeof(float) * (prm.blob_len + 6 + 3 + n_mats);
   spt::shade_kernel<<<spt::blocks_for(n_lanes), spt::kThreadsWf, smem,
                       static_cast<cudaStream_t>(stream)>>>(prm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int spt_wavefront_anyhit(void* blocked, const void* sray,
+                                    const void* prims, const void* scand,
+                                    const void* sctn, int stride, int n_lanes,
+                                    int n_blocks, int block, void* stream) {
+  spt::AnyhitParams prm;
+  prm.blocked = static_cast<float*>(blocked);
+  prm.sray = static_cast<const float*>(sray);
+  prm.prims = static_cast<const float*>(prims);
+  prm.scand = static_cast<const int*>(scand);
+  prm.sctn = static_cast<const float*>(sctn);
+  prm.stride = stride;
+  prm.n_lanes = n_lanes;
+  prm.n_blocks = n_blocks;
+  prm.block = block;
+  if (stride <= 0) return 0;
+  spt::anyhit_kernel<<<spt::blocks_for(stride), spt::kThreadsWf, 0,
+                       static_cast<cudaStream_t>(stream)>>>(prm);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,6 +15,13 @@ as the plain render does.  Routed by scene size as JAX routes it:
 * above, or ``engine="wavefront"``: the differentiable sorted wavefront
   (``kernels/wavefront_grad.py``: K5, K6, K9 forward, K10 backward).
 
+A scene under an environment-map sky goes to the wavefront at every
+capacity, as the forward facade routes it (``engine/cuda_backend.py``):
+only the wavefront adds the map (between its kernels); K1-K4 would shade
+every miss black.  ``engine="fused"`` refuses such a scene.  The JAX
+package's ``make_pallas_render_fn`` routes by capacity alone and drops the
+map at 2048 spheres or fewer; the port does not copy that.
+
 On CPU tensors the kernels' wrappers take their plain versions.  Gradients
 reach albedo, emission, roughness, centers and radii (``PARAM_KEYS``).
 """
@@ -23,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.scene import SceneData
+from ..core.scene import SKY_ENVMAP, SceneData
 from ..kernels import (megakernel, megakernel_bvh, megakernel_bvh_grad,
                        megakernel_grad, physics)
 from . import gradients as G
@@ -138,11 +145,21 @@ def make_cuda_render_fn(scene: SceneData, camera, width: int, height: int,
     is closed over.  The camera renders through its lens when its aperture
     is above 0.  ``engine``: "auto" routes by capacity (K1/K2 up to
     ``SMEM_PRIM_CAP``, K3/K4 up to ``FUSED_GRAD_PRIM_CAP``, the wavefront
-    above); "fused" never takes the wavefront, "wavefront" always does."""
+    above) and sends every environment-map scene to the wavefront;
+    "fused" never takes the wavefront (and raises on an environment map,
+    which only the wavefront renders), "wavefront" always does.  The
+    wavefront packs the tree it walks from the scene's spheres, so a scene
+    compiled without a BVH takes it too."""
     if engine not in ("auto", "fused", "wavefront"):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "wavefront" or (engine == "auto"
-                                 and scene.capacity > FUSED_GRAD_PRIM_CAP):
+    envmap = scene.sky_mode == SKY_ENVMAP
+    if envmap and engine == "fused":
+        raise ValueError(
+            "engine='fused' cannot render an environment-map sky: K1-K4 "
+            "shade a miss by the sky's formula, which has no map; use "
+            "engine='auto' or 'wavefront'")
+    if engine == "wavefront" or (engine == "auto" and (
+            envmap or scene.capacity > FUSED_GRAD_PRIM_CAP)):
         from ..kernels import wavefront_grad
         make = wavefront_grad.make_wavefront_render_fn
     elif scene.capacity > SMEM_PRIM_CAP:

@@ -12,9 +12,13 @@ lobe choice) are piecewise constant and their boundary terms are ignored.
   tensors, swapped into the frozen ``SceneData`` with
   ``dataclasses.replace``, and projected back to their domains.
 * ``make_render_fn``: ``torch.autograd`` through the plain render, over any
-  sample ids (the counterpart of the JAX package's SoA backend).
+  sample ids (the counterpart of the JAX package's SoA backend); under an
+  environment-map sky through the wavefront's plain stages, which add the
+  map.
 * ``InverseRenderer``: Adam on an L2 image loss, with the kernel render
-  (``backend="cuda"``, K1 forward and K2 backward) or the plain one.
+  (``backend="cuda"``: ``cuda_diff.make_cuda_render_fn``, routed by scene
+  size, K1/K2, K3/K4 or the wavefront, and every environment-map scene to
+  the wavefront) or the plain one.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import dataclasses
 
 import torch
 
-from ..core.scene import SceneData
+from ..core.scene import SKY_ENVMAP, SceneData
 from ..kernels import megakernel, physics
 
 PARAM_FIELDS = ("albedo", "emission", "roughness", "ior",
@@ -81,7 +85,17 @@ def make_render_fn(scene: SceneData, camera, width: int, height: int, *,
 
     ``rr_depth`` defaults beyond ``max_bounces``: Russian roulette off, as
     its accept boundaries add discontinuities for no variance benefit at
-    optimization depths."""
+    optimization depths.
+
+    Under an environment-map sky the render goes through the sorted
+    wavefront's plain stages (``wavefront_grad``, its plain K9 and K10
+    behind ``torch.autograd``), the one plain render that adds the map:
+    one render a run of consecutive sample ids.  It packs its own tree, so
+    the scene needs no BVH."""
+    if scene.sky_mode == SKY_ENVMAP:
+        return _make_envmap_render_fn(
+            scene, camera, width, height, max_bounces=max_bounces,
+            rr_depth=rr_depth, use_nee=use_nee, use_mis=use_mis, seed=seed)
     mtypes, light_prims = megakernel.pack_scene_static(scene)
     kw = dict(width=width, height=height, n_prims=scene.capacity,
               n_light_slots=len(light_prims), max_bounces=max_bounces,
@@ -100,6 +114,33 @@ def make_render_fn(scene: SceneData, camera, width: int, height: int, *,
             megakernel.pack_blob_torch(sc, camera), meta.to(scene.device),
             lsb, ids, **kw)
         return img / len(ids)
+    return render
+
+
+def _make_envmap_render_fn(scene: SceneData, camera, width: int,
+                           height: int, **kw):
+    """``make_render_fn`` under an environment-map sky: the wavefront's
+    plain stages over each run of consecutive sample ids, weighted by its
+    length."""
+    from ..kernels import wavefront_grad as wg
+    fns = {}
+
+    def render(params: dict, sample_ids) -> torch.Tensor:
+        ids = [int(i) for i in torch.as_tensor(sample_ids).reshape(-1)]
+        runs, total = [], None
+        for i in ids:
+            if runs and i == runs[-1][0] + runs[-1][1]:
+                runs[-1][1] += 1
+            else:
+                runs.append([i, 1])
+        for start, n in runs:
+            if n not in fns:
+                fns[n] = wg._make_render_fn(
+                    scene, camera, width, height, stages=wg.PLAIN, spp=n,
+                    sort_min_rays=1 << 17, chunk_rays=2 << 20, **kw)
+            part = fns[n](params, start) * n
+            total = part if total is None else total + part
+        return total / len(ids)
     return render
 
 
@@ -123,10 +164,14 @@ class InverseRenderer:
     (then ids 0 .. spp-1 every step: a deterministic loss, right when the
     target was rendered with the same ids).
 
-    ``backend``: "cuda" renders with K1 and differentiates with K2 on the
-    scene's device (their plain versions on the CPU), keeping
-    ``make_cuda_render_fn``'s ``rr_depth=3``; "plain" is autograd through
-    the plain render (``make_render_fn``, Russian roulette off).
+    ``backend``: "cuda" renders and differentiates with the kernels on the
+    scene's device (their plain versions on the CPU), routed by
+    ``make_cuda_render_fn``: by scene size, K1/K2 up to 128 spheres, K3/K4
+    up to 2048, the differentiable wavefront above, and every
+    environment-map scene to the wavefront; it keeps that function's
+    ``rr_depth=3``.  "plain" is autograd through the plain render
+    (``make_render_fn``, Russian roulette off; the wavefront's plain stages
+    under an environment map).
     """
 
     scene: SceneData

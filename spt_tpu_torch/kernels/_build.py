@@ -62,8 +62,11 @@ ENTRIES = {
         # st, ids, res, blob, meta, lsb, prims, mtypes, scand, sctn,
         # blocked (K9; null for K7), stride, n_lanes, n_blocks, block,
         # n_mats, n_light_slots, k, rr_depth, use_nee, use_mis, sky_mode,
-        # stream
-        "spt_wavefront_shade": [_P] * 11 + [_I] * 11 + [_P],
+        # blocked_in_res, stream
+        "spt_wavefront_shade": [_P] * 11 + [_I] * 12 + [_P],
+        # blocked, sray, prims, scand, sctn, stride, n_lanes, n_blocks,
+        # block, stream
+        "spt_wavefront_anyhit": [_P] * 5 + [_I] * 4 + [_P],
         # din, dgeo, dscal, st, ids, res, ct, blob, meta, lsb, mtypes,
         # stride, n_lanes, n_mats, n_light_slots, k, rr_depth, use_nee,
         # use_mis, sky_mode, stream

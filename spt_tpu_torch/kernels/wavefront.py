@@ -35,6 +35,13 @@ scatter) is torch ops, as it was XLA around the TPU kernels.
 wavefront render on the CPU adds one per chunk for raygen and two per
 bounce that has alive rays.
 
+The primitive-sharded render (``parallel/wavefront_prim.py``) adds two:
+K8, ``anyhit`` / ``anyhit_plain``, K7's shadow sweep alone on one shard's
+leaf blocks (``LAUNCHES["k8"]``), and K7 reading the shadow verdict merged
+over the shards from residual row 7 instead of sweeping (``shade(...,
+blocked_in_res=True)``, ``LAUNCHES["k7b"]``); ``winner_t`` rebuilds each
+lane's nearest distance for the merge.
+
 A padding slot of a leaf block (centre 0, radius 0, id -1) can win K6's
 sweep where the float quadratic says a ray through the origin hits it;
 its id -1 then reads as no hit and the lane takes the sky, as in the JAX
@@ -245,8 +252,12 @@ def precull_tiles(o3, d3, act, tmax, lob, hib):
     1, n_blocks) float32, each candidate's least entry distance over the
     tile's rays that pass (clamped at 0; BIG past the count), nondecreasing.
     Chunks of ``PRECULL_TILE_CHUNK`` tiles without a traced ray are not
-    tested (one read of which are live)."""
+    tested (one read of which are live).  A block without a filled slot
+    (its box inverted, lo > hi: the prim-sharded render's padding blocks)
+    is never a candidate; the slab test alone would pass it for every ray,
+    as it does in the JAX package's precull."""
     nb = lob.shape[0]
+    empty = (lob > hib).any(dim=1)
     n_tiles = act.numel() // TILE
     dev = act.device
     cand, ctn = _empty_lists(n_tiles, nb, dev)
@@ -284,6 +295,7 @@ def precull_tiles(o3, d3, act, tmax, lob, hib):
         if tmax is not None:
             hit &= tn < grab(tmax)
         grp = torch.where(hit, torch.clamp_min(tn, 0.0), BIG).amin(dim=1)
+        grp = torch.where(empty, BIG, grp)
         del tn, hit
         order = torch.argsort(grp, dim=-1, stable=True)
         s_tn = torch.gather(grp, -1, order)
@@ -331,17 +343,39 @@ def _coherence_key(stf, lo, ext, qbits: int = Q_BITS):
                                    _pad_key(qbits)).to(torch.int32))
 
 
-def _sort_rays(buf: torch.Tensor, n_lanes: int, lo, ext) -> int:
+def _sort_rays(buf: torch.Tensor, n_lanes: int, lo, ext, *,
+               stable: bool = False) -> int:
     """Sort lanes [0, n_lanes) of the (19, R) stream buffer by
     ``_coherence_key``, in place: one sort of the key, then one gather of
     all 19 rows.  Returns the alive prefix in tiles (read to the host).
-    Equal keys land in any order, which no ray's result can see."""
+    Equal keys land in any order, which no ray's result can see; ``stable``
+    keeps them in lane order, so that equal streams sort alike wherever
+    they are sorted (the prim-sharded render's ranks)."""
     part = buf[:, :n_lanes]
     key = _coherence_key(part, lo, ext)
     n_alive = int((key < _dead_key(Q_BITS)).sum())
-    order = torch.sort(key, stable=False).indices
+    order = torch.sort(key, stable=stable).indices
     part.copy_(part.index_select(1, order))
     return -(-n_alive // TILE)
+
+
+def _sort_span(k: int, nalive: int, n_tiles: int, sort_min_rays: int,
+               compact: bool) -> int | None:
+    """The lanes to sort before bounce ``k``, or None for no sort: none at
+    bounce 0 or once at most ``sort_min_rays`` rays are alive; from bounce
+    2 on, once the alive prefix fits in the stream's first half or quarter,
+    only that part (the suffix is dead and stays in place)."""
+    if not k or nalive * TILE <= sort_min_rays:
+        return None
+    lanes = (n_tiles + 1) * TILE
+    if compact and k > 1:
+        t_half = max(1, (n_tiles + 1) // 2)
+        t_quarter = max(1, (n_tiles + 1) // 4)
+        if nalive <= t_quarter:
+            lanes = t_quarter * TILE
+        elif nalive <= t_half:
+            lanes = t_half * TILE
+    return lanes
 
 
 def _scene_sort_bounds(nodef: torch.Tensor):
@@ -511,9 +545,9 @@ def _lights(blob: torch.Tensor, n_mats: int, n_light_slots: int):
         n_light_slots, _LIGHT_STRIDE)
 
 
-def _winner_hit(st, res):
-    """Hit lanes (alive, K6 found a sphere) and their hit points and
-    shading normals, by K6's quadratic on the winner (as K7 rebuilds it)."""
+def _winner_quadratic(st, res):
+    """(hit lanes: alive and K6 found a sphere, the distance to the winner
+    by K6's quadratic on the same floats, as K7 rebuilds it)."""
     ox, oy, oz = st[C_OX], st[C_OY], st[C_OZ]
     dx, dy, dz = st[C_DX], st[C_DY], st[C_DZ]
     hcx, hcy, hcz, hr, hmid = res[0], res[1], res[2], res[3], res[4]
@@ -524,7 +558,25 @@ def _winner_hit(st, res):
     disc = b * b - cterm
     pos = disc > 0.0
     sq = torch.sqrt(physics._max(torch.where(pos, disc, 1.0), 1e-12))
-    t = torch.where(b - sq > TMIN, b - sq, b + sq)
+    return hit, torch.where(b - sq > TMIN, b - sq, b + sq)
+
+
+def winner_t(st, res) -> torch.Tensor:
+    """Each lane's distance to its K6 winner, rebuilt from the residual by
+    the sweep's quadratic (``wavefront._winner_t`` of the JAX package); BIG
+    where the lane is dead or missed.  The prim-sharded render takes the
+    least of these over the shards."""
+    hit, t = _winner_quadratic(st, res)
+    return torch.where(hit, t, BIG)
+
+
+def _winner_hit(st, res):
+    """Hit lanes (alive, K6 found a sphere) and their hit points and
+    shading normals, by K6's quadratic on the winner (as K7 rebuilds it)."""
+    ox, oy, oz = st[C_OX], st[C_OY], st[C_OZ]
+    dx, dy, dz = st[C_DX], st[C_DY], st[C_DZ]
+    hcx, hcy, hcz = res[0], res[1], res[2]
+    hit, t = _winner_quadratic(st, res)
     t_safe = torch.where(hit, t, 1.0)
     hx, hy, hz = ox + t_safe * dx, oy + t_safe * dy, oz + t_safe * dz
     ngx, ngy, ngz = physics._normalize(hx - hcx, hy - hcy, hz - hcz)
@@ -594,26 +646,65 @@ def _rebuilt_intersect(mats, mtypes, res):
     return intersect
 
 
+def _sweep_anyhit(prims, scand, sctn, o, d, tmax, need, stats=None):
+    """The shadow sweep of K7 and K8 on lanes given as flat tensors of
+    whole tiles: each lane with ``need`` tests its tile's shadow list in
+    order, a block's slots in order, and stops at its first blocker (a hit
+    with t < ``tmax``) or once the next candidate's bound reaches its
+    ``tmax``.  Returns the (n,) bool verdict; ``stats``, if given, gets the
+    sweep's ``"shadow_spheres"`` (filled slots tested, up to the blocker),
+    ``"shadow_blocks"``, ``"shadow_list_words"`` and
+    ``"shadow_blocks_read"`` (``_list_reads``) added."""
+    n = need.numel()
+    dev = need.device
+    tile = torch.arange(n, device=dev) // TILE
+    filled = (prims[:, 4, :] >= 0.0).sum(dim=1)
+    work = torch.zeros(2, dtype=torch.int64, device=dev)
+    verdict = torch.zeros_like(need)
+
+    def step(idx, blk):
+        tj, ok = _leaf_t(prims[blk], *(a[idx] for a in o),
+                         *(a[idx] for a in d))
+        hits = ok & (tj < tmax[idx][:, None])
+        stop = hits.any(dim=1)
+        first = torch.where(stop, hits.int().argmax(dim=1) + 1, filled[blk])
+        work[0] += first.sum()
+        work[1] += idx.numel()
+        verdict[idx] = stop
+        return stop
+
+    reach = _sweep_lanes(scand, sctn, tile, tmax, need, step)
+    if stats is not None:
+        words, blocks = _list_reads(scand, tile, need, *reach)
+        for name, v in zip(("shadow_spheres", "shadow_blocks",
+                            "shadow_list_words", "shadow_blocks_read"),
+                           (*work.tolist(), words, blocks)):
+            stats[name] = stats.get(name, 0) + v
+    return verdict
+
+
 def shade_plain(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
                 n_lanes: int, *, k: int, block: int, n_mats: int,
                 n_light_slots: int, rr_depth: int, use_nee: bool,
                 use_mis: bool, sky_mode: int, stats: dict | None = None,
-                blocked: torch.Tensor | None = None) -> None:
+                blocked: torch.Tensor | None = None,
+                blocked_in_res: bool = False) -> None:
     """Plain version of K7: bounce ``k`` of lanes [0, n_lanes) of the
     stream, in place.  ``trace_bounce`` on the hit rebuilt from ``res``;
     each shadow ray tests its tile's shadow list in order and stops at its
-    first blocker or once the next candidate's bound reaches its t_max.
-    Dead lanes keep their state; the miss flag is set where an alive lane
-    missed under an env-map sky, cleared elsewhere.  ``stats``, if given,
-    gets ``render_samples_plain``'s per-bounce counts of this bounce
-    (``"active"``, ``"hit"``, ``"shadow"``, ``"lit"``) and the shadow
-    sweep's ``"shadow_spheres"``, ``"shadow_blocks"``,
-    ``"shadow_list_words"`` and ``"shadow_blocks_read"`` added.
-    ``blocked``, if given, (n_lanes,) float32, receives the NEE shadow
-    verdict: 1 where a traced shadow ray is blocked, 0 elsewhere (K9's
-    record, ``wavefront_grad.shade_fwd_plain``)."""
+    first blocker or once the next candidate's bound reaches its t_max
+    (``_sweep_anyhit``).  With ``blocked_in_res`` (K7's mode for the
+    prim-sharded render) nothing is swept: a shadow ray is blocked where
+    residual row 7 holds more than 0.5, and ``scand``, ``sctn`` and
+    ``prims`` are not read.  Dead lanes keep their state; the miss flag is
+    set where an alive lane missed under an env-map sky, cleared
+    elsewhere.  ``stats``, if given, gets ``render_samples_plain``'s
+    per-bounce counts of this bounce (``"active"``, ``"hit"``,
+    ``"shadow"``, ``"lit"``) and the shadow sweep's counts added (zero
+    with ``blocked_in_res``).  ``blocked``, if given, (n_lanes,) float32,
+    receives the NEE shadow verdict: 1 where a traced shadow ray is
+    blocked, 0 elsewhere (K9's record, ``wavefront_grad.shade_fwd_plain``)."""
     LAUNCHES["plain"] += 1
-    dev = st.device
     n = n_lanes
     prims = prims.reshape(-1, _N_PRIM_ATTRS, block)
     mats = blob[_MAT_OFF:_MAT_OFF + _MAT_STRIDE * n_mats].reshape(
@@ -623,30 +714,14 @@ def shade_plain(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
     part = st[:, :n]
     pid = ids[0, :n].to(torch.int64) & rng.MASK32
     sample = ids[1, :n].to(torch.int64) & rng.MASK32
-    tile = torch.arange(n, device=dev) // TILE
-    filled = (prims[:, 4, :] >= 0.0).sum(dim=1)
-    work = torch.zeros(2, dtype=torch.int64, device=dev)
-    lists = []
+    sweep_stats = {}
 
     def occluded(ox, oy, oz, dx, dy, dz, tmax, need):
-        verdict = torch.zeros_like(need)
-        o, d = (ox, oy, oz), (dx, dy, dz)
-
-        def step(idx, blk):
-            tj, ok = _leaf_t(prims[blk], *(a[idx] for a in o),
-                             *(a[idx] for a in d))
-            hits = ok & (tj < tmax[idx][:, None])
-            stop = hits.any(dim=1)
-            first = torch.where(stop, hits.int().argmax(dim=1) + 1,
-                                filled[blk])
-            work[0] += first.sum()
-            work[1] += idx.numel()
-            verdict[idx] = stop
-            return stop
-
-        lists.append(_list_reads(
-            scand, tile, need, *_sweep_lanes(scand, sctn, tile, tmax, need,
-                                             step)))
+        if blocked_in_res:
+            verdict = need & (res[7, :n] > 0.5)
+        else:
+            verdict = _sweep_anyhit(prims, scand, sctn, (ox, oy, oz),
+                                    (dx, dy, dz), tmax, need, sweep_stats)
         if blocked is not None:
             blocked.copy_(verdict)
         return verdict
@@ -674,36 +749,37 @@ def shade_plain(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
             tape.nee.nee_ok if nee else zero]).sum(1).tolist()
         for name, v in zip(("active", "hit", "shadow", "lit"), counts):
             stats[name] = stats.get(name, 0) + v
-        w = work.tolist()
-        stats["shadow_spheres"] = stats.get("shadow_spheres", 0) + w[0]
-        stats["shadow_blocks"] = stats.get("shadow_blocks", 0) + w[1]
-        for name, v in zip(("shadow_list_words", "shadow_blocks_read"),
-                           lists[0] if lists else (0, 0)):
-            stats[name] = stats.get(name, 0) + v
+        for name in ("shadow_spheres", "shadow_blocks", "shadow_list_words",
+                     "shadow_blocks_read"):
+            stats[name] = stats.get(name, 0) + sweep_stats.get(name, 0)
 
 
 def shade(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
           n_lanes: int, *, k: int, block: int, n_mats: int,
           n_light_slots: int, rr_depth: int, use_nee: bool, use_mis: bool,
-          sky_mode: int) -> None:
+          sky_mode: int, blocked_in_res: bool = False) -> None:
     """K7's wrapper: ``shade_plain``'s bounce, in place, on the stream's
-    device.  Without NEE ``scand`` and ``sctn`` are not read."""
+    device.  Without NEE, or with ``blocked_in_res`` (the shadow verdict
+    read from residual row 7; ``LAUNCHES["k7b"]`` counts these launches),
+    ``scand`` and ``sctn`` are not read."""
     kw = dict(k=k, block=block, n_mats=n_mats, n_light_slots=n_light_slots,
               rr_depth=rr_depth, use_nee=use_nee, use_mis=use_mis,
-              sky_mode=sky_mode)
+              sky_mode=sky_mode, blocked_in_res=blocked_in_res)
     args = (blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res)
     if st.device.type == "cpu":
         return shade_plain(*args, n_lanes, **kw)
     _shade_launch("K7", args, n_lanes, None, **kw)
-    LAUNCHES["k7"] += 1
+    LAUNCHES["k7b" if blocked_in_res else "k7"] += 1
 
 
 def _shade_launch(name, args, n_lanes: int, blocked, *, k: int, block: int,
                   n_mats: int, n_light_slots: int, rr_depth: int,
-                  use_nee: bool, use_mis: bool, sky_mode: int) -> None:
+                  use_nee: bool, use_mis: bool, sky_mode: int,
+                  blocked_in_res: bool = False) -> None:
     """Checks and launches K7's kernel on CUDA tensors: K7 itself with
     ``blocked`` None, K9 (which also writes the (n_lanes,) shadow verdict
-    into ``blocked``) otherwise."""
+    into ``blocked``) otherwise; with ``blocked_in_res`` the kernel reads
+    each verdict from residual row 7 instead of sweeping the lists."""
     blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res = args
     if st.device.type != "cuda":
         raise NotImplementedError(f"{name} has no kernel for {st.device}")
@@ -721,7 +797,7 @@ def _shade_launch(name, args, n_lanes: int, blocked, *, k: int, block: int,
     _check(prims, "prims", torch.float32, _N_PRIM_ATTRS * block * nb)
     _check(mtypes, "mtypes", torch.int32, n_mats)
     _check(res, "res", torch.float32, N_RES * n_lanes)
-    if use_nee and n_light_slots > 0:
+    if use_nee and n_light_slots > 0 and not blocked_in_res:
         _check_lists(scand, sctn, n_lanes // TILE, nb)
     if blocked is not None:
         _check(blocked, "blocked", torch.float32, n_lanes)
@@ -734,9 +810,75 @@ def _shade_launch(name, args, n_lanes: int, blocked, *, k: int, block: int,
             0 if blocked is None else blocked.data_ptr(),
             st.shape[1], n_lanes, nb, block, n_mats, n_light_slots, k,
             rr_depth, int(bool(use_nee)), int(bool(use_mis)), int(sky_mode),
+            int(bool(blocked_in_res)),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+# ---------------------------------------------------------------------------
+# K8: any-hit
+# ---------------------------------------------------------------------------
+
+N_SRAY = 8           # K8's shadow rays: pox poy poz ldx ldy ldz tmax need
+
+
+def anyhit_plain(prims: torch.Tensor, scand: torch.Tensor, sctn: torch.Tensor,
+                 sray: torch.Tensor, n_lanes: int, *, block: int,
+                 stats: dict | None = None) -> torch.Tensor:
+    """Plain version of K8 -> (R,) float32 verdicts of the shadow rays
+    ``sray`` (8, R) against the leaf blocks ``prims``: for lanes [0,
+    n_lanes) with ``need`` (row 7 above 0.5), K7's shadow sweep of their
+    tiles' lists (``_sweep_anyhit``), 1 where the ray is blocked; 0 on the
+    other lanes and past ``n_lanes``.  ``stats``, if given, gets
+    ``"shadow"`` (the lanes swept) and the sweep's counts added."""
+    LAUNCHES["plain"] += 1
+    n = n_lanes
+    need = sray[7, :n] > 0.5
+    verdict = _sweep_anyhit(prims.reshape(-1, _N_PRIM_ATTRS, block), scand,
+                            sctn, tuple(sray[a, :n] for a in range(3)),
+                            tuple(sray[a, :n] for a in range(3, 6)),
+                            sray[6, :n], need, stats)
+    if stats is not None:
+        stats["shadow"] = stats.get("shadow", 0) + int(need.sum())
+    out = torch.zeros(sray.shape[1], dtype=torch.float32, device=sray.device)
+    out[:n] = verdict.to(torch.float32)
+    return out
+
+
+def anyhit(prims: torch.Tensor, scand: torch.Tensor, sctn: torch.Tensor,
+           sray: torch.Tensor, n_lanes: int, *, block: int) -> torch.Tensor:
+    """K8's wrapper: ``anyhit_plain``'s verdicts, on the rays' device."""
+    if sray.device.type == "cpu":
+        return anyhit_plain(prims, scand, sctn, sray, n_lanes, block=block)
+    if sray.device.type != "cuda":
+        raise NotImplementedError(f"K8 has no kernel for {sray.device}")
+    if any(a.device != sray.device for a in (prims, scand, sctn)):
+        raise ValueError("K8's inputs must lie on one device")
+    r = sray.shape[1] if sray.dim() == 2 else -1
+    if sray.dtype != torch.float32 or sray.dim() != 2 \
+            or sray.shape[0] != N_SRAY or not sray.is_contiguous() \
+            or r % TILE:
+        raise ValueError(f"sray: want a contiguous (8, R) float32 tensor, R "
+                         f"a multiple of {TILE}; got {sray.dtype} "
+                         f"{tuple(sray.shape)}")
+    if not 0 <= n_lanes <= r or n_lanes % TILE:
+        raise ValueError(f"K8: {n_lanes} lanes of {r} shadow rays")
+    nb = prims.numel() // (_N_PRIM_ATTRS * block)
+    _check(prims, "prims", torch.float32, _N_PRIM_ATTRS * block * nb)
+    _check_lists(scand, sctn, n_lanes // TILE, nb)
+    out = torch.empty(r, dtype=torch.float32, device=sray.device)
+    from ._build import load_library
+    lib = load_library("wavefront")
+    with torch.cuda.device(sray.device):
+        err = lib.spt_wavefront_anyhit(
+            out.data_ptr(), sray.data_ptr(), prims.data_ptr(),
+            scand.data_ptr(), sctn.data_ptr(), r, n_lanes, nb, block,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K8 launch failed: CUDA error {err}")
+    LAUNCHES["k8"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -823,19 +965,9 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
     none_i = torch.zeros((1, 1, 1), dtype=torch.int32, device=blob.device)
     none_f = torch.zeros((1, 1, 1), dtype=torch.float32, device=blob.device)
     nalive = n_tiles
-    t_half = max(1, (n_tiles + 1) // 2)
-    t_quarter = max(1, (n_tiles + 1) // 4)
     for k in range(max_bounces):
-        if k and nalive * TILE > sort_min_rays:
-            # No sort at bounce 0; later, once the alive prefix fits in the
-            # stream's first half or quarter, only that part is sorted (the
-            # suffix is dead and stays in place).
-            lanes = st.shape[1]
-            if compact and k > 1:
-                if nalive <= t_quarter:
-                    lanes = t_quarter * TILE
-                elif nalive <= t_half:
-                    lanes = t_half * TILE
+        lanes = _sort_span(k, nalive, n_tiles, sort_min_rays, compact)
+        if lanes is not None:
             with clock("sort"):
                 na = _sort_rays(buf, lanes, lo, ext)
             if compact:
@@ -972,6 +1104,38 @@ def k7_op_count(stats: dict) -> int:
             + stats["shadow"] * WF_OPS["shadow"]
             + stats["shadow_spheres"] * WF_OPS["sphere_test"]
             + stats["shadow_blocks"] * WF_OPS["block"])
+
+
+def k8_op_count(stats: dict) -> int:
+    """Lower count of K8's fp32 operations for ``anyhit_plain``'s stats:
+    K7's shadow sweep alone."""
+    return (stats["shadow_spheres"] * WF_OPS["sphere_test"]
+            + stats["shadow_blocks"] * WF_OPS["block"])
+
+
+def k8_byte_count(stats: dict, n_lanes: int, block: int) -> int:
+    """Bytes K8 must move, each word once, for ``anyhit_plain``'s stats:
+    every lane reads its need flag and writes its verdict, a lane that
+    needs one reads its 7 other ray channels, plus the shadow list words
+    read and the four float rows of each distinct leaf block swept."""
+    return 4 * (2 * n_lanes + 7 * stats["shadow"]
+                + stats["shadow_list_words"]
+                + 4 * block * stats["shadow_blocks_read"])
+
+
+def k7b_op_count(stats: dict) -> int:
+    """Lower count of the fp32 operations of K7 reading its verdict
+    (``blocked_in_res``): K7's without the shadow sweep."""
+    return k7_op_count(dict(stats, shadow_spheres=0, shadow_blocks=0))
+
+
+def k7b_byte_count(stats: dict, n_lanes: int) -> int:
+    """Bytes of K7 reading its verdict, each word once: K7's per-lane
+    words (``k7_byte_count``) and the verdict of each shadow ray traced,
+    and no list or leaf block."""
+    return k7_byte_count(dict(stats, shadow_list_words=0,
+                              shadow_blocks_read=0), n_lanes, 0) \
+        + 4 * stats["shadow"]
 
 
 def k6_byte_count(stats: dict, n_lanes: int, block: int) -> int:

@@ -52,7 +52,7 @@ from .wavefront import (C_ALIVE, C_DX, C_DY, C_DZ, C_LB, C_LG, C_LR,
                         N_RES, Q_BITS, TILE, WF_OPS, _check_stream,
                         _coherence_key, _dead_key, _leaf_block_bounds,
                         _lights, _scatter_image, _scene_sort_bounds,
-                        _shade_launch, isect, isect_plain, precull_tiles,
+                        _shade_launch, _sort_span, isect, isect_plain, precull_tiles,
                         raygen, raygen_plain, sample_env_map, shade_plain,
                         shadow_rays, stream_tiles)
 
@@ -312,16 +312,9 @@ def _run_wavefront_diff(blob, meta, nodef, prims, env, static, *, width: int,
     none_i = torch.zeros((1, 1, 1), dtype=torch.int32, device=blob.device)
     none_f = torch.zeros((1, 1, 1), dtype=torch.float32, device=blob.device)
     nalive = n_tiles
-    t_half = max(1, (n_tiles + 1) // 2)
-    t_quarter = max(1, (n_tiles + 1) // 4)
     for k in range(max_bounces):
-        if k and nalive * TILE > sort_min_rays:
-            lanes = st.shape[1]
-            if k > 1:
-                if nalive <= t_quarter:
-                    lanes = t_quarter * TILE
-                elif nalive <= t_half:
-                    lanes = t_half * TILE
+        lanes = _sort_span(k, nalive, n_tiles, sort_min_rays, True)
+        if lanes is not None:
             st, ids, nalive = _sort_rays_diff(st, ids, lanes, lo, ext)
         if nalive == 0:
             break

@@ -25,7 +25,11 @@ K4's; K9's state equals K7's bit for bit and its blocked mask the plain
 K9's; K10's per-lane cotangents and its scalar gradient meet theirs; the
 differentiable wavefront's image meets K1's bar and its gradients the
 field bar against its plain stages.  Rays that win padding slots (the
-padding scene) take no geometry gradient in K4 and K10.
+padding scene) take no geometry gradient in K4 and K10.  K8's verdicts
+equal its plain version's bit for bit, on a whole leaf table and on each
+half, and the halves' MAX equals the whole's and K9's; K7 reading K9's
+verdict (``blocked_in_res``) equals K7 sweeping bit for bit.  An
+environment-map scene's gradient takes the wavefront.
 """
 
 import numpy as np
@@ -37,7 +41,8 @@ from chip_smoke import (ATOL, MAX_MEAN_REL, MIN_CLOSE, PAD_CAM, RTOL,
                         VJP_ATOL_REL, VJP_MIN_CLOSE, VJP_RTOL, cornell,
                         env_gradient, grad_errors, grad_scene, k3_inputs,
                         lanes_close, padding_scene, raw_fields, scene_200,
-                        tail_field_errors, vjp_lanes, wf_bounce, wf_inputs)
+                        shadow_sray, tail_field_errors, vjp_lanes,
+                        wf_bounce, wf_inputs)
 from spt_tpu_torch.core import rng
 from spt_tpu_torch.diff import cuda_diff, gradients as G
 from spt_tpu_torch.kernels import megakernel as mk
@@ -397,6 +402,69 @@ def test_k9_matches_k7_and_plain(cuda):
 
 
 @pytest.mark.parametrize("case", ["scene200", "padding"])
+def test_k8_matches_plain(cuda, case):
+    """K8's verdicts equal its plain version's on every lane, on the whole
+    leaf table and on each half of it (the shards of a prim=2 render, each
+    with its own lists); the halves' MAX equals the whole's, and that
+    K9's recorded verdict."""
+    from spt_tpu_torch.kernels import wavefront_grad as wg
+    from spt_tpu_torch.parallel.wavefront_prim import _pad_blocks
+    wf, t, meta, b, kw, args = _grad_bounce(cuda, case)
+    stc = dict(n_light_slots=kw["n_light_slots"], n_mats=kw["n_mats"],
+               mtypes=t["mtypes"].tolist())
+    n, block = b["n"], kw["block"]
+    sray = shadow_sray(torch, wf, t, stc, b, kw["k"], 3)
+    prims = _pad_blocks(t["prims"].reshape(-1, 5, block), 2)
+    half = prims.shape[0] // 2
+    verdicts = []
+    for part in (prims, prims[:half], prims[half:]):
+        part = part.contiguous()
+        scand, sctn = wf.precull_tiles(
+            tuple(sray[:3]), tuple(sray[3:6]), sray[7], sray[6],
+            *wf._leaf_block_bounds(part))
+        before = dict(mk.LAUNCHES)
+        got = wf.anyhit(part, scand, sctn, sray, n, block=block)
+        assert mk.LAUNCHES == dict(before, k8=before["k8"] + 1)
+        assert torch.equal(got, wf.anyhit_plain(part, scand, sctn, sray, n,
+                                                block=block))
+        verdicts.append(got)
+    whole, a, c = verdicts
+    assert torch.equal(torch.maximum(a, c), whole)
+    _, blocked = wg.shade_fwd(*args, b["st"], b["ids"], b["res"], n, **kw)
+    assert torch.equal(blocked, whole) and float(whole.sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["scene200", "padding"])
+def test_k7_reading_the_verdict_matches_k7(cuda, case):
+    """K7 with ``blocked_in_res``, fed K9's verdict in residual row 7,
+    equals K7 sweeping the lists on every lane bit for bit, and meets K1's
+    bar against its plain version."""
+    from spt_tpu_torch.kernels import wavefront_grad as wg
+    wf, t, meta, b, kw, args = _grad_bounce(cuda, case)
+    st, ids, n, res = b["st"], b["ids"], b["n"], b["res"]
+    _, blocked = wg.shade_fwd(*args, st, ids, res, n, **kw)
+    res8 = res.clone()
+    res8[7] = blocked
+    sweep, read, plain = (b["buf"].clone() for _ in range(3))
+
+    def stream(buf):
+        return buf[:wf.N_CH], buf[wf.N_CH:].view(torch.int32)
+
+    wf.shade(*args, *stream(sweep), res, n, **kw)
+    none = torch.zeros((1, 1, 1), device=cuda)
+    before = dict(mk.LAUNCHES)
+    wf.shade(*args[:5], none.int(), none, *stream(read), res8, n,
+             blocked_in_res=True, **kw)
+    assert mk.LAUNCHES == dict(before, k7b=before["k7b"] + 1)
+    assert torch.equal(read.view(torch.int32), sweep.view(torch.int32))
+    wf.shade_plain(*args[:5], none.int(), none, *stream(plain), res8, n,
+                   blocked_in_res=True, **kw)
+    got, want = read.cpu().numpy(), plain.cpu().numpy()
+    assert np.isfinite(got).all()
+    assert np.isclose(got, want, rtol=RTOL, atol=ATOL).mean() >= MIN_CLOSE
+
+
+@pytest.mark.parametrize("case", ["scene200", "padding"])
 def test_k10_matches_plain(cuda, case):
     """K10 against the plain K10 on one bounce: d(state) and dgeo by
     ``lanes_close`` (the VJP_* bar on a typical lane's scale, on
@@ -482,3 +550,25 @@ def test_kernel_render_routes_large_scenes(cuda, engine, kernels):
     assert all(runs[k] > 0 for k in kernels) and runs["plain"] == 0
     assert sum(runs.values()) == sum(runs[k] for k in kernels)
     assert all(bool(torch.isfinite(p.grad).all()) for p in params.values())
+
+
+def test_kernel_render_routes_envmap_to_wavefront(cuda):
+    """An environment-map scene of 200 spheres goes to the differentiable
+    wavefront (K5, K6, K9, K10), which renders the map; "fused" refuses
+    it."""
+    scene = scene_200(T)
+    scene.set_environment_map(env_gradient(16, 32))
+    sd = scene.compile(device=cuda)
+    cam = _scene200_camera(cuda, False)
+    render = cuda_diff.make_cuda_render_fn(sd, cam, 32, 24, spp=1,
+                                           max_bounces=3)
+    params = {k: v.clone().requires_grad_(True) for k, v in
+              G.get_params(sd, ("albedo", "centers")).items()}
+    before = dict(mk.LAUNCHES)
+    render(params, 0).sum().backward()
+    runs = {k: mk.LAUNCHES[k] - before[k] for k in before}
+    kernels = ("k5", "k6", "k9", "k10")
+    assert all(runs[k] > 0 for k in kernels) and runs["plain"] == 0
+    assert sum(runs.values()) == sum(runs[k] for k in kernels)
+    with pytest.raises(ValueError, match="environment-map"):
+        cuda_diff.make_cuda_render_fn(sd, cam, 32, 24, spp=1, engine="fused")
