@@ -1207,6 +1207,73 @@ def shadow_sray(torch, wf, t, stc, b, k, seed):
     return torch.stack([*so3, *sd3, stmax, sneed])
 
 
+def sort_rays_unstable(torch, wf):
+    """``wavefront._sort_rays`` with ``torch.sort(stable=False)``: the
+    coherence sort as the wavefront ran it before every path sorted
+    stably.  Equal keys may land in any order."""
+    def sort(buf, n_lanes, lo, ext):
+        part = buf[:, :n_lanes]
+        key = wf._coherence_key(part, lo, ext)
+        n_alive = int((key < wf._dead_key(wf.Q_BITS)).sum())
+        order = torch.sort(key, stable=False).indices
+        part.copy_(part.index_select(1, order))
+        return -(-n_alive // wf.TILE)
+    return sort
+
+
+def sort_stability(torch, wf, mb, sd, cam, kw, reps=5):
+    """Whether the coherence sort's stability costs anything at config 5:
+    the key of a 1080p x 2 spp stream before bounce 1 sorted by
+    ``torch.sort`` with stable=False and stable=True (the permutations
+    compared, each sort and its gather of the 19 rows timed by CUDA events,
+    ``reps`` alternating times), then whole renders (4 spp) with the stable
+    and the unstable sort alternating, their images and stage times."""
+    t, stc, meta = wf_inputs(torch, wf, mb, sd, cam, BIG_SEED)
+    b = wf_bounce(torch, wf, t, stc, meta, BIG_W, BIG_H, 0, BIG_SEED)
+    wf.shade(t["blob"], meta, t["lsb"], t["prims"], t["mtypes"], b["scand"],
+             b["sctn"], b["st"], b["ids"], b["res"], b["n"], k=0,
+             block=stc["block"], n_mats=stc["n_mats"],
+             n_light_slots=stc["n_light_slots"], rr_depth=RR, use_nee=True,
+             use_mis=True, sky_mode=sd.sky_mode)
+    buf = b["buf"]
+    key = wf._coherence_key(buf, *wf._scene_sort_bounds(t["nodef"]))
+    orders, ms = {}, {False: [], True: []}
+    for _ in range(reps):
+        for stable in (False, True):
+            def go():
+                order = torch.sort(key, stable=stable).indices
+                return order, buf.index_select(1, order)
+            (order, _), t_ms = cuda_ms(torch, go)
+            orders[stable] = order
+            ms[stable].append(t_ms)
+    sort_out = dict(lanes=key.numel(),
+                    distinct_keys=int(torch.unique(key).numel()),
+                    permutations_equal=bool(torch.equal(orders[False],
+                                                        orders[True])),
+                    sort_gather_ms_unstable=ms[False],
+                    sort_gather_ms_stable=ms[True])
+    del b, buf, key, orders
+    stable_sort = wf._sort_rays
+    renders = {"stable": [], "unstable": []}
+    images = {}
+    try:
+        for label in ("stable", "unstable", "stable", "unstable"):
+            wf._sort_rays = stable_sort if label == "stable" else \
+                sort_rays_unstable(torch, wf)
+            times = {}
+            t0 = time.perf_counter()
+            images[label] = wf._render(sd, cam, BIG_W, BIG_H, 0, BIG_SPP,
+                                       times=times, **kw)
+            renders[label].append(dict(
+                wall_ms_synced=1e3 * (time.perf_counter() - t0),
+                sort_ms=sum(times.get("sort", [])),
+                k7_ms=sum(times["k7"]), k6_ms=sum(times["k6"])))
+    finally:
+        wf._sort_rays = stable_sort
+    return dict(sort_out, renders=renders, images_pixels_differ=int(
+        (images["stable"] != images["unstable"]).any(-1).sum()))
+
+
 def bound(ops, n_bytes):
     """(bound_ms, bound_by) of fp32 operations and bytes on one H100."""
     t_ops, t_bytes = ops / FP32_PEAK, n_bytes / HBM_RATE
@@ -1476,6 +1543,8 @@ def run_wf_phases(torch, T, mk, dev, card, k3) -> dict:
                   spp=BIG_SPP, wall_ms_synced=wall_ms,
                   stage_ms={k: sum(v) for k, v in times.items()},
                   per_launch_ms=times))
+    emit(dict(phase="wf_sort_stability", case="config5", card=card,
+              **sort_stability(torch, wf, mb, sd10, cam10, kw)))
     crossover = {}
     for n_sph in CROSSOVER_SPHERES + (10_000,):
         sd = sd10 if n_sph == 10_000 else \
@@ -1921,14 +1990,14 @@ def k8_case(torch, wf, wg, t, stc, meta, b, k, sky_mode, label, reps):
     leaf table and on each half (the shards of a prim=2 render, each with
     its own shadow lists), verdicts bit for bit; the halves' MAX against
     K9's verdict on the whole table.  Returns the whole table's numbers."""
-    from spt_tpu_torch.parallel.wavefront_prim import _pad_blocks
+    from spt_tpu_torch.parallel.wavefront_prim import _local_blocks
     block, n = stc["block"], b["n"]
     sray = shadow_sray(torch, wf, t, stc, b, k, BIG_SEED)
-    prims = _pad_blocks(t["prims"].reshape(-1, 5, block), 2)
-    half = prims.shape[0] // 2
+    prims = t["prims"].reshape(-1, 5, block)
     rows, whole = {}, None
-    for part_label, part in (("whole", prims), ("half0", prims[:half]),
-                             ("half1", prims[half:])):
+    for part_label, part in (("whole", prims),
+                             ("half0", _local_blocks(prims, 2, 0)[0]),
+                             ("half1", _local_blocks(prims, 2, 1)[0])):
         part = part.contiguous()
         scand, sctn = wf.precull_tiles(
             tuple(sray[:3]), tuple(sray[3:6]), sray[7], sray[6],

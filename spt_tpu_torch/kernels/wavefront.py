@@ -252,12 +252,8 @@ def precull_tiles(o3, d3, act, tmax, lob, hib):
     1, n_blocks) float32, each candidate's least entry distance over the
     tile's rays that pass (clamped at 0; BIG past the count), nondecreasing.
     Chunks of ``PRECULL_TILE_CHUNK`` tiles without a traced ray are not
-    tested (one read of which are live).  A block without a filled slot
-    (its box inverted, lo > hi: the prim-sharded render's padding blocks)
-    is never a candidate; the slab test alone would pass it for every ray,
-    as it does in the JAX package's precull."""
+    tested (one read of which are live)."""
     nb = lob.shape[0]
-    empty = (lob > hib).any(dim=1)
     n_tiles = act.numel() // TILE
     dev = act.device
     cand, ctn = _empty_lists(n_tiles, nb, dev)
@@ -295,7 +291,6 @@ def precull_tiles(o3, d3, act, tmax, lob, hib):
         if tmax is not None:
             hit &= tn < grab(tmax)
         grp = torch.where(hit, torch.clamp_min(tn, 0.0), BIG).amin(dim=1)
-        grp = torch.where(empty, BIG, grp)
         del tn, hit
         order = torch.argsort(grp, dim=-1, stable=True)
         s_tn = torch.gather(grp, -1, order)
@@ -343,18 +338,17 @@ def _coherence_key(stf, lo, ext, qbits: int = Q_BITS):
                                    _pad_key(qbits)).to(torch.int32))
 
 
-def _sort_rays(buf: torch.Tensor, n_lanes: int, lo, ext, *,
-               stable: bool = False) -> int:
+def _sort_rays(buf: torch.Tensor, n_lanes: int, lo, ext) -> int:
     """Sort lanes [0, n_lanes) of the (19, R) stream buffer by
     ``_coherence_key``, in place: one sort of the key, then one gather of
     all 19 rows.  Returns the alive prefix in tiles (read to the host).
-    Equal keys land in any order, which no ray's result can see; ``stable``
-    keeps them in lane order, so that equal streams sort alike wherever
-    they are sorted (the prim-sharded render's ranks)."""
+    The sort is stable: equal keys keep their lane order, so equal streams
+    sort alike wherever they are sorted (the prim-sharded render's ranks
+    rely on it)."""
     part = buf[:, :n_lanes]
     key = _coherence_key(part, lo, ext)
     n_alive = int((key < _dead_key(Q_BITS)).sum())
-    order = torch.sort(key, stable=stable).indices
+    order = torch.sort(key, stable=True).indices
     part.copy_(part.index_select(1, order))
     return -(-n_alive // TILE)
 

@@ -193,7 +193,7 @@ def _sort_rays_diff(st, ids, n_lanes: int, lo, ext):
     part = st[:, :n_lanes]
     key = _coherence_key(part.detach(), lo, ext)
     n_alive = int((key < _dead_key(Q_BITS)).sum())
-    order = torch.sort(key, stable=False).indices
+    order = torch.sort(key, stable=True).indices
     st_s = part.index_select(1, order)
     ids_s = ids[:, :n_lanes].index_select(1, order)
     if n_lanes < st.shape[1]:

@@ -23,9 +23,9 @@ per bounce, on every (data, prim) rank
      stream stays the same on all of them;
   6. the env-map step where the sky is an environment map.
 
-The image is summed over ``data`` only.  Each rank holds 1/prim of the leaf
-table: the point is memory (the scene scales with the prim axis), not less
-work per rank.  Matches the unsharded wavefront but where a lane's nearest
+The image is summed over ``data`` only.  Each rank holds a range of
+ceil(n_blocks / prim) leaf blocks (the last one the rest): the point is
+memory (the scene scales with the prim axis), not less work per rank.  Matches the unsharded wavefront but where a lane's nearest
 hits on two shards lie at exactly the same distance (the merge breaks the
 tie by prim index, the sweep by candidate order); ``stats`` records those
 lanes.  Forward only, as in the JAX package.
@@ -48,21 +48,23 @@ from .mesh import RenderMesh, all_reduce
 _NO_SHARD = 1 << 30
 
 
-def _pad_blocks(prims: torch.Tensor, n_shards: int) -> torch.Tensor:
-    """The packed (n_blocks, 5, block) leaf table padded to a multiple of
-    ``n_shards`` blocks with empty ones: every slot of centre 0, radius 0
-    and material id -1, the padding slot of a leaf.  The block boxes and
-    the light bounds skip id < 0, so an empty block's box is inverted and
-    the precull never lists it (``wavefront.precull_tiles``): no kernel
-    sweeps it."""
+def _local_blocks(prims: torch.Tensor, n_shards: int,
+                  idx: int) -> tuple[torch.Tensor, int]:
+    """Shard ``idx``'s range of the packed (n_blocks, 5, block) leaf table
+    and the range's stride ``nb_local`` = ceil(n_blocks / n_shards): blocks
+    [nb_local * idx, min(n_blocks, nb_local * (idx + 1))), so the last
+    shard may hold fewer (ranks are processes and need no equal shapes,
+    unlike the JAX package's ``shard_map``, which pads the table).  A local
+    block id plus ``nb_local * idx`` is the global one.  Raises ValueError
+    if the range is empty."""
     nb = prims.shape[0]
-    nb_pad = -(-nb // n_shards) * n_shards
-    if nb_pad == nb:
-        return prims
-    pad = torch.zeros((nb_pad - nb,) + tuple(prims.shape[1:]),
-                      dtype=prims.dtype, device=prims.device)
-    pad[:, 4, :] = -1.0
-    return torch.cat([prims, pad])
+    nb_local = -(-nb // n_shards)
+    lo, hi = nb_local * idx, min(nb, nb_local * (idx + 1))
+    if lo >= hi:
+        raise ValueError(f"{nb} leaf blocks leave prim shard {idx} of "
+                         f"{n_shards} empty (stride {nb_local}); use fewer "
+                         f"prim shards")
+    return prims[lo:hi].contiguous(), nb_local
 
 
 def _same(reduce, values: list, device, what: str) -> None:
@@ -75,11 +77,17 @@ def _same(reduce, values: list, device, what: str) -> None:
 
 
 def _checksum(buf: torch.Tensor) -> int:
-    """An order-sensitive int64 checksum of the stream buffer's bits."""
-    bits = buf.reshape(-1).view(torch.int32).to(torch.int64)
-    w = torch.arange(1, bits.numel() + 1, dtype=torch.int64,
-                     device=buf.device) * 2654435761
-    return int((bits * w).sum())
+    """An order-sensitive int64 checksum of the stream buffer's bits, one
+    row at a time (a row's int64 bits and weights are the only
+    temporaries)."""
+    n = buf.shape[1]
+    w = torch.arange(1, n + 1, dtype=torch.int64, device=buf.device) \
+        * 2654435761
+    total = torch.zeros((), dtype=torch.int64, device=buf.device)
+    for r in range(buf.shape[0]):
+        bits = buf[r].view(torch.int32).to(torch.int64)
+        total += (bits * (w + r * n * 2654435761)).sum()
+    return int(total)
 
 
 def render_wavefront_prim_sharded(scene: SceneData, camera, width: int,
@@ -106,11 +114,9 @@ def render_wavefront_prim_sharded(scene: SceneData, camera, width: int,
     spp_rank = mesh.samples_per_rank(spp)
     mesh.check_member()
     t, static = packed(scene, camera, block)
-    prims = _pad_blocks(t["prims"].reshape(-1, _N_PRIM_ATTRS, block),
-                        mesh.prim)
-    nb_local = prims.shape[0] // mesh.prim
-    local = prims[nb_local * mesh.prim_idx:nb_local * (mesh.prim_idx + 1)] \
-        .contiguous()
+    local, nb_local = _local_blocks(
+        t["prims"].reshape(-1, _N_PRIM_ATTRS, block), mesh.prim,
+        mesh.prim_idx)
     if dof is None:
         dof = bool(float(_np(camera.aperture)) > 0.0)
     env = scene.env_map if scene.sky_mode == SKY_ENVMAP else None
@@ -169,7 +175,7 @@ def _chunk(t: dict, static: dict, local, nb_local: int, env, meta,
     for k in range(max_bounces):
         lanes = wf._sort_span(k, nalive, n_tiles, sort_min_rays, True)
         if lanes is not None:
-            nalive = wf._sort_rays(buf, lanes, lo, ext, stable=True)
+            nalive = wf._sort_rays(buf, lanes, lo, ext)
             _same(reduce, [nalive], dev, f"the alive prefix before bounce "
                                          f"{k}")
         if nalive == 0:

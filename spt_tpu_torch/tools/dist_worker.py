@@ -1,7 +1,7 @@
 """Run the sharded renders on N ranks, one process each, and collect rank 0's
 report.
 
-    launch(cases, world_size, scenes={...}, backend="gloo", device="cpu")
+    launch(cases, world_size, scenes={...}, backend=None, device=None)
 
 spawns ``world_size`` processes of this module (``python -m
 spt_tpu_torch.tools.dist_worker RANK WORLD DIR``), joined by
@@ -19,8 +19,11 @@ A case is a dict: ``"case"`` (a key of ``CASES``), the mesh (``"data"``,
 ``scenes``), ``"width"``, ``"height"``, ``"spp"``, ``"start"`` and
 ``"kw"`` (the render's options), and what the case reads besides.  Each
 rank compiles the scene and camera from the parent's arrays, on
-``device``: "cpu", or "cuda" for ranks that share the card (gloo) or own
-it (nccl, one rank a card).  Every report says which backend ran.
+``device``: the card unless the caller passes "cpu", as every entry point
+of the port; every rank takes the same device, so ranks on "cuda" share
+one card.  ``backend`` defaults to "nccl" for a single rank on the card
+and to "gloo" otherwise (the CPU, or ranks sharing a card, which NCCL
+does not take).  Every report says which backend ran.
 
 A rank that fails or hangs fails the launch: every rank has the
 collective ``timeout``, and the parent kills the group and raises once any
@@ -39,6 +42,9 @@ import time
 from pathlib import Path
 
 import numpy as np
+import torch
+
+from spt_tpu_torch.utils.device import DeviceLike, resolve_device
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -68,21 +74,27 @@ def _save_scene(path: Path, scene, camera) -> None:
 
 
 def launch(cases: list, world_size: int, *, scenes: dict,
-           backend: str = "gloo", device: str = "cpu",
+           backend: str | None = None, device: DeviceLike = None,
            timeout: float = 300.0) -> list:
     """Run ``cases`` on ``world_size`` spawned ranks; rank 0's reports.
 
     ``scenes``: name -> (SceneData, Camera), sent to the ranks as arrays.
-    Each rank runs torch on one intra-op thread (ranks share the host's
-    cores).  Raises RuntimeError with the ranks' logs if a rank fails,
-    TimeoutError if the run outlives ``timeout`` seconds; either way no
-    rank is left running."""
+    ``device`` None is the card (RuntimeError where there is none);
+    ``backend`` None is ``default_backend``'s.  Each rank runs torch on
+    one intra-op thread (ranks share the host's cores).  Raises
+    RuntimeError with the ranks' logs if a rank fails, TimeoutError if the
+    run outlives ``timeout`` seconds; either way no rank is left
+    running."""
+    device = resolve_device(device)
+    if backend is None:
+        backend = default_backend(device, world_size)
     with tempfile.TemporaryDirectory(prefix="spt_dist_") as tmp:
         d = Path(tmp)
         for name, (scene, camera) in scenes.items():
             _save_scene(d / f"scene_{name}.npz", scene, camera)
         (d / "job.json").write_text(json.dumps(dict(
-            cases=cases, backend=backend, device=device, timeout=timeout)))
+            cases=cases, backend=backend, device=str(device),
+            timeout=timeout)))
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(
             [str(ROOT)] + [p for p in (env.get("PYTHONPATH"),) if p])
@@ -110,6 +122,13 @@ def launch(cases: list, world_size: int, *, scenes: dict,
                 with np.load(path) as z:
                     rep.update({k: z[k] for k in z.files})
         return reports
+
+
+def default_backend(device: torch.device, world_size: int) -> str:
+    """"nccl" for one rank on the card, "gloo" otherwise: on the CPU, and
+    for ranks that share the card (NCCL takes no two ranks on one
+    device)."""
+    return "nccl" if device.type == "cuda" and world_size == 1 else "gloo"
 
 
 def _wait(procs, d: Path, deadline: float) -> None:
@@ -195,7 +214,6 @@ def _params(scene, fields):
 
 
 def _ct(case, device):
-    import torch
     r = np.random.default_rng(case.get("ct_seed", 3))
     return torch.from_numpy(r.uniform(0.5, 1.5, (case["height"],
                                                  case["width"], 3))
@@ -207,7 +225,6 @@ def _case_dp_grad(ctx, case, mesh, scene, camera):
     ``sum(ct * image)``, then ``"steps"`` Adam steps (lr ``"lr"``) on an
     L2 loss against the render of the true parameters, from an albedo
     perturbed by ``"perturb"`` (numpy seed 3)."""
-    import torch
     from spt_tpu_torch.diff import gradients as G
     from spt_tpu_torch.parallel.wavefront_sharded import \
         make_wavefront_dp_render_fn
@@ -261,7 +278,6 @@ def _case_dp_step(ctx, case, mesh, scene, camera):
     """``make_dp_grad_step`` on an L2 loss against a fixed random image,
     each rank's render (``make_wavefront_render_fn``) over its own sample
     ids, ``"spd"`` a rank, at step ``"step_idx"``."""
-    import torch
     from spt_tpu_torch.kernels import wavefront_grad as wg
     from spt_tpu_torch.parallel.sharding import make_dp_grad_step
     spd = case["spd"]
@@ -286,7 +302,6 @@ CASES = {"forward": _case_forward, "prim_forward": _case_prim_forward,
 def _run_case(case, scenes, device):
     """One case on this rank -> rank 0's report (others: None) and its
     arrays.  Every rank enters the mesh's groups and the gathers."""
-    import torch
     import torch.distributed as dist
     from spt_tpu_torch.kernels import megakernel as mk
     from spt_tpu_torch.parallel.mesh import make_render_mesh
@@ -337,12 +352,9 @@ def _run_case(case, scenes, device):
 def main(argv) -> int:
     rank, world, d = int(argv[0]), int(argv[1]), Path(argv[2])
     job = json.loads((d / "job.json").read_text())
-    import torch
     from spt_tpu_torch.parallel.mesh import init_distributed
     torch.set_num_threads(1)
-    device = torch.device(job["device"])
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' asked for, and no card is here")
+    device = resolve_device(job["device"])
     init_distributed(job["backend"], f"file://{d / 'rendezvous'}", world,
                      rank, job["timeout"])
     try:

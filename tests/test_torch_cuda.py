@@ -408,16 +408,16 @@ def test_k8_matches_plain(cuda, case):
     with its own lists); the halves' MAX equals the whole's, and that
     K9's recorded verdict."""
     from spt_tpu_torch.kernels import wavefront_grad as wg
-    from spt_tpu_torch.parallel.wavefront_prim import _pad_blocks
+    from spt_tpu_torch.parallel.wavefront_prim import _local_blocks
     wf, t, meta, b, kw, args = _grad_bounce(cuda, case)
     stc = dict(n_light_slots=kw["n_light_slots"], n_mats=kw["n_mats"],
                mtypes=t["mtypes"].tolist())
     n, block = b["n"], kw["block"]
     sray = shadow_sray(torch, wf, t, stc, b, kw["k"], 3)
-    prims = _pad_blocks(t["prims"].reshape(-1, 5, block), 2)
-    half = prims.shape[0] // 2
+    prims = t["prims"].reshape(-1, 5, block)
     verdicts = []
-    for part in (prims, prims[:half], prims[half:]):
+    for part in (prims, _local_blocks(prims, 2, 0)[0],
+                 _local_blocks(prims, 2, 1)[0]):
         part = part.contiguous()
         scand, sctn = wf.precull_tiles(
             tuple(sray[:3]), tuple(sray[3:6]), sray[7], sray[6],

@@ -37,7 +37,6 @@ from chip_smoke import (CAM_10K, GRAD_REL, env_gradient, scene_10k,
 from spt_tpu_torch.diff import gradients as G
 from spt_tpu_torch.kernels import megakernel as tmega
 from spt_tpu_torch.kernels import megakernel_bvh as tmb
-from spt_tpu_torch.kernels import physics as tphys
 from spt_tpu_torch.kernels import wavefront as twf
 from spt_tpu_torch.kernels import wavefront_grad as twg
 from spt_tpu_torch.parallel import mesh as M
@@ -220,6 +219,20 @@ def test_rank_grid_layout():
         M.rank_grid(6, prim=4)
 
 
+def test_launch_runs_on_the_card_unless_asked_for_the_cpu():
+    """The launcher's device defaults to the card, as every entry point's:
+    with no card here it raises before it spawns a rank.  Its backend
+    defaults to gloo on the CPU and where ranks share the card, NCCL for
+    one rank on the card."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the launcher on a machine without a card")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dist_worker.launch([], 2, scenes={})
+    assert dist_worker.default_backend(torch.device(CPU), 4) == "gloo"
+    assert dist_worker.default_backend(torch.device("cuda", 0), 1) == "nccl"
+    assert dist_worker.default_backend(torch.device("cuda"), 2) == "gloo"
+
+
 def test_spp_must_divide_the_data_axis():
     mesh = M.RenderMesh(data=2, prim=1, data_idx=0, prim_idx=0,
                         data_group=None, prim_group=None,
@@ -281,11 +294,11 @@ def test_anyhit_halves_max_equals_whole(bounce):
     """K8 on each half of the leaf table (its own lists), MAX-merged,
     equals K8 on the whole table: the prim merge of the verdicts."""
     b = bounce
-    prims = wp._pad_blocks(b["t"]["prims"].reshape(-1, 5, BLOCK), 2)
-    half = prims.shape[0] // 2
+    prims = b["t"]["prims"].reshape(-1, 5, BLOCK)
     sray, n = b["sray"], b["n"]
     verdicts = []
-    for part in (prims, prims[:half], prims[half:]):
+    for part in (prims, wp._local_blocks(prims, 2, 0)[0],
+                 wp._local_blocks(prims, 2, 1)[0]):
         lob, hib = twf._leaf_block_bounds(part)
         scand, sctn = twf.precull_tiles(tuple(sray[:3]), tuple(sray[3:6]),
                                         sray[7], sray[6], lob, hib)
@@ -345,32 +358,24 @@ def test_winner_t_matches_brute_force(bounce):
         assert float(t[i]) == best, i
 
 
-def test_padding_blocks_are_inert():
-    """Leaf blocks added to make the table divide by the shard count have
-    empty boxes (never a candidate) and leave the light bounds alone."""
+def test_local_blocks_cut_the_table_in_ranges():
+    """Each prim shard holds the range [nb_local * i, min(nb, nb_local *
+    (i + 1))) of the leaf table, nb_local = ceil(nb / prim): the ranges
+    cover the table once, in order, the last the shortest, and a shard left
+    empty raises."""
     sd = scene_10k(T, n=310).compile(device=CPU)
     prims = twf.packed(sd, _camera(), BLOCK)[0]["prims"].reshape(-1, 5,
                                                                  BLOCK)
-    padded = wp._pad_blocks(prims, 4)
-    assert prims.shape[0] % 4 and padded.shape[0] % 4 == 0
-    assert torch.equal(padded[:prims.shape[0]], prims)
-    assert (padded[prims.shape[0]:, 4] < 0).all()
-    lo, hi = twf._leaf_block_bounds(padded[prims.shape[0]:])
-    assert (lo > hi).all()
-    assert torch.equal(tphys.lsel_bounds_from_prims(padded),
-                       tphys.lsel_bounds_from_prims(prims))
-    t = twf.packed(sd, _camera(), BLOCK)[0]
-    meta = torch.tensor([0, 5, 1], dtype=torch.int32)
-    st, _ = twf.raygen_plain(t["blob"], meta, width=W, height=H,
-                             chunk_spp=1, dof=False)
-    n = st.shape[1] - twf.TILE
-    cand, _ = twf.precull_tiles(tuple(st[c, :n] for c in range(3)),
-                                tuple(st[c, :n] for c in range(3, 6)),
-                                st[twf.C_ALIVE, :n], None,
-                                *twf._leaf_block_bounds(padded))
-    n_cand = int(cand[0, 0, 0])
-    assert n_cand > 0 and (cand[0, 0, 1:1 + n_cand] < prims.shape[0]).all()
-    assert wp._pad_blocks(padded, 4) is padded
+    nb = prims.shape[0]
+    assert nb % 4
+    parts = [wp._local_blocks(prims, 4, i) for i in range(4)]
+    assert {stride for _, stride in parts} == {-(-nb // 4)}
+    assert torch.equal(torch.cat([p for p, _ in parts]), prims)
+    assert [p.shape[0] for p, _ in parts] == [13, 13, 13, nb - 39]
+    local, stride = wp._local_blocks(prims, 1, 0)
+    assert stride == nb and torch.equal(local, prims)
+    with pytest.raises(ValueError, match="empty"):
+        wp._local_blocks(prims[:9], 4, 3)
 
 
 def test_shard_scene_prims_pads_to_the_shard_count():
