@@ -105,14 +105,16 @@ struct BvhWalk {
       ptr = skip;
     }
     if (win_blk < 0) {
-      if constexpr (kRecord) {
-        rec[4] = -1.0f;
-        rec[5] = -1.0f;
-        rec[6] = -1.0f;
-      }
+      no_winner();
       return false;
     }
-    const float* pb = prims + (size_t)win_blk * kPrimAttrs * block + win_j;
+    winner(win_blk, win_j, h);
+    return true;
+  }
+
+  // The winner, slot j of leaf block blk, into h (and the record).
+  __device__ __forceinline__ void winner(int blk, int j, Hit& h) const {
+    const float* pb = prims + (size_t)blk * kPrimAttrs * block + j;
     h.cx = __ldg(pb);
     h.cy = __ldg(pb + block);
     h.cz = __ldg(pb + 2 * block);
@@ -127,10 +129,17 @@ struct BvhWalk {
       rec[2] = h.cz;
       rec[3] = h.r;
       rec[4] = (float)mid;
-      rec[5] = (float)win_blk;
-      rec[6] = (float)win_j;
+      rec[5] = (float)blk;
+      rec[6] = (float)j;
     }
-    return true;
+  }
+
+  __device__ __forceinline__ void no_winner() const {
+    if constexpr (kRecord) {
+      rec[4] = -1.0f;
+      rec[5] = -1.0f;
+      rec[6] = -1.0f;
+    }
   }
 
   __device__ __forceinline__ bool occluded(float ox, float oy, float oz,

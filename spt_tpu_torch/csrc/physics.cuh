@@ -35,6 +35,13 @@ constexpr int kSphStride = 12;   // cx cy cz r ar ag ab er eg eb rough ior
 constexpr int kMetaFixed = 3;    // meta: start_sample, seed, n_lights
 
 constexpr int kLambert = 0, kMetal = 1, kDielectric = 2;
+// A winner with no material of its own: a leaf's padding slot (material id
+// -1) as the fused wavefront bounce resolves it (K11), after the JAX
+// package's loop over the material table, which matches no type: it
+// scatters as a dielectric of albedo 0 and ior 1.5 would, but stays
+// non-specular (its shadow ray is traced, adds nothing), and leaves
+// outward, never offset inward.
+constexpr int kNoMaterial = 3;
 constexpr int kSkyGradient = 1, kSkyConstant = 2;
 
 // Scene uniforms, in shared memory.
@@ -236,6 +243,18 @@ __device__ __forceinline__ void sky_radiance(const SceneView& sc, float dy,
   }
 }
 
+// Whether a geometry can report kNoMaterial hits: its kNoMaterialHits,
+// false where it declares none.  Only then does trace_bounce compile the
+// two tests such a hit needs, so the other geometries' code is unchanged.
+template <class G, class = void>
+struct NoMaterialHits {
+  static constexpr bool value = false;
+};
+template <class G>
+struct NoMaterialHits<G, decltype(void(G::kNoMaterialHits))> {
+  static constexpr bool value = G::kNoMaterialHits;
+};
+
 // One bounce of an active path against geometry geo (SphereList, K3's BVH
 // walk or K7's rebuilt winner).  Leaves p.active false when the path ends.
 // Returns whether the path missed every sphere this bounce: the plain
@@ -376,7 +395,11 @@ __device__ bool trace_bounce(const SceneView& sc, const Geometry& geo, Path& p,
       w_r = ar;
       w_g = ag;
       w_b = ab;
-      off_sign = -1.0f;
+      if constexpr (NoMaterialHits<Geometry>::value) {
+        if (mtype == kDielectric) off_sign = -1.0f;
+      } else {
+        off_sign = -1.0f;
+      }
     }
     pdf_new = 0.0f;
   }
@@ -428,6 +451,9 @@ __device__ bool trace_bounce(const SceneView& sc, const Geometry& geo, Path& p,
     float t_l = bl - sqrtf(fmaxf(discl, 1e-20f));
     bool blocked = geo.occluded(pox, poy, poz, ldx, ldy, ldz, t_l - 1e-3f);
     bool lit = !blocked && !inside_l && t_l > kTmin && pdf_l > 0.0f;
+    if constexpr (NoMaterialHits<Geometry>::value) {
+      lit = lit && mtype != kNoMaterial;   // it would add 0
+    }
     if (lit) {
       float ndotl = fmaxf(dot3(nsx, nsy, nsz, ldx, ldy, ldz), 0.0f);
       float fr, fg, fb, pdf_b;

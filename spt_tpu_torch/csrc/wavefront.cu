@@ -1,5 +1,7 @@
-// The sorted wavefront's three kernels: K5 (raygen), K6 (intersect) and K7
-// (shade), for environment-map skies and scenes above 2048 spheres.
+// The sorted wavefront's kernels, for environment-map skies and scenes
+// above 2048 spheres: K5 (raygen), K6 (intersect) and K7 (shade), their
+// matmul forms K6m and K7m, the fused bounce K11, and K8-K10 and K11g for
+// the sharded and differentiable renders.
 //
 // The wavefront keeps every ray's state in device memory between kernels,
 // channel-major: a (17, R) float32 stream (o, d, throughput, radiance,
@@ -73,9 +75,36 @@
 //   added to the global vector once a block, as K2 adds them.  Bound: fp32
 //   operations of the replay and its adjoint (the bytes, some 230 a lane,
 //   come close).
+// * K6m and K7m replace wavefront.py::_isect_kernel_mxu (:524) and
+//   _shade_kernel_mxu (:668; both launched only with mxu=True): K6's and
+//   K7's contracts over per-row lists (a list per 128-lane row), a slot's
+//   quadratic in the expanded, block-centred form of megakernel_bvh.py::
+//   _row_quadratic (16 products of the block's (8, 2 block) build_cmat
+//   table and the ray a slot, 2.4 times the compact form's operations),
+//   K7m's shadow test without a square root (_seg_blocked).  The TPU ran
+//   the products on its matrix unit at Precision.HIGHEST and took the
+//   winner's attributes by a one-hot product; here each thread does them
+//   in float32 on the CUDA cores, in the plain version's order, and reads
+//   the winner from prims: the same values, bit for bit with the plain
+//   version.  Tensor cores would round to TF32 (ROADMAP.md, item 14).
+//   Bound: fp32 operations of the expanded tests.  Same kernels as K6 and
+//   K7, the form a template parameter, so K6's and K7's code is theirs.
+// * K11 replaces wavefront.py::_bounce_kernel (:194, launched at :1139
+//   with split=False), K11g wavefront_grad.py::_bounce_fwd_kernel (:86,
+//   launched at :573): the whole bounce in one kernel, in place on the
+//   stream.  The nearest hit by K6's sweep of the tile's list (precull) or
+//   by K3's walk of the tree (BvhWalk, a node pointer per thread, where
+//   the TPU walked a packet behind one scalar pointer and a frustum test:
+//   pruning only, no result changes); every shadow ray walks the tree, so
+//   no shadow precull is needed; trace_bounce on the winner, a padding
+//   winner resolved as JAX's fused bounce resolves it (kNoMaterial).
+//   K11g (kRecord) writes K6's residual and the shadow verdict in row 7,
+//   which K10 replays.  One thread per ray, its walk stack-free; the
+//   bounce is called, not inlined, as K3's is.  Bound: fp32 operations of
+//   the walks and the bounce (the bytes: the state, the lists, the tree).
 //
 // Lanes past the alive prefix (the sorted stream's dead suffix) are not
-// launched: K6, K7 and K9 take the prefix length, where the TPU kernels
+// launched: K6, K7, K9 and K11 take the prefix length, where the TPU kernels
 // redirect those grid steps to the pad tile.  K10 copies their cotangent
 // through, as the TPU kernel's alias does.
 //
@@ -86,6 +115,7 @@
 
 #include <cstdint>
 
+#include "bvh.cuh"
 #include "camera.cuh"
 #include "physics.cuh"
 #include "physics_adj.cuh"
@@ -94,6 +124,7 @@
 namespace spt {
 
 constexpr int kTile = 1024;                // lanes of a stream tile
+constexpr int kRow = 128;                  // lanes of a row (K6m's, K7m's lists)
 constexpr int kTileW = 32;                 // its pixels: 32 x 32, swizzled
 constexpr int kThreadsWf = 256;
 constexpr int kNCh = 17;                   // float channels of the stream
@@ -147,63 +178,232 @@ __global__ void __launch_bounds__(kThreadsWf) raygen_kernel(RaygenParams prm) {
 }
 
 // ---------------------------------------------------------------------------
-// K6: intersect.
+// The candidate-list sweeps, over a ray's sphere tests in one of two forms.
+// ---------------------------------------------------------------------------
+
+// A ray against the slots of one leaf block at a time, in the compact form
+// of K6, K7 and K8: the quadratic on each slot's centre and radius.
+struct CompactSlots {
+  const float* prims;   // (n_blocks, 5, block)
+  int block;
+  float ox, oy, oz, dx, dy, dz;
+  const float* pb;      // the block begun
+
+  __device__ __forceinline__ void begin(int blk) {
+    pb = prims + (size_t)blk * kWfPrimAttrs * block;
+  }
+  // Slot j's root past TMIN, where the ray meets its sphere.
+  __device__ __forceinline__ bool hit(int j, float& tj) const {
+    return sphere_t4(__ldg(pb + j), __ldg(pb + block + j),
+                     __ldg(pb + 2 * block + j), __ldg(pb + 3 * block + j), ox,
+                     oy, oz, dx, dy, dz, tj);
+  }
+  __device__ __forceinline__ bool blocks(int j, float tmax) const {
+    float tj;
+    return hit(j, tj) && tj < tmax;
+  }
+};
+
+// The same in the expanded, block-centred form of K6m and K7m (the JAX
+// package's _row_quadratic, a matmul on the TPU): with o' = o - bctr[blk]
+// and A = (dx, dy, dz, 0, o'x, o'y, o'z, 1), column c of the block's
+// (8, 2 block) table (build_cmat) dotted with A, its 8 products summed in
+// order, is b + d.o' (c = j) and cterm - |o'|^2 (c = block + j).  Float32
+// on the CUDA cores, in the plain version's order.
+struct ExpandedSlots {
+  const float* cmat;    // (n_blocks, 8, 2 block)
+  const float* bctr;    // (n_blocks, 3)
+  int block;
+  float ox, oy, oz, dx, dy, dz;
+  const float* cb;      // the block begun: its table, its A, d.o', |o'|^2
+  float a[8];
+  float dor, o2;
+
+  __device__ __forceinline__ void begin(int blk) {
+    cb = cmat + (size_t)blk * 16 * block;
+    const float opx = ox - __ldg(bctr + 3 * blk);
+    const float opy = oy - __ldg(bctr + 3 * blk + 1);
+    const float opz = oz - __ldg(bctr + 3 * blk + 2);
+    a[0] = dx;
+    a[1] = dy;
+    a[2] = dz;
+    a[3] = 0.0f;
+    a[4] = opx;
+    a[5] = opy;
+    a[6] = opz;
+    a[7] = 1.0f;
+    dor = dx * opx + dy * opy + dz * opz;
+    o2 = opx * opx + opy * opy + opz * opz;
+  }
+  __device__ __forceinline__ float column(int c) const {
+    float sum = __ldg(cb + c) * a[0];
+    for (int r = 1; r < 8; ++r) sum = sum + __ldg(cb + r * 2 * block + c) * a[r];
+    return sum;
+  }
+  __device__ __forceinline__ bool hit(int j, float& tj) const {
+    const float b = column(j) - dor;
+    const float cterm = column(block + j) + o2;
+    const float disc = b * b - cterm;
+    if (!(disc > 0.0f)) return false;
+    const float sq = sqrtf(fmaxf(disc, 1e-12f));
+    const float t0 = b - sq;
+    tj = (t0 > kTmin) ? t0 : b + sq;
+    return tj > kTmin;
+  }
+  // The JAX package's _seg_blocked: the root trace_bounce takes lies in
+  // (TMIN, tmax), decided without a square root, its strict inequalities
+  // as written there.
+  __device__ __forceinline__ bool blocks(int j, float tmax) const {
+    const float b = column(j) - dor;
+    const float cterm = column(block + j) + o2;
+    const float disc = b * b - cterm;
+    const float p = b - kTmin, q = b - tmax;
+    const float pp = p * p, qq = q * q;
+    const bool t0_gt = p > 0.0f && disc < pp;
+    const bool t0_lt = q < 0.0f || disc > qq;
+    const bool t1_ok = (p > 0.0f || disc > pp) && (q < 0.0f && disc < qq);
+    return disc > 0.0f && ((t0_gt && t0_lt) || (!t0_gt && t1_ok));
+  }
+};
+
+// A ray's nearest hit over its list (cl: count, block ids; tl: their entry
+// bounds, nondecreasing): candidates in order, a block's slots in order
+// with a strict '<', stopping once the next candidate's bound reaches the
+// nearest distance so far (a later block cannot hold a nearer hit: t >=
+// box entry >= bound >= t_lane).  t: kBig or less in, the nearest out.
+// Returns the winner's block, -1 for none, and its slot in win_j.
+template <class Slots>
+__device__ __forceinline__ int list_nearest(const int* cl, const float* tl,
+                                            Slots& s, float& t, int& win_j) {
+  int win_blk = -1;
+  const int ncand = __ldg(cl);
+  for (int c = 0; c < ncand; ++c) {
+    if (__ldg(tl + c) >= t) break;        // no nearer hit in what is left
+    const int blk = __ldg(cl + 1 + c);
+    s.begin(blk);
+    for (int j = 0; j < s.block; ++j) {
+      float tj;
+      if (s.hit(j, tj) && tj < t) {
+        t = tj;
+        win_blk = blk;
+        win_j = j;
+      }
+    }
+  }
+  return win_blk;
+}
+
+// Whether a shadow ray is blocked before tmax: the list in order, stopping
+// at the first blocker or once the next candidate's bound reaches tmax
+// (every later box is past the light).
+template <class Slots>
+__device__ __forceinline__ bool list_anyhit(const int* cl, const float* tl,
+                                            Slots& s, float tmax) {
+  const int ncand = __ldg(cl);
+  for (int c = 0; c < ncand; ++c) {
+    if (__ldg(tl + c) >= tmax) break;
+    s.begin(__ldg(cl + 1 + c));
+    for (int j = 0; j < s.block; ++j)
+      if (s.blocks(j, tmax)) return true;
+  }
+  return false;
+}
+
+// A lane's state in and out of registers.
+__device__ __forceinline__ void load_path(const float* st, size_t s, Path& p) {
+  p.ox = st[0];
+  p.oy = st[s];
+  p.oz = st[2 * s];
+  p.dx = st[3 * s];
+  p.dy = st[4 * s];
+  p.dz = st[5 * s];
+  p.th_r = st[6 * s];
+  p.th_g = st[7 * s];
+  p.th_b = st[8 * s];
+  p.rad_r = st[9 * s];
+  p.rad_g = st[10 * s];
+  p.rad_b = st[11 * s];
+  p.prev_pdf = st[12 * s];
+  p.active = true;
+  p.prev_spec = st[kChSpec * s] > 0.5f;
+}
+
+// All channels but in_image: the miss flag set where the path missed under
+// an environment-map sky.
+__device__ __forceinline__ void store_path(float* st, size_t s, const Path& p,
+                                           bool missed, int sky_mode) {
+  st[0] = p.ox;
+  st[s] = p.oy;
+  st[2 * s] = p.oz;
+  st[3 * s] = p.dx;
+  st[4 * s] = p.dy;
+  st[5 * s] = p.dz;
+  st[6 * s] = p.th_r;
+  st[7 * s] = p.th_g;
+  st[8 * s] = p.th_b;
+  st[9 * s] = p.rad_r;
+  st[10 * s] = p.rad_g;
+  st[11 * s] = p.rad_b;
+  st[12 * s] = p.prev_pdf;
+  st[kChAlive * s] = p.active ? 1.0f : 0.0f;
+  st[kChSpec * s] = p.prev_spec ? 1.0f : 0.0f;
+  st[kChMiss * s] = (missed && sky_mode == kSkyEnvmap) ? 1.0f : 0.0f;
+}
+
+// ---------------------------------------------------------------------------
+// K6 and K6m: intersect.
 // ---------------------------------------------------------------------------
 
 struct IsectParams {
   float* res;           // (8, n_lanes)
   const float* st;      // channel stride `stride`
   const float* prims;   // (n_blocks, 5, block)
-  const int* cand;      // (tiles, 1, n_blocks + 1): count, block ids
-  const float* ctn;     // (tiles, 1, n_blocks): entry bounds, nondecreasing
+  const int* cand;      // (groups, n_blocks + 1): count, block ids
+  const float* ctn;     // (groups, n_blocks): entry bounds, nondecreasing
+  const float* cmat;    // K6m: (n_blocks, 8, 2 block); K6: null
+  const float* bctr;    // K6m: (n_blocks, 3)
   int stride, n_lanes, n_blocks, block;
 };
 
+// K6 (kMxu false: a list a tile, the compact form) and K6m (a list a row,
+// the expanded form): the winner's attributes read from prims either way.
+template <bool kMxu>
 __global__ void __launch_bounds__(kThreadsWf) isect_kernel(IsectParams prm) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= prm.n_lanes) return;
   const size_t s = (size_t)prm.stride;
   const float* st = prm.st + i;
-  float t = kBig, hcx = 0.0f, hcy = 0.0f, hcz = 0.0f, hr = 0.0f;
-  float hmid = -1.0f, hblk = -1.0f, hslot = -1.0f;
+  float t = kBig;
+  int win_blk = -1, win_j = 0;
   if (st[kChAlive * s] > 0.5f) {
     const float ox = st[0], oy = st[s], oz = st[2 * s];
     const float dx = st[3 * s], dy = st[4 * s], dz = st[5 * s];
-    const int tile = i / kTile;
-    const int* cl = prm.cand + (size_t)tile * (prm.n_blocks + 1);
-    const float* tl = prm.ctn + (size_t)tile * prm.n_blocks;
-    const int ncand = __ldg(cl);
-    for (int c = 0; c < ncand; ++c) {
-      if (__ldg(tl + c) >= t) break;      // no nearer hit in what is left
-      const int blk = __ldg(cl + 1 + c);
-      const float* pb = prm.prims + (size_t)blk * kWfPrimAttrs * prm.block;
-      for (int j = 0; j < prm.block; ++j) {
-        const float cx = __ldg(pb + j), cy = __ldg(pb + prm.block + j);
-        const float cz = __ldg(pb + 2 * prm.block + j);
-        const float r = __ldg(pb + 3 * prm.block + j);
-        float tj;
-        if (sphere_t4(cx, cy, cz, r, ox, oy, oz, dx, dy, dz, tj) && tj < t) {
-          t = tj;
-          hcx = cx;
-          hcy = cy;
-          hcz = cz;
-          hr = r;
-          hmid = __ldg(pb + 4 * prm.block + j);
-          hblk = (float)blk;
-          hslot = (float)j;
-        }
-      }
+    const int group = kMxu ? i / kRow : i / kTile;
+    const int* cl = prm.cand + (size_t)group * (prm.n_blocks + 1);
+    const float* tl = prm.ctn + (size_t)group * prm.n_blocks;
+    if constexpr (kMxu) {
+      ExpandedSlots slots{prm.cmat, prm.bctr, prm.block, ox, oy, oz,
+                          dx, dy, dz};
+      win_blk = list_nearest(cl, tl, slots, t, win_j);
+    } else {
+      CompactSlots slots{prm.prims, prm.block, ox, oy, oz, dx, dy, dz};
+      win_blk = list_nearest(cl, tl, slots, t, win_j);
     }
   }
   const size_t n = (size_t)prm.n_lanes;
   float* out = prm.res + i;
-  out[0] = hcx;
-  out[n] = hcy;
-  out[2 * n] = hcz;
-  out[3 * n] = hr;
-  out[4 * n] = t < kBig ? hmid : -1.0f;
-  out[5 * n] = hblk;
-  out[6 * n] = hslot;
+  if (win_blk >= 0) {
+    const float* pb =
+        prm.prims + (size_t)win_blk * kWfPrimAttrs * prm.block + win_j;
+    for (int a = 0; a < kWfPrimAttrs; ++a) out[a * n] = __ldg(pb + a * prm.block);
+    out[5 * n] = (float)win_blk;
+    out[6 * n] = (float)win_j;
+  } else {
+    for (int a = 0; a < 4; ++a) out[a * n] = 0.0f;
+    out[4 * n] = -1.0f;
+    out[5 * n] = -1.0f;
+    out[6 * n] = -1.0f;
+  }
   out[7 * n] = 0.0f;
 }
 
@@ -212,13 +412,15 @@ __global__ void __launch_bounds__(kThreadsWf) isect_kernel(IsectParams prm) {
 // ---------------------------------------------------------------------------
 
 // K7's geometry: the lane's nearest hit rebuilt from K6's winner, and its
-// tile's shadow candidate list.  With `blocked` (K9) the shadow test also
-// writes its verdict there.
+// tile's shadow candidate list (kMxu, K7m: its row's list, swept in the
+// expanded form).  With `blocked` (K9) the shadow test also writes its
+// verdict there.
+template <bool kMxu>
 struct WavefrontGeometry {
   static constexpr int kLightEmit = 4;
   float hcx, hcy, hcz, hr, hmid;
   const float* prims;   // (n_blocks, 5, block)
-  const int* scl;       // the tile's shadow list: count, block ids
+  const int* scl;       // the lane's shadow list: count, block ids
   const float* stl;     // its entry bounds
   const float* mats;    // n_mats rows of kWfMatStride
   const int* mtypes;    // n_mats
@@ -227,6 +429,8 @@ struct WavefrontGeometry {
   float* blocked;       // K9: this lane's verdict; K7: null
   const float* verdict; // blocked_in_res: residual row 7 at this lane; else
                         // null (sweep the shadow list)
+  const float* cmat;    // K7m: build_cmat's tables; else null
+  const float* bctr;
 
   // The winner's quadratic again, on the same floats K6 used (the TPU's
   // _rebuilt_intersect); no hit where K6 found none (hmid < 0, which is
@@ -264,21 +468,13 @@ struct WavefrontGeometry {
   __device__ __forceinline__ bool sweep(float ox, float oy, float oz,
                                         float dx, float dy, float dz,
                                         float tmax) const {
-    const int ncand = __ldg(scl);
-    for (int c = 0; c < ncand; ++c) {
-      if (__ldg(stl + c) >= tmax) break;  // every later box is past the light
-      const int blk = __ldg(scl + 1 + c);
-      const float* pb = prims + (size_t)blk * kWfPrimAttrs * block;
-      for (int j = 0; j < block; ++j) {
-        float tj;
-        if (sphere_t4(__ldg(pb + j), __ldg(pb + block + j),
-                      __ldg(pb + 2 * block + j), __ldg(pb + 3 * block + j),
-                      ox, oy, oz, dx, dy, dz, tj) &&
-            tj < tmax)
-          return true;
-      }
+    if constexpr (kMxu) {
+      ExpandedSlots slots{cmat, bctr, block, ox, oy, oz, dx, dy, dz};
+      return list_anyhit(scl, stl, slots, tmax);
+    } else {
+      CompactSlots slots{prims, block, ox, oy, oz, dx, dy, dz};
+      return list_anyhit(scl, stl, slots, tmax);
     }
-    return false;
   }
 
   __device__ __forceinline__ const float* light(int l) const {
@@ -289,9 +485,10 @@ struct WavefrontGeometry {
 // One bounce, called rather than inlined, as K3 calls its bounce: an
 // inlined bounce in K3 parted from the plain version on a few NEE shadow
 // decisions at config 5 (ROADMAP.md), and K7's shadow rays must be the ones
-// the glue culled for.
+// the glue culled for.  K11 calls its bounce the same way.
+template <class Geometry>
 __device__ __noinline__ bool wf_bounce(const SceneView& sc,
-                                       const WavefrontGeometry& geo, Path& p,
+                                       const Geometry& geo, Path& p,
                                        uint32_t pid, uint32_t sample,
                                        uint32_t seed, int k, int rr_depth,
                                        bool use_nee, bool use_mis) {
@@ -308,15 +505,20 @@ struct ShadeParams {
   const float* lsb;     // 6
   const float* prims;
   const int* mtypes;    // n_mats
-  const int* scand;     // (tiles, 1, n_blocks + 1), unread without NEE
-  const float* sctn;    // (tiles, 1, n_blocks)
+  const int* scand;     // (groups, n_blocks + 1), unread without NEE
+  const float* sctn;    // (groups, n_blocks)
   float* blocked;       // K9: (n_lanes,) shadow verdicts; K7: null
+  const float* cmat;    // K7m: (n_blocks, 8, 2 block); else null
+  const float* bctr;    // K7m: (n_blocks, 3)
   int stride, n_lanes, n_blocks, block, n_mats, n_light_slots, k, rr_depth;
   int sky_mode, blob_len;
   bool use_nee, use_mis;
   bool blocked_in_res;  // verdicts in residual row 7; scand, sctn unread
 };
 
+// K7, K9 and K7's blocked_in_res mode (kMxu false), and K7m (kMxu true: a
+// shadow list a row, swept in the expanded form).
+template <bool kMxu>
 __global__ void __launch_bounds__(kThreadsWf) shade_kernel(ShadeParams prm) {
   extern __shared__ float smem[];
   float* s_blob = smem;
@@ -341,35 +543,21 @@ __global__ void __launch_bounds__(kThreadsWf) shade_kernel(ShadeParams prm) {
     return;
   }
   Path p;
-  p.ox = st[0];
-  p.oy = st[s];
-  p.oz = st[2 * s];
-  p.dx = st[3 * s];
-  p.dy = st[4 * s];
-  p.dz = st[5 * s];
-  p.th_r = st[6 * s];
-  p.th_g = st[7 * s];
-  p.th_b = st[8 * s];
-  p.rad_r = st[9 * s];
-  p.rad_g = st[10 * s];
-  p.rad_b = st[11 * s];
-  p.prev_pdf = st[12 * s];
-  p.active = true;
-  p.prev_spec = st[kChSpec * s] > 0.5f;
+  load_path(st, s, p);
 
   const size_t n = (size_t)prm.n_lanes;
   const float* res = prm.res + i;
-  const int tile = i / kTile;
+  const int group = kMxu ? i / kRow : i / kTile;
   const bool lists = prm.use_nee && prm.n_light_slots > 0 &&
                      !prm.blocked_in_res;
   const float* mats = s_blob + kWfMatOff;
-  const WavefrontGeometry geo{
+  const WavefrontGeometry<kMxu> geo{
       res[0], res[n], res[2 * n], res[3 * n], res[4 * n], prm.prims,
-      lists ? prm.scand + (size_t)tile * (prm.n_blocks + 1) : prm.scand,
-      lists ? prm.sctn + (size_t)tile * prm.n_blocks : prm.sctn, mats,
+      lists ? prm.scand + (size_t)group * (prm.n_blocks + 1) : prm.scand,
+      lists ? prm.sctn + (size_t)group * prm.n_blocks : prm.sctn, mats,
       s_mtypes, mats + kWfMatStride * prm.n_mats, prm.block,
       prm.blocked ? prm.blocked + i : nullptr,
-      prm.blocked_in_res ? res + 7 * n : nullptr};
+      prm.blocked_in_res ? res + 7 * n : nullptr, prm.cmat, prm.bctr};
   const SceneView sc{s_blob, s_meta, s_lsb, 0, prm.n_light_slots, s_meta[2],
                      prm.sky_mode};
   const uint32_t pid = (uint32_t)prm.ids[i];
@@ -377,22 +565,7 @@ __global__ void __launch_bounds__(kThreadsWf) shade_kernel(ShadeParams prm) {
   const bool missed = wf_bounce(sc, geo, p, pid, sample, (uint32_t)s_meta[1],
                                 prm.k, prm.rr_depth, prm.use_nee,
                                 prm.use_mis);
-  st[0] = p.ox;
-  st[s] = p.oy;
-  st[2 * s] = p.oz;
-  st[3 * s] = p.dx;
-  st[4 * s] = p.dy;
-  st[5 * s] = p.dz;
-  st[6 * s] = p.th_r;
-  st[7 * s] = p.th_g;
-  st[8 * s] = p.th_b;
-  st[9 * s] = p.rad_r;
-  st[10 * s] = p.rad_g;
-  st[11 * s] = p.rad_b;
-  st[12 * s] = p.prev_pdf;
-  st[kChAlive * s] = p.active ? 1.0f : 0.0f;
-  st[kChSpec * s] = p.prev_spec ? 1.0f : 0.0f;
-  st[kChMiss * s] = (missed && prm.sky_mode == kSkyEnvmap) ? 1.0f : 0.0f;
+  store_path(st, s, p, missed, prm.sky_mode);
 }
 
 // ---------------------------------------------------------------------------
@@ -416,7 +589,7 @@ __global__ void __launch_bounds__(kThreadsWf) anyhit_kernel(AnyhitParams prm) {
   bool hit = false;
   if (i < prm.n_lanes && r[7 * s] > 0.5f) {
     const int tile = i / kTile;
-    const WavefrontGeometry geo{
+    const WavefrontGeometry<false> geo{
         0.0f, 0.0f, 0.0f, 0.0f, -1.0f, prm.prims,
         prm.scand + (size_t)tile * (prm.n_blocks + 1),
         prm.sctn + (size_t)tile * prm.n_blocks, nullptr, nullptr, nullptr,
@@ -425,6 +598,127 @@ __global__ void __launch_bounds__(kThreadsWf) anyhit_kernel(AnyhitParams prm) {
                     r[6 * s]);
   }
   prm.blocked[i] = hit ? 1.0f : 0.0f;
+}
+
+// ---------------------------------------------------------------------------
+// K11 and K11g: the fused bounce.
+// ---------------------------------------------------------------------------
+
+// K11's geometry: the lane's nearest hit by K6's sweep of its tile's list
+// (cl non-null: the precull) or by K3's walk of the tree, resolved as the
+// JAX package's fused bounce resolves it: a padding winner (material id
+// -1) has no material (kNoMaterial; K3 gives it K1's invalid row instead).
+// Every shadow ray walks the tree (BvhWalk::any_hit) with the tmax
+// trace_bounce gives it.  With kRecord (K11g) the walk writes the lane's
+// residual: K6's winner record, the shadow verdict at rec[7].
+template <bool kRecord>
+struct FusedGeometry {
+  static constexpr int kLightEmit = 4;
+  static constexpr bool kNoMaterialHits = true;
+  BvhWalk<kRecord> walk;
+  const int* cl;        // the tile's list (count, block ids), or null
+  const float* tl;      // its entry bounds
+
+  __device__ __forceinline__ bool nearest(float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          float& t, Hit& h) const {
+    bool found;
+    if (cl) {
+      CompactSlots slots{walk.prims, walk.block, ox, oy, oz, dx, dy, dz};
+      t = kBig;
+      int win_j = 0;
+      const int win_blk = list_nearest(cl, tl, slots, t, win_j);
+      found = win_blk >= 0;
+      if (found)
+        walk.winner(win_blk, win_j, h);
+      else
+        walk.no_winner();
+    } else {
+      found = walk.nearest(ox, oy, oz, dx, dy, dz, t, h);
+    }
+    if (found && h.id < 0) h.mtype = kNoMaterial;
+    return found;
+  }
+
+  __device__ __forceinline__ bool occluded(float ox, float oy, float oz,
+                                           float dx, float dy, float dz,
+                                           float tmax) const {
+    return walk.occluded(ox, oy, oz, dx, dy, dz, tmax);
+  }
+
+  __device__ __forceinline__ const float* light(int l) const {
+    return walk.light(l);
+  }
+};
+
+struct BounceParams {
+  float* st;            // (17, stride), updated in place
+  const int* ids;       // (2, stride)
+  const float* blob;    // 21 + 8 * n_mats + 7 * max(n_light_slots, 1)
+  const int* meta;      // start_sample, seed, n_lights
+  const float* lsb;     // 6
+  const float* nodef;   // 8 tables x n_nodes rows of 8
+  const int* nodei;     // 8 tables x n_nodes rows of 8
+  const float* prims;   // (n_blocks, 5, block)
+  const int* mtypes;    // n_mats
+  const int* cand;      // precull: (tiles, n_blocks + 1); else unread
+  const float* ctn;     // precull: (tiles, n_blocks)
+  float* res;           // K11g: (8, n_lanes) residual; K11: null
+  int stride, n_lanes, n_nodes, n_blocks, block, n_mats, n_light_slots, k;
+  int rr_depth, sky_mode, blob_len;
+  bool use_nee, use_mis, precull;
+};
+
+// K11 (kRecord false) and K11g (true): one bounce of every alive lane in
+// one kernel, in place; a dead lane keeps its state and has its miss flag
+// cleared (K11g: residual 0 0 0 0 -1 -1 -1 0, as K6 writes it).
+template <bool kRecord>
+__global__ void __launch_bounds__(kThreadsWf) bounce_kernel(BounceParams prm) {
+  extern __shared__ float smem[];
+  float* s_blob = smem;
+  float* s_invalid = s_blob + prm.blob_len;             // 8
+  float* s_lsb = s_invalid + kWfMatStride;              // 6
+  int* s_meta = reinterpret_cast<int*>(s_lsb + 6);      // 3
+  int* s_mtypes = s_meta + 3;                           // n_mats
+  for (int a = threadIdx.x; a < prm.blob_len; a += blockDim.x)
+    s_blob[a] = prm.blob[a];
+  for (int a = threadIdx.x; a < prm.n_mats; a += blockDim.x)
+    s_mtypes[a] = prm.mtypes[a];
+  if (threadIdx.x < kWfMatStride)
+    s_invalid[threadIdx.x] = threadIdx.x == kWfMatStride - 1 ? 1.5f : 0.0f;
+  if (threadIdx.x < 6) s_lsb[threadIdx.x] = prm.lsb[threadIdx.x];
+  if (threadIdx.x < 3) s_meta[threadIdx.x] = prm.meta[threadIdx.x];
+  __syncthreads();
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= prm.n_lanes) return;
+  const size_t s = (size_t)prm.stride;
+  float* st = prm.st + i;
+  float rec[8] = {0.0f, 0.0f, 0.0f, 0.0f, -1.0f, -1.0f, -1.0f, 0.0f};
+  if (!(st[kChAlive * s] > 0.5f)) {
+    st[kChMiss * s] = 0.0f;
+  } else {
+    Path p;
+    load_path(st, s, p);
+    const int tile = i / kTile;
+    const float* mats = s_blob + kWfMatOff;
+    const FusedGeometry<kRecord> geo{
+        {prm.nodef, prm.nodei, prm.prims, mats, s_mtypes, s_invalid,
+         mats + kWfMatStride * prm.n_mats, prm.n_nodes, prm.block, rec},
+        prm.precull ? prm.cand + (size_t)tile * (prm.n_blocks + 1) : nullptr,
+        prm.precull ? prm.ctn + (size_t)tile * prm.n_blocks : nullptr};
+    const SceneView sc{s_blob, s_meta, s_lsb, 0, prm.n_light_slots,
+                       s_meta[2], prm.sky_mode};
+    const bool missed = wf_bounce(sc, geo, p, (uint32_t)prm.ids[i],
+                                  (uint32_t)prm.ids[s + i],
+                                  (uint32_t)s_meta[1], prm.k, prm.rr_depth,
+                                  prm.use_nee, prm.use_mis);
+    store_path(st, s, p, missed, prm.sky_mode);
+  }
+  if constexpr (kRecord) {
+    const size_t n = (size_t)prm.n_lanes;
+    for (int c = 0; c < 8; ++c) prm.res[c * n + i] = rec[c];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -479,21 +773,7 @@ __global__ void __launch_bounds__(kThreadsWf)
     float dgeo[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (st[kChAlive * s] > 0.5f) {
       Path p;
-      p.ox = st[0];
-      p.oy = st[s];
-      p.oz = st[2 * s];
-      p.dx = st[3 * s];
-      p.dy = st[4 * s];
-      p.dz = st[5 * s];
-      p.th_r = st[6 * s];
-      p.th_g = st[7 * s];
-      p.th_b = st[8 * s];
-      p.rad_r = st[9 * s];
-      p.rad_g = st[10 * s];
-      p.rad_b = st[11 * s];
-      p.prev_pdf = st[12 * s];
-      p.active = true;
-      p.prev_spec = st[kChSpec * s] > 0.5f;
+      load_path(st, s, p);
       const size_t n = (size_t)prm.n_lanes;
       const float* res = prm.res + i;
       const float* mats = s_blob + kWfMatOff;
@@ -559,7 +839,8 @@ extern "C" int spt_wavefront_raygen(void* st, void* ids, const void* blob,
 
 extern "C" int spt_wavefront_isect(void* res, const void* st,
                                    const void* prims, const void* cand,
-                                   const void* ctn, int stride, int n_lanes,
+                                   const void* ctn, const void* cmat,
+                                   const void* bctr, int stride, int n_lanes,
                                    int n_blocks, int block, void* stream) {
   spt::IsectParams prm;
   prm.res = static_cast<float*>(res);
@@ -567,21 +848,28 @@ extern "C" int spt_wavefront_isect(void* res, const void* st,
   prm.prims = static_cast<const float*>(prims);
   prm.cand = static_cast<const int*>(cand);
   prm.ctn = static_cast<const float*>(ctn);
+  prm.cmat = static_cast<const float*>(cmat);
+  prm.bctr = static_cast<const float*>(bctr);
   prm.stride = stride;
   prm.n_lanes = n_lanes;
   prm.n_blocks = n_blocks;
   prm.block = block;
   if (n_lanes <= 0) return 0;
-  spt::isect_kernel<<<spt::blocks_for(n_lanes), spt::kThreadsWf, 0,
-                      static_cast<cudaStream_t>(stream)>>>(prm);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cmat)
+    spt::isect_kernel<true><<<spt::blocks_for(n_lanes), spt::kThreadsWf, 0,
+                              s>>>(prm);
+  else
+    spt::isect_kernel<false><<<spt::blocks_for(n_lanes), spt::kThreadsWf, 0,
+                               s>>>(prm);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int spt_wavefront_shade(
     void* st, const void* ids, const void* res, const void* blob,
     const void* meta, const void* lsb, const void* prims, const void* mtypes,
-    const void* scand, const void* sctn, void* blocked, int stride,
-    int n_lanes,
+    const void* scand, const void* sctn, void* blocked, const void* cmat,
+    const void* bctr, int stride, int n_lanes,
     int n_blocks, int block, int n_mats, int n_light_slots, int k,
     int rr_depth, int use_nee, int use_mis, int sky_mode, int blocked_in_res,
     void* stream) {
@@ -597,6 +885,8 @@ extern "C" int spt_wavefront_shade(
   prm.scand = static_cast<const int*>(scand);
   prm.sctn = static_cast<const float*>(sctn);
   prm.blocked = static_cast<float*>(blocked);
+  prm.cmat = static_cast<const float*>(cmat);
+  prm.bctr = static_cast<const float*>(bctr);
   prm.stride = stride;
   prm.n_lanes = n_lanes;
   prm.n_blocks = n_blocks;
@@ -613,8 +903,61 @@ extern "C" int spt_wavefront_shade(
                  spt::kWfLightStride * (n_light_slots > 1 ? n_light_slots : 1);
   if (n_lanes <= 0) return 0;
   const size_t smem = sizeof(float) * (prm.blob_len + 6 + 3 + n_mats);
-  spt::shade_kernel<<<spt::blocks_for(n_lanes), spt::kThreadsWf, smem,
-                      static_cast<cudaStream_t>(stream)>>>(prm);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cmat)
+    spt::shade_kernel<true><<<spt::blocks_for(n_lanes), spt::kThreadsWf,
+                              smem, s>>>(prm);
+  else
+    spt::shade_kernel<false><<<spt::blocks_for(n_lanes), spt::kThreadsWf,
+                               smem, s>>>(prm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int spt_wavefront_bounce(
+    void* st, const void* ids, const void* blob, const void* meta,
+    const void* lsb, const void* nodef, const void* nodei, const void* prims,
+    const void* mtypes, const void* cand, const void* ctn, void* res,
+    int stride, int n_lanes, int n_nodes, int n_blocks, int block,
+    int n_mats, int n_light_slots, int k, int rr_depth, int use_nee,
+    int use_mis, int sky_mode, int precull, void* stream) {
+  spt::BounceParams prm;
+  prm.st = static_cast<float*>(st);
+  prm.ids = static_cast<const int*>(ids);
+  prm.blob = static_cast<const float*>(blob);
+  prm.meta = static_cast<const int*>(meta);
+  prm.lsb = static_cast<const float*>(lsb);
+  prm.nodef = static_cast<const float*>(nodef);
+  prm.nodei = static_cast<const int*>(nodei);
+  prm.prims = static_cast<const float*>(prims);
+  prm.mtypes = static_cast<const int*>(mtypes);
+  prm.cand = static_cast<const int*>(cand);
+  prm.ctn = static_cast<const float*>(ctn);
+  prm.res = static_cast<float*>(res);
+  prm.stride = stride;
+  prm.n_lanes = n_lanes;
+  prm.n_nodes = n_nodes;
+  prm.n_blocks = n_blocks;
+  prm.block = block;
+  prm.n_mats = n_mats;
+  prm.n_light_slots = n_light_slots;
+  prm.k = k;
+  prm.rr_depth = rr_depth;
+  prm.sky_mode = sky_mode;
+  prm.use_nee = use_nee != 0;
+  prm.use_mis = use_mis != 0;
+  prm.precull = precull != 0;
+  prm.blob_len = spt::kWfMatOff + spt::kWfMatStride * n_mats +
+                 spt::kWfLightStride * (n_light_slots > 1 ? n_light_slots : 1);
+  if (n_lanes <= 0) return 0;
+  const size_t smem = sizeof(float) * (prm.blob_len + spt::kWfMatStride + 6 +
+                                       3 + n_mats);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (res)
+    spt::bounce_kernel<true><<<spt::blocks_for(n_lanes), spt::kThreadsWf,
+                               smem, s>>>(prm);
+  else
+    spt::bounce_kernel<false><<<spt::blocks_for(n_lanes), spt::kThreadsWf,
+                                smem, s>>>(prm);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -57,13 +57,19 @@ ENTRIES = {
         # st, ids, blob, meta, width, height, tiles_x, tiles_per_img,
         # n_tiles, n_lanes, dof, inv_w, inv_h, aspect, stream
         "spt_wavefront_raygen": [_P] * 4 + [_I] * 7 + [_F, _F, _F, _P],
-        # res, st, prims, cand, ctn, stride, n_lanes, n_blocks, block, stream
-        "spt_wavefront_isect": [_P] * 5 + [_I] * 4 + [_P],
+        # res, st, prims, cand, ctn, cmat, bctr (K6m; null for K6), stride,
+        # n_lanes, n_blocks, block, stream
+        "spt_wavefront_isect": [_P] * 7 + [_I] * 4 + [_P],
         # st, ids, res, blob, meta, lsb, prims, mtypes, scand, sctn,
-        # blocked (K9; null for K7), stride, n_lanes, n_blocks, block,
-        # n_mats, n_light_slots, k, rr_depth, use_nee, use_mis, sky_mode,
-        # blocked_in_res, stream
-        "spt_wavefront_shade": [_P] * 11 + [_I] * 12 + [_P],
+        # blocked (K9; null for K7), cmat, bctr (K7m; null otherwise),
+        # stride, n_lanes, n_blocks, block, n_mats, n_light_slots, k,
+        # rr_depth, use_nee, use_mis, sky_mode, blocked_in_res, stream
+        "spt_wavefront_shade": [_P] * 13 + [_I] * 12 + [_P],
+        # st, ids, blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn,
+        # res (K11g; null for K11), stride, n_lanes, n_nodes, n_blocks,
+        # block, n_mats, n_light_slots, k, rr_depth, use_nee, use_mis,
+        # sky_mode, precull, stream
+        "spt_wavefront_bounce": [_P] * 12 + [_I] * 13 + [_P],
         # blocked, sray, prims, scand, sctn, stride, n_lanes, n_blocks,
         # block, stream
         "spt_wavefront_anyhit": [_P] * 5 + [_I] * 4 + [_P],

@@ -24,13 +24,30 @@ the stream changes a ray's result: the sort is invisible to the estimator.
 After a sort the alive rays form a prefix; K6, K7 and the preculls run over
 that prefix only, its length read to the host once per bounce.
 
+Two other forms of a bounce, as in the JAX package (neither the default):
+
+* ``split=False``: the fused bounce, K11, one kernel a bounce.  Its
+  nearest hit sweeps the precull's lists as K6 does (``precull``, the
+  default) or walks the tree as K3 does (``precull=False``: no precull at
+  all); its shadow rays always walk the tree, so there is no shadow stage:
+
+    K5 raygen -> [ sort -> (precull) -> K11 bounce -> env map ] x depth
+
+* ``mxu=True``: K6m and K7m in place of K6 and K7, over per-row lists
+  (``precull_tiles(per_row=True)``, a list a 128-lane row) with the
+  sphere quadratic in the expanded, block-centred form the TPU ran as a
+  matmul (``build_cmat``'s tables; K7m's shadow test without a square
+  root, ``_seg_blocked``).
+
 Each kernel has a wrapper and a plain PyTorch version: ``raygen`` /
 ``raygen_plain`` (K5), ``isect`` / ``isect_plain`` (K6), ``shade`` /
-``shade_plain`` (K7).  A wrapper runs the plain version for CPU tensors and
+``shade_plain`` (K7), ``bounce`` / ``bounce_plain`` (K11), ``isect_mxu``
+/ ``isect_mxu_plain`` (K6m), ``shade_mxu`` / ``shade_mxu_plain`` (K7m).  A wrapper runs the plain version for CPU tensors and
 launches the hand-written kernel (``csrc/wavefront.cu``) for CUDA tensors,
 or raises.  The glue between them (sort, precull, shadow rays, env map,
 scatter) is torch ops, as it was XLA around the TPU kernels.
-``LAUNCHES["k5"]``, ``["k6"]`` and ``["k7"]`` count the kernels' launches;
+``LAUNCHES["k5"]``, ``["k6"]``, ``["k7"]``, ``["k11"]``, ``["k6m"]`` and
+``["k7m"]`` count the kernels' launches;
 ``LAUNCHES["plain"]`` counts one per call of any plain version, so a
 wavefront render on the CPU adds one per chunk for raygen and two per
 bounce that has alive rays.
@@ -45,8 +62,9 @@ lane's nearest distance for the merge.
 A padding slot of a leaf block (centre 0, radius 0, id -1) can win K6's
 sweep where the float quadratic says a ray through the origin hits it;
 its id -1 then reads as no hit and the lane takes the sky, as in the JAX
-package's wavefront (its K3 and this port's K3 resolve it otherwise; see
-ROADMAP.md).
+package's split wavefront.  The fused bounce follows JAX's fused one: a
+hit with no material (``_fused_intersect``).  The two K3s resolve it
+otherwise again (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -65,13 +83,15 @@ from ..core.scene import SKY_ENVMAP, SceneData
 from . import physics
 from .megakernel import (K1_OPS, LAUNCHES, PlainScene, _check, _f32, _np,
                          camera_rays)
-from .megakernel_bvh import (BLOCK, _LIGHT_STRIDE, _MAT_OFF, _MAT_STRIDE,
-                             _N_PRIM_ATTRS, _leaf_t, _safe_inv, packed)
+from .megakernel_bvh import (BLOCK, K3_OPS, _LIGHT_STRIDE, _MAT_OFF,
+                             _MAT_STRIDE, _N_PRIM_ATTRS, _Walk, _leaf_t,
+                             _safe_inv, packed)
 
 TMIN = physics.TMIN
 BIG = physics.BIG
 
 TILE = 1024          # lanes of a stream tile
+ROW = 128            # lanes of a row: the per-row lists' group (K6m, K7m)
 TW = TH = 32         # its pixels, swizzled 32 x 32
 
 # State channels (float32).
@@ -231,16 +251,16 @@ def _leaf_block_bounds(prims: torch.Tensor):
     return lo, hi
 
 
-def _empty_lists(n_tiles: int, nb: int, device):
-    cand = torch.full((n_tiles, 1, nb + 1), -1, dtype=torch.int32,
+def _empty_lists(n_tiles: int, nb: int, device, n_grp: int = 1):
+    cand = torch.full((n_tiles, n_grp, nb + 1), -1, dtype=torch.int32,
                       device=device)
     cand[:, :, 0] = 0
-    ctn = torch.full((n_tiles, 1, nb), BIG, dtype=torch.float32,
+    ctn = torch.full((n_tiles, n_grp, nb), BIG, dtype=torch.float32,
                      device=device)
     return cand, ctn
 
 
-def precull_tiles(o3, d3, act, tmax, lob, hib):
+def precull_tiles(o3, d3, act, tmax, lob, hib, per_row: bool = False):
     """Per-tile candidate lists of rays given as flat tensors of whole
     tiles: ``o3``, ``d3`` their origin and direction components, ``act``
     0/1 where a ray is traced, ``tmax`` an upper bound on the t that counts
@@ -252,11 +272,18 @@ def precull_tiles(o3, d3, act, tmax, lob, hib):
     1, n_blocks) float32, each candidate's least entry distance over the
     tile's rays that pass (clamped at 0; BIG past the count), nondecreasing.
     Chunks of ``PRECULL_TILE_CHUNK`` tiles without a traced ray are not
-    tested (one read of which are live)."""
+    tested (one read of which are live).
+
+    ``per_row`` (the matmul-form sweeps K6m and K7m) makes one list per
+    row of ``ROW`` lanes in place of one per tile: (tiles, 8, n_blocks +
+    1) and (tiles, 8, n_blocks), row ``r`` of tile ``t`` the list of lanes
+    ``t * TILE + r * ROW ..``, as the JAX package's ``_precull_rays(
+    per_row=True)`` lays them out."""
     nb = lob.shape[0]
     n_tiles = act.numel() // TILE
     dev = act.device
-    cand, ctn = _empty_lists(n_tiles, nb, dev)
+    n_grp = TILE // ROW if per_row else 1
+    cand, ctn = _empty_lists(n_tiles, nb, dev, n_grp)
     chunk = PRECULL_TILE_CHUNK
     n_chunks = -(-n_tiles // chunk)
     pad = n_chunks * chunk * TILE - act.numel()
@@ -290,16 +317,17 @@ def precull_tiles(o3, d3, act, tmax, lob, hib):
         del tf
         if tmax is not None:
             hit &= tn < grab(tmax)
-        grp = torch.where(hit, torch.clamp_min(tn, 0.0), BIG).amin(dim=1)
+        grp = torch.where(hit, torch.clamp_min(tn, 0.0), BIG).reshape(
+            ct, n_grp, TILE // n_grp, nb).amin(dim=2)
         del tn, hit
         order = torch.argsort(grp, dim=-1, stable=True)
         s_tn = torch.gather(grp, -1, order)
         n_cand = (grp < BIG).sum(dim=-1, dtype=torch.int32)
         ids = torch.where(s_tn < BIG, order.to(torch.int32), -1)
         rows = slice(c * chunk, c * chunk + ct)
-        cand[rows, 0, 0] = n_cand
-        cand[rows, 0, 1:] = ids
-        ctn[rows, 0] = s_tn
+        cand[rows, :, 0] = n_cand
+        cand[rows, :, 1:] = ids
+        ctn[rows] = s_tn
     return cand, ctn
 
 
@@ -425,6 +453,89 @@ def _list_reads(cand, tile, lanes, read, taken) -> tuple[int, int]:
     return int(swept.sum() + read.sum() + taken.sum()), blocks
 
 
+def _flat_lists(cand, ctn):
+    """Candidate lists of any grouping (a tile's or a row's) as (groups, 1,
+    .) tensors: one list a group, as ``_sweep_lanes`` reads them."""
+    return (cand.reshape(-1, 1, cand.shape[-1]),
+            ctn.reshape(-1, 1, ctn.shape[-1]))
+
+
+def _compact_test(prims, o, d):
+    """The sphere tests of K6 and K7: ``test(idx, blk)`` -> (tj, ok) (m,
+    block) of lanes ``idx`` against the slots of their blocks ``blk``,
+    ``_leaf_t``'s quadratic on the centre and radius."""
+    def test(idx, blk):
+        return _leaf_t(prims[blk], *(a[idx] for a in o),
+                       *(a[idx] for a in d))
+    return test
+
+
+def _nearest_sweep(test, prims, cand, ctn, alive, glen: int,
+                   stats: dict | None):
+    """Each alive lane's nearest hit over its group's list (``glen`` lanes
+    a group: a tile's or a row's), candidates in order, a block's slots in
+    order with a strict ``<``, stopping once the next candidate's bound
+    reaches its nearest distance.  Returns (t (n,), BIG on a miss; win
+    (n,) int64, the global slot ``block_id * block + j``, -1 on a miss);
+    ``prims`` (n_blocks, 5, block); ``stats`` as ``isect_plain``'s."""
+    n = alive.numel()
+    dev = alive.device
+    block = prims.shape[2]
+    filled = (prims[:, 4, :] >= 0.0).sum(dim=1)
+    t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    win = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    work = torch.zeros(2, dtype=torch.int64, device=dev)
+
+    def step(idx, blk):
+        tj, ok = test(idx, blk)
+        tmin, j = torch.where(ok, tj, BIG).min(dim=1)
+        better = tmin < t[idx]
+        t[idx] = torch.where(better, tmin, t[idx])
+        win[idx] = torch.where(better, blk * block + j, win[idx])
+        work[0] += filled[blk].sum()
+        work[1] += idx.numel()
+        return torch.zeros_like(better)
+
+    cand, ctn = _flat_lists(cand, ctn)
+    group = torch.arange(n, device=dev) // glen
+    reach = _sweep_lanes(cand, ctn, group, t, alive, step)
+    if stats is not None:
+        stats["spheres"] = stats.get("spheres", 0) + int(work[0])
+        stats["blocks"] = stats.get("blocks", 0) + int(work[1])
+        words, blocks = _list_reads(cand, group, alive, *reach)
+        for name, v in (("alive", int(alive.sum())), ("list_words", words),
+                        ("blocks_read", blocks)):
+            stats[name] = stats.get(name, 0) + v
+    return t, win
+
+
+def _winner_res(prims, t, win, block: int) -> torch.Tensor:
+    """K6's residual (8, n) of each lane's winner: its centre, radius and
+    material id (-1 on a miss), its leaf block and slot (-1 -1 on a miss),
+    and a zero row 7."""
+    found = t < BIG
+    slot = torch.clamp_min(win, 0)
+    row = prims[slot // block, :, slot % block]              # (n, 5)
+    res = torch.zeros((N_RES, t.numel()), dtype=torch.float32,
+                      device=t.device)
+    for a in range(4):
+        res[a] = torch.where(found, row[:, a], 0.0)
+    res[4] = torch.where(found, row[:, 4], -1.0)
+    res[5] = torch.where(found, (slot // block).to(torch.float32), -1.0)
+    res[6] = torch.where(found, (slot % block).to(torch.float32), -1.0)
+    return res
+
+
+def _isect_lanes(test, prims, cand, ctn, st, n: int, block: int, glen: int,
+                 stats: dict | None):
+    """(t, residual) of K6's sweep (or K6m's, by ``test``) over lanes [0,
+    n) of the stream."""
+    prims = prims.reshape(-1, _N_PRIM_ATTRS, block)
+    t, win = _nearest_sweep(test, prims, cand, ctn, st[C_ALIVE, :n] > 0.5,
+                            glen, stats)
+    return t, _winner_res(prims, t, win, block)
+
+
 def isect_plain(prims: torch.Tensor, cand: torch.Tensor, ctn: torch.Tensor,
                 st: torch.Tensor, n_lanes: int, *, block: int,
                 stats: dict | None = None) -> torch.Tensor:
@@ -437,47 +548,12 @@ def isect_plain(prims: torch.Tensor, cand: torch.Tensor, ctn: torch.Tensor,
     swept), ``"list_words"`` and ``"blocks_read"`` (``_list_reads``)
     added."""
     LAUNCHES["plain"] += 1
-    dev = st.device
     n = n_lanes
-    prims = prims.reshape(-1, _N_PRIM_ATTRS, block)
     o = tuple(st[c, :n] for c in (C_OX, C_OY, C_OZ))
     d = tuple(st[c, :n] for c in (C_DX, C_DY, C_DZ))
-    tile = torch.arange(n, device=dev) // TILE
-    t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
-    win = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    work = torch.zeros(2, dtype=torch.int64, device=dev)
-    filled = (prims[:, 4, :] >= 0.0).sum(dim=1)
-
-    def step(idx, blk):
-        tj, ok = _leaf_t(prims[blk], *(a[idx] for a in o),
-                         *(a[idx] for a in d))
-        tmin, j = torch.where(ok, tj, BIG).min(dim=1)
-        better = tmin < t[idx]
-        t[idx] = torch.where(better, tmin, t[idx])
-        win[idx] = torch.where(better, blk * block + j, win[idx])
-        work[0] += filled[blk].sum()
-        work[1] += idx.numel()
-        return torch.zeros_like(better)
-
-    alive = st[C_ALIVE, :n] > 0.5
-    reach = _sweep_lanes(cand, ctn, tile, t, alive, step)
-    found = t < BIG
-    slot = torch.clamp_min(win, 0)
-    row = prims[slot // block, :, slot % block]              # (n, 5)
-    res = torch.zeros((N_RES, n), dtype=torch.float32, device=dev)
-    for a in range(4):
-        res[a] = torch.where(found, row[:, a], 0.0)
-    res[4] = torch.where(found, row[:, 4], -1.0)
-    res[5] = torch.where(found, (slot // block).to(torch.float32), -1.0)
-    res[6] = torch.where(found, (slot % block).to(torch.float32), -1.0)
-    if stats is not None:
-        stats["spheres"] = stats.get("spheres", 0) + int(work[0])
-        stats["blocks"] = stats.get("blocks", 0) + int(work[1])
-        words, blocks = _list_reads(cand, tile, alive, *reach)
-        for name, v in (("alive", int(alive.sum())), ("list_words", words),
-                        ("blocks_read", blocks)):
-            stats[name] = stats.get(name, 0) + v
-    return res
+    return _isect_lanes(_compact_test(prims.reshape(-1, _N_PRIM_ATTRS, block),
+                                      o, d),
+                        prims, cand, ctn, st, n, block, TILE, stats)[1]
 
 
 def _check_lists(cand, ctn, n_tiles, nb):
@@ -503,28 +579,40 @@ def isect(prims: torch.Tensor, cand: torch.Tensor, ctn: torch.Tensor,
     """K6's wrapper: ``isect_plain``'s residual, on the stream's device."""
     if st.device.type == "cpu":
         return isect_plain(prims, cand, ctn, st, n_lanes, block=block)
+    return _isect_launch("K6", prims, cand, ctn, st, n_lanes, block, None)
+
+
+def _isect_launch(name, prims, cand, ctn, st, n_lanes: int, block: int,
+                  mxu) -> torch.Tensor:
+    """Checks and launches K6's kernel on CUDA tensors (K6m's, on per-row
+    lists, with ``mxu`` = (cmat, bctr)) -> the residual (8, n_lanes)."""
     if st.device.type != "cuda":
-        raise NotImplementedError(f"K6 has no kernel for {st.device}")
-    if any(a.device != st.device for a in (prims, cand, ctn)):
-        raise ValueError("K6's inputs must lie on one device")
+        raise NotImplementedError(f"{name} has no kernel for {st.device}")
+    if any(a.device != st.device for a in (prims, cand, ctn,
+                                           *(mxu or ()))):
+        raise ValueError(f"{name}'s inputs must lie on one device")
     _check_stream(st)
     nb = prims.numel() // (_N_PRIM_ATTRS * block)
-    n_tiles = -(-n_lanes // TILE)
     if not 0 <= n_lanes <= st.shape[1] or n_lanes % TILE:
-        raise ValueError(f"K6: {n_lanes} lanes of a stream of {st.shape[1]}")
+        raise ValueError(f"{name}: {n_lanes} lanes of a stream of "
+                         f"{st.shape[1]}")
     _check(prims, "prims", torch.float32, _N_PRIM_ATTRS * block * nb)
-    _check_lists(cand, ctn, n_tiles, nb)
+    _check_lists(cand, ctn, n_lanes // (TILE if mxu is None else ROW), nb)
+    if mxu is not None:
+        _check_cmat(*mxu, nb, block)
     res = torch.empty((N_RES, n_lanes), dtype=torch.float32, device=st.device)
     from ._build import load_library
     lib = load_library("wavefront")
     with torch.cuda.device(st.device):
         err = lib.spt_wavefront_isect(
             res.data_ptr(), st.data_ptr(), prims.data_ptr(), cand.data_ptr(),
-            ctn.data_ptr(), st.shape[1], n_lanes, nb, block,
+            ctn.data_ptr(),
+            *((0, 0) if mxu is None else (a.data_ptr() for a in mxu)),
+            st.shape[1], n_lanes, nb, block,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"K6 launch failed: CUDA error {err}")
-    LAUNCHES["k6"] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES["k6" if mxu is None else "k6m"] += 1
     return res
 
 
@@ -640,26 +728,34 @@ def _rebuilt_intersect(mats, mtypes, res):
     return intersect
 
 
-def _sweep_anyhit(prims, scand, sctn, o, d, tmax, need, stats=None):
+def _sweep_anyhit(prims, scand, sctn, o, d, tmax, need, stats=None,
+                  mxu=None):
     """The shadow sweep of K7 and K8 on lanes given as flat tensors of
     whole tiles: each lane with ``need`` tests its tile's shadow list in
     order, a block's slots in order, and stops at its first blocker (a hit
     with t < ``tmax``) or once the next candidate's bound reaches its
-    ``tmax``.  Returns the (n,) bool verdict; ``stats``, if given, gets the
-    sweep's ``"shadow_spheres"`` (filled slots tested, up to the blocker),
-    ``"shadow_blocks"``, ``"shadow_list_words"`` and
+    ``tmax``.  With ``mxu`` = (cmat, bctr) it is K7m's sweep: each lane
+    takes its row's list (``precull_tiles(per_row=True)``) and a slot
+    blocks by ``_seg_blocked`` on the expanded quadratic
+    (``_expanded_quadratic``).  Returns the (n,) bool verdict; ``stats``,
+    if given, gets the sweep's ``"shadow_spheres"`` (filled slots tested,
+    up to the blocker), ``"shadow_blocks"``, ``"shadow_list_words"`` and
     ``"shadow_blocks_read"`` (``_list_reads``) added."""
     n = need.numel()
     dev = need.device
-    tile = torch.arange(n, device=dev) // TILE
+    group = torch.arange(n, device=dev) // (TILE if mxu is None else ROW)
     filled = (prims[:, 4, :] >= 0.0).sum(dim=1)
     work = torch.zeros(2, dtype=torch.int64, device=dev)
     verdict = torch.zeros_like(need)
 
     def step(idx, blk):
-        tj, ok = _leaf_t(prims[blk], *(a[idx] for a in o),
-                         *(a[idx] for a in d))
-        hits = ok & (tj < tmax[idx][:, None])
+        oi, di = tuple(a[idx] for a in o), tuple(a[idx] for a in d)
+        if mxu is None:
+            tj, ok = _leaf_t(prims[blk], *oi, *di)
+            hits = ok & (tj < tmax[idx][:, None])
+        else:
+            hits = _seg_blocked(*_expanded_quadratic(
+                mxu[0][blk], mxu[1][blk], oi, di), tmax[idx][:, None])
         stop = hits.any(dim=1)
         first = torch.where(stop, hits.int().argmax(dim=1) + 1, filled[blk])
         work[0] += first.sum()
@@ -667,9 +763,10 @@ def _sweep_anyhit(prims, scand, sctn, o, d, tmax, need, stats=None):
         verdict[idx] = stop
         return stop
 
-    reach = _sweep_lanes(scand, sctn, tile, tmax, need, step)
+    scand, sctn = _flat_lists(scand, sctn)
+    reach = _sweep_lanes(scand, sctn, group, tmax, need, step)
     if stats is not None:
-        words, blocks = _list_reads(scand, tile, need, *reach)
+        words, blocks = _list_reads(scand, group, need, *reach)
         for name, v in zip(("shadow_spheres", "shadow_blocks",
                             "shadow_list_words", "shadow_blocks_read"),
                            (*work.tolist(), words, blocks)):
@@ -677,17 +774,65 @@ def _sweep_anyhit(prims, scand, sctn, o, d, tmax, need, stats=None):
     return verdict
 
 
+def _trace_lanes(blob, meta, lsb, st, ids, n: int, intersect, occluded, *,
+                 k: int, n_mats: int, n_light_slots: int, rr_depth: int,
+                 use_nee: bool, use_mis: bool, sky_mode: int,
+                 stats: dict | None) -> None:
+    """``trace_bounce`` of bounce ``k`` on lanes [0, n) of the stream, in
+    place, with the intersector and shadow test given (as
+    ``physics.trace_bounce`` takes them).  Dead lanes keep their state; the
+    miss flag is set where an alive lane missed under an env-map sky,
+    cleared elsewhere.  ``stats``, if given, gets ``render_samples_plain``'s
+    per-bounce counts (``"active"``, ``"hit"``, ``"shadow"``, ``"lit"``)
+    added."""
+    sc = PlainScene(blob, meta, lsb, 0, n_light_slots,
+                    lights=_lights(blob, n_mats, n_light_slots))
+    part = st[:, :n]
+    pid = ids[0, :n].to(torch.int64) & rng.MASK32
+    sample = ids[1, :n].to(torch.int64) & rng.MASK32
+    want_miss = sky_mode == SKY_ENVMAP
+    cfg = physics.BounceCfg(
+        mtypes=(), k=k, rr_depth=rr_depth, use_nee=use_nee, use_mis=use_mis,
+        sky_mode=sky_mode, n_light_slots=n_light_slots, want_miss=want_miss)
+    alive = part[C_ALIVE] > 0.5
+    state, aux, tape = physics.trace_bounce_tape(
+        sc.theta, tuple(part[c] for c in range(C_PDF + 1)),
+        (alive, part[C_SPEC] > 0.5), sc.uniforms(pid, sample, k), sc.nl, cfg,
+        intersect, occluded)
+    for c, v in enumerate(state):
+        part[c] = v
+    part[C_ALIVE] = aux[0].to(torch.float32)
+    part[C_SPEC] = aux[1].to(torch.float32)
+    part[C_MISS] = (aux[2] if want_miss
+                    else torch.zeros_like(alive)).to(torch.float32)
+    if stats is not None:
+        nee = use_nee and n_light_slots > 0 and sc.nl > 0
+        zero = torch.zeros_like(alive)
+        counts = torch.stack([
+            alive, tape.hit, tape.hit & ~tape.m_die if nee else zero,
+            tape.nee.nee_ok if nee else zero]).sum(1).tolist()
+        for name, v in zip(("active", "hit", "shadow", "lit"), counts):
+            stats[name] = stats.get(name, 0) + v
+
+
+def _add_stats(stats: dict | None, work: dict) -> None:
+    if stats is not None:
+        for name, v in work.items():
+            stats[name] = stats.get(name, 0) + v
+
+
 def shade_plain(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
                 n_lanes: int, *, k: int, block: int, n_mats: int,
                 n_light_slots: int, rr_depth: int, use_nee: bool,
                 use_mis: bool, sky_mode: int, stats: dict | None = None,
                 blocked: torch.Tensor | None = None,
-                blocked_in_res: bool = False) -> None:
+                blocked_in_res: bool = False, mxu=None) -> None:
     """Plain version of K7: bounce ``k`` of lanes [0, n_lanes) of the
     stream, in place.  ``trace_bounce`` on the hit rebuilt from ``res``;
     each shadow ray tests its tile's shadow list in order and stops at its
     first blocker or once the next candidate's bound reaches its t_max
-    (``_sweep_anyhit``).  With ``blocked_in_res`` (K7's mode for the
+    (``_sweep_anyhit``; with ``mxu`` = (cmat, bctr) K7m's sweep of the
+    per-row lists).  With ``blocked_in_res`` (K7's mode for the
     prim-sharded render) nothing is swept: a shadow ray is blocked where
     residual row 7 holds more than 0.5, and ``scand``, ``sctn`` and
     ``prims`` are not read.  Dead lanes keep their state; the miss flag is
@@ -703,49 +848,27 @@ def shade_plain(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
     prims = prims.reshape(-1, _N_PRIM_ATTRS, block)
     mats = blob[_MAT_OFF:_MAT_OFF + _MAT_STRIDE * n_mats].reshape(
         n_mats, _MAT_STRIDE)
-    sc = PlainScene(blob, meta, lsb, 0, n_light_slots,
-                    lights=_lights(blob, n_mats, n_light_slots))
-    part = st[:, :n]
-    pid = ids[0, :n].to(torch.int64) & rng.MASK32
-    sample = ids[1, :n].to(torch.int64) & rng.MASK32
-    sweep_stats = {}
+    sweep_stats = dict.fromkeys(("shadow_spheres", "shadow_blocks",
+                                 "shadow_list_words", "shadow_blocks_read"),
+                                0)
 
     def occluded(ox, oy, oz, dx, dy, dz, tmax, need):
         if blocked_in_res:
             verdict = need & (res[7, :n] > 0.5)
         else:
             verdict = _sweep_anyhit(prims, scand, sctn, (ox, oy, oz),
-                                    (dx, dy, dz), tmax, need, sweep_stats)
+                                    (dx, dy, dz), tmax, need, sweep_stats,
+                                    mxu)
         if blocked is not None:
             blocked.copy_(verdict)
         return verdict
 
-    want_miss = sky_mode == SKY_ENVMAP
-    cfg = physics.BounceCfg(
-        mtypes=(), k=k, rr_depth=rr_depth, use_nee=use_nee, use_mis=use_mis,
-        sky_mode=sky_mode, n_light_slots=n_light_slots, want_miss=want_miss)
-    alive = part[C_ALIVE] > 0.5
-    state, aux, tape = physics.trace_bounce_tape(
-        sc.theta, tuple(part[c] for c in range(C_PDF + 1)),
-        (alive, part[C_SPEC] > 0.5), sc.uniforms(pid, sample, k), sc.nl, cfg,
-        _rebuilt_intersect(mats, mtypes.long(), res), occluded)
-    for c, v in enumerate(state):
-        part[c] = v
-    part[C_ALIVE] = aux[0].to(torch.float32)
-    part[C_SPEC] = aux[1].to(torch.float32)
-    part[C_MISS] = (aux[2] if want_miss
-                    else torch.zeros_like(alive)).to(torch.float32)
-    if stats is not None:
-        nee = use_nee and n_light_slots > 0 and sc.nl > 0
-        zero = torch.zeros_like(alive)
-        counts = torch.stack([
-            alive, tape.hit, tape.hit & ~tape.m_die if nee else zero,
-            tape.nee.nee_ok if nee else zero]).sum(1).tolist()
-        for name, v in zip(("active", "hit", "shadow", "lit"), counts):
-            stats[name] = stats.get(name, 0) + v
-        for name in ("shadow_spheres", "shadow_blocks", "shadow_list_words",
-                     "shadow_blocks_read"):
-            stats[name] = stats.get(name, 0) + sweep_stats.get(name, 0)
+    _trace_lanes(blob, meta, lsb, st, ids, n,
+                 _rebuilt_intersect(mats, mtypes.long(), res), occluded,
+                 k=k, n_mats=n_mats, n_light_slots=n_light_slots,
+                 rr_depth=rr_depth, use_nee=use_nee, use_mis=use_mis,
+                 sky_mode=sky_mode, stats=stats)
+    _add_stats(stats, sweep_stats)
 
 
 def shade(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
@@ -769,15 +892,17 @@ def shade(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
 def _shade_launch(name, args, n_lanes: int, blocked, *, k: int, block: int,
                   n_mats: int, n_light_slots: int, rr_depth: int,
                   use_nee: bool, use_mis: bool, sky_mode: int,
-                  blocked_in_res: bool = False) -> None:
+                  blocked_in_res: bool = False, mxu=None) -> None:
     """Checks and launches K7's kernel on CUDA tensors: K7 itself with
     ``blocked`` None, K9 (which also writes the (n_lanes,) shadow verdict
     into ``blocked``) otherwise; with ``blocked_in_res`` the kernel reads
-    each verdict from residual row 7 instead of sweeping the lists."""
+    each verdict from residual row 7 instead of sweeping the lists; with
+    ``mxu`` = (cmat, bctr) it is K7m, sweeping per-row lists with the
+    expanded quadratic."""
     blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res = args
     if st.device.type != "cuda":
         raise NotImplementedError(f"{name} has no kernel for {st.device}")
-    if any(a.device != st.device for a in args):
+    if any(a.device != st.device for a in args + tuple(mxu or ())):
         raise ValueError(f"{name}'s inputs must lie on one device")
     _check_stream(st, ids)
     if not 0 <= n_lanes <= st.shape[1] or n_lanes % TILE:
@@ -792,7 +917,10 @@ def _shade_launch(name, args, n_lanes: int, blocked, *, k: int, block: int,
     _check(mtypes, "mtypes", torch.int32, n_mats)
     _check(res, "res", torch.float32, N_RES * n_lanes)
     if use_nee and n_light_slots > 0 and not blocked_in_res:
-        _check_lists(scand, sctn, n_lanes // TILE, nb)
+        _check_lists(scand, sctn, n_lanes // (TILE if mxu is None else ROW),
+                     nb)
+    if mxu is not None:
+        _check_cmat(*mxu, nb, block)
     if blocked is not None:
         _check(blocked, "blocked", torch.float32, n_lanes)
     from ._build import load_library
@@ -802,6 +930,7 @@ def _shade_launch(name, args, n_lanes: int, blocked, *, k: int, block: int,
             *(a.data_ptr() for a in (st, ids, res, blob, meta, lsb, prims,
                                      mtypes, scand, sctn)),
             0 if blocked is None else blocked.data_ptr(),
+            *((0, 0) if mxu is None else (a.data_ptr() for a in mxu)),
             st.shape[1], n_lanes, nb, block, n_mats, n_light_slots, k,
             rr_depth, int(bool(use_nee)), int(bool(use_mis)), int(sky_mode),
             int(bool(blocked_in_res)),
@@ -876,6 +1005,287 @@ def anyhit(prims: torch.Tensor, scand: torch.Tensor, sctn: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# K6m and K7m: the matmul-form sweeps
+# ---------------------------------------------------------------------------
+
+
+def build_cmat(prims: torch.Tensor):
+    """K6m's and K7m's per-block tables (the JAX package's ``build_cmat``)
+    -> (cmat (n_blocks, 8, 2 block), bctr (n_blocks, 3)).  ``bctr`` is the
+    centre of the box of a block's filled slots' centres (0 for a block
+    with none); with c' = c - bctr, column j < block of ``cmat`` is (c'x,
+    c'y, c'z, 0, 0, 0, 0, 0) and column block + j is (0, 0, 0, 0, -2 c'x,
+    -2 c'y, -2 c'z, |c'|^2 - r^2); a padding slot's columns are 0 but the
+    last, 3e38, so its discriminant is always negative.  Computed from
+    ``prims`` alone: the only state the matmul form adds."""
+    valid = prims[:, 4, :] >= 0.0
+    c = prims[:, 0:3, :]
+    r = prims[:, 3, :]
+    lo = torch.where(valid[:, None, :], c, 3e38).amin(dim=2)
+    hi = torch.where(valid[:, None, :], c, -3e38).amax(dim=2)
+    ctr = torch.where(valid.any(dim=1)[:, None], 0.5 * (lo + hi), 0.0)
+    cp = torch.where(valid[:, None, :], c - ctr[:, :, None], 0.0)
+    c2r2 = torch.where(valid, cp[:, 0] * cp[:, 0] + cp[:, 1] * cp[:, 1]
+                       + cp[:, 2] * cp[:, 2] - r * r, 3e38)
+    zero = torch.zeros_like(cp[:, :1])
+    top = torch.cat([cp, zero, zero, zero, zero, zero], dim=1)
+    bot = torch.cat([zero, zero, zero, zero, -2.0 * cp, c2r2[:, None, :]],
+                    dim=1)
+    return torch.cat([top, bot], dim=2).contiguous(), ctr.contiguous()
+
+
+def _expanded_quadratic(cm, ctr, o, d):
+    """(b, cterm) (m, block) of m lanes against their blocks' slots in the
+    expanded, block-centred form (the JAX package's ``_row_quadratic``):
+    with o' = o - ctr and A = (dx, dy, dz, 0, o'x, o'y, o'z, 1), column j
+    of ``cm`` (m, 8, 2 block) dotted with A, its 8 products summed in order,
+    gives b + d.o' (j < block) and cterm - |o'|^2 (j >= block).  Spelled
+    out elementwise in the kernels' order, so K6m and K7m can equal it bit
+    for bit."""
+    op = tuple(a - ctr[:, i] for i, a in enumerate(o))
+    zero, one = torch.zeros_like(op[0]), torch.ones_like(op[0])
+    acc = None
+    for a, v in enumerate((*d, zero, *op, one)):
+        term = cm[:, a, :] * v[:, None]
+        acc = term if acc is None else acc + term
+    dor = d[0] * op[0] + d[1] * op[1] + d[2] * op[2]
+    o2 = op[0] * op[0] + op[1] * op[1] + op[2] * op[2]
+    block = cm.shape[2] // 2
+    return acc[:, :block] - dor[:, None], acc[:, block:] + o2[:, None]
+
+
+def _expanded_test(cmat, bctr, o, d):
+    """K6m's sphere tests: ``_compact_test``'s contract on the expanded
+    quadratic (the root choice and the TMIN test as K6's)."""
+    def test(idx, blk):
+        b, cterm = _expanded_quadratic(cmat[blk], bctr[blk],
+                                       tuple(a[idx] for a in o),
+                                       tuple(a[idx] for a in d))
+        disc = b * b - cterm
+        pos = disc > 0.0
+        sq = torch.sqrt(physics._max(torch.where(pos, disc, 1.0), 1e-12))
+        t0 = b - sq
+        tj = torch.where(t0 > TMIN, t0, b + sq)
+        return tj, pos & (tj > TMIN)
+    return test
+
+
+def _seg_blocked(b, cterm, tmax):
+    """K7m's any-hit test without a square root (the JAX package's
+    ``_seg_blocked``, strict inequalities as written there): whether the
+    root ``trace_bounce`` would take, t0 = b - sqrt(disc) if it passes
+    TMIN else t1 = b + sqrt(disc), lies in (TMIN, tmax)."""
+    disc = b * b - cterm
+    pos = disc > 0.0
+    p = b - TMIN
+    q = b - tmax
+    pp = p * p
+    qq = q * q
+    t0_gt = (p > 0.0) & (disc < pp)
+    t0_lt = (q < 0.0) | (disc > qq)
+    t1_ok = ((p > 0.0) | (disc > pp)) & ((q < 0.0) & (disc < qq))
+    return pos & ((t0_gt & t0_lt) | (~t0_gt & t1_ok))
+
+
+def _check_cmat(cmat, bctr, nb: int, block: int) -> None:
+    _check(cmat, "cmat", torch.float32, nb * 8 * 2 * block)
+    _check(bctr, "bctr", torch.float32, nb * 3)
+
+
+def isect_mxu_plain(prims: torch.Tensor, cmat: torch.Tensor,
+                    bctr: torch.Tensor, cand: torch.Tensor, ctn: torch.Tensor,
+                    st: torch.Tensor, n_lanes: int, *, block: int,
+                    stats: dict | None = None) -> torch.Tensor:
+    """Plain version of K6m -> K6's residual (8, n_lanes): ``isect_plain``
+    over each lane's row list (``precull_tiles(per_row=True)``), a slot's
+    distance by the expanded quadratic on ``build_cmat``'s tables; the
+    winner's attributes read from ``prims``.  ``stats`` as K6's."""
+    LAUNCHES["plain"] += 1
+    n = n_lanes
+    o = tuple(st[c, :n] for c in (C_OX, C_OY, C_OZ))
+    d = tuple(st[c, :n] for c in (C_DX, C_DY, C_DZ))
+    cmat = cmat.reshape(-1, 8, 2 * block)
+    return _isect_lanes(_expanded_test(cmat, bctr.reshape(-1, 3), o, d),
+                        prims, cand, ctn, st, n, block, ROW, stats)[1]
+
+
+def isect_mxu(prims: torch.Tensor, cmat: torch.Tensor, bctr: torch.Tensor,
+              cand: torch.Tensor, ctn: torch.Tensor, st: torch.Tensor,
+              n_lanes: int, *, block: int) -> torch.Tensor:
+    """K6m's wrapper: ``isect_mxu_plain``'s residual on the stream's
+    device."""
+    if st.device.type == "cpu":
+        return isect_mxu_plain(prims, cmat, bctr, cand, ctn, st, n_lanes,
+                               block=block)
+    return _isect_launch("K6m", prims, cand, ctn, st, n_lanes, block,
+                         (cmat, bctr))
+
+
+def shade_mxu_plain(blob, meta, lsb, prims, cmat, bctr, mtypes, scand, sctn,
+                    st, ids, res, n_lanes: int, **kw) -> None:
+    """Plain version of K7m: ``shade_plain`` with K7m's shadow sweep (the
+    per-row lists, the expanded quadratic, ``_seg_blocked``)."""
+    shade_plain(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
+                n_lanes, mxu=(cmat.reshape(-1, 8, 2 * kw["block"]),
+                              bctr.reshape(-1, 3)), **kw)
+
+
+def shade_mxu(blob, meta, lsb, prims, cmat, bctr, mtypes, scand, sctn, st,
+              ids, res, n_lanes: int, **kw) -> None:
+    """K7m's wrapper: ``shade_mxu_plain``'s bounce, in place, on the
+    stream's device."""
+    if st.device.type == "cpu":
+        return shade_mxu_plain(blob, meta, lsb, prims, cmat, bctr, mtypes,
+                               scand, sctn, st, ids, res, n_lanes, **kw)
+    _shade_launch("K7m", (blob, meta, lsb, prims, mtypes, scand, sctn, st,
+                          ids, res), n_lanes, None, mxu=(cmat, bctr), **kw)
+    LAUNCHES["k7m"] += 1
+
+
+# ---------------------------------------------------------------------------
+# K11: the fused bounce
+# ---------------------------------------------------------------------------
+
+
+def _fused_intersect(mats, mtypes, t, res):
+    """``trace_bounce``'s intersector for K11's plain version: the winner
+    found before the bounce (``t``, K6's residual ``res``), resolved as the
+    JAX package's fused bounce resolves it (``_make_intersectors``' loop
+    over the material table): a padding slot (id -1) is a hit with no
+    material, black, ior 1.5, none of the three types."""
+    def intersect(*_ray):
+        found = t < BIG
+        mid = res[4].long()
+        own = found & (mid >= 0)
+        m = torch.clamp_min(mid, 0)
+        h = dict(cx=res[0], cy=res[1], cz=res[2], r=res[3])
+        for a, key in enumerate(("ar", "ag", "ab", "er", "eg", "eb", "rough",
+                                 "ior")):
+            h[key] = torch.where(own, mats[m, a], 1.5 if key == "ior"
+                                 else 0.0)
+        mt = mtypes[m]
+        return (t, h, own & (mt == LAMBERT), own & (mt == METAL),
+                own & (mt == DIELECTRIC))
+    return intersect
+
+
+def bounce_plain(blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn, st,
+                 ids, n_lanes: int, *, k: int, block: int, n_mats: int,
+                 n_light_slots: int, rr_depth: int, use_nee: bool,
+                 use_mis: bool, sky_mode: int, precull: bool,
+                 stats: dict | None = None,
+                 record: torch.Tensor | None = None) -> None:
+    """Plain version of K11: bounce ``k`` of lanes [0, n_lanes) of the
+    stream, in place, in one step.  The nearest hit by K6's sweep of the
+    tiles' lists ``cand``, ``ctn`` when ``precull``, else by K3's walk of
+    the tree (``megakernel_bvh._Walk``: each lane its own octant table);
+    ``trace_bounce`` on it, a padding winner resolved as
+    ``_fused_intersect`` says; each shadow ray walks the tree and stops at
+    its first blocker.  Dead lanes keep their state; the miss flag as
+    K7's.  ``record``, if given, (8, n_lanes) float32, receives K11g's
+    residual: K6's winner record and, in row 7, the shadow verdict (1
+    where a traced shadow ray is blocked).  ``stats``, if given, gets K7's
+    per-bounce counts, the nearest hit's (K6's sweep counts, or
+    ``"nodes"`` and ``"spheres"`` of the walk) and the shadow walks'
+    ``"shadow_nodes"`` and ``"shadow_spheres"`` added."""
+    LAUNCHES["plain"] += 1
+    n = n_lanes
+    prims = prims.reshape(-1, _N_PRIM_ATTRS, block)
+    mats = blob[_MAT_OFF:_MAT_OFF + _MAT_STRIDE * n_mats].reshape(
+        n_mats, _MAT_STRIDE)
+    walk = _Walk(nodef.reshape(-1, 8), nodei.reshape(-1, 8).long(), prims,
+                 block)
+    o = tuple(st[c, :n] for c in (C_OX, C_OY, C_OZ))
+    d = tuple(st[c, :n] for c in (C_DX, C_DY, C_DZ))
+    work = {}
+    if precull:
+        t, res = _isect_lanes(_compact_test(prims, o, d), prims, cand, ctn,
+                              st, n, block, TILE, work)
+    else:
+        t, win, work["nodes"], work["spheres"] = walk.nearest(
+            o, d, st[C_ALIVE, :n] > 0.5)
+        res = _winner_res(prims, t, win, block)
+    work.update(shadow_nodes=0, shadow_spheres=0)
+
+    def occluded(ox, oy, oz, dx, dy, dz, tmax, need):
+        verdict, nodes, spheres = walk.anyhit((ox, oy, oz), (dx, dy, dz),
+                                              tmax, need)
+        work["shadow_nodes"] += nodes
+        work["shadow_spheres"] += spheres
+        res[7] = verdict.to(torch.float32)
+        return verdict
+
+    _trace_lanes(blob, meta, lsb, st, ids, n,
+                 _fused_intersect(mats, mtypes.long(), t, res), occluded,
+                 k=k, n_mats=n_mats, n_light_slots=n_light_slots,
+                 rr_depth=rr_depth, use_nee=use_nee, use_mis=use_mis,
+                 sky_mode=sky_mode, stats=stats)
+    _add_stats(stats, work)
+    if record is not None:
+        record.copy_(res)
+
+
+def bounce(blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn, st, ids,
+           n_lanes: int, **kw) -> None:
+    """K11's wrapper: ``bounce_plain``'s bounce, in place, on the stream's
+    device.  Without ``precull``, ``cand`` and ``ctn`` are not read."""
+    if st.device.type == "cpu":
+        return bounce_plain(blob, meta, lsb, nodef, nodei, prims, mtypes,
+                            cand, ctn, st, ids, n_lanes, **kw)
+    _bounce_launch("K11", (blob, meta, lsb, nodef, nodei, prims, mtypes,
+                           cand, ctn, st, ids), n_lanes, None, **kw)
+    LAUNCHES["k11"] += 1
+
+
+def _bounce_launch(name, args, n_lanes: int, record, *, k: int, block: int,
+                   n_mats: int, n_light_slots: int, rr_depth: int,
+                   use_nee: bool, use_mis: bool, sky_mode: int,
+                   precull: bool) -> None:
+    """Checks and launches K11's kernel on CUDA tensors: K11 with
+    ``record`` None, K11g (which also writes the (8, n_lanes) residual into
+    ``record``) otherwise."""
+    blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn, st, ids = args
+    if st.device.type != "cuda":
+        raise NotImplementedError(f"{name} has no kernel for {st.device}")
+    if any(a.device != st.device for a in args):
+        raise ValueError(f"{name}'s inputs must lie on one device")
+    _check_stream(st, ids)
+    if not 0 <= n_lanes <= st.shape[1] or n_lanes % TILE:
+        raise ValueError(f"{name}: {n_lanes} lanes of a stream of "
+                         f"{st.shape[1]}")
+    nb = prims.numel() // (_N_PRIM_ATTRS * block)
+    n_nodes = nodef.numel() // 64
+    _check(blob, "blob", torch.float32, _MAT_OFF + _MAT_STRIDE * n_mats
+           + _LIGHT_STRIDE * max(n_light_slots, 1))
+    _check(meta, "meta", torch.int32, 3)
+    _check(lsb, "lsb", torch.float32, 6)
+    _check(nodef, "nodef", torch.float32, 64 * n_nodes)
+    _check(nodei, "nodei", torch.int32, 64 * n_nodes)
+    _check(prims, "prims", torch.float32, _N_PRIM_ATTRS * block * nb)
+    _check(mtypes, "mtypes", torch.int32, n_mats)
+    if nodef.data_ptr() % 16 or nodei.data_ptr() % 8:
+        raise ValueError(f"{name} reads node rows as float4 / int2: nodef "
+                         "must be 16-byte and nodei 8-byte aligned")
+    if precull:
+        _check_lists(cand, ctn, n_lanes // TILE, nb)
+    if record is not None:
+        _check(record, "record", torch.float32, N_RES * n_lanes)
+    from ._build import load_library
+    lib = load_library("wavefront")
+    with torch.cuda.device(st.device):
+        err = lib.spt_wavefront_bounce(
+            *(a.data_ptr() for a in (st, ids, blob, meta, lsb, nodef, nodei,
+                                     prims, mtypes, cand, ctn)),
+            0 if record is None else record.data_ptr(),
+            st.shape[1], n_lanes, n_nodes, nb, block, n_mats, n_light_slots,
+            k, rr_depth, int(bool(use_nee)), int(bool(use_mis)),
+            int(sky_mode), int(bool(precull)),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+# ---------------------------------------------------------------------------
 # Glue: environment map and image
 # ---------------------------------------------------------------------------
 
@@ -938,10 +1348,11 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
                       height: int, chunk_spp: int, max_bounces: int,
                       rr_depth: int, use_nee: bool, use_mis: bool,
                       sky_mode: int, dof: bool, compact: bool,
-                      sort_min_rays: int, stages: tuple,
+                      sort_min_rays: int, split: bool, precull: bool,
+                      mxu: bool, stages: tuple,
                       times: dict | None) -> torch.Tensor:
     """One chunk of ``chunk_spp`` images -> (H, W, 3) radiance sum."""
-    k5, k6, k7 = stages
+    k5, k6, k7, k11, k6m, k7m = stages
     block, n_mats = static["block"], static["n_mats"]
     n_light_slots = static["n_light_slots"]
     blob, prims = t["blob"], t["prims"]
@@ -953,11 +1364,17 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
     n_tiles = st.shape[1] // TILE - 1
     lo, ext = _scene_sort_bounds(t["nodef"])
     lob, hib = _leaf_block_bounds(prims.reshape(-1, _N_PRIM_ATTRS, block))
+    mxu = mxu and split
+    if mxu:
+        cmat, bctr = build_cmat(prims.reshape(-1, _N_PRIM_ATTRS, block))
     nl = int(_np(meta[2]))
     seed = int(_np(meta[1])) & rng.MASK32
     shadows = use_nee and n_light_slots > 0
     none_i = torch.zeros((1, 1, 1), dtype=torch.int32, device=blob.device)
     none_f = torch.zeros((1, 1, 1), dtype=torch.float32, device=blob.device)
+    kw = dict(block=block, n_mats=n_mats, n_light_slots=n_light_slots,
+              rr_depth=rr_depth, use_nee=use_nee, use_mis=use_mis,
+              sky_mode=sky_mode)
     nalive = n_tiles
     for k in range(max_bounces):
         lanes = _sort_span(k, nalive, n_tiles, sort_min_rays, compact)
@@ -969,26 +1386,38 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
         if nalive == 0:
             break
         n = nalive * TILE
-        with clock("precull"):
-            cand, ctn = precull_tiles(
-                tuple(st[c, :n] for c in (C_OX, C_OY, C_OZ)),
-                tuple(st[c, :n] for c in (C_DX, C_DY, C_DZ)),
-                st[C_ALIVE, :n], None, lob, hib)
-        with clock("k6"):
-            res = k6(prims, cand, ctn, st, n, block=block)
-        scand, sctn = none_i, none_f
-        if shadows:
-            with clock("shadow"):
-                so3, sd3, stmax, sneed = shadow_rays(
-                    st[:, :n], ids[:, :n], res, blob, t["lsb"], nl, k=k,
-                    seed=seed, n_mats=n_mats, mtypes=static["mtypes"],
-                    n_light_slots=n_light_slots)
-                scand, sctn = precull_tiles(so3, sd3, sneed, stmax, lob, hib)
-        with clock("k7"):
-            k7(blob, meta, t["lsb"], prims, t["mtypes"], scand, sctn, st, ids,
-               res, n, k=k, block=block, n_mats=n_mats,
-               n_light_slots=n_light_slots, rr_depth=rr_depth,
-               use_nee=use_nee, use_mis=use_mis, sky_mode=sky_mode)
+        cand, ctn = none_i, none_f
+        if split or precull:
+            with clock("precull"):
+                cand, ctn = precull_tiles(
+                    tuple(st[c, :n] for c in (C_OX, C_OY, C_OZ)),
+                    tuple(st[c, :n] for c in (C_DX, C_DY, C_DZ)),
+                    st[C_ALIVE, :n], None, lob, hib, per_row=mxu)
+        if not split:
+            with clock("k11"):
+                k11(blob, meta, t["lsb"], t["nodef"], t["nodei"], prims,
+                    t["mtypes"], cand, ctn, st, ids, n, k=k,
+                    precull=precull, **kw)
+        else:
+            with clock("k6m" if mxu else "k6"):
+                res = (k6m(prims, cmat, bctr, cand, ctn, st, n, block=block)
+                       if mxu else k6(prims, cand, ctn, st, n, block=block))
+            scand, sctn = none_i, none_f
+            if shadows:
+                with clock("shadow"):
+                    so3, sd3, stmax, sneed = shadow_rays(
+                        st[:, :n], ids[:, :n], res, blob, t["lsb"], nl, k=k,
+                        seed=seed, n_mats=n_mats, mtypes=static["mtypes"],
+                        n_light_slots=n_light_slots)
+                    scand, sctn = precull_tiles(so3, sd3, sneed, stmax, lob,
+                                                hib, per_row=mxu)
+            with clock("k7m" if mxu else "k7"):
+                if mxu:
+                    k7m(blob, meta, t["lsb"], prims, cmat, bctr, t["mtypes"],
+                        scand, sctn, st, ids, res, n, k=k, **kw)
+                else:
+                    k7(blob, meta, t["lsb"], prims, t["mtypes"], scand, sctn,
+                       st, ids, res, n, k=k, **kw)
         if sky_mode == SKY_ENVMAP:
             with clock("env"):
                 _add_env_radiance(st[:, :n], env)
@@ -1016,39 +1445,57 @@ def render_wavefront(scene: SceneData, camera, width: int, height: int,
                      start_sample: int, spp: int, *, max_bounces=8,
                      rr_depth=3, use_nee=True, use_mis=True, seed=0,
                      dof=None, block: int = BLOCK, compact: bool = True,
-                     sort_min_rays: int = 1 << 17,
+                     precull: bool = True, split: bool = True,
+                     mxu: bool = False, sort_min_rays: int = 1 << 17,
                      chunk_rays: int = 4 << 20) -> torch.Tensor:
     """Render ``spp`` samples with the sorted wavefront; returns the (H, W,
     3) radiance sum.
 
-    Runs on the scene's device: K5-K7 for a scene on the card, their plain
-    versions for a scene on the CPU.  The stream holds at most
+    Runs on the scene's device: the kernels for a scene on the card, their
+    plain versions for a scene on the CPU.  The stream holds at most
     ``chunk_rays`` rays: samples go in chunks of as many whole images.  A
     sort runs before bounces 1.. while more than ``sort_min_rays`` rays
     were alive; ``compact=False`` keeps every lane in every launch and
     sorts the whole stream (for tests).  ``dof=None`` takes the thin lens
-    iff the camera has an aperture."""
+    iff the camera has an aperture.
+
+    Each bounce is split by default: K6 intersects, the glue rebuilds and
+    culls the shadow rays, K7 shades.  ``split=False`` runs it as one
+    kernel, K11, whose shadow rays walk the tree; there ``precull=False``
+    finds the nearest hit by the walk too, where ``precull`` (the default)
+    sweeps the tiles' lists as K6 does.  ``mxu=True`` runs the split
+    bounce's sweeps in their matmul form, K6m and K7m, over per-row lists.
+    As in the JAX package, ``precull`` acts on the fused bounce only and
+    ``mxu`` on the split bounce only.  Either way the image is the same
+    but at knife edges: the fused bounce equals the split one bit for bit
+    where no ray wins a leaf's padding slot (the fused bounce shades such a
+    winner, the split one takes the sky); the matmul form rounds
+    otherwise."""
     return _render(scene, camera, width, height, start_sample, spp,
                    max_bounces=max_bounces, rr_depth=rr_depth,
                    use_nee=use_nee, use_mis=use_mis, seed=seed, dof=dof,
-                   block=block, compact=compact, sort_min_rays=sort_min_rays,
+                   block=block, compact=compact, precull=precull, split=split,
+                   mxu=mxu, sort_min_rays=sort_min_rays,
                    chunk_rays=chunk_rays)
 
 
-KERNELS = (raygen, isect, shade)
-PLAIN = (raygen_plain, isect_plain, shade_plain)
+KERNELS = (raygen, isect, shade, bounce, isect_mxu, shade_mxu)
+PLAIN = (raygen_plain, isect_plain, shade_plain, bounce_plain,
+         isect_mxu_plain, shade_mxu_plain)
 
 
 def _render(scene: SceneData, camera, width: int, height: int,
             start_sample: int, spp: int, *, stages: tuple = KERNELS,
             times: dict | None = None, max_bounces=8, rr_depth=3,
             use_nee=True, use_mis=True, seed=0, dof=None, block: int = BLOCK,
-            compact: bool = True, sort_min_rays: int = 1 << 17,
+            compact: bool = True, precull: bool = True, split: bool = True,
+            mxu: bool = False, sort_min_rays: int = 1 << 17,
             chunk_rays: int = 4 << 20) -> torch.Tensor:
-    """``render_wavefront`` with its K5-K7 stages given (``PLAIN`` runs
-    the plain versions on either device, to hold the kernels against them
-    on the card).  ``times``, if given, gets each stage's device
-    milliseconds (CUDA events; it synchronizes after every stage)."""
+    """``render_wavefront`` with its stages given (``KERNELS``, or
+    ``PLAIN`` to run the plain versions on either device, to hold the
+    kernels against them on the card).  ``times``, if given, gets each
+    stage's device milliseconds (CUDA events; it synchronizes after every
+    stage)."""
     t, static = packed(scene, camera, block)
     if dof is None:
         dof = bool(float(_np(camera.aperture)) > 0.0)
@@ -1069,8 +1516,8 @@ def _render(scene: SceneData, camera, width: int, height: int,
             t, static, env, meta, width=width, height=height, chunk_spp=n,
             max_bounces=max_bounces, rr_depth=rr_depth, use_nee=bool(use_nee),
             use_mis=bool(use_mis), sky_mode=scene.sky_mode, dof=bool(dof),
-            compact=compact, sort_min_rays=sort_min_rays, stages=stages,
-            times=times)
+            compact=compact, sort_min_rays=sort_min_rays, split=bool(split),
+            precull=bool(precull), mxu=bool(mxu), stages=stages, times=times)
         img = part if img is None else img + part
         s += n
     return img
@@ -1082,6 +1529,12 @@ def _render(scene: SceneData, camera, width: int, height: int,
 # K7's bounce is K1's (hit, miss, shadow) less its nearest-hit sweep, plus
 # the rebuilt winner (a sphere test and the root choice, 20).
 WF_OPS = dict(K1_OPS, block=1, rebuild=20)
+# K6m and K7m per lane and block swept: o' = o - bctr, d.o' and |o'|^2
+# (13); per slot, its two table columns of 8 products summed (30) and
+# shifted by d.o' and |o'|^2 (2), then the root and its tests (12: the
+# nearest root's, or ``_seg_blocked``'s squares and compares).  Every slot
+# of a block is computed, padding too.
+MXU_OPS = dict(block=13, slot=44)
 
 
 def k6_op_count(stats: dict) -> int:
@@ -1151,3 +1604,67 @@ def k7_byte_count(stats: dict, n_lanes: int, block: int) -> int:
     return 4 * ((15 + N_IDS + 5 + 16) * a + 2 * (n_lanes - a)
                 + stats["shadow_list_words"]
                 + 4 * block * stats["shadow_blocks_read"])
+
+
+def k6m_op_count(stats: dict, block: int) -> int:
+    """Lower count of K6m's fp32 operations for ``isect_mxu_plain``'s
+    stats: every slot of each block a lane takes, in the expanded form."""
+    return stats["blocks"] * (WF_OPS["block"] + MXU_OPS["block"]
+                              + block * MXU_OPS["slot"])
+
+
+def k6m_byte_count(stats: dict, n_lanes: int, block: int) -> int:
+    """Bytes K6m must move, each word once: K6's, with each distinct block
+    swept read as its (8, 2 block) table and centre in place of its slots
+    (a lower count: the winners' rows of ``prims`` are left out)."""
+    return 4 * ((1 + N_RES) * n_lanes + 6 * stats["alive"]
+                + stats["list_words"] + (16 * block + 3) * stats["blocks_read"])
+
+
+def k7m_op_count(stats: dict, block: int) -> int:
+    """Lower count of K7m's fp32 operations for ``shade_mxu_plain``'s
+    stats: K7's, its shadow sweep in the expanded form (every slot of each
+    block a shadow ray takes)."""
+    return (k7_op_count(dict(stats, shadow_spheres=0))
+            + stats["shadow_blocks"] * (MXU_OPS["block"]
+                                        + block * MXU_OPS["slot"]))
+
+
+def k7m_byte_count(stats: dict, n_lanes: int, block: int) -> int:
+    """Bytes K7m must move, each word once: K7's, each distinct shadow
+    block read as its table and centre."""
+    return k7_byte_count(dict(stats, shadow_blocks_read=0), n_lanes, 0) \
+        + 4 * (16 * block + 3) * stats["shadow_blocks_read"]
+
+
+def k11_op_count(stats: dict) -> int:
+    """Lower count of K11's fp32 operations for ``bounce_plain``'s stats:
+    K7's bounce on a winner it found itself (no rebuild), its nearest hit
+    by K6's sweep or by K3's walk (per lane the walk's setup, per node the
+    slab test), and every shadow ray's walk."""
+    walk = K3_OPS["walk_setup"]
+    if "nodes" in stats:
+        nearest = (stats["active"] * walk + stats["nodes"]
+                   * K3_OPS["node_test"] + stats["spheres"]
+                   * WF_OPS["sphere_test"])
+    else:
+        nearest = k6_op_count(stats)
+    return (nearest + (stats["active"] - stats["hit"]) * WF_OPS["miss"]
+            + stats["hit"] * WF_OPS["hit"]
+            + stats["shadow"] * (WF_OPS["shadow"] + walk)
+            + stats["shadow_nodes"] * K3_OPS["node_test"]
+            + stats["shadow_spheres"] * WF_OPS["sphere_test"])
+
+
+def k11_byte_count(stats: dict, n_lanes: int, tree_words: int,
+                   record: bool = False) -> int:
+    """Bytes K11 must move, each word once: an alive lane reads 15 state
+    channels and its ids and writes 16 channels, a dead lane reads its
+    alive flag and writes its miss flag, the list words read where it
+    sweeps lists, and the tree (``tree_words``: nodef, nodei and prims, as
+    K3's count reads each input once).  K11g (``record``) also writes its
+    8-row residual."""
+    a = stats["active"]
+    return 4 * ((15 + N_IDS + 16) * a + 2 * (n_lanes - a)
+                + stats.get("list_words", 0) + tree_words
+                + (N_RES * n_lanes if record else 0))

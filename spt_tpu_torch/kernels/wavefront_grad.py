@@ -1,7 +1,7 @@
 """The differentiable sorted wavefront: large-scene gradients above 2048 prims.
 
-The port of ``spt_tpu.kernels.wavefront_grad``'s split path.  Each bounce of
-the wavefront (``wavefront.py``) becomes differentiable with respect to the
+The port of ``spt_tpu.kernels.wavefront_grad``.  Each bounce of the
+wavefront (``wavefront.py``) becomes differentiable with respect to the
 packed blob (sky, material table, light slots) and prim table (centres and
 radii), and so, through ``megakernel_bvh.pack_blob_torch`` and
 ``pack_prims_torch``, to the scene's parameters:
@@ -18,15 +18,24 @@ radii), and so, through ``megakernel_bvh.pack_blob_torch`` and
 
 The forward is K7's bounce on K6's winner, so a render equals the forward
 wavefront's; the backward never traverses.  Each bounce keeps its
-pre-bounce stream, ids and residual until ``backward``.
+pre-bounce stream, ids and residual until ``backward``.  With
+``split=False`` a bounce's forward is the fused bounce K11g instead (K11
+recording K6's residual and the shadow verdict: no K6, no shadow precull;
+its nearest hit by the tiles' lists or, ``precull=False``, by a walk of
+the refit tree), the same K10 backward:
+
+  K5 raygen -> [ sort -> (precull) -> bounce op: K11g forward, K10
+                 backward -> env-map radiance ] x depth -> scatter
 
 * ``shade_fwd`` / ``shade_fwd_plain`` (K9): K7 out of place, plus the
-  (n,) blocked mask.  ``bounce_bwd`` / ``bounce_bwd_plain`` (K10): one
-  bounce's adjoint from the saved state and residual -> d(state_in) (17,
+  (n,) blocked mask.  ``bounce_fwd`` / ``bounce_fwd_plain`` (K11g): K11
+  out of place, plus the (8, n) residual.  ``bounce_bwd`` /
+  ``bounce_bwd_plain`` (K10): one bounce's adjoint from the saved state and residual -> d(state_in) (17,
   R), the per-lane d(centre, radius) (4, n) and the scalar gradients
   (n_scal,).  A wrapper runs the plain version for CPU tensors and
   launches the hand-written kernel (``csrc/wavefront.cu``) for CUDA
-  tensors, or raises.  ``LAUNCHES["k9"]`` and ``["k10"]`` count them.
+  tensors, or raises.  ``LAUNCHES["k9"]``, ``["k10"]`` and ``["k11g"]``
+  count them.
 * ``make_wavefront_render_fn`` returns ``render(params, start_sample)``.
 
 Lanes past the alive prefix are neither shaded nor replayed: their state
@@ -49,10 +58,11 @@ from .megakernel_bvh_grad import n_scalars
 from .physics_adjoint import rebuilt_bounce_vjp
 from .wavefront import (C_ALIVE, C_DX, C_DY, C_DZ, C_LB, C_LG, C_LR,
                         C_MISS, C_SPEC, C_TB, C_TG, C_TR, N_CH, N_IDS,
-                        N_RES, Q_BITS, TILE, WF_OPS, _check_stream,
-                        _coherence_key, _dead_key, _leaf_block_bounds,
-                        _lights, _scatter_image, _scene_sort_bounds,
-                        _shade_launch, _sort_span, isect, isect_plain, precull_tiles,
+                        N_RES, Q_BITS, TILE, WF_OPS, _bounce_launch,
+                        _check_stream, _coherence_key, _dead_key,
+                        _leaf_block_bounds, _lights, _scatter_image,
+                        _scene_sort_bounds, _shade_launch, _sort_span,
+                        bounce_plain, isect, isect_plain, precull_tiles,
                         raygen, raygen_plain, sample_env_map, shade_plain,
                         shadow_rays, stream_tiles)
 
@@ -86,6 +96,40 @@ def shade_fwd(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
                          ids, res), n_lanes, blocked, **kw)
     LAUNCHES["k9"] += 1
     return out, blocked
+
+
+# ---------------------------------------------------------------------------
+# K11g: the fused bounce, recording its winner and shadow verdict
+# ---------------------------------------------------------------------------
+
+
+def bounce_fwd_plain(blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn,
+                     st, ids, n_lanes: int, **kw):
+    """Plain version of K11g -> (new stream (17, R), residual (8,
+    n_lanes)): ``bounce_plain``'s bounce on a copy of ``st``, and its
+    record, K6's winner residual with the shadow verdict in row 7 (what
+    K10 replays)."""
+    out = st.clone()
+    res = torch.empty((N_RES, n_lanes), dtype=torch.float32, device=st.device)
+    bounce_plain(blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn, out,
+                 ids, n_lanes, record=res, **kw)
+    return out, res
+
+
+def bounce_fwd(blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn, st,
+               ids, n_lanes: int, **kw):
+    """K11g's wrapper: ``bounce_fwd_plain``'s outputs on the stream's
+    device (K11's kernel on a copy of the stream, writing the residual
+    too)."""
+    if st.device.type == "cpu":
+        return bounce_fwd_plain(blob, meta, lsb, nodef, nodei, prims, mtypes,
+                                cand, ctn, st, ids, n_lanes, **kw)
+    out = st.clone()
+    res = torch.empty((N_RES, n_lanes), dtype=torch.float32, device=st.device)
+    _bounce_launch("K11g", (blob, meta, lsb, nodef, nodei, prims, mtypes,
+                            cand, ctn, out, ids), n_lanes, res, **kw)
+    LAUNCHES["k11g"] += 1
+    return out, res
 
 
 # ---------------------------------------------------------------------------
@@ -248,37 +292,35 @@ def _grads_from_bwd(blob, res, dgeo, dscal, *, n_mats: int,
                                    block)[:n_blocks]
 
 
-class _ShadeOp(torch.autograd.Function):
-    """(blob, prims, st) -> the stream after one bounce: K9 forward, K10
-    backward.  ``st`` is saved with the residual and the blocked mask; the
-    lists, ids and residual come from detached values and carry no
-    gradient."""
+class _BounceOp(torch.autograd.Function):
+    """(blob, prims, st) -> the stream after one bounce.  Forward:
+    ``cfg["forward"](blob, prims, st)`` -> (new stream, residual with the
+    shadow verdict in row 7): K9 on K6's winner (the split bounce) or K11g
+    (the fused one).  Backward: K10 replays the bounce from ``st`` and the
+    residual, both saved.  The lists, ids and residual come from detached
+    values and carry no gradient."""
 
     @staticmethod
-    def forward(ctx, blob, prims, st, ids, res, scand, sctn, cfg):
-        out, blocked = cfg["shade_fwd"](
-            blob, cfg["meta"], cfg["lsb"], prims, cfg["mtypes"], scand, sctn,
-            st, ids, res, cfg["n_lanes"], **cfg["kw"])
-        res8 = res.clone()
-        res8[7] = blocked
-        ctx.save_for_backward(blob, st, ids, res8)
+    def forward(ctx, blob, prims, st, cfg):
+        out, res8 = cfg["forward"](blob, prims, st)
+        ctx.save_for_backward(blob, st, res8)
         ctx.cfg = cfg
         return out
 
     @staticmethod
     def backward(ctx, ct):
-        blob, st, ids, res8 = ctx.saved_tensors
+        blob, st, res8 = ctx.saved_tensors
         cfg = ctx.cfg
         kw = dict(cfg["kw"])
         block = kw.pop("block")
         din, dgeo, dscal = cfg["bounce_bwd"](
-            blob, cfg["meta"], cfg["lsb"], cfg["mtypes"], st, ids, res8,
-            ct.contiguous(), cfg["n_lanes"], **kw)
+            blob, cfg["meta"], cfg["lsb"], cfg["mtypes"], st, cfg["ids"],
+            res8, ct.contiguous(), cfg["n_lanes"], **kw)
         d_blob, d_prims = _grads_from_bwd(
             blob, res8, dgeo, dscal, n_mats=kw["n_mats"],
             n_light_slots=kw["n_light_slots"], n_blocks=cfg["n_blocks"],
             block=block)
-        return d_blob, d_prims, din, None, None, None, None, None
+        return d_blob, d_prims, din, None
 
 
 # ---------------------------------------------------------------------------
@@ -286,15 +328,17 @@ class _ShadeOp(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def _run_wavefront_diff(blob, meta, nodef, prims, env, static, *, width: int,
-                        height: int, chunk_spp: int, max_bounces: int,
-                        rr_depth: int, use_nee: bool, use_mis: bool,
-                        sky_mode: int, dof: bool, sort_min_rays: int,
+def _run_wavefront_diff(blob, meta, nodef, nodei, prims, env, static, *,
+                        width: int, height: int, chunk_spp: int,
+                        max_bounces: int, rr_depth: int, use_nee: bool,
+                        use_mis: bool, sky_mode: int, dof: bool,
+                        sort_min_rays: int, split: bool, precull: bool,
                         stages: tuple):
     """One differentiable chunk of ``chunk_spp`` images -> (H, W, 3)
-    radiance sum, the forward wavefront's loop with each bounce's shading
-    behind ``_ShadeOp``."""
-    k5, k6, k9, k10 = stages
+    radiance sum, the forward wavefront's loop with each bounce behind
+    ``_BounceOp``: K6 and K9 (``split``), or K11g with its own walk or
+    list sweep (``precull``)."""
+    k5, k6, k9, k10 = stages[:4]
     block, n_mats = static["block"], static["n_mats"]
     n_light_slots = static["n_light_slots"]
     blob_d, prims_d = blob.detach(), prims.detach()
@@ -320,39 +364,57 @@ def _run_wavefront_diff(blob, meta, nodef, prims, env, static, *, width: int,
             break
         n = nalive * TILE
         st_d = st.detach()
-        cand, ctn = precull_tiles(
-            tuple(st_d[c, :n] for c in range(3)),
-            tuple(st_d[c, :n] for c in range(3, 6)), st_d[C_ALIVE, :n],
-            None, lob, hib)
-        res = k6(prims_d, cand, ctn, st_d, n, block=block)
-        scand, sctn = none_i, none_f
-        if shadows:
-            so3, sd3, stmax, sneed = shadow_rays(
-                st_d[:, :n], ids[:, :n], res, blob_d, lsb, nl, k=k,
-                seed=seed, n_mats=n_mats, mtypes=static["mtypes"],
-                n_light_slots=n_light_slots)
-            scand, sctn = precull_tiles(so3, sd3, sneed, stmax, lob, hib)
-        cfg = dict(shade_fwd=k9, bounce_bwd=k10, meta=meta, lsb=lsb,
-                   mtypes=mtypes, n_lanes=n, n_blocks=prims.shape[0],
-                   kw=dict(k=k, block=block, n_mats=n_mats,
-                           n_light_slots=n_light_slots, rr_depth=rr_depth,
-                           use_nee=use_nee, use_mis=use_mis,
-                           sky_mode=sky_mode))
-        st = _ShadeOp.apply(blob, prims, st, ids, res, scand, sctn, cfg)
+        kw = dict(k=k, block=block, n_mats=n_mats,
+                  n_light_slots=n_light_slots, rr_depth=rr_depth,
+                  use_nee=use_nee, use_mis=use_mis, sky_mode=sky_mode)
+        cand, ctn = none_i, none_f
+        if split or precull:
+            cand, ctn = precull_tiles(
+                tuple(st_d[c, :n] for c in range(3)),
+                tuple(st_d[c, :n] for c in range(3, 6)), st_d[C_ALIVE, :n],
+                None, lob, hib)
+        if split:
+            res = k6(prims_d, cand, ctn, st_d, n, block=block)
+            scand, sctn = none_i, none_f
+            if shadows:
+                so3, sd3, stmax, sneed = shadow_rays(
+                    st_d[:, :n], ids[:, :n], res, blob_d, lsb, nl, k=k,
+                    seed=seed, n_mats=n_mats, mtypes=static["mtypes"],
+                    n_light_slots=n_light_slots)
+                scand, sctn = precull_tiles(so3, sd3, sneed, stmax, lob, hib)
+
+            def forward(blob_, prims_, st_, res=res, scand=scand, sctn=sctn,
+                        ids=ids, n=n, kw=kw):
+                out, blocked = k9(blob_, meta, lsb, prims_, mtypes, scand,
+                                  sctn, st_, ids, res, n, **kw)
+                res8 = res.clone()
+                res8[7] = blocked
+                return out, res8
+        else:
+            def forward(blob_, prims_, st_, cand=cand, ctn=ctn, ids=ids, n=n,
+                        kw=kw):
+                return stages[4](blob_, meta, lsb, nodef.detach(), nodei,
+                                 prims_, mtypes, cand, ctn, st_, ids, n,
+                                 precull=precull, **kw)
+        cfg = dict(forward=forward, bounce_bwd=k10, meta=meta, lsb=lsb,
+                   mtypes=mtypes, ids=ids, n_lanes=n,
+                   n_blocks=prims.shape[0], kw=kw)
+        st = _BounceOp.apply(blob, prims, st, cfg)
         if sky_mode == SKY_ENVMAP:
             st = _add_env_radiance_diff(st, env, n)
     return _scatter_image(st, ids, width, height)
 
 
-KERNELS = (raygen, isect, shade_fwd, bounce_bwd)
-PLAIN = (raygen_plain, isect_plain, shade_fwd_plain, bounce_bwd_plain)
+KERNELS = (raygen, isect, shade_fwd, bounce_bwd, bounce_fwd)
+PLAIN = (raygen_plain, isect_plain, shade_fwd_plain, bounce_bwd_plain,
+         bounce_fwd_plain)
 
 
 def make_wavefront_render_fn(scene: SceneData, camera, width: int,
                              height: int, *, spp: int, max_bounces: int = 8,
                              rr_depth: int = 3, use_nee: bool = True,
                              use_mis: bool = True, seed: int = 0,
-                             split: bool = True,
+                             split: bool = True, precull: bool = True,
                              sort_min_rays: int = 1 << 17,
                              chunk_rays: int = 2 << 20):
     """render(params, start_sample) -> (H, W, 3) mean radiance of samples
@@ -361,32 +423,35 @@ def make_wavefront_render_fn(scene: SceneData, camera, width: int,
     device; their plain versions for a scene on the CPU).
 
     ``params`` may hold any subset of ``diff.cuda_diff.PARAM_KEYS``;
-    centres or radii refit the tree's boxes (``refit_nodef_torch``) each call.  Samples go
-    in chunks of as many whole images as ``chunk_rays`` rays hold (JAX's
-    grad default, one 1080p image a chunk); every chunk's bounces stay
-    saved until ``backward``.  ``split=False`` (the fused bounce K11) is
-    not ported."""
-    if not split:
-        raise NotImplementedError(
-            "split=False: the fused wavefront bounce K11 is ROADMAP.md item "
-            "15, not ported yet")
+    centres or radii refit the tree's boxes (``refit_nodef_torch``) each
+    call.  Samples go in chunks of as many whole images as ``chunk_rays``
+    rays hold (JAX's grad default, one 1080p image a chunk); every chunk's
+    bounces stay saved until ``backward``.  ``split=False`` runs each
+    bounce's forward as the fused bounce K11g (its nearest hit by the
+    tiles' lists, or with ``precull=False`` by a walk of the refit tree;
+    its shadow rays walk the tree) and K10 backward; ``precull`` acts on
+    the fused bounce only, as in the JAX package.  The two give the same
+    value and gradients but where a ray wins a leaf's padding slot."""
     return _make_render_fn(scene, camera, width, height, stages=KERNELS,
                            spp=spp, max_bounces=max_bounces,
                            rr_depth=rr_depth, use_nee=use_nee,
-                           use_mis=use_mis, seed=seed,
-                           sort_min_rays=sort_min_rays, chunk_rays=chunk_rays)
+                           use_mis=use_mis, seed=seed, split=split,
+                           precull=precull, sort_min_rays=sort_min_rays,
+                           chunk_rays=chunk_rays)
 
 
 def _make_render_fn(scene: SceneData, camera, width: int, height: int, *,
                     stages: tuple, spp: int, max_bounces: int, rr_depth: int,
                     use_nee: bool, use_mis: bool, seed: int,
-                    sort_min_rays: int, chunk_rays: int, block: int = BLOCK):
-    """``make_wavefront_render_fn`` with its K5, K6, K9 and K10 stages given
-    (``PLAIN`` runs the plain versions on either device, to hold the
-    kernels against them on the card)."""
+                    sort_min_rays: int, chunk_rays: int, block: int = BLOCK,
+                    split: bool = True, precull: bool = True):
+    """``make_wavefront_render_fn`` with its stages given: K5, K6, K9, K10
+    and K11g (``PLAIN`` runs the plain versions on either device, to hold
+    the kernels against them on the card; the split bounce reads only the
+    first four)."""
     from ..diff import gradients as G
     t, static = packed(scene, camera, block)
-    nodef0 = t["nodef"]
+    nodef0, nodei = t["nodef"], t["nodei"]
     dof = bool(float(_np(camera.aperture)) > 0.0)
     env = scene.env_map
     if env is None or scene.sky_mode != SKY_ENVMAP:
@@ -398,7 +463,8 @@ def _make_render_fn(scene: SceneData, camera, width: int, height: int, *,
     kw = dict(width=width, height=height, max_bounces=max_bounces,
               rr_depth=rr_depth, use_nee=bool(use_nee),
               use_mis=bool(use_mis), sky_mode=scene.sky_mode, dof=dof,
-              sort_min_rays=sort_min_rays, stages=stages)
+              sort_min_rays=sort_min_rays, split=bool(split),
+              precull=bool(precull), stages=stages)
 
     def render(params: dict, start_sample) -> torch.Tensor:
         sc = G.apply_params(scene, params)
@@ -413,8 +479,8 @@ def _make_render_fn(scene: SceneData, camera, width: int, height: int, *,
             meta = torch.tensor([int(start_sample) + s, seed,
                                  static["n_light_slots"]],
                                 dtype=torch.int32).to(scene.device)
-            part = _run_wavefront_diff(blob, meta, nodef, prims, env, static,
-                                       chunk_spp=n, **kw)
+            part = _run_wavefront_diff(blob, meta, nodef, nodei, prims, env,
+                                       static, chunk_spp=n, **kw)
             img = part if img is None else img + part
             s += n
         return img * (1.0 / spp)

@@ -572,3 +572,161 @@ def test_kernel_render_routes_envmap_to_wavefront(cuda):
     assert sum(runs.values()) == sum(runs[k] for k in kernels)
     with pytest.raises(ValueError, match="environment-map"):
         cuda_diff.make_cuda_render_fn(sd, cam, 32, 24, spp=1, engine="fused")
+
+
+def _fused_bounce(cuda, case):
+    """``_grad_bounce``'s bounce, its stream's buffer to copy from, and
+    K11's keyword arguments and tree."""
+    wf, t, meta, b, kw, args = _grad_bounce(cuda, case)
+    return wf, t, meta, b, kw, args, b["buf"].clone()
+
+
+def _fresh(wf, base):
+    b = base.clone()
+    return b[:wf.N_CH], b[wf.N_CH:].view(torch.int32)
+
+
+@pytest.mark.parametrize("case", ["scene200", "padding"])
+@pytest.mark.parametrize("precull", [True, False])
+def test_k11_matches_plain_and_split(cuda, case, precull):
+    """K11 against its plain version at K1's bar and K11g's record equal
+    to the plain K11g's; K11 and K11g give one state bit for bit; on the
+    200-sphere scene, where no ray wins a padding slot, K11 equals K6+K7
+    bit for bit and K11g's record K6's residual and K9's verdict."""
+    from spt_tpu_torch.kernels import wavefront_grad as wg
+    wf, t, meta, b, kw, args, base = _fused_bounce(cuda, case)
+    n = b["n"]
+    fargs = (t["blob"], meta, t["lsb"], t["nodef"], t["nodei"], t["prims"],
+             t["mtypes"], b["cand"], b["ctn"])
+    st, ids = _fresh(wf, base)
+    before = dict(mk.LAUNCHES)
+    wf.bounce(*fargs, st, ids, n, precull=precull, **kw)
+    out_g, res_g = wg.bounce_fwd(*fargs, *_fresh(wf, base), n,
+                                 precull=precull, **kw)
+    assert mk.LAUNCHES == dict(before, k11=before["k11"] + 1,
+                               k11g=before["k11g"] + 1)
+    assert torch.equal(out_g.view(torch.int32), st.view(torch.int32))
+    st_p, ids_p = _fresh(wf, base)
+    wf.bounce_plain(*fargs, st_p, ids_p, n, precull=precull, **kw)
+    _, res_p = wg.bounce_fwd_plain(*fargs, *_fresh(wf, base), n,
+                                   precull=precull, **kw)
+    assert torch.equal(res_g, res_p)
+    got, want = st.cpu().numpy(), st_p.cpu().numpy()
+    assert np.isfinite(got).all()
+    assert np.isclose(got, want, rtol=RTOL, atol=ATOL).mean() >= MIN_CLOSE
+    padding = int(((b["res"][4] < 0) & (b["res"][5] >= 0)).sum())
+    assert (padding > 0) == (case == "padding")
+    if case == "scene200":
+        st7, ids7 = _fresh(wf, base)
+        out9, blocked = wg.shade_fwd(*args, st7, ids7, b["res"], n, **kw)
+        wf.shade(*args, st7, ids7, b["res"], n, **kw)
+        assert torch.equal(st.view(torch.int32), st7.view(torch.int32))
+        assert torch.equal(res_g[:7], b["res"][:7])
+        assert torch.equal(res_g[7], blocked) and float(blocked.sum()) > 0
+
+
+def test_k6m_k7m_match_plain(cuda):
+    """K6m's residual equals the plain K6m's bit for bit on a bounce's
+    per-row lists; K7m's state meets K1's bar against the plain K7m's."""
+    wf, t, meta, b, kw, _, base = _fused_bounce(cuda, "scene200")
+    n, st, ids, prims = b["n"], b["st"], b["ids"], t["prims"]
+    block = kw["block"]
+    lob, hib = wf._leaf_block_bounds(prims.reshape(-1, 5, block))
+    cand, ctn = wf.precull_tiles(
+        tuple(st[c, :n] for c in range(3)),
+        tuple(st[c, :n] for c in range(3, 6)), st[wf.C_ALIVE, :n], None,
+        lob, hib, per_row=True)
+    cmat, bctr = wf.build_cmat(prims.reshape(-1, 5, block))
+    before = dict(mk.LAUNCHES)
+    res = wf.isect_mxu(prims, cmat, bctr, cand, ctn, st, n, block=block)
+    assert mk.LAUNCHES == dict(before, k6m=before["k6m"] + 1)
+    assert torch.equal(res, wf.isect_mxu_plain(prims, cmat, bctr, cand, ctn,
+                                               st, n, block=block))
+    assert int((res[4] >= 0).sum()) > 0
+    so3, sd3, stmax, sneed = wf.shadow_rays(
+        st[:, :n], ids[:, :n], res, t["blob"], t["lsb"], kw["n_light_slots"],
+        k=kw["k"], seed=3, n_mats=kw["n_mats"],
+        mtypes=[int(v) for v in t["mtypes"].tolist()],
+        n_light_slots=kw["n_light_slots"])
+    scand, sctn = wf.precull_tiles(so3, sd3, sneed, stmax, lob, hib,
+                                   per_row=True)
+    args = (t["blob"], meta, t["lsb"], prims, cmat, bctr, t["mtypes"], scand,
+            sctn)
+    st_k, ids_k = _fresh(wf, base)
+    wf.shade_mxu(*args, st_k, ids_k, res, n, **kw)
+    assert mk.LAUNCHES["k7m"] == before["k7m"] + 1
+    st_p, ids_p = _fresh(wf, base)
+    wf.shade_mxu_plain(*args, st_p, ids_p, res, n, **kw)
+    got, want = st_k.cpu().numpy(), st_p.cpu().numpy()
+    assert np.isfinite(got).all()
+    assert np.isclose(got, want, rtol=RTOL, atol=ATOL).mean() >= MIN_CLOSE
+
+
+@pytest.mark.parametrize("mode", ["fused", "walk", "mxu"])
+def test_fused_and_mxu_renders_match_plain(cuda, mode):
+    """``render_wavefront(split=False)`` (K11, with the precull or the
+    walk) and ``render_wavefront(mxu=True)`` (K6m, K7m) against their plain
+    stages at K1's bar; the fused render equal to the split one, the
+    matmul form within JAX's bar for it (99.9% of values within 1e-4 +
+    1e-3 |a|)."""
+    wf, sd, _, _, _ = _wf_case(cuda)
+    cam = _scene200_camera(cuda, False)
+    kw = dict(max_bounces=8, rr_depth=3, seed=3, sort_min_rays=0,
+              **{"fused": dict(split=False), "walk": dict(
+                  split=False, precull=False), "mxu": dict(mxu=True)}[mode])
+    before = dict(mk.LAUNCHES)
+    got = wf.render_wavefront(sd, cam, 48, 40, 0, 2, **kw)
+    runs = {k: mk.LAUNCHES[k] - before[k] for k in before}
+    want_k = ("k6m", "k7m") if mode == "mxu" else ("k11",)
+    assert all(runs[k] > 0 for k in want_k) and runs["plain"] == 0
+    assert all(v == 0 for k, v in runs.items() if k not in want_k + ("k5",))
+    want = wf._render(sd, cam, 48, 40, 0, 2, stages=wf.PLAIN, **kw)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    assert np.isfinite(got).all() and want.mean() > 0.01
+    close = np.isclose(got, want, rtol=RTOL, atol=ATOL).all(axis=-1)
+    assert close.mean() >= MIN_CLOSE
+    split = wf.render_wavefront(sd, cam, 48, 40, 0, 2, max_bounces=8,
+                                rr_depth=3, seed=3, sort_min_rays=0).cpu()
+    if mode == "mxu":           # JAX's bar for the matmul form
+        a = split.numpy()
+        assert (np.abs(got - a) < 1e-4 + 1e-3 * np.abs(a)).mean() > 0.999
+    else:
+        assert torch.equal(torch.from_numpy(got), split)
+
+
+def test_fused_wavefront_grad_matches_plain(cuda):
+    """``make_wavefront_render_fn(split=False)``: K5 and K11g forward, K10
+    backward, against its plain stages (image at K1's bar, gradients at
+    GRAD_REL), its value and gradients as the split render's."""
+    from spt_tpu_torch.kernels import wavefront_grad as wg
+    sd = scene_200(T).compile(device=cuda)
+    cam = _scene200_camera(cuda, False)
+    ct = _ct(cuda, 48, 40)
+    out = []
+    for stages, split in ((wg.KERNELS, False), (wg.PLAIN, False),
+                          (wg.KERNELS, True)):
+        render = wg._make_render_fn(
+            sd, cam, 48, 40, stages=stages, spp=2, max_bounces=8, rr_depth=3,
+            use_nee=True, use_mis=True, seed=3, sort_min_rays=0,
+            chunk_rays=2 << 20, split=split)
+        params = {k: v.clone().requires_grad_(True) for k, v in
+                  G.get_params(sd, cuda_diff.PARAM_KEYS).items()}
+        before = dict(mk.LAUNCHES)
+        img = render(params, 0)
+        (img * ct).sum().backward()
+        runs = {k: mk.LAUNCHES[k] - before[k] for k in before}
+        out.append((img.detach(), {k: v.grad for k, v in params.items()},
+                    runs))
+    (img, grads, runs), (img_p, grads_p, runs_p), (img_s, grads_s, _) = out
+    assert runs["k11g"] > 0 and runs["k10"] == runs["k11g"]
+    assert runs["k6"] == runs["k9"] == runs["plain"] == 0
+    assert runs_p["k11g"] == 0 and runs_p["plain"] > 0
+    got, want = img.cpu().numpy(), img_p.cpu().numpy()
+    close = np.isclose(got, want, rtol=RTOL, atol=ATOL).all(axis=-1)
+    assert close.mean() >= MIN_CLOSE and want.mean() > 0.01
+    errs, _ = tail_field_errors(grads, grads_p)
+    assert all(e["ok"] for e in errs.values()), errs
+    assert torch.equal(img, img_s)
+    for k in grads:
+        torch.testing.assert_close(grads[k], grads_s[k], rtol=1e-5,
+                                   atol=1e-7)

@@ -107,7 +107,7 @@ def test_unported_engines_raise(kw, wrapper, monkeypatch):
     real = getattr(module, wrapper)
     monkeypatch.setattr(module, wrapper,
                         lambda *a, **k: calls.append(1) or real(*a, **k))
-    if wrapper == "bounce_bwd":       # _ShadeOp holds the wrapper itself
+    if wrapper == "bounce_bwd":       # _BounceOp holds the wrapper itself
         monkeypatch.setattr(wavefront_grad, "KERNELS",
                             wavefront_grad.KERNELS[:3] + (module.bounce_bwd,))
     sd = cornell_scene(spt_tpu_torch).compile(
@@ -124,11 +124,24 @@ def test_unported_engines_raise(kw, wrapper, monkeypatch):
 
 
 def test_wavefront_split_false_raises():
+    """The name is from when ``split=False`` raised: the fused bounce was
+    not ported.  It now renders Cornell through the fused bounce's plain
+    K11g forward and K10 backward, and its value and albedo gradient equal
+    the split bounce's."""
     from spt_tpu_torch.kernels import wavefront_grad
     sd, cam = _cornell()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 15"):
-        wavefront_grad.make_wavefront_render_fn(sd, cam, W, H, spp=1,
-                                                split=False)
+    out = []
+    for split in (True, False):
+        render = wavefront_grad.make_wavefront_render_fn(
+            sd, cam, W, H, spp=1, split=split, sort_min_rays=0, **KW)
+        params = {k: v.clone().requires_grad_(True)
+                  for k, v in G.get_params(sd, ("albedo",)).items()}
+        value = render(params, 0).sum()
+        value.backward()
+        out.append((value.detach(), params["albedo"].grad))
+    (v_s, g_s), (v_f, g_f) = out
+    assert float(v_s) > 0 and float(g_s.abs().sum()) > 0
+    assert torch.equal(v_f, v_s) and torch.equal(g_f, g_s)
 
 
 def test_inverse_renderer_large_scene_lowers_the_loss():

@@ -1,0 +1,214 @@
+"""The wavefront's fused bounce (K11, K11g) and matmul-form sweeps (K6m,
+K7m): their plain versions and glue, within the port, on the CPU.
+
+* The fused forward (``render_wavefront(split=False)``) equals the split
+  one bit for bit, with either sky, its nearest hit by the precull's lists
+  or by the walk, as tests/test_wavefront.py pins JAX's: the nearest winner
+  and every shadow verdict are the same however they are found.
+* The fused gradient (``make_wavefront_render_fn(split=False)``) equals the
+  split one: the value to rtol 1e-6, albedo, centres and radii to rtol
+  1e-5, atol 1e-7 (tests/test_wavefront_grad.py's bars for JAX's).
+* A ray whose winner is a leaf's padding slot: the fused bounce shades it
+  as a hit with no material (JAX's fused rule), where the split one takes
+  the sky; every other lane's state is the same bit for bit, and the
+  padding lanes take no geometry gradient.
+* The matmul form (``mxu=True``) against the split render at JAX's bar for
+  it: 99.9% of pixels within 1e-4 + 1e-3 |a| (the expanded quadratic
+  rounds otherwise), with either sky.
+* The per-row lists: each row's bounds nondecreasing, each row's list
+  within its tile's, and the tile's list rebuilt from its rows' equal to
+  the per-tile precull bit for bit.
+* ``build_cmat`` and ``_seg_blocked`` against the JAX package's on random
+  inputs from a numpy seed: the table to 1 ulp, the verdicts exactly.
+
+Config 5 cut to 300 spheres (160 for the gradients), leaf block 8, at most
+32x32 pixels, depth 3.  Whole renders against JAX's are in
+``test_torch_wavefront_fused_jax.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import spt_tpu_torch
+from spt_tpu.kernels import megakernel_bvh as jmbvh
+from spt_tpu_torch.diff import gradients as TG
+from spt_tpu_torch.kernels import megakernel as tmega
+from spt_tpu_torch.kernels import wavefront as twf
+from spt_tpu_torch.kernels import wavefront_grad as twg
+from chip_smoke import (CAM_10K, PAD_CAM, env_gradient, padding_scene,
+                        scene_10k, wf_bounce, wf_inputs)
+
+# One intra-op thread: these tests trace small tensors, where torch's
+# idle OpenMP workers would only spin against the other test processes.
+torch.set_num_threads(1)
+
+CPU = "cpu"
+KW = dict(max_bounces=3, rr_depth=2, use_nee=True, use_mis=True, seed=5,
+          block=8, sort_min_rays=0)
+
+
+def _scene(n, sky="gradient"):
+    scene = scene_10k(spt_tpu_torch, n=n)
+    if sky == "envmap":
+        scene.set_environment_map(env_gradient(16, 32))
+    return scene.compile(device=CPU)
+
+
+def _camera():
+    return spt_tpu_torch.Camera.look_at(device=CPU, **CAM_10K)
+
+
+@pytest.fixture(scope="module")
+def split_images():
+    return {sky: twf.render_wavefront(_scene(300, sky), _camera(), 32, 32, 0,
+                                      1, **KW).numpy()
+            for sky in ("gradient", "envmap")}
+
+
+@pytest.mark.parametrize("sky", ["gradient", "envmap"])
+@pytest.mark.parametrize("precull", [True, False])
+def test_fused_equals_split(split_images, sky, precull):
+    before = dict(tmega.LAUNCHES)
+    got = twf.render_wavefront(_scene(300, sky), _camera(), 32, 32, 0, 1,
+                               split=False, precull=precull, **KW).numpy()
+    # One raygen, one fused bounce a bounce with alive rays, nothing else.
+    assert 2 <= tmega.LAUNCHES["plain"] - before["plain"] <= 4
+    want = split_images[sky]
+    assert np.isfinite(got).all() and want.mean() > 0.05
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("sky", ["gradient", "envmap"])
+def test_mxu_matches_split(split_images, sky):
+    got = twf.render_wavefront(_scene(300, sky), _camera(), 32, 32, 0, 1,
+                               mxu=True, **KW).numpy()
+    want = split_images[sky]
+    assert np.isfinite(got).all()
+    close = np.abs(got - want) < 1e-4 + 1e-3 * np.abs(want)
+    assert close.mean() > 0.999, f"only {close.mean():.5f} close"
+
+
+@pytest.mark.parametrize("precull", [True, False])
+def test_fused_grad_equals_split(precull):
+    sd = _scene(160)
+    kw = dict(max_bounces=3, rr_depth=2, seed=5, sort_min_rays=0)
+    out = []
+    for split in (True, False):
+        render = twg.make_wavefront_render_fn(sd, _camera(), 16, 16, spp=2,
+                                              split=split, precull=precull,
+                                              **kw)
+        params = {k: v.clone().requires_grad_(True) for k, v in
+                  TG.get_params(sd, ("albedo", "centers", "radii")).items()}
+        value = render(params, 0).sum()
+        value.backward()
+        out.append((float(value.detach()),
+                    {k: p.grad.numpy() for k, p in params.items()}))
+    (v_s, g_s), (v_f, g_f) = out
+    np.testing.assert_allclose(v_f, v_s, rtol=1e-6)
+    assert abs(g_s["albedo"]).sum() > 0 and abs(g_s["centers"]).sum() > 0
+    for key in g_s:
+        np.testing.assert_allclose(g_f[key], g_s[key], rtol=1e-5, atol=1e-7,
+                                   err_msg=key)
+
+
+def test_padding_winners_fused_rule():
+    """One bounce of the padding scene: the fused bounce and K6+K7 agree
+    bit for bit on every lane but those whose winner is a padding slot;
+    there K7 adds the sky and ends the path, K11 shades a hit with no
+    material (no radiance added at a bounce, the path goes on), and K11g's
+    record gives K6's residual (id -1, the slot's block) on which K10
+    gives them no geometry cotangent."""
+    sd = padding_scene(spt_tpu_torch).compile(device=CPU)
+    cam = spt_tpu_torch.Camera.look_at(device=CPU, **PAD_CAM)
+    t, stc, meta = wf_inputs(torch, twf, twf, sd, cam, 4)
+    b = wf_bounce(torch, twf, t, stc, meta, 16, 16, 0, 4)
+    n, res = b["n"], b["res"]
+    padding = ((res[4] < 0) & (res[5] >= 0))[:n]
+    assert int(padding.sum()) > 0
+    kw = dict(k=0, block=stc["block"], n_mats=stc["n_mats"],
+              n_light_slots=stc["n_light_slots"], rr_depth=5, use_nee=True,
+              use_mis=True, sky_mode=sd.sky_mode)
+    base = b["buf"].clone()
+    st7, ids = base[:twf.N_CH].clone(), base[twf.N_CH:].view(torch.int32)
+    twf.shade_plain(t["blob"], meta, t["lsb"], t["prims"], t["mtypes"],
+                    b["scand"], b["sctn"], st7, ids, res, n, **kw)
+    st11, rec = twg.bounce_fwd_plain(
+        t["blob"], meta, t["lsb"], t["nodef"], t["nodei"], t["prims"],
+        t["mtypes"], b["cand"], b["ctn"], base[:twf.N_CH], ids, n,
+        precull=True, **kw)
+    assert torch.equal(rec[:7], res[:7])
+    a, c = st11[:, :n].view(torch.int32), st7[:, :n].view(torch.int32)
+    assert torch.equal(a[:, ~padding], c[:, ~padding])
+    pre = base[:twf.N_CH, :n]
+    rad = slice(twf.C_LR, twf.C_LB + 1)
+    assert torch.equal(st11[rad, :n][:, padding], pre[rad][:, padding])
+    assert bool((st7[rad, :n][:, padding] > pre[rad][:, padding]).all())
+    assert not bool(st7[twf.C_ALIVE, :n][padding].any())
+    assert bool(st11[twf.C_ALIVE, :n][padding].any())
+    ct = torch.from_numpy(np.random.default_rng(7).normal(
+        size=tuple(st7.shape)).astype(np.float32))
+    _, dgeo, _ = twg.bounce_bwd_plain(
+        t["blob"], meta, t["lsb"], t["mtypes"], base[:twf.N_CH], ids, rec,
+        ct, n, **{k: v for k, v in kw.items() if k != "block"})
+    assert float(dgeo[:, padding].abs().sum()) == 0.0
+    assert float(dgeo[:, ~padding].abs().sum()) > 0.0
+
+
+def test_per_row_lists():
+    sd = _scene(300)
+    t, stc, meta = wf_inputs(torch, twf, twf, sd, _camera(), 5)
+    b = wf_bounce(torch, twf, t, stc, meta, 64, 32, 0, 5)
+    st, n = b["st"], b["n"]
+    lob, hib = twf._leaf_block_bounds(t["prims"].reshape(-1, 5, 8))
+    rays = (tuple(st[c, :n] for c in range(3)),
+            tuple(st[c, :n] for c in range(3, 6)), st[twf.C_ALIVE, :n],
+            None, lob, hib)
+    cand, ctn = twf.precull_tiles(*rays)
+    rcand, rctn = twf.precull_tiles(*rays, per_row=True)
+    nb = lob.shape[0]
+    assert rcand.shape == (n // twf.TILE, 8, nb + 1)
+    assert rctn.shape == (n // twf.TILE, 8, nb)
+    assert int((rcand[:, :, 0] > 0).sum()) > 0
+    assert bool((rctn[..., 1:] >= rctn[..., :-1]).all())
+    # Each block's least row bound is its tile bound: the tile's list.
+    bound = torch.full((n // twf.TILE, nb + 1), twf.BIG)
+    ids = torch.where(rcand[..., 1:] >= 0, rcand[..., 1:].long(), nb)
+    for r in range(8):
+        bound = bound.scatter_reduce(1, ids[:, r], rctn[:, r], "amin")
+    tile = torch.full_like(bound, twf.BIG).scatter_(
+        1, torch.where(cand[:, 0, 1:] >= 0, cand[:, 0, 1:].long(), nb),
+        ctn[:, 0])
+    assert torch.equal(bound[:, :nb], tile[:, :nb])
+    assert torch.equal((bound[:, :nb] < twf.BIG).sum(1).int(), cand[:, 0, 0])
+
+
+def test_build_cmat_matches_jax():
+    rng = np.random.default_rng(17)
+    prims = rng.uniform(-50.0, 50.0, (12, 5, 8)).astype(np.float32)
+    prims[:, 3] = rng.uniform(0.2, 0.9, (12, 8))
+    prims[:, 4] = rng.integers(0, 4, (12, 8))
+    prims[3:, 4, 5:] = -1.0                   # underfull blocks
+    prims[3:, :4, 5:] = 0.0
+    prims[7, 4] = -1.0                        # an empty block
+    prims[7, :4] = 0.0
+    cm, ctr = twf.build_cmat(torch.from_numpy(prims))
+    cm_j, ctr_j = jmbvh.build_cmat(jnp.asarray(prims))
+    np.testing.assert_array_equal(ctr.numpy(), np.asarray(ctr_j))
+    np.testing.assert_array_max_ulp(cm.numpy(), np.asarray(cm_j), maxulp=1)
+    assert cm.shape == (12, 8, 16)
+
+
+def test_seg_blocked_matches_jax():
+    rng = np.random.default_rng(23)
+    b = rng.normal(0.0, 3.0, 20000).astype(np.float32)
+    cterm = (b * b - rng.normal(0.0, 2.0, 20000)).astype(np.float32)
+    tmax = rng.uniform(-1.0, 6.0, 20000).astype(np.float32)
+    b[:200] = 1e-3                            # the strict edges
+    tmax[200:400] = b[200:400]
+    got = twf._seg_blocked(*(torch.from_numpy(a) for a in (b, cterm, tmax)))
+    want = jmbvh._seg_blocked(jnp.asarray(b), jnp.asarray(cterm),
+                              jnp.asarray(tmax), jnp.ones(20000, bool))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert 0 < int(got.sum()) < 20000
