@@ -141,6 +141,54 @@ def grad_scene(pkg):
     return scene
 
 
+def k2_capacity_scene(pkg, seed=8):
+    """K2 at its capacity, 128 spheres: a floor and a 16 x 8 grid of 127
+    small spheres in four Lambert materials, a metal and a glass, 7 of them
+    lamps in two emissions (7 light slots), under a gradient sky, so that
+    many sphere rows and several light rows meet in one warp."""
+    r = np.random.default_rng(seed)
+    scene = pkg.Scene()
+    scene.set_sky(pkg.SKY_GRADIENT, horizon=(0.8, 0.85, 0.9),
+                  zenith=(0.2, 0.35, 0.7))
+    mats = [scene.add_material("lambert",
+                               albedo=tuple(r.uniform(0.2, 0.9, 3)))
+            for _ in range(4)]
+    mats.append(scene.add_material("metal", albedo=(0.9, 0.8, 0.7),
+                                   roughness=0.25))
+    mats.append(scene.add_material("glass", albedo=(0.95,) * 3, ior=1.5))
+    lamps = [scene.add_material("lambert", albedo=(0.8,) * 3,
+                                emission=tuple(r.uniform(3.0, 8.0, 3)))
+             for _ in range(2)]
+    scene.create_sphere("floor", (0, -1000, 0), 1000.0, mats[0])
+    for i in range(127):
+        pos = (-4.5 + 0.6 * (i % 16), 0.25 + 0.35 * r.random(),
+               2.0 + 0.6 * (i // 16))
+        m = lamps[i % 2] if i % 21 == 0 else mats[i % len(mats)]
+        scene.create_sphere(f"s{i}", pos, 0.22, m)
+    return scene
+
+
+K2_CAPACITY_CAM = dict(position=(0, 2.2, -3.0), target=(0, 0.3, 4.5),
+                       fov_degrees=60)
+
+
+def enclosure_scene(pkg):
+    """A room that is one sphere: the camera inside a white sphere of
+    radius 20 with one lamp, so at every bounce all 32 lanes of most warps
+    hit the same sphere, and every lit bounce adds to the lamp's row."""
+    scene = pkg.Scene()
+    scene.set_sky(pkg.SKY_NONE)
+    white = scene.add_material("lambert", albedo=(0.75, 0.75, 0.75))
+    lamp = scene.add_material("lambert", albedo=(0.8,) * 3,
+                              emission=(20.0,) * 3)
+    scene.create_sphere("room", (0, 0, 0), 20.0, white)
+    scene.create_sphere("lamp", (0, 12, 8), 2.0, lamp)
+    return scene
+
+
+ENCLOSURE_CAM = dict(position=(0, 0, 0), target=(0, 0, 1), fov_degrees=60)
+
+
 def scene_10k(pkg, n=10_000, seed=42):
     """bench_suite.py's scene_10k (BASELINE config 5) through the port's
     Scene API, from the same numpy seed: n spheres in an 80-unit cube
@@ -604,6 +652,8 @@ def run() -> int:
     prof = profiled(torch, cornell_again, "megakernel_fwd_kernel")
     emit(dict(phase="main_path_profile", unprofiled_wall_ms=1e3 * cornell_s,
               **prof))
+    k1_render_ms = prof["kernel_device_ms"] / launches_cornell \
+        if prof["kernel_device_ms"] else None
 
     # 6. Timing at the headline size ------------------------------------------
     sd = cornell(T).compile(device=dev)
@@ -639,7 +689,8 @@ def run() -> int:
 
     k1_bound_by = "operations" if ops / FP32_PEAK >= n_bytes / HBM_RATE \
         else "bytes"
-    k2 = run_k2_phases(torch, T, mk, dev, card, cam_cornell, (blob, stats))
+    k2 = run_k2_phases(torch, T, mk, dev, card, cam_cornell,
+                       (blob, stats, bound_ms))
     k3 = run_k3_phases(torch, T, mk, dev, card, cam_cornell, cam_demo)
     wf = run_wf_phases(torch, T, mk, dev, card, k3)
     gr = run_grad_phases(torch, T, mk, dev, card, k3)
@@ -672,6 +723,11 @@ def run() -> int:
              plain_size=f"{W}x{H} x {SPP} spp (Cornell, counting its work)",
              bound_ms=bound_ms,
              bound_by=k1_bound_by, library_ms=None,
+             at_launch=dict(
+                 render=dict(size=f"{W}x{H} x {SPP // launches_cornell} spp",
+                             ms=k1_render_ms,
+                             bound_ms=bound_ms / launches_cornell),
+                 train=k2["at_launch"]["k1"]),
              checked_against_plain=True),
         dict(name="K2 megakernel_grad", route="cuda",
              source="spt_tpu_torch/csrc/megakernel_grad.cu",
@@ -681,7 +737,8 @@ def run() -> int:
              max_abs_err=k2["max_abs_err"], ms=k2["ms"],
              plain_ms=k2["plain_ms"], plain_size=k2["plain_size"],
              bound_ms=k2["bound_ms"], bound_by=k2["bound_by"],
-             library_ms=None, checked_against_plain=True),
+             library_ms=None, at_launch=dict(train=k2["at_launch"]["k2"]),
+             checked_against_plain=True),
         dict(name="K3 megakernel_bvh_fwd", route="cuda",
              source="spt_tpu_torch/csrc/megakernel_bvh.cu",
              replaces="spt_tpu/kernels/megakernel_bvh.py:1137::_kernel_bvh",
@@ -748,11 +805,11 @@ def run() -> int:
 
 def run_k2_phases(torch, T, mk, dev, card, cam_cornell, k1_work) -> dict:
     """K2 against its plain version, the training main path, and K2's
-    timing.  ``k1_work`` is the headline Cornell blob and the plain
-    version's work counts of its samples 0..255.  Returns the numbers the
-    kernels line needs."""
+    timing.  ``k1_work`` is the headline Cornell blob, the plain version's
+    work counts of its samples 0..255 and K1's bound for them.  Returns
+    the numbers the kernels line needs."""
     from spt_tpu_torch.diff import cuda_diff, gradients as G
-    from spt_tpu_torch.kernels import megakernel_grad as mg
+    from spt_tpu_torch.kernels import _build, megakernel_grad as mg
 
     # 7. One bounce's adjoint: K2's per-lane code against the plain one ------
     sd = grad_scene(T).compile(device=dev)
@@ -799,6 +856,9 @@ def run_k2_phases(torch, T, mk, dev, card, cam_cornell, k1_work) -> dict:
               dict(use_nee=False)),
              ("cornell_mis_off", cornell(T), {}, cam_cornell, 64,
               dict(use_mis=False)),
+             ("capacity_128", k2_capacity_scene(T), {}, K2_CAPACITY_CAM, 64,
+              {}),
+             ("enclosure", enclosure_scene(T), {}, ENCLOSURE_CAM, 64, {}),
              ("cornell", cornell(T), {}, cam_cornell, W, {})]
     for label, scene, ckw, camkw, size, opt in cases:
         sd = scene.compile(device=dev, **ckw)
@@ -842,9 +902,13 @@ def run_k2_phases(torch, T, mk, dev, card, cam_cornell, k1_work) -> dict:
         check(out["image_equals_k1"], f"{label}: K2 image against K1 {res}")
         check(all(e["ok"] for e in errs), f"{label}: gvec {errs}")
         check(float(g_p.abs().sum()) > 0, f"{label}: zero gradient")
-        if label == "demo38":
+        if label in ("demo38", "capacity_128"):
             n_sph = 12 * static["n_prims"]
-            check(float(g_p[n_sph:].abs().sum()) > 0, "demo38: no sky grad")
+            check(float(g_p[n_sph:].abs().sum()) > 0, f"{label}: no sky grad")
+        if label == "capacity_128":
+            check(static["n_prims"] == mk.MAX_PRIMS
+                  and static["n_light_slots"] >= 4,
+                  f"capacity_128: {static} is not at K2's capacity")
         max_abs_err = max(max_abs_err, g_err, res["max_abs_err"])
 
     # 9. Training main path: InverseRenderer through K1 and K2, counted ------
@@ -864,6 +928,8 @@ def run_k2_phases(torch, T, mk, dev, card, cam_cornell, k1_work) -> dict:
                                  backend="cuda")
 
     mk.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     render = cuda_diff.make_cuda_render_fn(sd, cam, W, H, spp=TRAIN_SPP,
                                            max_bounces=DEPTH, seed=SEED)
@@ -879,6 +945,7 @@ def run_k2_phases(torch, T, mk, dev, card, cam_cornell, k1_work) -> dict:
         step_s.append(time.perf_counter() - t1)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
+    train_peak = torch.cuda.max_memory_allocated()
     counts = dict(mk.LAUNCHES)
     err1 = float((inv.params["albedo"].detach() - true_p["albedo"]).abs()
                  .mean())
@@ -892,7 +959,7 @@ def run_k2_phases(torch, T, mk, dev, card, cam_cornell, k1_work) -> dict:
               steps=TRAIN_STEPS, losses=losses, albedo_err_start=err0,
               albedo_err_end=err1, wall_s=train_s, step_s=step_s,
               wall_per_step_ms=1e3 * sum(step_s) / TRAIN_STEPS,
-              launches=counts, k1_outside_steps=1,
+              peak_bytes=train_peak, launches=counts, k1_outside_steps=1,
               profiled_wall_per_step_ms=prof["profiled_wall_ms"] / TRAIN_STEPS,
               **prof))
     check(all(np.isfinite(losses)), "training loss not finite")
@@ -919,7 +986,7 @@ def run_k2_phases(torch, T, mk, dev, card, cam_cornell, k1_work) -> dict:
     # The work of samples 0..1023: the plain version's counts of samples
     # 0..255 from the K1 timing (67M paths), times 4.  An average over 67M
     # paths moves far less than the bound's own looseness.
-    blob_256, stats_256 = k1_work
+    blob_256, stats_256, _ = k1_work
     check(torch.equal(blob, blob_256), "K1 and K2 timings differ in scene")
     scale = K2_SPP // SPP
     stats = {k: (v * scale if k == "paths" else [a * scale for a in v])
@@ -929,14 +996,40 @@ def run_k2_phases(torch, T, mk, dev, card, cam_cornell, k1_work) -> dict:
                    + 2 * W * H * 3 + 12 * static["n_prims"] + 6)
     bound_ms = 1e3 * max(ops / FP32_PEAK, n_bytes / HBM_RATE)
     paths = stats["paths"]
+    # Ray segments: the forward's path segments and NEE shadow rays (the
+    # replay traces no ray: it rebuilds each hit from the recorded sphere).
+    rays = sum(stats["active"]) + sum(stats["shadow"])
     emit(dict(phase="k2_timing", card=card, size=W, spp=K2_SPP, k2_ms=k2_ms,
               k1_ms_same_spp=k1_ms, k2_over_k1=k2_ms / k1_ms,
-              pixel_samples_per_s=paths / (k2_ms * 1e-3), fp32_ops=ops,
-              bytes=n_bytes, bound_ms=bound_ms, ops_per_path=ops / paths,
+              pixel_samples_per_s=paths / (k2_ms * 1e-3),
+              ray_segments_per_s=rays / (k2_ms * 1e-3),
+              ray_segments_per_path=rays / paths, fp32_ops=ops,
+              bytes=n_bytes, bound_ms=bound_ms, bound_share=bound_ms / k2_ms,
+              ops_per_path=ops / paths,
               lit_per_path=sum(stats["lit"]) / paths,
+              ptxas=ptxas_of(_build.BUILD_INFO, "megakernel_grad",
+                             "megakernel_grad_kernel"),
+              blocks_per_sm=mg.blocks_per_sm(static["n_prims"],
+                                             static["n_light_slots"]),
+              train_wall_per_step_ms=1e3 * sum(step_s) / TRAIN_STEPS,
+              train_device_busy_share=prof["device_busy_share"],
+              train_peak_bytes=train_peak,
               plain_ms=plain_ms, plain_size=f"{W}x{H} x 4 spp (Cornell)"))
-    return dict(launches=counts, max_abs_err=max_abs_err, ms=k2_ms, plain_ms=plain_ms,
-                plain_size=f"{W}x{H} x 4 spp", bound_ms=bound_ms,
+    # The training path's own launches (16 spp), from its profile: K2's
+    # device time a launch, and K1's, beside their bounds at that size.
+    k1_train = [ms / n for name, ms, n in prof["top"]
+                if "megakernel_fwd_kernel" in name]
+    at_launch = dict(
+        k2=dict(size=f"{W}x{H} x {TRAIN_SPP} spp",
+                ms=(prof["kernel_device_ms"] / counts["k2"]
+                    if prof["kernel_device_ms"] else None),
+                bound_ms=bound_ms * TRAIN_SPP / K2_SPP),
+        k1=dict(size=f"{W}x{H} x {TRAIN_SPP} spp",
+                ms=k1_train[0] if k1_train else None,
+                bound_ms=k1_work[2] * TRAIN_SPP / SPP))
+    return dict(launches=counts, max_abs_err=max_abs_err, ms=k2_ms,
+                plain_ms=plain_ms, plain_size=f"{W}x{H} x 4 spp",
+                bound_ms=bound_ms, at_launch=at_launch,
                 bound_by="operations" if ops / FP32_PEAK >= n_bytes / HBM_RATE
                 else "bytes")
 

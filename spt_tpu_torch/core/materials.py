@@ -16,6 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.device import DeviceLike, resolve_device
+
 LAMBERT = 0
 METAL = 1
 DIELECTRIC = 2
@@ -66,13 +68,17 @@ class MaterialBuilder:
             ior=np.array([r[3] for r in self._rows], np.float32),
             mtype=np.array([r[4] for r in self._rows], np.int32))
 
-    def build(self, device="cpu") -> MaterialTable:
-        return MaterialTable(**{k: torch.from_numpy(v).to(device)
+    def build(self, device: DeviceLike = None) -> MaterialTable:
+        """The table on ``device``: the card unless the caller asks for
+        the CPU (``resolve_device``)."""
+        dev = resolve_device(device)
+        return MaterialTable(**{k: torch.from_numpy(v).to(dev)
                                 for k, v in self.build_arrays().items()})
 
 
-def default_table(device="cpu") -> MaterialTable:
-    """The reference's implicit material: 0.7 gray Lambertian for everything."""
+def default_table(device: DeviceLike = None) -> MaterialTable:
+    """The reference's implicit material: 0.7 gray Lambertian for everything,
+    on ``device`` (the card unless the caller asks for the CPU)."""
     b = MaterialBuilder()
     b.add("lambert", albedo=(0.7, 0.7, 0.7))
     return b.build(device)

@@ -13,19 +13,27 @@
 // What bounds it on an H100: fp32 ALU issue, warp divergence and register
 // pressure, not bytes.  It reads a few KB of uniforms and the cotangent
 // image and writes the image and 12 P + 6 floats, while each path segment
-// costs K1's work twice (forward and recompute) plus an adjoint of several
-// hundred operations, in the material branch each lane takes.
+// costs K1's work, then the replay: the bounce again and an adjoint of
+// several hundred operations, in the material branch each lane takes.
 //
-// What this simple design does about it: one thread per pixel in blocks of
-// 128 loops over its samples as K1 does, so the image keeps K1's summation
-// order and bits.  A path's bounce-entry states (13 floats and 2 flags a
-// bounce) live in a per-thread array of kMaxDepth in local memory.  Scene
-// uniforms are copied to shared memory.  The gradient is summed per block
-// in a shared-memory vector of 12 P + 6 floats with shared atomics (each
-// lane adds only to its winner's row, the picked light's owner row and the
-// sky), then added into the zeroed global vector with one atomicAdd per
-// entry per block.  Float atomics make the gradient's summation order vary
-// from run to run; the image is exact.
+// What the design does about it: one thread per pixel in blocks of 128
+// loops over its samples as K1 does, so the image keeps K1's summation
+// order and bits.  The forward sweep keeps, per bounce, the entry state (13
+// floats) and one word holding the entry's prev_spec flag, the sphere it
+// hit and the NEE shadow verdict (RecordingList), in a per-thread array of
+// kMaxDepth in local memory; the replay rebuilds the hit from that sphere's
+// row alone and takes the recorded verdict (RecordedSphere), so it sweeps no
+// sphere list.  Scene uniforms are copied to shared memory.  The gradient
+// is summed per block in shared memory, in a copy of the vector of 12 P + 6
+// floats for each thread where the scene is small enough (for fewer, larger
+// ones, one per few lanes), so lanes that meet on one sphere row, as every
+// lit lane of a warp meets on the lamp's, do not serialise on its
+// addresses; the copies are summed and added into the zeroed global vector
+// with one atomicAdd per entry per block.  The adjoint takes next-event
+// estimation before the sample's recompute (physics_adj.cuh), which keeps
+// its register peak down, and __launch_bounds__ caps registers at 128 so
+// that four blocks share an SM.  Float atomics make the gradient's
+// summation order vary from run to run; the image is exact.
 //
 // Built with nvcc for sm_90a with --fmad=false and without fast math, as K1
 // (kernels/_build.py); entries return cudaGetLastError().
@@ -55,10 +63,30 @@ struct K2Params {
   int sky_mode;
   bool use_nee, use_mis, dof;
   float inv_w, inv_h, aspect;
-  int blob_len, meta_len, grad_len;
+  int blob_len, meta_len, grad_len, copies;
 };
 
-// Shared memory: blob, lsb (6), meta, then the block's gradient vector.
+// The block keeps its gradient vector (grad_len floats) in `copies`
+// copies, a power of two up to kThreadsGrad: thread t adds into copy
+// t % copies.  The host takes the most copies for which the block's shared
+// memory still lets kBlocksGrad blocks share an SM.  Where every thread has
+// a copy (Cornell's 8 spheres: 128 copies of 102 floats) it adds with
+// plain loads and stores; where the scene is larger, threads t, t + copies,
+// ... share one with shared atomics (8 copies at 128 spheres: 4 lanes of a
+// warp a copy).  A copy takes gstride = grad_len | 1 floats, so that one
+// entry of the copies falls in distinct banks.
+constexpr int kBlocksGrad = 4;
+constexpr size_t kSmemGrad = 227 * 1024 / kBlocksGrad - 1024;
+
+__host__ inline int copies_for(int blob_len, int meta_len, int grad_len) {
+  const size_t fixed = sizeof(float) * (blob_len + 6 + meta_len);
+  int c = kThreadsGrad;
+  while (c > 1 && fixed + sizeof(float) * c * (grad_len | 1) > kSmemGrad)
+    c >>= 1;
+  return c;
+}
+
+// Shared memory: blob, lsb (6), meta, then the gradient's copies.
 struct Smem {
   float* blob;
   float* lsb;
@@ -66,10 +94,15 @@ struct Smem {
   float* grad;
 };
 
+__host__ inline size_t smem_bytes(int blob_len, int meta_len, int grad_len,
+                                  int copies) {
+  return sizeof(float) * (blob_len + 6 + meta_len + copies * (grad_len | 1));
+}
+
 __device__ __forceinline__ Smem load_smem(float* smem, const float* blob,
                                           const int* meta, const float* lsb,
                                           int blob_len, int meta_len,
-                                          int grad_len) {
+                                          int grad_len, int copies) {
   Smem s;
   s.blob = smem;
   s.lsb = smem + blob_len;
@@ -77,23 +110,78 @@ __device__ __forceinline__ Smem load_smem(float* smem, const float* blob,
   s.grad = reinterpret_cast<float*>(s.meta + meta_len);
   for (int i = threadIdx.x; i < blob_len; i += blockDim.x) s.blob[i] = blob[i];
   for (int i = threadIdx.x; i < meta_len; i += blockDim.x) s.meta[i] = meta[i];
-  for (int i = threadIdx.x; i < grad_len; i += blockDim.x) s.grad[i] = 0.0f;
+  for (int i = threadIdx.x; i < copies * (grad_len | 1); i += blockDim.x)
+    s.grad[i] = 0.0f;
   if (threadIdx.x < 6) s.lsb[threadIdx.x] = lsb[threadIdx.x];
   __syncthreads();
   return s;
 }
 
-__device__ __forceinline__ void flush_grad(const Smem& s, float* gvec,
-                                           int grad_len) {
-  __syncthreads();
-  for (int i = threadIdx.x; i < grad_len; i += blockDim.x)
-    if (s.grad[i] != 0.0f) atomicAdd(gvec + i, s.grad[i]);
+// This thread's sink: its copy of the gradient.
+__device__ __forceinline__ SphereSink block_sink(const Smem& s,
+                                                 const SceneView& sc,
+                                                 int grad_len, int copies) {
+  return SphereSink{
+      s.grad + (threadIdx.x & (copies - 1)) * (grad_len | 1),
+      copies == kThreadsGrad, sc};
 }
 
-// One pixel: spp samples, each a forward sweep that keeps the bounce-entry
-// states, then the reverse replay into the block's gradient vector.
+// The copies summed into gvec: one atomicAdd per nonzero entry per block.
+__device__ __forceinline__ void flush_grad(const Smem& s, float* gvec,
+                                           int grad_len, int copies) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < grad_len; i += blockDim.x) {
+    float v = 0.0f;
+    for (int c = 0; c < copies; ++c) v += s.grad[c * (grad_len | 1) + i];
+    if (v != 0.0f) atomicAdd(gvec + i, v);
+  }
+}
+
+// A bounce as the forward sweep keeps it for the replay: the entry state's
+// 13 floats, and one word with the entry's prev_spec flag (bit 0), the NEE
+// shadow verdict (bit 1) and 1 + the sphere hit (bits 2 and up; 0: a miss).
+struct Kept {
+  float ox, oy, oz, dx, dy, dz, th_r, th_g, th_b, rad_r, rad_g, rad_b;
+  float prev_pdf;
+  uint32_t word;
+};
+
+__device__ __forceinline__ void keep_state(Kept& e, const Path& p) {
+  e.ox = p.ox; e.oy = p.oy; e.oz = p.oz;
+  e.dx = p.dx; e.dy = p.dy; e.dz = p.dz;
+  e.th_r = p.th_r; e.th_g = p.th_g; e.th_b = p.th_b;
+  e.rad_r = p.rad_r; e.rad_g = p.rad_g; e.rad_b = p.rad_b;
+  e.prev_pdf = p.prev_pdf;
+}
+
+__device__ __forceinline__ uint32_t kept_word(bool prev_spec,
+                                              const RecordingList& rec) {
+  return (prev_spec ? 1u : 0u) | (rec.blocked ? 2u : 0u) |
+         ((uint32_t)(rec.id + 1) << 2);
+}
+
+__device__ __forceinline__ Path kept_path(const Kept& e) {
+  Path p;
+  p.ox = e.ox; p.oy = e.oy; p.oz = e.oz;
+  p.dx = e.dx; p.dy = e.dy; p.dz = e.dz;
+  p.th_r = e.th_r; p.th_g = e.th_g; p.th_b = e.th_b;
+  p.rad_r = e.rad_r; p.rad_g = e.rad_g; p.rad_b = e.rad_b;
+  p.prev_pdf = e.prev_pdf;
+  p.active = true;
+  p.prev_spec = (e.word & 1u) != 0u;
+  return p;
+}
+
+__device__ __forceinline__ RecordedSphere kept_geometry(const SceneView& sc,
+                                                        const Kept& e) {
+  return RecordedSphere{{sc}, (int)(e.word >> 2) - 1, (e.word & 2u) != 0u};
+}
+
+// One pixel: spp samples, each a forward sweep that keeps the bounces,
+// then the reverse replay into the block's gradient vector.
 __device__ __forceinline__ void grad_pixel(const K2Params& prm,
-                                           const SceneView& sc, float* grad,
+                                           const SceneView& sc,
+                                           const SphereSink& sink,
                                            int pix) {
   const uint32_t start = (uint32_t)sc.meta[0];
   const uint32_t seed = (uint32_t)sc.meta[1];
@@ -103,7 +191,7 @@ __device__ __forceinline__ void grad_pixel(const K2Params& prm,
   const float ct_r = prm.ct[3 * pix + 0], ct_g = prm.ct[3 * pix + 1],
               ct_b = prm.ct[3 * pix + 2];
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  Path kept[kMaxDepth];
+  Kept kept[kMaxDepth];
   for (int smp = 0; smp < prm.spp; ++smp) {
     const uint32_t sample = start + (uint32_t)smp;
     Path p;
@@ -111,9 +199,12 @@ __device__ __forceinline__ void grad_pixel(const K2Params& prm,
            sample, seed, p);
     int n_run = 0;
     for (int k = 0; k < prm.max_bounces && p.active; ++k) {
-      kept[k] = p;
-      trace_bounce(sc, p, pid, sample, seed, k, prm.rr_depth, prm.use_nee,
-                   prm.use_mis);
+      keep_state(kept[k], p);
+      const bool prev_spec = p.prev_spec;
+      const RecordingList rec{{sc}};
+      trace_bounce(sc, rec, p, pid, sample, seed, k, prm.rr_depth,
+                   prm.use_nee, prm.use_mis);
+      kept[k].word = kept_word(prev_spec, rec);
       n_run = k + 1;
     }
     acc_r += p.rad_r;
@@ -123,30 +214,32 @@ __device__ __forceinline__ void grad_pixel(const K2Params& prm,
     float ct[13] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f,
                     0.0f, 0.0f, ct_r, ct_g, ct_b, 0.0f};
     for (int k = n_run - 1; k >= 0; --k)
-      bounce_vjp(sc, kept[k], pid, sample, seed, k, prm.rr_depth, prm.use_nee,
-                 prm.use_mis, ct, grad);
+      bounce_vjp(sc, kept_geometry(sc, kept[k]), sink, kept_path(kept[k]),
+                 pid, sample, seed, k, prm.rr_depth, prm.use_nee,
+                 prm.use_mis, ct);
   }
   prm.img[3 * pix + 0] = acc_r;
   prm.img[3 * pix + 1] = acc_g;
   prm.img[3 * pix + 2] = acc_b;
 }
 
-__global__ void __launch_bounds__(kThreadsGrad)
+__global__ void __launch_bounds__(kThreadsGrad, kBlocksGrad)
     megakernel_grad_kernel(K2Params prm) {
   extern __shared__ float smem[];
   const Smem s = load_smem(smem, prm.blob, prm.meta, prm.lsb, prm.blob_len,
-                           prm.meta_len, prm.grad_len);
+                           prm.meta_len, prm.grad_len, prm.copies);
+  const SceneView sc{s.blob, s.meta, s.lsb, prm.n_prims, prm.n_light_slots,
+                     s.meta[2], prm.sky_mode};
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix < prm.width * prm.height) {
-    const SceneView sc{s.blob, s.meta, s.lsb, prm.n_prims, prm.n_light_slots,
-                       s.meta[2], prm.sky_mode};
-    grad_pixel(prm, sc, s.grad, pix);
-  }
-  flush_grad(s, prm.gvec, prm.grad_len);
+  if (pix < prm.width * prm.height)
+    grad_pixel(prm, sc, block_sink(s, sc, prm.grad_len, prm.copies), pix);
+  flush_grad(s, prm.gvec, prm.grad_len, prm.copies);
 }
 
-// One bounce's adjoint over n given lanes, for holding bounce_vjp against
-// its plain version: state and state_ct are (13, n), aux (2, n) as int.
+// One bounce's adjoint over n given lanes, for holding K2's per-lane code
+// against its plain version: each lane runs the bounce forward with K2's
+// recording geometry, then its adjoint with the recorded hit and verdict,
+// into K2's sink.  state and state_ct are (13, n), aux (2, n) as int.
 __global__ void __launch_bounds__(kThreadsGrad)
     bounce_vjp_kernel(float* gvec, float* out_ct, const float* state_ct,
                       const float* state, const int* aux, const uint32_t* pid,
@@ -154,14 +247,16 @@ __global__ void __launch_bounds__(kThreadsGrad)
                       const int* meta, const float* lsb, int n, int n_prims,
                       int n_light_slots, int k, int rr_depth, bool use_nee,
                       bool use_mis, int sky_mode, int blob_len, int meta_len,
-                      int grad_len) {
+                      int grad_len, int copies) {
   extern __shared__ float smem[];
   const Smem s = load_smem(smem, blob, meta, lsb, blob_len, meta_len,
-                           grad_len);
+                           grad_len, copies);
+  const SceneView sc{s.blob, s.meta, s.lsb, n_prims, n_light_slots,
+                     s.meta[2], sky_mode};
+  const SphereSink sink = block_sink(s, sc, grad_len, copies);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) {
-    const SceneView sc{s.blob, s.meta, s.lsb, n_prims, n_light_slots,
-                       s.meta[2], sky_mode};
+    const uint32_t seed = (uint32_t)s.meta[1];
     float ct[13];
     for (int c = 0; c < 13; ++c) ct[c] = state_ct[c * n + i];
     if (aux[i] != 0) {
@@ -175,12 +270,16 @@ __global__ void __launch_bounds__(kThreadsGrad)
       p.prev_pdf = state[12 * n + i];
       p.active = true;
       p.prev_spec = aux[n + i] != 0;
-      bounce_vjp(sc, p, pid[i], sample[i], (uint32_t)s.meta[1], k, rr_depth,
-                 use_nee, use_mis, ct, s.grad);
+      Path q = p;
+      const RecordingList rec{{sc}};
+      trace_bounce(sc, rec, q, pid[i], sample[i], seed, k, rr_depth, use_nee,
+                   use_mis);
+      bounce_vjp(sc, RecordedSphere{{sc}, rec.id, rec.blocked}, sink, p,
+                 pid[i], sample[i], seed, k, rr_depth, use_nee, use_mis, ct);
     }
     for (int c = 0; c < 13; ++c) out_ct[c * n + i] = ct[c];
   }
-  flush_grad(s, gvec, grad_len);
+  flush_grad(s, gvec, grad_len, copies);
 }
 
 __host__ inline int meta_len_of(int n_prims, int n_light_slots) {
@@ -222,14 +321,39 @@ extern "C" int spt_megakernel_grad(void* img, void* gvec, const void* blob,
   prm.blob_len = spt::kSphOff + spt::kSphStride * n_prims;
   prm.meta_len = spt::meta_len_of(n_prims, n_light_slots);
   prm.grad_len = spt::kSphStride * n_prims + 6;
+  prm.copies = spt::copies_for(prm.blob_len, prm.meta_len, prm.grad_len);
   const int n_pix = width * height;
   if (n_pix <= 0) return 0;
-  const size_t smem =
-      sizeof(float) * (prm.blob_len + 6 + prm.meta_len + prm.grad_len);
+  const size_t smem = spt::smem_bytes(prm.blob_len, prm.meta_len,
+                                      prm.grad_len, prm.copies);
+  cudaFuncSetAttribute(spt::megakernel_grad_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
   const int blocks = (n_pix + spt::kThreadsGrad - 1) / spt::kThreadsGrad;
   spt::megakernel_grad_kernel<<<blocks, spt::kThreadsGrad, smem,
                                 static_cast<cudaStream_t>(stream)>>>(prm);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of K2 that share an SM for a scene of n_prims spheres (the CUDA
+// occupancy calculator on the kernel as built), or -1 on an error.
+extern "C" int spt_megakernel_grad_blocks_per_sm(int n_prims,
+                                                 int n_light_slots) {
+  const int blob_len = spt::kSphOff + spt::kSphStride * n_prims;
+  const int meta_len = spt::meta_len_of(n_prims, n_light_slots);
+  const int grad_len = spt::kSphStride * n_prims + 6;
+  const size_t smem = spt::smem_bytes(
+      blob_len, meta_len, grad_len,
+      spt::copies_for(blob_len, meta_len, grad_len));
+  cudaFuncSetAttribute(spt::megakernel_grad_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  int blocks = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, spt::megakernel_grad_kernel, spt::kThreadsGrad, smem) !=
+      cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 extern "C" int spt_bounce_vjp(void* gvec, void* out_ct, const void* state_ct,
@@ -244,7 +368,11 @@ extern "C" int spt_bounce_vjp(void* gvec, void* out_ct, const void* state_ct,
   const int blob_len = spt::kSphOff + spt::kSphStride * n_prims;
   const int meta_len = spt::meta_len_of(n_prims, n_light_slots);
   const int grad_len = spt::kSphStride * n_prims + 6;
-  const size_t smem = sizeof(float) * (blob_len + 6 + meta_len + grad_len);
+  const int copies = spt::copies_for(blob_len, meta_len, grad_len);
+  const size_t smem = spt::smem_bytes(blob_len, meta_len, grad_len, copies);
+  cudaFuncSetAttribute(spt::bounce_vjp_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
   const int blocks = (n + spt::kThreadsGrad - 1) / spt::kThreadsGrad;
   spt::bounce_vjp_kernel<<<blocks, spt::kThreadsGrad, smem,
                            static_cast<cudaStream_t>(stream)>>>(
@@ -254,6 +382,6 @@ extern "C" int spt_bounce_vjp(void* gvec, void* out_ct, const void* state_ct,
       static_cast<const uint32_t*>(sample), static_cast<const float*>(blob),
       static_cast<const int*>(meta), static_cast<const float*>(lsb), n,
       n_prims, n_light_slots, k, rr_depth, use_nee != 0, use_mis != 0,
-      sky_mode, blob_len, meta_len, grad_len);
+      sky_mode, blob_len, meta_len, grad_len, copies);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,12 +15,13 @@
 // code takes the hit material's branch only; the others contribute zero.
 //
 // bounce_vjp is generic in its geometry, as trace_bounce is, and in where
-// theta's cotangent goes (a sink): K2 recomputes the nearest hit and the
-// shadow test over the sphere list and adds into sphere rows (SphereList,
-// SphereSink); K4 and K10 rebuild the hit from a recorded winner, take the
-// recorded shadow verdict and add into the scalar vector of sky, material
-// rows and light slots, keeping the winner's centre and radius cotangent
-// per lane (RebuiltGeometry, ScalarSink).
+// theta's cotangent goes (a sink): K2 rebuilds the hit from the sphere its
+// forward sweep recorded, takes the recorded shadow verdict and adds into
+// sphere rows of its thread's copy of the gradient (RecordedSphere,
+// SphereSink); K4 and K10 rebuild the hit from a recorded
+// winner, take the recorded shadow verdict and add into the scalar vector of
+// sky, material rows and light slots, keeping the winner's centre and radius
+// cotangent per lane (RebuiltGeometry, ScalarSink).
 #pragma once
 
 #include <cstdint>
@@ -152,43 +153,94 @@ __device__ __forceinline__ void grad_add(float* g, int i, float v) {
   if (v != 0.0f) atomicAdd(g + i, v);
 }
 
-// K2's sink: theta's cotangent into g (shared memory): sphere j's 12
-// attributes at 12 j, the sky at 12 n_prims; a light slot's attributes go
-// to its owning sphere's row.
+// K2's forward geometry: the sphere list, remembering the nearest hit's
+// sphere (-1: none) and the shadow verdict, for the replay.
+struct RecordingList : SphereList {
+  mutable int id = -1;
+  mutable bool blocked = false;
+
+  __device__ __forceinline__ bool nearest(float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          float& t, Hit& h) const {
+    const bool found = SphereList::nearest(ox, oy, oz, dx, dy, dz, t, h);
+    id = found ? h.id : -1;
+    return found;
+  }
+
+  __device__ __forceinline__ bool occluded(float ox, float oy, float oz,
+                                           float dx, float dy, float dz,
+                                           float tmax) const {
+    blocked = SphereList::occluded(ox, oy, oz, dx, dy, dz, tmax);
+    return blocked;
+  }
+};
+
+// K2's replay geometry: the hit rebuilt from the sphere the forward sweep
+// recorded (id < 0: no hit) by sphere_t, the expression intersect took its
+// distance from, so t has the forward's bits without sweeping the list; the
+// recorded shadow verdict.
+struct RecordedSphere : SphereList {
+  int id;
+  bool blocked;
+
+  __device__ __forceinline__ bool nearest(float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          float& t, Hit& h) const {
+    if (id < 0) return false;
+    const float* s = sc.blob + kSphOff + kSphStride * id;
+    sphere_t(s, ox, oy, oz, dx, dy, dz, t);
+    h.cx = s[0];
+    h.cy = s[1];
+    h.cz = s[2];
+    h.r = s[3];
+    h.mat = s + 4;
+    h.mtype = sc.meta[kMetaFixed + id];
+    h.id = id;
+    return true;
+  }
+
+  __device__ __forceinline__ bool occluded(float, float, float, float, float,
+                                           float, float) const {
+    return blocked;
+  }
+};
+
+// K2's sink: theta's cotangent into g, this thread's copy of the block's
+// gradient vector in shared memory (megakernel_grad.cu keeps a copy per
+// thread where the scene is small enough, else one per few lanes): sphere
+// j's 12 attributes at 12 j, the sky at 12 n_prims; a light slot's
+// attributes go to its owning sphere's row.  A copy of the thread's own
+// (own) takes plain adds of every value, with no test and no atomic; a
+// shared one a shared atomic per nonzero value.
 struct SphereSink {
   float* g;
+  bool own;
   const SceneView& sc;
 
+  template <int N>
+  __device__ __forceinline__ void add(float* row, const int (&col)[N],
+                                      const float (&v)[N]) const {
+    if (own) {
+      for (int c = 0; c < N; ++c) row[col[c]] += v[c];
+    } else {
+      for (int c = 0; c < N; ++c) grad_add(row, col[c], v[c]);
+    }
+  }
   __device__ __forceinline__ void sky(int i, float v) const {
-    grad_add(g, kSphStride * sc.n_prims + i, v);
+    add<1>(g + kSphStride * sc.n_prims + i, {0}, {v});
   }
   __device__ __forceinline__ void light(int l, V3 toc_b, float lrr_b,
                                         V3 le_b) const {
-    float* row = g + kSphStride * sc.meta[kMetaFixed + sc.n_prims + l];
-    grad_add(row, 0, toc_b.x);
-    grad_add(row, 1, toc_b.y);
-    grad_add(row, 2, toc_b.z);
-    grad_add(row, 3, lrr_b);
-    grad_add(row, 7, le_b.x);
-    grad_add(row, 8, le_b.y);
-    grad_add(row, 9, le_b.z);
+    add<7>(g + kSphStride * sc.meta[kMetaFixed + sc.n_prims + l],
+           {0, 1, 2, 3, 7, 8, 9},
+           {toc_b.x, toc_b.y, toc_b.z, lrr_b, le_b.x, le_b.y, le_b.z});
   }
   __device__ __forceinline__ void hit(int j, V3 C_b, float r_b, V3 a_b,
                                       V3 e_b, float rough_b,
                                       float ior_b) const {
-    float* row = g + kSphStride * j;
-    grad_add(row, 0, C_b.x);
-    grad_add(row, 1, C_b.y);
-    grad_add(row, 2, C_b.z);
-    grad_add(row, 3, r_b);
-    grad_add(row, 4, a_b.x);
-    grad_add(row, 5, a_b.y);
-    grad_add(row, 6, a_b.z);
-    grad_add(row, 7, e_b.x);
-    grad_add(row, 8, e_b.y);
-    grad_add(row, 9, e_b.z);
-    grad_add(row, 10, rough_b);
-    grad_add(row, 11, ior_b);
+    add<12>(g + kSphStride * j, {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11},
+            {C_b.x, C_b.y, C_b.z, r_b, a_b.x, a_b.y, a_b.z, e_b.x, e_b.y,
+             e_b.z, rough_b, ior_b});
   }
 };
 
@@ -347,136 +399,25 @@ __device__ void bounce_vjp(const SceneView& sc, const Geometry& geo,
   const bool front = wo_ng > 0.0f;
   const float sgn = front ? 1.0f : -1.0f;
   const V3 ns = sgn * ng;
-  V3 T, B;
-  onb(ns.x, ns.y, ns.z, T.x, T.y, T.z, B.x, B.y, B.z);
-
   const V3 zero3 = {0.0f, 0.0f, 0.0f};
-  V3 nd = zero3, w = zero3, dl = zero3, hw = zero3, dm = zero3;
-  V3 dt_raw = zero3;
-  float pdf_new = 0.0f, off_sign = 1.0f;
-  float u1 = 0.0f, cphi = 0.0f, sphi = 0.0f, st = 0.0f, ctv = 0.0f;
+  // The metal terms that do not depend on the sample (NEE reads them too).
   float alpha = 0.0f, a2g = 0.0f, kg = 0.0f, g1v = 0.0f, ndotv = 0.0f;
-  float cos2h = 0.0f, cth = 0.0f, sth = 0.0f, odoth = 0.0f, ndoth = 0.0f;
-  float ndotl_m = 0.0f, ndotl_mc = 0.0f, g1l = 0.0f, gterm = 0.0f;
-  float wms = 0.0f, dggx = 0.0f;
-  V3 f_met = {0.0f, 0.0f, 0.0f};
-  float ior = 0.0f, eta = 0.0f, cos_i = 0.0f, sin2_t = 0.0f, cos_t = 0.0f;
-  float safe = 0.0f, kk = 0.0f;
-  bool dead = false, refl = false;
+  if (mtype == kMetal) {
+    alpha = fmaxf(s[6] * s[6], 1e-4f);
+    a2g = alpha * alpha;
+    ndotv = fmaxf(dot(ns, wo), 1e-6f);
+    kg = alpha * 0.5f;
+    g1v = ndotv / (ndotv * (1.0f - kg) + kg);
+  }
   const bool spec_new = mtype == kDielectric;
-  if (mtype == kLambert || mtype == kMetal) {
-    u1 = counter_uniform(pid, sample, kdim + kDimU1, seed);
-    const float u2 = counter_uniform(pid, sample, kdim + kDimU2, seed);
-    const float phi = kTwoPi * u2;
-    cphi = cosf(phi);
-    sphi = sinf(phi);
-    if (mtype == kLambert) {
-      ctv = sqrtf(u1);
-      st = sqrtf(fmaxf(0.0f, 1.0f - u1));
-      dl = {st * cphi * T.x + st * sphi * B.x + ctv * ns.x,
-            st * cphi * T.y + st * sphi * B.y + ctv * ns.y,
-            st * cphi * T.z + st * sphi * B.z + ctv * ns.z};
-      nd = dl;
-      pdf_new = fmaxf(dot(ns, dl), 0.0f) * kInvPi;
-      w = alb;
-    } else {
-      alpha = fmaxf(s[6] * s[6], 1e-4f);
-      a2g = alpha * alpha;
-      cos2h = (1.0f - u1) / (1.0f + (a2g - 1.0f) * u1);
-      cth = sqrtf(fmaxf(cos2h, 0.0f));
-      sth = sqrtf(fmaxf(1.0f - cos2h, 1e-12f));
-      hw = {sth * cphi * T.x + sth * sphi * B.x + cth * ns.x,
-            sth * cphi * T.y + sth * sphi * B.y + cth * ns.y,
-            sth * cphi * T.z + sth * sphi * B.z + cth * ns.z};
-      odoth = fmaxf(dot(wo, hw), 1e-6f);
-      dm = {2.0f * odoth * hw.x - wo.x, 2.0f * odoth * hw.y - wo.y,
-            2.0f * odoth * hw.z - wo.z};
-      nd = dm;
-      ndotl_m = dot(ns, dm);
-      ndotv = fmaxf(dot(ns, wo), 1e-6f);
-      ndoth = fmaxf(dot(ns, hw), 1e-6f);
-      kg = alpha * 0.5f;
-      g1v = ndotv / (ndotv * (1.0f - kg) + kg);
-      ndotl_mc = fmaxf(ndotl_m, 1e-6f);
-      g1l = ndotl_mc / (ndotl_mc * (1.0f - kg) + kg);
-      gterm = g1v * g1l;
-      const bool met_ok = ndotl_m > 1e-6f;
-      wms = met_ok ? gterm * odoth / (ndotv * ndoth) : 0.0f;
-      f_met = {schlick1(odoth, alb.x), schlick1(odoth, alb.y),
-               schlick1(odoth, alb.z)};
-      w = wms * f_met;
-      const float q = ndoth * ndoth * (a2g - 1.0f) + 1.0f;
-      dggx = a2g / fmaxf(kPi * (q * q), 1e-12f);
-      pdf_new = dggx * ndoth / (4.0f * odoth);
-      dead = !met_ok;
-    }
-  } else {
-    const float u_lobe = counter_uniform(pid, sample, kdim + kDimLobe, seed);
-    ior = fmaxf(s[7], 1.001f);
-    eta = front ? 1.0f / ior : ior;
-    cos_i = fmaxf(dot(wo, ns), 1e-6f);
-    const float f_die = fresnel_dielectric(cos_i, 1.0f / eta);
-    sin2_t = eta * eta * fmaxf(0.0f, 1.0f - cos_i * cos_i);
-    const bool tir = sin2_t >= 1.0f;
-    refl = (u_lobe < f_die) || tir;
-    if (refl) {
-      nd = {2.0f * cos_i * ns.x - wo.x, 2.0f * cos_i * ns.y - wo.y,
-            2.0f * cos_i * ns.z - wo.z};
-      w = {1.0f, 1.0f, 1.0f};
-    } else {
-      safe = 1.0f - sin2_t;
-      cos_t = sqrtf(fmaxf(safe, 1e-12f));
-      kk = eta * cos_i - cos_t;
-      dt_raw = {eta * (-wo.x) + kk * ns.x, eta * (-wo.y) + kk * ns.y,
-                eta * (-wo.z) + kk * ns.z};
-      nd = dt_raw;
-      normalize3(nd.x, nd.y, nd.z);
-      w = alb;
-      off_sign = -1.0f;
-    }
-  }
-  V3 thn = th * w;
-  bool active_n = !dead;
-  float p_cont = 1.0f;
-  if (k >= rr_depth) {
-    p_cont = clampf(fmaxf(thn.x, fmaxf(thn.y, thn.z)), 0.05f, 0.95f);
-    const float u_rr = counter_uniform(pid, sample, kdim + kDimRR, seed);
-    active_n = active_n && !(u_rr > p_cont);
-  }
 
-  // ---- reverse: the outputs ------------------------------------------------
-  V3 o_ct = o_o, d_ct = d_o, th_ct = th_o;
-  float pdf_ct = pdf_o;
-  V3 h_b = zero3, ns_b = zero3, nd_b = zero3, thn_b = zero3;
-  float pdfn_b = 0.0f;
-  if (active_n) {
-    o_ct = d_ct = th_ct = zero3;
-    pdf_ct = 0.0f;
-    h_b = o_o;
-    ns_b = (kEps * off_sign) * o_o;
-    nd_b = d_o;
-    thn_b = th_o;
-    pdfn_b = pdf_o;
-    if (k >= rr_depth) {
-      const float inv_p = 1.0f / p_cont;
-      const float p_b = -dot(thn_b, thn) / (p_cont * p_cont);
-      thn_b = inv_p * thn_b;
-      const float m1 = fmaxf(thn.y, thn.z);
-      const float m0_b = p_b * dclip(fmaxf(thn.x, m1), 0.05f, 0.95f);
-      const float m1_b = m0_b * dmax(m1, thn.x);
-      thn_b += V3{m0_b * dmax(thn.x, m1), m1_b * dmax(thn.y, thn.z),
-                  m1_b * dmax(thn.z, thn.y)};
-    }
-  }
-  th_ct += thn_b * w;
-  const V3 w_b = thn_b * th;
-
-  V3 T_b = zero3, B_b = zero3, wo_b = zero3, C_b = zero3, a_b = zero3;
-  V3 e_b = zero3;
-  float r_b = 0.0f, rough_b = 0.0f, ior_b = 0.0f;
+  V3 h_nee = zero3, th_nee = zero3, ns_b = zero3, wo_b = zero3, a_b = zero3;
   float a2g_b = 0.0f, kg_b = 0.0f, g1v_b = 0.0f, ndotv_b = 0.0f;
 
   // ---- next-event estimation: recompute, then reverse ------------------------
+  // Before the sample's recompute, so that none of the sample's terms is
+  // live across it; it reads only the hit, the frame's normal and the metal
+  // terms above, and sums into its own throughput and hit-point cotangents.
   if (nee && !spec_new) {
     uint32_t cell = (k == 0) ? lsel_cell(sc.lsb, h.x, h.y, h.z)
                              : lsel_cell(sc.lsb, p.ox, p.oy, p.oz);
@@ -560,7 +501,7 @@ __device__ void bounce_vjp(const SceneView& sc, const Geometry& geo,
       const V3 fcos = ndotl * base;
 
       // Reverse: radiance += th * fcos * le * scale.
-      th_ct += scale * (rad_o * fcos * le);
+      th_nee = scale * (rad_o * fcos * le);
       const V3 fcos_b = scale * (rad_o * th * le);
       const V3 le_b = scale * (rad_o * th * fcos);
       const float scale_b = dot(rad_o * th * fcos, le);
@@ -621,11 +562,131 @@ __device__ void bounce_vjp(const SceneView& sc, const Geometry& geo,
       const V3 toc_b =
           (1.0f / dist) * wl_b + (2.0f * d2_b * dmax(dot(toc, toc), 1e-12f))
                                      * toc;
-      h_b -= toc_b;
+      h_nee = -toc_b;
       ns_b -= kEps * toc_b;
       if (lslot >= 0) sink.light(lslot, toc_b, lrr_b, le_b);
     }
   }
+
+  // ---- the material's sample: recompute -------------------------------------
+  V3 T, B;
+  onb(ns.x, ns.y, ns.z, T.x, T.y, T.z, B.x, B.y, B.z);
+  V3 nd = zero3, w = zero3, dl = zero3, hw = zero3, dm = zero3;
+  V3 dt_raw = zero3;
+  float pdf_new = 0.0f, off_sign = 1.0f;
+  float u1 = 0.0f, cphi = 0.0f, sphi = 0.0f, st = 0.0f, ctv = 0.0f;
+  float cos2h = 0.0f, cth = 0.0f, sth = 0.0f, odoth = 0.0f, ndoth = 0.0f;
+  float ndotl_m = 0.0f, ndotl_mc = 0.0f, g1l = 0.0f, gterm = 0.0f;
+  float wms = 0.0f, dggx = 0.0f;
+  V3 f_met = {0.0f, 0.0f, 0.0f};
+  float ior = 0.0f, eta = 0.0f, cos_i = 0.0f, sin2_t = 0.0f, cos_t = 0.0f;
+  float safe = 0.0f, kk = 0.0f;
+  bool dead = false, refl = false;
+  if (mtype == kLambert || mtype == kMetal) {
+    u1 = counter_uniform(pid, sample, kdim + kDimU1, seed);
+    const float u2 = counter_uniform(pid, sample, kdim + kDimU2, seed);
+    const float phi = kTwoPi * u2;
+    cphi = cosf(phi);
+    sphi = sinf(phi);
+    if (mtype == kLambert) {
+      ctv = sqrtf(u1);
+      st = sqrtf(fmaxf(0.0f, 1.0f - u1));
+      dl = {st * cphi * T.x + st * sphi * B.x + ctv * ns.x,
+            st * cphi * T.y + st * sphi * B.y + ctv * ns.y,
+            st * cphi * T.z + st * sphi * B.z + ctv * ns.z};
+      nd = dl;
+      pdf_new = fmaxf(dot(ns, dl), 0.0f) * kInvPi;
+      w = alb;
+    } else {
+      cos2h = (1.0f - u1) / (1.0f + (a2g - 1.0f) * u1);
+      cth = sqrtf(fmaxf(cos2h, 0.0f));
+      sth = sqrtf(fmaxf(1.0f - cos2h, 1e-12f));
+      hw = {sth * cphi * T.x + sth * sphi * B.x + cth * ns.x,
+            sth * cphi * T.y + sth * sphi * B.y + cth * ns.y,
+            sth * cphi * T.z + sth * sphi * B.z + cth * ns.z};
+      odoth = fmaxf(dot(wo, hw), 1e-6f);
+      dm = {2.0f * odoth * hw.x - wo.x, 2.0f * odoth * hw.y - wo.y,
+            2.0f * odoth * hw.z - wo.z};
+      nd = dm;
+      ndotl_m = dot(ns, dm);
+      ndoth = fmaxf(dot(ns, hw), 1e-6f);
+      ndotl_mc = fmaxf(ndotl_m, 1e-6f);
+      g1l = ndotl_mc / (ndotl_mc * (1.0f - kg) + kg);
+      gterm = g1v * g1l;
+      const bool met_ok = ndotl_m > 1e-6f;
+      wms = met_ok ? gterm * odoth / (ndotv * ndoth) : 0.0f;
+      f_met = {schlick1(odoth, alb.x), schlick1(odoth, alb.y),
+               schlick1(odoth, alb.z)};
+      w = wms * f_met;
+      const float q = ndoth * ndoth * (a2g - 1.0f) + 1.0f;
+      dggx = a2g / fmaxf(kPi * (q * q), 1e-12f);
+      pdf_new = dggx * ndoth / (4.0f * odoth);
+      dead = !met_ok;
+    }
+  } else {
+    const float u_lobe = counter_uniform(pid, sample, kdim + kDimLobe, seed);
+    ior = fmaxf(s[7], 1.001f);
+    eta = front ? 1.0f / ior : ior;
+    cos_i = fmaxf(dot(wo, ns), 1e-6f);
+    const float f_die = fresnel_dielectric(cos_i, 1.0f / eta);
+    sin2_t = eta * eta * fmaxf(0.0f, 1.0f - cos_i * cos_i);
+    const bool tir = sin2_t >= 1.0f;
+    refl = (u_lobe < f_die) || tir;
+    if (refl) {
+      nd = {2.0f * cos_i * ns.x - wo.x, 2.0f * cos_i * ns.y - wo.y,
+            2.0f * cos_i * ns.z - wo.z};
+      w = {1.0f, 1.0f, 1.0f};
+    } else {
+      safe = 1.0f - sin2_t;
+      cos_t = sqrtf(fmaxf(safe, 1e-12f));
+      kk = eta * cos_i - cos_t;
+      dt_raw = {eta * (-wo.x) + kk * ns.x, eta * (-wo.y) + kk * ns.y,
+                eta * (-wo.z) + kk * ns.z};
+      nd = dt_raw;
+      normalize3(nd.x, nd.y, nd.z);
+      w = alb;
+      off_sign = -1.0f;
+    }
+  }
+  V3 thn = th * w;
+  bool active_n = !dead;
+  float p_cont = 1.0f;
+  if (k >= rr_depth) {
+    p_cont = clampf(fmaxf(thn.x, fmaxf(thn.y, thn.z)), 0.05f, 0.95f);
+    const float u_rr = counter_uniform(pid, sample, kdim + kDimRR, seed);
+    active_n = active_n && !(u_rr > p_cont);
+  }
+
+  // ---- reverse: the outputs ------------------------------------------------
+  V3 o_ct = o_o, d_ct = d_o, th_ct = th_o;
+  float pdf_ct = pdf_o;
+  V3 h_b = h_nee, nd_b = zero3, thn_b = zero3;
+  float pdfn_b = 0.0f;
+  if (active_n) {
+    o_ct = d_ct = th_ct = zero3;
+    pdf_ct = 0.0f;
+    h_b = o_o + h_nee;
+    ns_b += (kEps * off_sign) * o_o;
+    nd_b = d_o;
+    thn_b = th_o;
+    pdfn_b = pdf_o;
+    if (k >= rr_depth) {
+      const float inv_p = 1.0f / p_cont;
+      const float p_b = -dot(thn_b, thn) / (p_cont * p_cont);
+      thn_b = inv_p * thn_b;
+      const float m1 = fmaxf(thn.y, thn.z);
+      const float m0_b = p_b * dclip(fmaxf(thn.x, m1), 0.05f, 0.95f);
+      const float m1_b = m0_b * dmax(m1, thn.x);
+      thn_b += V3{m0_b * dmax(thn.x, m1), m1_b * dmax(thn.y, thn.z),
+                  m1_b * dmax(thn.z, thn.y)};
+    }
+  }
+  th_ct += thn_b * w;
+  th_ct += th_nee;
+  const V3 w_b = thn_b * th;
+
+  V3 T_b = zero3, B_b = zero3, C_b = zero3, e_b = zero3;
+  float r_b = 0.0f, rough_b = 0.0f, ior_b = 0.0f;
 
   // ---- the material's sample, in reverse -------------------------------------
   if (mtype == kLambert) {
@@ -759,17 +820,6 @@ __device__ void bounce_vjp(const SceneView& sc, const Geometry& geo,
   ct[3] = d_ct.x; ct[4] = d_ct.y; ct[5] = d_ct.z;
   ct[6] = th_ct.x; ct[7] = th_ct.y; ct[8] = th_ct.z;
   ct[12] = pdf_ct;
-}
-
-// K2's adjoint: the sphere list, theta's cotangent into sphere rows of g.
-__device__ __forceinline__ void bounce_vjp(const SceneView& sc, const Path& p,
-                                           uint32_t pid, uint32_t sample,
-                                           uint32_t seed, int k, int rr_depth,
-                                           bool use_nee, bool use_mis,
-                                           float* ct, float* g) {
-  SphereSink sink{g, sc};
-  bounce_vjp(sc, SphereList{sc}, sink, p, pid, sample, seed, k, rr_depth,
-             use_nee, use_mis, ct);
 }
 
 }  // namespace spt

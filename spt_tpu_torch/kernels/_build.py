@@ -46,6 +46,8 @@ ENTRIES = {
         # n, n_prims, n_light_slots, k, rr_depth, use_nee, use_mis,
         # sky_mode, stream
         "spt_bounce_vjp": [_P] * 10 + [_I] * 8 + [_P],
+        # n_prims, n_light_slots -> blocks an SM
+        "spt_megakernel_grad_blocks_per_sm": [_I, _I],
     },
     "megakernel_bvh": {
         # out, blob, meta, lsb, nodef, nodei, prims, mtypes, width, height,

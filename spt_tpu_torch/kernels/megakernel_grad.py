@@ -20,6 +20,10 @@ that owns it and is folded into that sphere's row.
 * ``bounce_vjp`` runs one bounce's adjoint over given lanes, K2's per-lane
   code on the card (``spt_bounce_vjp``) or ``bounce_vjp_plain`` on the CPU,
   so the two can be compared.
+* ``record_bounce`` and ``recorded_geometry`` are the plain forms of K2's
+  two geometries: the forward sweep that records each lane's nearest
+  sphere and shadow verdict, and the replay that rebuilds the hit from
+  them without sweeping (``bounce_vjp_recorded_plain``).
 
 ``megakernel.LAUNCHES["k2"]`` counts K2 launches; plain runs count under
 ``"plain"``.
@@ -100,19 +104,92 @@ def render_and_grad_plain(blob: torch.Tensor, meta: torch.Tensor,
     return acc.T.reshape(height, width, 3), gvec
 
 
-def bounce_vjp_plain(blob, meta, lsb, state, aux, pid, sample, state_ct, *,
-                     k: int, n_prims: int, n_light_slots: int, rr_depth: int,
-                     use_nee: bool, use_mis: bool, sky_mode: int):
-    """Plain version of ``bounce_vjp``: ``trace_bounce_vjp`` on the lanes,
-    with bounce k's counter uniforms, theta's cotangent folded as in gvec."""
+def _plain_bounce(blob, meta, lsb, pid, sample, *, k: int, n_prims: int,
+                  n_light_slots: int, rr_depth: int, use_nee: bool,
+                  use_mis: bool, sky_mode: int):
+    """The packed scene, bounce k's configuration and its counter uniforms
+    for the lanes (pid, sample), as the plain per-lane adjoints take them."""
     sc = PlainScene(blob, meta, lsb, n_prims, n_light_slots)
     cfg = physics.BounceCfg(
         mtypes=sc.mtypes, k=k, rr_depth=rr_depth, use_nee=use_nee,
         use_mis=use_mis, sky_mode=sky_mode, n_light_slots=n_light_slots)
-    th_ct, st_ct = trace_bounce_vjp(
-        sc.theta, tuple(state), tuple(aux), sc.uniforms(pid, sample, k),
-        sc.nl, cfg, tuple(state_ct))
+    return sc, cfg, sc.uniforms(pid, sample, k)
+
+
+def bounce_vjp_plain(blob, meta, lsb, state, aux, pid, sample, state_ct,
+                     **kw):
+    """Plain version of ``bounce_vjp``: ``trace_bounce_vjp`` on the lanes,
+    with bounce k's counter uniforms, theta's cotangent folded as in gvec.
+    Keywords as ``bounce_vjp``'s."""
+    sc, cfg, u = _plain_bounce(blob, meta, lsb, pid, sample, **kw)
+    th_ct, st_ct = trace_bounce_vjp(sc.theta, tuple(state), tuple(aux), u,
+                                    sc.nl, cfg, tuple(state_ct))
     return fold_lights(th_ct, sc.light_prims, sc.nl), torch.stack(st_ct)
+
+
+def record_bounce(theta, state, aux, u, nl: int, cfg: physics.BounceCfg):
+    """K2's forward geometry (``RecordingList``), plain: ``trace_bounce``
+    over the sphere list -> (ids (N,) int64, each lane's nearest sphere, -1
+    on a miss; blocked (N,) bool, its NEE shadow verdict, False where it
+    traced none)."""
+    spheres = theta[0]
+    rec = {}
+
+    def intersect(ox, oy, oz, dx, dy, dz, active):
+        t, h, m_lam, m_met, m_die, j = physics.intersect_spheres_unrolled(
+            spheres, cfg.mtypes, ox, oy, oz, dx, dy, dz)
+        rec["ids"] = torch.where(t < physics.BIG, j.long(), -1)
+        return t, h, m_lam, m_met, m_die
+
+    def occluded(ox, oy, oz, dx, dy, dz, tmax, need):
+        rec["blocked"] = physics.occluded_unrolled(spheres, ox, oy, oz, dx,
+                                                   dy, dz, tmax)
+        return rec["blocked"]
+
+    physics.trace_bounce(theta, state, aux, u, nl, cfg, intersect, occluded)
+    ids = rec["ids"]
+    return ids, rec.get("blocked", torch.zeros_like(ids, dtype=torch.bool))
+
+
+def recorded_geometry(spheres, mtypes, ids, blocked):
+    """K2's replay geometry (``RecordedSphere``), plain: ``trace_bounce``'s
+    (intersect_fn, occluded_fn) with each lane's hit rebuilt from the
+    sphere ``ids`` records by ``physics._sphere_t`` on that row alone (the
+    sweep's expression, so the same distance bits) and the recorded shadow
+    verdict."""
+    found = ids >= 0
+    j = ids.clamp_min(0)
+    rows = spheres[j]                                     # (N, 12)
+
+    def intersect(ox, oy, oz, dx, dy, dz, active):
+        tj, _ = physics._sphere_t(rows, *(a[:, None] for a in
+                                          (ox, oy, oz, dx, dy, dz)))
+        t = torch.where(found, tj[:, 0], physics.BIG)
+        h = {key: torch.where(found, rows[:, a], 1.5 if key == "ior" else 0.0)
+             for a, key in enumerate(physics._H_KEYS)}
+        mt = torch.as_tensor(mtypes, dtype=torch.int32, device=ox.device)[j]
+        return (t, h, found & (mt == physics.LAMBERT),
+                found & (mt == physics.METAL),
+                found & (mt == physics.DIELECTRIC))
+
+    return intersect, lambda *a: blocked
+
+
+def bounce_vjp_recorded_plain(blob, meta, lsb, state, aux, pid, sample,
+                              state_ct, **kw):
+    """``bounce_vjp_plain`` as K2's per-lane code computes it: the bounce
+    forward with the recording geometry, then its adjoint against the
+    recorded hit and verdict, the lanes' rows added into their spheres."""
+    sc, cfg, u = _plain_bounce(blob, meta, lsb, pid, sample, **kw)
+    state, aux = tuple(state), tuple(aux)
+    ids, blocked = record_bounce(sc.theta, state, aux, u, sc.nl, cfg)
+    (rows, sky_ct, lights_ct), st_ct = trace_bounce_vjp(
+        sc.theta, state, aux, u, sc.nl, cfg, tuple(state_ct),
+        recorded_geometry(sc.theta[0], sc.mtypes, ids, blocked))
+    spheres_ct = torch.zeros_like(sc.theta[0]).index_add_(
+        0, ids.clamp_min(0), rows)
+    return (fold_lights((spheres_ct, sky_ct, lights_ct), sc.light_prims,
+                        sc.nl), torch.stack(st_ct))
 
 
 def bounce_vjp(blob, meta, lsb, state, aux, pid, sample, state_ct, *, k: int,
@@ -123,8 +200,9 @@ def bounce_vjp(blob, meta, lsb, state, aux, pid, sample, state_ct, *, k: int,
     ``state`` and ``state_ct`` are (13, N) float32, ``aux`` (2, N) bool,
     ``pid`` and ``sample`` (N,) uint32 values as int64; the uniforms are
     the counter streams of bounce ``k`` (seed ``meta[1]``).  On CUDA tensors
-    this runs K2's per-lane adjoint (``spt_bounce_vjp``), on CPU tensors
-    ``bounce_vjp_plain``."""
+    this runs K2's per-lane code (``spt_bounce_vjp``: the bounce with K2's
+    recording geometry, then its adjoint against the recorded hit into K2's
+    sink), on CPU tensors ``bounce_vjp_plain``."""
     kw = dict(k=k, n_prims=n_prims, n_light_slots=n_light_slots,
               rr_depth=rr_depth, use_nee=use_nee, use_mis=use_mis,
               sky_mode=sky_mode)
@@ -154,6 +232,14 @@ def bounce_vjp(blob, meta, lsb, state, aux, pid, sample, state_ct, *, k: int,
     if err != 0:
         raise RuntimeError(f"spt_bounce_vjp launch failed: CUDA error {err}")
     return gvec, out
+
+
+def blocks_per_sm(n_prims: int, n_light_slots: int) -> int:
+    """Blocks of K2 that share an SM for a scene of ``n_prims`` spheres
+    (CUDA's occupancy calculator on the kernel as built; needs the card)."""
+    from ._build import load_library
+    return load_library("megakernel_grad").spt_megakernel_grad_blocks_per_sm(
+        n_prims, n_light_slots)
 
 
 def _check_cuda(blob, meta, lsb, n_prims: int, n_light_slots: int) -> None:

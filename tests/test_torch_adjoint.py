@@ -145,3 +145,34 @@ def test_inactive_lanes_pass_the_cotangent_through():
     assert all(float(t.abs().sum()) == 0.0 for t in th_ct)
     for a, b in zip(st_ct, ct):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("scene", ["cornell", "grad_scene"])
+@pytest.mark.parametrize("k", [0, 3])
+def test_recorded_replay_equals_the_sweep(scene, k):
+    """K2's replay (``megakernel_grad.recorded_geometry``): each lane's hit
+    rebuilt from the sphere and shadow verdict its forward recorded gives
+    the sphere-list sweep's state cotangents and theta cotangent bit for
+    bit, at bounce 0 and with Russian roulette (k = 3)."""
+    import chip_smoke as cs
+    from spt_tpu_torch.kernels import megakernel_grad as tmg
+    sd = getattr(cs, scene)(spt_tpu_torch).compile(device="cpu")
+    cam = spt_tpu_torch.Camera.look_at((0, 1.0, -1.2), (0, 0.8, 4.0),
+                                       device="cpu")
+    blob, meta, lsb, static = tmega.pack_uniforms(sd, cam, 0, SEED)
+    lanes = cs.vjp_lanes(torch, "cpu", 512, 20 + k)
+    kw = dict(k=k, rr_depth=3, use_nee=True, use_mis=True,
+              sky_mode=sd.sky_mode, **static)
+    g_sweep, ct_sweep = tmg.bounce_vjp_plain(blob, meta, lsb, *lanes, **kw)
+    g_rec, ct_rec = tmg.bounce_vjp_recorded_plain(blob, meta, lsb, *lanes,
+                                                  **kw)
+    sc, cfg, u = tmg._plain_bounce(blob, meta, lsb, lanes[2], lanes[3],
+                                   **kw)
+    ids, blocked = tmg.record_bounce(sc.theta, tuple(lanes[0]),
+                                     tuple(lanes[1]), u, sc.nl, cfg)
+    # lanes hit (and, under grad_scene's sky, miss) and are blocked, and
+    # the cotangents are not zero
+    assert (ids >= 0).any() and blocked.any()
+    assert (ids < 0).any() or scene == "cornell"
+    assert float(g_sweep.abs().sum()) > 0
+    assert torch.equal(g_rec, g_sweep) and torch.equal(ct_rec, ct_sweep)

@@ -37,9 +37,10 @@ import pytest
 import torch
 
 import spt_tpu_torch as T
-from chip_smoke import (ATOL, MAX_MEAN_REL, MIN_CLOSE, PAD_CAM, RTOL,
-                        VJP_ATOL_REL, VJP_MIN_CLOSE, VJP_RTOL, cornell,
-                        env_gradient, grad_errors, grad_scene, k3_inputs,
+from chip_smoke import (ATOL, ENCLOSURE_CAM, K2_CAPACITY_CAM, MAX_MEAN_REL,
+                        MIN_CLOSE, PAD_CAM, RTOL, VJP_ATOL_REL, VJP_MIN_CLOSE,
+                        VJP_RTOL, cornell, enclosure_scene, env_gradient,
+                        grad_errors, grad_scene, k2_capacity_scene, k3_inputs,
                         lanes_close, padding_scene, raw_fields, scene_200,
                         shadow_sray, tail_field_errors, vjp_lanes,
                         wf_bounce, wf_inputs)
@@ -69,6 +70,12 @@ def _case(case, dev):
         sd = T.demo_scene_38_spheres().compile(capacity=64, device=dev)
         cam = T.Camera.look_at((0, 0, 0), (0, 0, 1), fov_degrees=90,
                                device=dev)
+    elif case in ("capacity_128", "enclosure"):
+        scene, camkw = ((k2_capacity_scene(T), K2_CAPACITY_CAM)
+                        if case == "capacity_128"
+                        else (enclosure_scene(T), ENCLOSURE_CAM))
+        sd = scene.compile(device=dev)
+        cam = T.Camera.look_at(device=dev, **camkw)
     else:
         sd = cornell(T).compile(device=dev)
         lens = dict(aperture=0.15, focus_dist=4.5) if case == "thin_lens" \
@@ -141,7 +148,10 @@ def test_bounce_vjp_kernel_matches_plain(cuda, k):
     assert all(e["ok"] for e in errs), errs
 
 
-@pytest.mark.parametrize("case", ["cornell", "demo38", "thin_lens"])
+# capacity_128: 128 spheres, 7 light slots and a gradient sky, many rows
+# and light rows in one warp; enclosure: all lanes of a warp on one row.
+@pytest.mark.parametrize("case", ["cornell", "demo38", "thin_lens",
+                                  "capacity_128", "enclosure"])
 def test_k2_matches_plain(cuda, case):
     sd, cam = _case(case, cuda)
     blob, meta, lsb, static = mk.pack_uniforms(sd, cam, 7, 3)

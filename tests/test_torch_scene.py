@@ -16,6 +16,7 @@ import spt_tpu_torch
 from spt_tpu.kernels import megakernel as jmega
 from spt_tpu.kernels import physics as jphys
 from spt_tpu_torch.core import color as tcolor
+from spt_tpu_torch.core import materials as tmat
 from spt_tpu_torch.core.convert import camera_from_arrays, scene_data_from_arrays
 from spt_tpu_torch.kernels import megakernel as tmega
 from spt_tpu_torch.kernels import megakernel_bvh as tmbvh
@@ -198,6 +199,32 @@ def test_camera_generate_rays_matches_jax():
                               48, *(torch.from_numpy(j) for j in jit))
     np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=1e-5)
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=1e-5)
+
+
+@pytest.mark.parametrize("entry", ["builder", "default_table"])
+def test_material_table_on_the_card_unless_asked(entry):
+    """``MaterialBuilder.build`` and ``default_table`` give JAX's table on
+    the CPU when asked; with no device named they take the card, and raise
+    where there is none."""
+    def make(pkg, **kw):
+        if entry == "default_table":
+            mod = tmat if pkg is spt_tpu_torch else spt_tpu.core.materials
+            return mod.default_table(**kw)
+        b = pkg.MaterialBuilder()
+        b.add("metal", albedo=(0.8, 0.5, 0.2), roughness=0.3)
+        b.add("glass", albedo=(0.95,) * 3, ior=1.45)
+        return b.build(**kw)
+
+    got, want = make(spt_tpu_torch, device=CPU), make(spt_tpu)
+    for f in ("albedo", "emission", "roughness", "ior", "mtype"):
+        assert getattr(got, f).device.type == CPU
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)))
+    if torch.cuda.is_available():
+        assert make(spt_tpu_torch).albedo.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(spt_tpu_torch)
 
 
 def test_bvh_scene_raises_not_implemented():
