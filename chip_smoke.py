@@ -11,7 +11,8 @@ through K1 at the repo's headline size; inverse rendering,
 the facade at 1920x1080 on the repo's large scene cut to 2,000 spheres,
 through K3; and the facade on the large scene itself, 10,000 spheres, with
 its gradient sky and with an environment map, through the sorted
-wavefront's K5, K6 and K7; and the large-scene gradients at 1920x1080 x 4
+wavefront's K5, K6 and K7, whose rays walk the tree (no lists built); and
+the large-scene gradients at 1920x1080 x 4
 spp, one backward and 3 ``InverseRenderer`` steps each: config 5 cut to
 2,000 spheres through K3 forward and K4 backward, and config 5 itself
 through the differentiable wavefront, K5, K6 and K9 forward and K10
@@ -757,6 +758,13 @@ def run() -> int:
            for i, fn, line, tpu in ((5, "raygen", 154, "_raygen_kernel"),
                                     (6, "isect", 490, "_isect_kernel"),
                                     (7, "shade", 582, "_shade_kernel"))]
+        + [dict(name="K6l wavefront isect, lists (prim shards)", route="cuda",
+                source="spt_tpu_torch/csrc/wavefront.cu",
+                replaces="spt_tpu/kernels/wavefront.py:490::_isect_kernel "
+                         "(per shard: spt_tpu/parallel/wavefront_prim.py:153)",
+                launches=sum(by_path("k6l").values()),
+                launches_by_path=by_path("k6l"), **wf["k6l"],
+                library_ms=None, checked_against_plain=True)]
         + [dict(name=name, route="cuda", source=f"spt_tpu_torch/csrc/{src}",
                 replaces=replaces, launches=sum(by_path(key).values()),
                 launches_by_path=by_path(key), **gr[key], library_ms=None,
@@ -1256,60 +1264,72 @@ def wf_inputs(torch, wf, mb, sd, cam, seed):
     return t, st, meta
 
 
-def wf_bounce(torch, wf, t, stc, meta, width, height, k, seed):
-    """The inputs of one wavefront bounce's kernels as ``render_wavefront``
-    makes them, 2 spp of a scene after raygen (K5), a sort and the
-    precull: the stream and its alive prefix ``n`` (lanes), the nearest-hit
-    lists, K6's residual and the shadow lists.  Returns a dict."""
+def wf_lists(torch, wf, t, stc, st, ids, n, k, seed):
+    """Bounce ``k``'s inputs of the list route over lanes [0, n) of a
+    sorted stream: the nearest-hit lists (the precull), K6's list-mode
+    residual and the shadow lists (the prim-sharded render's, K8's and
+    K7b's inputs; the split path walks the tree instead).  Also K6's tree
+    mode's residual (``res_t``) and the tree (``tree``)."""
     block, prims = stc["block"], t["prims"]
-    st, ids = wf.raygen(t["blob"], meta, width=width, height=height,
-                        chunk_spp=2, dof=False)
-    buf = wf._stream_buffer(st, ids)
-    n = wf._sort_rays(buf, buf.shape[1], *wf._scene_sort_bounds(
-        t["nodef"])) * wf.TILE
     lob, hib = wf._leaf_block_bounds(prims.reshape(-1, 5, block))
     cand, ctn = wf.precull_tiles(
         tuple(st[c, :n] for c in range(3)),
         tuple(st[c, :n] for c in range(3, 6)), st[wf.C_ALIVE, :n], None,
         lob, hib)
     res = wf.isect(prims, cand, ctn, st, n, block=block)
+    tree = (t["nodef"], t["nodei"])
+    res_t = wf.isect(prims, None, None, st, n, block=block, tree=tree)
     nls = stc["n_light_slots"]
     so3, sd3, stmax, sneed = wf.shadow_rays(
         st[:, :n], ids[:, :n], res, t["blob"], t["lsb"], nls, k=k,
         seed=seed, n_mats=stc["n_mats"], mtypes=stc["mtypes"],
         n_light_slots=nls)
     scand, sctn = wf.precull_tiles(so3, sd3, sneed, stmax, lob, hib)
-    return dict(st=st, ids=ids, buf=buf, n=n, cand=cand, ctn=ctn, res=res,
-                scand=scand, sctn=sctn)
+    return dict(cand=cand, ctn=ctn, res=res, scand=scand, sctn=sctn,
+                res_t=res_t, tree=tree)
+
+
+def wf_bounce(torch, wf, t, stc, meta, width, height, k, seed):
+    """The inputs of one wavefront bounce's kernels, 2 spp of a scene after
+    raygen (K5) and a sort: the stream and its alive prefix ``n`` (lanes)
+    and ``wf_lists``' residuals and lists.  Returns a dict."""
+    st, ids = wf.raygen(t["blob"], meta, width=width, height=height,
+                        chunk_spp=2, dof=False)
+    buf = wf._stream_buffer(st, ids)
+    n = wf._sort_rays(buf, buf.shape[1], *wf._scene_sort_bounds(
+        t["nodef"])) * wf.TILE
+    return dict(st=st, ids=ids, buf=buf, n=n,
+                **wf_lists(torch, wf, t, stc, st, ids, n, k, seed))
 
 
 def wf_advance(torch, wf, t, stc, meta, b, k, seed, sky_mode):
     """Shade bounce ``k`` of ``wf_bounce``'s (or this function's) inputs
-    ``b`` in place with K7, and return the inputs of bounce k + 1 as
-    ``render_wavefront`` makes them: a sort, the precull, K6's residual
-    and the shadow lists."""
-    block, prims = stc["block"], t["prims"]
+    ``b`` in place with K7 on K6's tree-mode winner, its shadow rays
+    walking the tree, as ``render_wavefront`` does, and return the inputs
+    of bounce k + 1: a sort and ``wf_lists``."""
     st, ids, buf, n = b["st"], b["ids"], b["buf"], b["n"]
-    wf.shade(t["blob"], meta, t["lsb"], prims, t["mtypes"], b["scand"],
-             b["sctn"], st, ids, b["res"], n, k=k, block=block,
+    wf.shade(t["blob"], meta, t["lsb"], t["prims"], t["mtypes"], None, None,
+             st, ids, b["res_t"], n, k=k, block=stc["block"],
              n_mats=stc["n_mats"], n_light_slots=stc["n_light_slots"],
-             rr_depth=RR, use_nee=True, use_mis=True, sky_mode=sky_mode)
+             rr_depth=RR, use_nee=True, use_mis=True, sky_mode=sky_mode,
+             tree=b["tree"])
     n = wf._sort_rays(buf, buf.shape[1], *wf._scene_sort_bounds(
         t["nodef"])) * wf.TILE
-    lob, hib = wf._leaf_block_bounds(prims.reshape(-1, 5, block))
-    cand, ctn = wf.precull_tiles(
-        tuple(st[c, :n] for c in range(3)),
-        tuple(st[c, :n] for c in range(3, 6)), st[wf.C_ALIVE, :n], None,
-        lob, hib)
-    res = wf.isect(prims, cand, ctn, st, n, block=block)
-    nls = stc["n_light_slots"]
-    so3, sd3, stmax, sneed = wf.shadow_rays(
-        st[:, :n], ids[:, :n], res, t["blob"], t["lsb"], nls, k=k + 1,
-        seed=seed, n_mats=stc["n_mats"], mtypes=stc["mtypes"],
-        n_light_slots=nls)
-    scand, sctn = wf.precull_tiles(so3, sd3, sneed, stmax, lob, hib)
-    return dict(st=st, ids=ids, buf=buf, n=n, cand=cand, ctn=ctn, res=res,
-                scand=scand, sctn=sctn)
+    return dict(st=st, ids=ids, buf=buf, n=n,
+                **wf_lists(torch, wf, t, stc, st, ids, n, k + 1, seed))
+
+
+def route_differ(torch, wf, st, res_t, res_l):
+    """Lanes where K6's tree mode and its list mode part, by cause: an
+    exact tie (both winners at the same rebuilt t) or a padding winner on
+    either side; ``other`` counts the rest (none may be)."""
+    differ = (res_t.view(torch.int32) != res_l.view(torch.int32)).any(0)
+    pad = ((res_t[4] < 0) & (res_t[5] >= 0)) | ((res_l[4] < 0)
+                                                 & (res_l[5] >= 0))
+    tie = (wf.winner_t(st, res_t) == wf.winner_t(st, res_l)) & ~pad
+    return dict(lanes=int(differ.sum()), ties=int((differ & tie).sum()),
+                padding=int((differ & pad).sum()),
+                other=int((differ & ~tie & ~pad).sum()))
 
 
 def shadow_sray(torch, wf, t, stc, b, k, seed):
@@ -1346,11 +1366,11 @@ def sort_stability(torch, wf, mb, sd, cam, kw, reps=5):
     and the unstable sort alternating, their images and stage times."""
     t, stc, meta = wf_inputs(torch, wf, mb, sd, cam, BIG_SEED)
     b = wf_bounce(torch, wf, t, stc, meta, BIG_W, BIG_H, 0, BIG_SEED)
-    wf.shade(t["blob"], meta, t["lsb"], t["prims"], t["mtypes"], b["scand"],
-             b["sctn"], b["st"], b["ids"], b["res"], b["n"], k=0,
-             block=stc["block"], n_mats=stc["n_mats"],
-             n_light_slots=stc["n_light_slots"], rr_depth=RR, use_nee=True,
-             use_mis=True, sky_mode=sd.sky_mode)
+    wf.shade(t["blob"], meta, t["lsb"], t["prims"], t["mtypes"], None, None,
+             b["st"], b["ids"], b["res_t"], b["n"], k=0, block=stc["block"],
+             n_mats=stc["n_mats"], n_light_slots=stc["n_light_slots"],
+             rr_depth=RR, use_nee=True, use_mis=True, sky_mode=sd.sky_mode,
+             tree=b["tree"])
     buf = b["buf"]
     key = wf._coherence_key(buf, *wf._scene_sort_bounds(t["nodef"]))
     orders, ms = {}, {False: [], True: []}
@@ -1390,11 +1410,102 @@ def sort_stability(torch, wf, mb, sd, cam, kw, reps=5):
         (images["stable"] != images["unstable"]).any(-1).sum()))
 
 
+def reset_glue(wf):
+    """Zero the counts of the list-building glue's calls."""
+    wf.GLUE_CALLS.update(dict.fromkeys(wf.GLUE_CALLS, 0))
+
+
 def bound(ops, n_bytes):
     """(bound_ms, bound_by) of fp32 operations and bytes on one H100."""
     t_ops, t_bytes = ops / FP32_PEAK, n_bytes / HBM_RATE
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes \
         else "bytes"
+
+
+def walk_case(torch, wf, t, stc, meta, b, k, label, skies, reps):
+    """K6's tree mode and K7's shadow walk on one bounce ``b``
+    (``wf_bounce``'s or ``wf_advance``'s) against their plain walks, bit
+    for bit, and against the list route (``route_differ``; K7 over the
+    shadow lists on K6's list-mode winner), K7 under each sky of
+    ``skies``.  Returns the times and the plain walks' counts (K7's of
+    the first sky)."""
+    block, prims, n, st, tree = (stc["block"], t["prims"], b["n"], b["st"],
+                                 b["tree"])
+    k6_ms = min(cuda_ms(torch, lambda: wf.isect(
+        prims, None, None, st, n, block=block, tree=tree))[1]
+        for _ in range(reps))
+    res_t = b["res_t"]
+    k6_stats = {}
+    with torch.inference_mode():
+        res_p, k6_plain_ms = cuda_ms(torch, lambda: wf.isect_plain(
+            prims, None, None, st, n, block=block, stats=k6_stats, tree=tree))
+    differ = bits_differ(torch, res_t, res_p)
+    route = route_differ(torch, wf, st[:, :n], res_t, b["res"])
+    padding = int(((res_t[4] < 0) & (res_t[5] >= 0)).sum())
+    alive = max(k6_stats["alive"], 1)
+    emit(dict(phase="k6_vs_plain", case=label, mode="tree", lanes=n,
+              lanes_differ=differ, hits=int((res_t[4] >= 0).sum()),
+              padding_winners=padding, k6_ms=k6_ms, plain_ms=k6_plain_ms,
+              nodes_per_lane=k6_stats["nodes"] / alive,
+              spheres_per_lane=k6_stats["spheres"] / alive,
+              differ_from_lists=route))
+    check(differ == 0, f"{label}: K6's tree mode differs from its plain "
+                       f"walk on {differ} lanes")
+    check(route["other"] == 0,
+          f"{label}: K6's tree mode and list mode part on {route['other']} "
+          "lanes without a tie or a padding winner")
+    check(int((res_t[4] >= 0).sum()) > 0, f"{label}: K6 found no hit")
+    del res_p
+    base = b["buf"].clone()
+    args7 = (t["blob"], meta, t["lsb"], prims, t["mtypes"])
+    kw = dict(k=k, block=block, n_mats=stc["n_mats"],
+              n_light_slots=stc["n_light_slots"], rr_depth=RR, use_nee=True,
+              use_mis=True)
+    first = None
+    for sky in skies:
+        kw7 = dict(kw, sky_mode=sky)
+        got = base.clone()
+        ms = []
+        for _ in range(reps):
+            got.copy_(base)
+            ms.append(cuda_ms(torch, lambda: wf.shade(
+                *args7, None, None, *stream_of(torch, wf, got), res_t, n,
+                tree=tree, **kw7))[1])
+        plain, lists = base.clone(), base.clone()
+        stats = {}
+        with torch.inference_mode():
+            _, p_ms = cuda_ms(torch, lambda: wf.shade_plain(
+                *args7, None, None, *stream_of(torch, wf, plain), res_t, n,
+                stats=stats, tree=tree, **kw7))
+        wf.shade(*args7, b["scand"], b["sctn"], *stream_of(torch, wf, lists),
+                 b["res"], n, **kw7)
+        a, c = got[:wf.N_CH, :n], plain[:wf.N_CH, :n]
+        res = state_close(torch, wf, a, c)
+        misses = int((a[wf.C_MISS] > 0.5).sum())
+        row = dict(lanes=n, lanes_differ=bits_differ(torch, a, c),
+                   lanes_differ_from_lists=bits_differ(
+                       torch, a, lists[:wf.N_CH, :n]),
+                   misses=misses,
+                   alive_after=int((a[wf.C_ALIVE] > 0.5).sum()), k7_ms=ms,
+                   plain_ms=p_ms, shadow_rays=stats["shadow"],
+                   shadow_nodes_per_ray=stats["shadow_nodes"]
+                   / max(stats["shadow"], 1),
+                   shadow_spheres_per_ray=stats["shadow_spheres"]
+                   / max(stats["shadow"], 1), **res)
+        emit(dict(phase="k7_vs_plain", case=label, sky_mode=sky,
+                  mode="walk", **row))
+        check(row["lanes_differ"] == 0,
+              f"{label}: K7's shadow walk differs from its plain walk on "
+              f"{row['lanes_differ']} lanes")
+        check(misses > 0 if sky == wf.SKY_ENVMAP else misses == 0,
+              f"{label}: {misses} lanes flagged as missed")
+        check(row["alive_after"] > 0, f"{label}: K7 left no ray alive")
+        if first is None:
+            first = dict(k7_ms=min(ms), k7_plain_ms=p_ms, k7_stats=stats,
+                         k7_err=res["max_abs_err"])
+        del got, plain, lists
+    return dict(first, n=n, k6_ms=k6_ms, k6_plain_ms=k6_plain_ms,
+                k6_stats=k6_stats, k6_route=route, k6_padding=padding)
 
 
 def run_wf_phases(torch, T, mk, dev, card, k3) -> dict:
@@ -1449,105 +1560,95 @@ def run_wf_phases(torch, T, mk, dev, card, k3) -> dict:
                 0, 4 * (wf.N_CH + wf.N_IDS) * lanes + 4 * (15 + 3))
         del st_k, ids_k, st_p, ids_p, a, b
 
-    # 18. One config-5 bounce at full size: K6 and K7 against their plain
-    # versions, after raygen, a sort and the precull ---------------------
+    # 18. Config-5 bounces 0 and 1 at full size (1920x1080 x 2 spp) and a
+    # bounce of the padding scene: K6's tree mode and K7's shadow walk
+    # against their plain walks, bit for bit (K7 with either sky), and
+    # against the list route, the differing lanes counted; K6's list mode
+    # (the prim shards') against its plain version, bit for bit ----------
     t, stc, meta = wf_inputs(torch, wf, mb, sd10, cam10, BIG_SEED)
     block, prims = stc["block"], t["prims"]
     b0 = wf_bounce(torch, wf, t, stc, meta, BIG_W, BIG_H, 0, BIG_SEED)
     st, n, cand, ctn, res_k = (b0[k] for k in ("st", "n", "cand", "ctn",
                                                "res"))
-    k6_ms = min(cuda_ms(torch, lambda: wf.isect(
+    k6l_ms = min(cuda_ms(torch, lambda: wf.isect(
         prims, cand, ctn, st, n, block=block))[1] for _ in range(3))
-    k6_stats = {}
+    k6l_stats = {}
     with torch.inference_mode():
-        res_p, k6_plain_ms = cuda_ms(torch, lambda: wf.isect_plain(
-            prims, cand, ctn, st, n, block=block, stats=k6_stats))
-    differ = int((res_k.view(torch.int32) != res_p.view(torch.int32))
-                 .any(dim=0).sum())
-    hits = int((res_k[4] >= 0).sum())
-    pad_wins = int(((res_k[4] < 0) & (res_k[5] >= 0)).sum())
+        res_p, k6l_plain_ms = cuda_ms(torch, lambda: wf.isect_plain(
+            prims, cand, ctn, st, n, block=block, stats=k6l_stats))
+    differ = bits_differ(torch, res_k, res_p)
     n_cand = cand[:, 0, 0].double()
-    emit(dict(phase="k6_vs_plain", case="config5_bounce0", lanes=n,
-              lanes_differ=differ, hits=hits, padding_winners=pad_wins,
-              k6_ms=k6_ms, plain_ms=k6_plain_ms,
+    emit(dict(phase="k6_vs_plain", case="config5_bounce0", mode="lists",
+              lanes=n, lanes_differ=differ, hits=int((res_k[4] >= 0).sum()),
+              padding_winners=int(((res_k[4] < 0) & (res_k[5] >= 0)).sum()),
+              k6_ms=k6l_ms, plain_ms=k6l_plain_ms,
               candidates_per_tile=float(n_cand.mean()),
-              blocks_swept_per_lane=k6_stats["blocks"] / n,
-              spheres_per_lane=k6_stats["spheres"] / n))
-    check(differ == 0, f"K6 winners differ from the plain K6 on {differ}")
-    check(hits > 0, "K6 found no hit")
-    k6_ops = wf.k6_op_count(k6_stats)
-    k6_bytes = wf.k6_byte_count(k6_stats, n, block)
-    out["k6"] = dict(ms=k6_ms, plain_ms=k6_plain_ms, max_abs_err=0.0,
-                     plain_size=f"{n} rays (config 5, bounce 0, counting "
-                                "its work)", fp32_ops=k6_ops,
+              blocks_swept_per_lane=k6l_stats["blocks"] / n,
+              spheres_per_lane=k6l_stats["spheres"] / n))
+    check(differ == 0, f"K6's list mode differs from its plain version on "
+                       f"{differ} lanes")
+    ops = wf.k6_op_count(k6l_stats)
+    n_bytes = wf.k6_byte_count(k6l_stats, n, block)
+    out["k6l"] = dict(ms=k6l_ms, plain_ms=k6l_plain_ms, max_abs_err=0.0,
+                      plain_size=f"{n} rays (config 5, bounce 0, the "
+                                 "lists, counting its work)",
+                      fp32_ops=ops, bytes=n_bytes)
+    out["k6l"]["bound_ms"], out["k6l"]["bound_by"] = bound(ops, n_bytes)
+    del res_p, st, cand, ctn, res_k
+    nums, b = {}, b0
+    for k in (0, 1):
+        if k:
+            b = wf_advance(torch, wf, t, stc, meta, b, 0, BIG_SEED,
+                           sd10.sky_mode)
+        nums[k] = walk_case(torch, wf, t, stc, meta, b, k,
+                            f"config5_bounce{k}",
+                            (sd10.sky_mode, wf.SKY_ENVMAP), 3 if k == 0 else 1)
+    del b, b0
+    torch.cuda.empty_cache()
+    sdpad = padding_scene(T).compile(device=dev)
+    campad = T.Camera.look_at(device=dev, **PAD_CAM)
+    tp, stp, metap = wf_inputs(torch, wf, mb, sdpad, campad, BIG_SEED)
+    bp = wf_bounce(torch, wf, tp, stp, metap, 240, 136, 0, BIG_SEED)
+    pad = walk_case(torch, wf, tp, stp, metap, bp, 0, "padding_bounce0",
+                    (sdpad.sky_mode,), 1)
+    check(pad["k6_route"]["padding"] > 0 or pad["k6_padding"] > 0,
+          "padding: no lane won a padding slot")
+    del bp
+    tree_words = sum(t[k].numel() for k in ("nodef", "nodei", "prims"))
+    uniform_bytes = 4 * (t["blob"].numel() + t["lsb"].numel() + meta.numel()
+                         + stc["n_mats"])
+    n0, s6, s7 = nums[0]["n"], nums[0]["k6_stats"], nums[0]["k7_stats"]
+    k6_ops = wf.k6_op_count(s6)
+    k6_bytes = wf.k6_byte_count(s6, n0, block, tree_words)
+    out["k6"] = dict(ms=nums[0]["k6_ms"], plain_ms=nums[0]["k6_plain_ms"],
+                     max_abs_err=0.0,
+                     plain_size=f"{n0} rays (config 5, bounce 0, the walk, "
+                                "counting its work)", fp32_ops=k6_ops,
                      bytes=k6_bytes)
     out["k6"]["bound_ms"], out["k6"]["bound_by"] = bound(k6_ops, k6_bytes)
-
-    scand, sctn = b0["scand"], b0["sctn"]
-    base = b0["buf"].clone()
-    kw7 = dict(k=0, block=block, n_mats=stc["n_mats"],
-               n_light_slots=stc["n_light_slots"],
-               rr_depth=RR, use_nee=True, use_mis=True)
-
-    def fresh():
-        b = base.clone()
-        return b[:wf.N_CH], b[wf.N_CH:].view(torch.int32)
-
-    args7 = (t["blob"], meta, t["lsb"], prims, t["mtypes"], scand, sctn)
-
-    def k7_case(label, sky_mode, reps):
-        """K7 and the plain K7 on the bounce from the same state; K1's bar,
-        the miss flag bit for bit.  Returns (K7 ms, plain ms, stats,
-        comparison)."""
-        kw = dict(kw7, sky_mode=sky_mode)
-        st_k, ids_k = fresh()
-        ms = []
-        for _ in range(reps):
-            wf._stream_buffer(st_k, ids_k).copy_(base)
-            ms.append(cuda_ms(torch, lambda: wf.shade(
-                *args7, st_k, ids_k, res_k, n, **kw))[1])
-        st_p, ids_p = fresh()
-        stats = {}
-        with torch.inference_mode():
-            _, p_ms = cuda_ms(torch, lambda: wf.shade_plain(
-                *args7, st_p, ids_p, res_k, n, stats=stats, **kw))
-        a, b = st_k[:, :n], st_p[:, :n]
-        bits_a, bits_b = a.view(torch.int32), b.view(torch.int32)
-        lanes_differ = int((bits_a != bits_b).any(dim=0).sum())
-        miss_differ = int((bits_a[wf.C_MISS] != bits_b[wf.C_MISS]).sum())
-        misses = int((a[wf.C_MISS] > 0.5).sum())
-        alive = int((a[wf.C_ALIVE] > 0.5).sum())
-        res = state_close(torch, wf, a, b)
-        emit(dict(phase="k7_vs_plain", case=label, lanes=n,
-                  lanes_differ=lanes_differ, miss_differ=miss_differ,
-                  misses=misses, k7_ms=ms, plain_ms=p_ms,
-                  shadow_candidates_per_tile=float(scand[:, 0, 0].double()
-                                                   .mean()),
-                  shadow_blocks_per_ray=stats["shadow_blocks"]
-                  / max(stats["shadow"], 1), alive_after=alive, **res))
-        check_close(res, f"K7 vs plain ({label})")
-        check(miss_differ == 0,
-              f"{label}: K7's miss flag differs on {miss_differ} lanes")
-        check(misses > 0 if sky_mode == wf.SKY_ENVMAP else misses == 0,
-              f"{label}: {misses} lanes flagged as missed")
-        check(alive > 0, f"{label}: K7 left no ray alive")
-        return min(ms), p_ms, stats, res
-
-    k7_ms, k7_plain_ms, k7_stats, res7 = k7_case(
-        "config5_bounce0", sd10.sky_mode, 3)
-    # The env-map sky's branch (the miss flag) on the same bounce.
-    res7e = k7_case("config5_bounce0_envmap", wf.SKY_ENVMAP, 1)[3]
-    k7_ops = wf.k7_op_count(k7_stats)
-    k7_bytes = wf.k7_byte_count(k7_stats, n, block) + 4 * (
-        t["blob"].numel() + t["lsb"].numel() + meta.numel() + stc["n_mats"])
-    out["k7"] = dict(ms=k7_ms, plain_ms=k7_plain_ms,
-                     max_abs_err=max(res7["max_abs_err"],
-                                     res7e["max_abs_err"]),
-                     plain_size=f"{n} rays (config 5, bounce 0, counting "
-                                "its work)", fp32_ops=k7_ops,
+    k7_ops = wf.k7_op_count(s7)
+    k7_bytes = wf.k7_byte_count(s7, n0, block, tree_words) + uniform_bytes
+    out["k7"] = dict(ms=nums[0]["k7_ms"], plain_ms=nums[0]["k7_plain_ms"],
+                     max_abs_err=max(v["k7_err"] for v in (nums[0], nums[1],
+                                                           pad)),
+                     plain_size=f"{n0} rays (config 5, bounce 0, the shadow "
+                                "walks, counting its work)", fp32_ops=k7_ops,
                      bytes=k7_bytes)
     out["k7"]["bound_ms"], out["k7"]["bound_by"] = bound(k7_ops, k7_bytes)
-    del b0, base, st, cand, ctn, scand, sctn, res_k, res_p
+    emit(dict(phase="k6_k7_timing", card=card,
+              k6_ms={k: v["k6_ms"] for k, v in nums.items()},
+              k7_ms={k: v["k7_ms"] for k, v in nums.items()},
+              k6_lists_ms=k6l_ms,
+              k6=dict(ptxas_of(_build.BUILD_INFO, "wavefront",
+                               "isect_kernelILb0"),
+                      **{k: out["k6"][k] for k in ("fp32_ops", "bytes",
+                                                   "bound_ms", "bound_by")}),
+              k7=dict(ptxas_of(_build.BUILD_INFO, "wavefront",
+                               "shade_kernelILb0ELb0E"),
+                      **{k: out["k7"][k] for k in ("fp32_ops", "bytes",
+                                                   "bound_ms", "bound_by")})))
+    del nums, pad, tp
+    torch.cuda.empty_cache()
 
     # 19. The whole wavefront against its plain version ---------------------
     cam200 = T.Camera.look_at((0, 2.0, -4.0), (0, 1.0, 14.0), fov_degrees=60,
@@ -1591,12 +1692,14 @@ def run_wf_phases(torch, T, mk, dev, card, k3) -> dict:
     del got, want
 
     # 21. Main path: the facade on config 5, with its gradient sky and with
-    # an environment map, 4 spp at 1920x1080, counted ----------------------
+    # an environment map, 4 spp at 1920x1080, counted (the kernels, and the
+    # list-building glue, which the split path does not call) -------------
     out["launches"] = {k: 0 for k in mk.LAUNCHES}
     walls = {}
     for label in ("config5", "config5_envmap"):
         mb._PACK_CACHE.clear()       # the facade packs its scene afresh
         mk.reset_launch_counts()
+        reset_glue(wf)
         t0 = time.perf_counter()
         scene = scene_10k(T)
         if label == "config5_envmap":
@@ -1608,20 +1711,23 @@ def run_wf_phases(torch, T, mk, dev, card, k3) -> dict:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         counts = dict(mk.LAUNCHES)
+        glue = dict(wf.GLUE_CALLS)
         sd = tracer.scene_data
         pack = mb.packed(sd, cam10)[1]["seconds"]
         walls[label] = wall_s
         emit(dict(phase="wf_main_path", case=label, wall_s=wall_s,
                   scene_build_s=scene_s, compile_s=tracer.compile_seconds,
-                  pack_s=pack["pack"], launches=counts,
+                  pack_s=pack["pack"], launches=counts, glue_calls=glue,
                   spp=tracer.frame_count, capacity=sd.capacity,
                   sky_mode=sd.sky_mode, mean=float(img.mean())))
+        check(not any(glue.values()),
+              f"{label}: the split path built lists: {glue}")
         check(all(counts[k] > 0 for k in ("k5", "k6", "k7")),
               f"{label}: K5, K6 or K7 was not launched")
         check(counts["k5"] == 2, f"{label}: {counts['k5']} raygen launches")
         check(all(counts[k] == 0 for k in ("k1", "k2", "k3", "k4", "k9",
-                                           "k10")),
-              f"{label}: K1-K4, K9 or K10 was launched")
+                                           "k10", "k6l", "k7l")),
+              f"{label}: K1-K4, K9, K10 or a list mode was launched")
         check(counts["plain"] == 0, f"{label}: a plain version ran")
         check(tracer.frame_count == BIG_SPP, f"{label}: frame count")
         check(tuple(img.shape) == (BIG_H, BIG_W, 3), f"{label}: shape")
@@ -1652,6 +1758,8 @@ def run_wf_phases(torch, T, mk, dev, card, k3) -> dict:
                   spp=BIG_SPP, wall_ms_synced=wall_ms,
                   stage_ms={k: sum(v) for k, v in times.items()},
                   per_launch_ms=times))
+        check("precull" not in times and "shadow" not in times,
+              f"{label}: a precull or shadow stage ran: {sorted(times)}")
     emit(dict(phase="wf_sort_stability", case="config5", card=card,
               **sort_stability(torch, wf, mb, sd10, cam10, kw)))
     crossover = {}
@@ -1776,56 +1884,63 @@ def run_grad_phases(torch, T, mk, dev, card, k3) -> dict:
         torch.cuda.empty_cache()
     out["k4"]["max_abs_err"] = k4_err
 
-    # 24. K9 and K10 on a full config-5 bounce (gradient sky, env map), and
+    # 24. K9 (its shadow rays walking the tree, on K6's tree-mode winner)
+    # and K10 on full config-5 bounces 0 and 1 (gradient sky, env map), and
     # on a bounce of the padding scene (lanes whose winner is a padding
-    # slot: K6 stores hmid -1 and a block; K10 gives them no dgeo) --------
-    def k9_k10_case(label, t, stc, meta, b0, sky_mode, reps):
-        n, res_k = b0["n"], b0["res"]
+    # slot: K6 stores hmid -1 and a block; K10 gives them no dgeo); K9's
+    # verdicts against the list route's (K9 over the shadow lists on K6's
+    # list-mode winner), the differing lanes counted ----------------------
+    def k9_k10_case(label, t, stc, meta, b0, k, sky_mode, reps):
+        n, res_k, tree = b0["n"], b0["res_t"], b0["tree"]
         base = b0["buf"].clone()
-        args9 = (t["blob"], meta, t["lsb"], t["prims"], t["mtypes"],
-                 b0["scand"], b0["sctn"])
+        args9 = (t["blob"], meta, t["lsb"], t["prims"], t["mtypes"])
 
         def fresh():
             b = base.clone()
             return b[:wf.N_CH], b[wf.N_CH:].view(torch.int32)
 
-        kw9 = dict(k=0, block=stc["block"], n_mats=stc["n_mats"],
+        kw9 = dict(k=k, block=stc["block"], n_mats=stc["n_mats"],
                    n_light_slots=stc["n_light_slots"], rr_depth=RR,
                    use_nee=True, use_mis=True, sky_mode=sky_mode)
         st_in, ids = fresh()
         ms = []
         for _ in range(reps):
             (out9, blocked), m = cuda_ms(torch, lambda: wg.shade_fwd(
-                *args9, st_in, ids, res_k, n, **kw9))
+                *args9, None, None, st_in, ids, res_k, n, tree=tree, **kw9))
             ms.append(m)
         st7, _ = fresh()
-        wf.shade(*args9, st7, ids, res_k, n, **kw9)
+        wf.shade(*args9, None, None, st7, ids, res_k, n, tree=tree, **kw9)
+        _, blocked_l = wg.shade_fwd(*args9, b0["scand"], b0["sctn"], st_in,
+                                    ids, b0["res"], n, **kw9)
         stats = {}
         with torch.inference_mode():
             (out_p, blocked_p), p9_ms = cuda_ms(
-                torch, lambda: wg.shade_fwd_plain(*args9, st_in, ids, res_k,
-                                                  n, stats=stats, **kw9))
+                torch, lambda: wg.shade_fwd_plain(
+                    *args9, None, None, st_in, ids, res_k, n, stats=stats,
+                    tree=tree, **kw9))
         bits = out9.view(torch.int32)
         k7_differ = int((bits != st7.view(torch.int32)).any(0).sum())
         plain_differ = int((bits[:, :n] != out_p.view(torch.int32)[:, :n])
                            .any(0).sum())
         blocked_differ = int((blocked != blocked_p).sum())
+        route = route_differ(torch, wf, st_in[:, :n], res_k, b0["res"])
         padding = (res_k[4] < 0) & (res_k[5] >= 0)
-        emit(dict(phase="k9_vs_plain", case=label, lanes=n,
+        emit(dict(phase="k9_vs_plain", case=label, mode="walk", lanes=n,
                   hits=int((res_k[4] >= 0).sum()),
                   padding_winners=int(padding.sum()),
                   lanes_differ_from_k7=k7_differ,
                   lanes_differ_from_plain=plain_differ,
                   blocked_differ=blocked_differ,
+                  blocked_differ_from_lists=int((blocked != blocked_l).sum()),
+                  k6_differ_from_lists=route,
                   blocked=int(blocked.sum()), k9_ms=ms, plain_ms=p9_ms))
         check(k7_differ == 0, f"{label}: K9 differs from K7 on {k7_differ}")
+        check(plain_differ == 0,
+              f"{label}: K9 differs from its plain walk on {plain_differ}")
         check(blocked_differ == 0,
               f"{label}: blocked mask differs on {blocked_differ} lanes")
         check(int(blocked.sum()) > 0, f"{label}: no shadow ray blocked")
-        a, b = out9[:, :n], out_p[:, :n]
-        close = float(torch.isclose(a, b, rtol=RTOL, atol=ATOL).double()
-                      .mean())
-        check(close >= MIN_CLOSE, f"{label}: K9 vs plain {close}")
+        del blocked_l
 
         # K10 on this bounce, at full width.
         res8 = res_k.clone()
@@ -1860,11 +1975,12 @@ def run_grad_phases(torch, T, mk, dev, card, k3) -> dict:
         check(flags_equal, f"{label}: K10 flag or suffix cotangents differ")
         check(errs["dscal"]["ok"], f"{label}: K10 dscal {errs}")
         check(pad_dgeo == 0.0, f"{label}: a padding lane has a dgeo")
+        a, b = out9[:, :n], out_p[:, :n]
         nums = dict(
             k9_ms=min(ms), k10_ms=min(ms10), p9_ms=p9_ms, p10_ms=p10_ms,
             stats=stats, n=n, n_lanes=st_in.shape[1], n_scal=dscal.numel(),
-            padding=int(padding.sum()),
-            k9_err=float((out9[:, :n] - out_p[:, :n]).abs().max()),
+            padding=int(padding.sum()), route=route,
+            k9_err=float((a - b).abs().max()),
             k10_err=max(g_err, float((din[:13, :n] - din_p[:13, :n]).abs()
                                      .max()), float((dgeo - dgeo_p).abs()
                                                     .max())))
@@ -1873,41 +1989,53 @@ def run_grad_phases(torch, T, mk, dev, card, k3) -> dict:
 
     t, stc, meta = wf_inputs(torch, wf, mb, sd10, cam10, BIG_SEED)
     b0 = wf_bounce(torch, wf, t, stc, meta, BIG_W, BIG_H, 0, BIG_SEED)
-    c5 = k9_k10_case("config5_bounce0", t, stc, meta, b0, sd10.sky_mode, 3)
-    k9_k10_case("config5_bounce0_envmap", t, stc, meta, b0, wf.SKY_ENVMAP, 1)
-    del b0
+    c5 = k9_k10_case("config5_bounce0", t, stc, meta, b0, 0, sd10.sky_mode,
+                     3)
+    k9_k10_case("config5_bounce0_envmap", t, stc, meta, b0, 0,
+                wf.SKY_ENVMAP, 1)
+    b1 = wf_advance(torch, wf, t, stc, meta, b0, 0, BIG_SEED, sd10.sky_mode)
+    c51 = k9_k10_case("config5_bounce1", t, stc, meta, b1, 1, sd10.sky_mode,
+                      1)
+    k9_k10_case("config5_bounce1_envmap", t, stc, meta, b1, 1,
+                wf.SKY_ENVMAP, 1)
+    del b0, b1
     torch.cuda.empty_cache()
     tp, stp, metap = wf_inputs(torch, wf, mb, sdpad, campad, BIG_SEED)
     bp = wf_bounce(torch, wf, tp, stp, metap, 240, 136, 0, BIG_SEED)
-    pad = k9_k10_case("padding_bounce0", tp, stp, metap, bp, sdpad.sky_mode,
-                      1)
-    check(pad["padding"] > 0, "padding: no lane won a padding slot")
+    pad = k9_k10_case("padding_bounce0", tp, stp, metap, bp, 0,
+                      sdpad.sky_mode, 1)
+    check(pad["padding"] > 0 or pad["route"]["padding"] > 0,
+          "padding: no lane won a padding slot")
     del bp
     stats, n = c5["stats"], c5["n"]
-    k9_bytes = wf.k7_byte_count(stats, n, stc["block"]) + 4 * n \
+    tree_words = sum(t[k].numel() for k in ("nodef", "nodei", "prims"))
+    k9_bytes = wf.k7_byte_count(stats, n, stc["block"], tree_words) + 4 * n \
         + 4 * (t["blob"].numel() + t["lsb"].numel() + meta.numel()
                + stc["n_mats"])
     k10_bytes = wg.k10_byte_count(stats, n, c5["n_lanes"], c5["n_scal"])
     for key, bytes_, ops in (("k9", k9_bytes, wf.k7_op_count(stats)),
                              ("k10", k10_bytes, wg.k10_op_count(stats))):
         out[key] = dict(ms=c5[f"{key}_ms"], plain_ms=c5[f"p{key[1:]}_ms"],
-                        max_abs_err=max(c5[f"{key}_err"], pad[f"{key}_err"]),
+                        max_abs_err=max(c5[f"{key}_err"], c51[f"{key}_err"],
+                                        pad[f"{key}_err"]),
                         plain_size=f"{n} rays (config 5, bounce 0)",
                         fp32_ops=ops, bytes=bytes_)
         out[key]["bound_ms"], out[key]["bound_by"] = bound(ops, bytes_)
     winfo = _build.BUILD_INFO["wavefront"]
     emit(dict(phase="k9_timing", card=card, k9_ms=c5["k9_ms"],
-              alive=stats["active"],
-              **ptxas_of(_build.BUILD_INFO, "wavefront", "shade_kernelILb0"),
+              k9_bounce1_ms=c51["k9_ms"], alive=stats["active"],
+              **ptxas_of(_build.BUILD_INFO, "wavefront",
+                         "shade_kernelILb0ELb0E"),
               **{k: out["k9"][k] for k in ("fp32_ops", "bytes", "bound_ms",
                                            "bound_by", "plain_ms")}))
     emit(dict(phase="k10_timing", card=card, k10_ms=c5["k10_ms"],
-              hits=stats["hit"], lit=stats["lit"],
+              k10_bounce1_ms=c51["k10_ms"], hits=stats["hit"],
+              lit=stats["lit"],
               **ptxas_of(_build.BUILD_INFO, "wavefront", "bounce_bwd_kernel"),
               **{k: out["k10"][k] for k in ("fp32_ops", "bytes", "bound_ms",
                                             "bound_by", "plain_ms")},
               build_seconds=winfo["seconds"]))
-    del c5, pad, t, tp
+    del c5, c51, pad, t, tp
     torch.cuda.empty_cache()
 
     # 25. The differentiable wavefront against its plain stages -------------
@@ -1951,6 +2079,7 @@ def run_grad_phases(torch, T, mk, dev, card, k3) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         mk.reset_launch_counts()
+        reset_glue(wf)
         t0 = time.perf_counter()
         render = cuda_diff.make_cuda_render_fn(
             sd, cam10, BIG_W, BIG_H, spp=BIG_SPP, max_bounces=DEPTH,
@@ -1993,6 +2122,7 @@ def run_grad_phases(torch, T, mk, dev, card, k3) -> dict:
             step_s.append(time.perf_counter() - t1)
         torch.cuda.synchronize()
         counts = dict(mk.LAUNCHES)
+        glue = dict(wf.GLUE_CALLS)
         peak_gb = max(peak_gb, torch.cuda.max_memory_allocated() / 1e9)
         err1 = float((inv.params["albedo"].detach() - true_p["albedo"])
                      .abs().mean())
@@ -2003,8 +2133,9 @@ def run_grad_phases(torch, T, mk, dev, card, k3) -> dict:
                   backward_wall_s, image_mean=img_mean, losses=losses,
                   step_s=step_s, wall_per_step_s=sum(step_s) / GRAD_STEPS,
                   albedo_err_start=err0, albedo_err_end=err1,
-                  peak_memory_gb=peak_gb, launches=counts,
+                  peak_memory_gb=peak_gb, launches=counts, glue_calls=glue,
                   profiled_step_wall_ms=prof["profiled_wall_ms"], **prof))
+        check(not any(glue.values()), f"{label}: lists were built: {glue}")
         check(all(np.isfinite(losses)), f"{label}: loss not finite")
         check(err1 < err0, f"{label}: the albedo error did not fall")
         check(all(counts[k] > 0 for k in want),
@@ -2294,10 +2425,10 @@ def run_prim_phases(torch, T, mk, dev, card, k3) -> dict:
                       pixels_differ_from_facade=int((img != want).any(-1)
                                                     .sum()),
                       vs_facade=res, mean=float(img.mean()) / BIG_SPP))
-            check(all(counts[k] > 0 for k in ("k5", "k6", "k8", "k7b")),
-                  f"{label}: K5, K6, K8 or K7b was not launched: {counts}")
+            check(all(counts[k] > 0 for k in ("k5", "k6l", "k8", "k7b")),
+                  f"{label}: K5, K6l, K8 or K7b was not launched: {counts}")
             check(all(v == 0 for k, v in counts.items()
-                      if k not in ("k5", "k6", "k8", "k7b")),
+                      if k not in ("k5", "k6l", "k8", "k7b")),
                   f"{label}: other kernels or plain versions ran: {counts}")
             check(tuple(img.shape) == (BIG_H, BIG_W, 3), f"{label}: shape")
             check(res["finite"] and res["frac_close"] >= MIN_CLOSE
@@ -2394,8 +2525,9 @@ def run_dist_phases(torch, T, mk, dev, card, k3, prim) -> dict:
                   collectives=rep["collectives"],
                   collective_mb=[b / 1e6 for b in rep["collective_bytes"]],
                   collective_ms=rep["collective_ms"], vs_unsharded=res))
-        check(all(rep["launches"][k] > 0 for k in ("k5", "k6", "k8", "k7b")),
-              f"{label}: K5, K6, K8 or K7b was not launched")
+        check(all(rep["launches"][k] > 0 for k in ("k5", "k6l", "k8",
+                                                   "k7b")),
+              f"{label}: K5, K6l, K8 or K7b was not launched")
         check(not not_ties, f"{label}: {len(not_ties)} of {len(differ)} "
                             f"differing pixels had no cross-shard tie")
         check(res["finite"] and res["frac_close"] >= MIN_CLOSE,
@@ -2409,8 +2541,13 @@ def run_dist_phases(torch, T, mk, dev, card, k3, prim) -> dict:
               ranks=DIST_RANKS, data=2, prim=1, size=f"{BIG_W}x{BIG_H}",
               spp=BIG_SPP, walls_s=rep["walls_s"],
               peak_memory_gb=rep["peak_memory_gb"], launches=rep["launches"],
+              glue_calls=rep["glue_calls"],
               pixels_differ=int((rep["image"] != want).any(-1).sum()),
               vs_unsharded=res))
+    for label in ("data2", "dp_grad"):
+        check(not any(reports[label]["glue_calls"].values()),
+              f"{label}: the split path built lists: "
+              f"{reports[label]['glue_calls']}")
     check(res["finite"] and res["frac_close"] >= MIN_CLOSE
           and res["mean_rel"] <= MAX_MEAN_REL,
           f"data2: against the unsharded render {res}")
@@ -2431,7 +2568,8 @@ def run_dist_phases(torch, T, mk, dev, card, k3, prim) -> dict:
               ranks=DIST_RANKS, data=2, prim=1, size=f"{BIG_W}x{BIG_H}",
               spp=BIG_SPP, walls_s=rep["walls_s"],
               peak_memory_gb=rep["peak_memory_gb"], launches=rep["launches"],
-              losses=rep["losses"], step_s=rep["step_s"],
+              glue_calls=rep["glue_calls"], losses=rep["losses"],
+              step_s=rep["step_s"],
               albedo_err_start=rep["albedo_err_start"],
               albedo_err_end=rep["albedo_err_end"],
               grad_allreduce_ms=rep["grad_allreduce_ms"],
@@ -2506,20 +2644,20 @@ def check_state(res, label):
 def k11_case(torch, wf, wg, t, stc, meta, b, k, precull, sky, reps):
     """K11 and K11g on one config-5 bounce from the same state, against
     the plain K11 (its record the plain K11g's) and against the split
-    bounce (K6's winner, K7's state, K9's verdict).  Returns the numbers
-    and K11g's outputs."""
+    bounce (K6's tree-mode winner, K7's state, K9's verdict, the shadow
+    rays walking the tree).  Returns the numbers and K11g's outputs."""
     n, base = b["n"], b["buf"].clone()
     kw = dict(k=k, block=stc["block"], n_mats=stc["n_mats"],
               n_light_slots=stc["n_light_slots"], rr_depth=RR, use_nee=True,
               use_mis=True, sky_mode=sky)
     fargs = (t["blob"], meta, t["lsb"], t["nodef"], t["nodei"], t["prims"],
              t["mtypes"], b["cand"], b["ctn"])
-    args7 = (t["blob"], meta, t["lsb"], t["prims"], t["mtypes"], b["scand"],
-             b["sctn"])
+    args7 = (t["blob"], meta, t["lsb"], t["prims"], t["mtypes"], None, None)
     split = base.clone()
-    wf.shade(*args7, *stream_of(torch, wf, split), b["res"], n, **kw)
+    wf.shade(*args7, *stream_of(torch, wf, split), b["res_t"], n,
+             tree=b["tree"], **kw)
     _, blocked9 = wg.shade_fwd(*args7, *stream_of(torch, wf, base),
-                               b["res"], n, **kw)
+                               b["res_t"], n, tree=b["tree"], **kw)
     got = base.clone()
     ms = []
     for _ in range(reps):
@@ -2540,7 +2678,7 @@ def k11_case(torch, wf, wg, t, stc, meta, b, k, precull, sky, reps):
             stats=stats, record=rec, **kw))
     a, c = got[:wf.N_CH, :n], plain[:wf.N_CH, :n]
     res = state_close(torch, wf, a, c)
-    padding = int(((b["res"][4] < 0) & (b["res"][5] >= 0)).sum())
+    padding = int(((b["res_t"][4] < 0) & (b["res_t"][5] >= 0)).sum())
     row = dict(
         lanes=n, alive=stats["active"], padding_winners=padding,
         lanes_differ=bits_differ(torch, a, c),
@@ -2549,7 +2687,7 @@ def k11_case(torch, wf, wg, t, stc, meta, b, k, precull, sky, reps):
         verdict_lanes_differ=int((res_g[7] != rec[7]).sum()),
         lanes_differ_from_split=bits_differ(torch, a, split[:wf.N_CH, :n]),
         winner_lanes_differ_from_k6=bits_differ(torch, res_g[:7],
-                                                 b["res"][:7]),
+                                                 b["res_t"][:7]),
         verdict_lanes_differ_from_k9=int((res_g[7] != blocked9).sum()),
         k11_ms=ms, k11g_ms=ms_g, plain_ms=p_ms,
         nodes_per_lane=stats.get("nodes", 0) / n,

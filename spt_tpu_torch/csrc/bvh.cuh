@@ -80,10 +80,26 @@ struct BvhWalk {
   __device__ __forceinline__ bool nearest(float ox, float oy, float oz,
                                           float dx, float dy, float dz,
                                           float& t, Hit& h) const {
+    int win_j = 0;
+    const int win_blk = nearest_slot(ox, oy, oz, dx, dy, dz, t, win_j);
+    if (win_blk < 0) {
+      no_winner();
+      return false;
+    }
+    winner(win_blk, win_j, h);
+    return true;
+  }
+
+  // The walk of nearest() alone: t the nearest distance (kBig on a miss),
+  // the winner's leaf block returned (-1 for none), its slot in win_j.
+  // K6's tree mode writes its residual from these.
+  __device__ __forceinline__ int nearest_slot(float ox, float oy, float oz,
+                                              float dx, float dy, float dz,
+                                              float& t, int& win_j) const {
     const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
     const int base = table(dx, dy, dz);
     t = kBig;
-    int win_blk = -1, win_j = 0;
+    int win_blk = -1;
     int ptr = 0;
     while (ptr < n_nodes) {
       int skip, blk;
@@ -104,12 +120,7 @@ struct BvhWalk {
       }
       ptr = skip;
     }
-    if (win_blk < 0) {
-      no_winner();
-      return false;
-    }
-    winner(win_blk, win_j, h);
-    return true;
+    return win_blk;
   }
 
   // The winner, slot j of leaf block blk, into h (and the record).

@@ -10,9 +10,12 @@
 // (19, R) buffer so that the sort between bounces gathers all of them at
 // once.  R is a multiple of the 1024-lane tile.  Between the kernels the
 // glue (torch ops in kernels/wavefront.py) sorts the stream by a coherence
-// key, culls each tile's rays against every leaf block's box (the precull:
-// one candidate list per tile, nearest-first), rebuilds the shadow rays and
-// culls them too.
+// key.  On the split path K6 and K7 walk the packed tree one thread a ray
+// (BvhWalk, bvh.cuh, as K3 and K11 do), so the glue builds no lists there;
+// the prim-sharded render (a shard holds leaf blocks, no tree) and the
+// matmul form still cull each tile's (or row's) rays against every leaf
+// block's box (the precull: one candidate list a group, nearest-first) and
+// rebuild and cull the shadow rays too.
 //
 // * K5 replaces spt_tpu/kernels/wavefront.py::_raygen_kernel (launched by
 //   _raygen_launch): the initial state of every lane of chunk_spp images
@@ -20,36 +23,46 @@
 //   lane.  Bound: bytes, the 76 bytes it writes per lane.  Neighbouring
 //   threads store neighbouring addresses of each channel.
 // * K6 replaces wavefront.py::_isect_kernel (and the sweep it calls,
-//   megakernel_bvh.py::_cand_sweep_nearest): every ray's nearest hit over
-//   its tile's candidate blocks, written as an 8-channel residual (hcx hcy
-//   hcz hr hmid hblk hslot 0; hmid -1 where nothing was hit).  One thread
-//   per ray; the 1024 threads of a tile read the same list entries and leaf
-//   blocks (broadcast loads through L1).  Bound: fp32 operations of the
-//   sphere tests.  The TPU kernel stops a whole 1024-ray packet once the
-//   next candidate's entry bound passes the packet's worst winner; here each
-//   thread stops on its own once the bound passes its own winner (a later
-//   block cannot hold a nearer hit: t >= box entry >= ctn[i] >= t_lane), so
-//   no thread waits for its tile and the block needs no syncs.
+//   megakernel_bvh.py::_cand_sweep_nearest): every ray's nearest hit,
+//   written as an 8-channel residual (hcx hcy hcz hr hmid hblk hslot 0;
+//   hmid -1 where nothing was hit, or where a leaf's padding slot won).  One
+//   thread per ray.  Tree mode (the split path): each thread walks the tree
+//   (BvhWalk::nearest_slot), stack-free, its octant's table, a slab test a
+//   node; the residual is the one K11g's walk records.  The TPU walked a
+//   1024-ray packet behind one scalar node pointer, a serial chain on its
+//   scalar unit, and so took lists instead; a thread walks its own ray
+//   here.  List mode (the prim shards, which hold leaf blocks and no tree):
+//   the tile's candidate blocks in order, the 1024 threads of a tile reading
+//   the same entries and blocks (broadcast loads through L1); the TPU kernel
+//   stops a whole packet once the next candidate's entry bound passes the
+//   packet's worst winner, each thread here stops on its own once the bound
+//   passes its own winner (a later block cannot hold a nearer hit: t >= box
+//   entry >= ctn[i] >= t_lane), so no thread waits for its tile and the
+//   block needs no syncs.  Bound: fp32 operations of the node and sphere
+//   tests.
 // * K7 replaces wavefront.py::_shade_kernel: trace_bounce (physics.cuh) on
 //   every alive ray, its nearest hit rebuilt from K6's residual (the TPU's
-//   megakernel_bvh_grad.py::_rebuilt_intersect) and its shadow ray tested
-//   against the tile's shadow candidate list (megakernel_bvh.py::
-//   _cand_sweep_anyhit), each thread stopping at its first blocker or once
-//   the next candidate's entry bound passes its light distance.  Updates
-//   the stream in place (the TPU kernel's alias); a dead lane keeps its
-//   state and has its miss flag cleared.  Bound: bytes, 152 a ray: an
-//   alive ray reads 15 state channels (all but in_image and miss), its two
-//   ids and 5 residual channels (hcx hcy hcz hr hmid) and writes 16
-//   channels (all but in_image); the fp32 operations of the bounce and the
-//   shadow tests come close.  One thread per ray, its state in registers;
-//   the scene uniforms sit in shared memory.
+//   megakernel_bvh_grad.py::_rebuilt_intersect) and its shadow ray walking
+//   the tree (BvhWalk::any_hit, as K11's shadow rays do), each thread
+//   stopping at its first blocker below the light distance trace_bounce
+//   gives it; without the tree (a wrapper given lists) the tile's shadow
+//   candidate list in place of the walk (megakernel_bvh.py::
+//   _cand_sweep_anyhit), stopping at the first blocker or once the next
+//   candidate's entry bound passes the light distance.  Updates the stream
+//   in place (the TPU kernel's alias); a dead lane keeps its state and has
+//   its miss flag cleared.  Bound: fp32 operations of the bounce and the
+//   shadow walks, or the bytes, 152 an alive ray (15 state channels read,
+//   all but in_image and miss, its two ids and 5 residual channels, hcx hcy
+//   hcz hr hmid, and 16 channels written, all but in_image), and the tree.
+//   One thread per ray, its state in registers; the scene uniforms sit in
+//   shared memory.
 //
 //   With blocked_in_res (K7's mode for the prim-sharded render, the TPU
 //   kernel's blocked_in_res=True, launched at spt_tpu/parallel/
 //   wavefront_prim.py:214) nothing is swept: each shadow verdict is read
 //   from residual row 7, where the glue put the MAX over the prim shards of
-//   K8's verdicts.  Bound: K7's bytes less the lists and leaf blocks, plus
-//   4 bytes a shadow ray.
+//   K8's verdicts.  Bound: K7's bytes less the tree, plus 4 bytes a shadow
+//   ray.
 // * K8 replaces wavefront.py::_anyhit_kernel (launched at spt_tpu/parallel/
 //   wavefront_prim.py:195): the occlusion verdict of shadow rays given as 8
 //   channels (pox poy poz ldx ldy ldz tmax need) against one prim shard's
@@ -93,10 +106,10 @@
 //   with split=False), K11g wavefront_grad.py::_bounce_fwd_kernel (:86,
 //   launched at :573): the whole bounce in one kernel, in place on the
 //   stream.  The nearest hit by K6's sweep of the tile's list (precull) or
-//   by K3's walk of the tree (BvhWalk, a node pointer per thread, where
+//   by K6's walk of the tree (BvhWalk, a node pointer per thread, where
 //   the TPU walked a packet behind one scalar pointer and a frustum test:
-//   pruning only, no result changes); every shadow ray walks the tree, so
-//   no shadow precull is needed; trace_bounce on the winner, a padding
+//   pruning only, no result changes); every shadow ray walks the tree, as
+//   K7's do; trace_bounce on the winner, a padding
 //   winner resolved as JAX's fused bounce resolves it (kNoMaterial).
 //   K11g (kRecord) writes K6's residual and the shadow verdict in row 7,
 //   which K10 replays.  One thread per ray, its walk stack-free; the
@@ -127,6 +140,12 @@ constexpr int kTile = 1024;                // lanes of a stream tile
 constexpr int kRow = 128;                  // lanes of a row (K6m's, K7m's lists)
 constexpr int kTileW = 32;                 // its pixels: 32 x 32, swizzled
 constexpr int kThreadsWf = 256;
+// Blocks an SM that K7 and K9 (shade_kernel<false, false>) are built for:
+// 64 registers with 132 B of spills, where the compiler alone takes 120
+// registers and 2 blocks; on an H100 23% faster over a config-5 chunk,
+// the same bits (tools/wf_ablate.py's k7_lb_* builds; PERF.md).  K7
+// reading its verdicts runs 2.6 times slower so built, and is not.
+constexpr int kShadeMinBlocks = 4;
 constexpr int kNCh = 17;                   // float channels of the stream
 constexpr int kChAlive = 13, kChSpec = 14, kChInimg = 15, kChMiss = 16;
 constexpr int kWfMatOff = 21;              // blob: camera 15, sky 6, mats
@@ -362,11 +381,14 @@ struct IsectParams {
   const float* ctn;     // (groups, n_blocks): entry bounds, nondecreasing
   const float* cmat;    // K6m: (n_blocks, 8, 2 block); K6: null
   const float* bctr;    // K6m: (n_blocks, 3)
-  int stride, n_lanes, n_blocks, block;
+  const float* nodef;   // K6's tree mode: 8 tables x n_nodes rows of 8;
+  const int* nodei;     //   cand, ctn unread.  Null: the lists
+  int stride, n_lanes, n_blocks, block, n_nodes;
 };
 
-// K6 (kMxu false: a list a tile, the compact form) and K6m (a list a row,
-// the expanded form): the winner's attributes read from prims either way.
+// K6 (kMxu false: the tree, or a list a tile, the compact form) and K6m (a
+// list a row, the expanded form): the winner's attributes read from prims
+// either way.
 template <bool kMxu>
 __global__ void __launch_bounds__(kThreadsWf) isect_kernel(IsectParams prm) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -385,6 +407,11 @@ __global__ void __launch_bounds__(kThreadsWf) isect_kernel(IsectParams prm) {
       ExpandedSlots slots{prm.cmat, prm.bctr, prm.block, ox, oy, oz,
                           dx, dy, dz};
       win_blk = list_nearest(cl, tl, slots, t, win_j);
+    } else if (prm.nodef) {
+      const BvhWalk<false> walk{prm.nodef, prm.nodei, prm.prims, nullptr,
+                                nullptr, nullptr, nullptr, prm.n_nodes,
+                                prm.block, nullptr};
+      win_blk = walk.nearest_slot(ox, oy, oz, dx, dy, dz, t, win_j);
     } else {
       CompactSlots slots{prm.prims, prm.block, ox, oy, oz, dx, dy, dz};
       win_blk = list_nearest(cl, tl, slots, t, win_j);
@@ -412,9 +439,10 @@ __global__ void __launch_bounds__(kThreadsWf) isect_kernel(IsectParams prm) {
 // ---------------------------------------------------------------------------
 
 // K7's geometry: the lane's nearest hit rebuilt from K6's winner, and its
-// tile's shadow candidate list (kMxu, K7m: its row's list, swept in the
-// expanded form).  With `blocked` (K9) the shadow test also writes its
-// verdict there.
+// shadow test: a walk of the tree (nodef non-null), or its tile's shadow
+// candidate list (kMxu, K7m: its row's list, swept in the expanded form),
+// or the verdict read from the residual (blocked_in_res).  With `blocked`
+// (K9) the shadow test also writes its verdict there.
 template <bool kMxu>
 struct WavefrontGeometry {
   static constexpr int kLightEmit = 4;
@@ -431,6 +459,9 @@ struct WavefrontGeometry {
                         // null (sweep the shadow list)
   const float* cmat;    // K7m: build_cmat's tables; else null
   const float* bctr;
+  const float* nodef;   // the tree (shadow rays walk it), or null (lists)
+  const int* nodei;
+  int n_nodes;
 
   // The winner's quadratic again, on the same floats K6 used (the TPU's
   // _rebuilt_intersect); no hit where K6 found none (hmid < 0, which is
@@ -460,7 +491,11 @@ struct WavefrontGeometry {
                                            float dx, float dy, float dz,
                                            float tmax) const {
     const bool hit =
-        verdict ? *verdict > 0.5f : sweep(ox, oy, oz, dx, dy, dz, tmax);
+        verdict ? *verdict > 0.5f
+        : nodef ? BvhWalk<false>{nodef, nodei, prims, nullptr, nullptr,
+                                 nullptr, nullptr, n_nodes, block, nullptr}
+                      .any_hit(ox, oy, oz, dx, dy, dz, tmax)
+                : sweep(ox, oy, oz, dx, dy, dz, tmax);
     if (blocked) *blocked = hit ? 1.0f : 0.0f;
     return hit;
   }
@@ -505,21 +540,25 @@ struct ShadeParams {
   const float* lsb;     // 6
   const float* prims;
   const int* mtypes;    // n_mats
-  const int* scand;     // (groups, n_blocks + 1), unread without NEE
-  const float* sctn;    // (groups, n_blocks)
+  const int* scand;     // (groups, n_blocks + 1), unread without NEE, with
+  const float* sctn;    // (groups, n_blocks)       the tree or the verdicts
   float* blocked;       // K9: (n_lanes,) shadow verdicts; K7: null
   const float* cmat;    // K7m: (n_blocks, 8, 2 block); else null
   const float* bctr;    // K7m: (n_blocks, 3)
+  const float* nodef;   // the shadow walk's tree: 8 tables x n_nodes rows;
+  const int* nodei;     //   null: the lists
   int stride, n_lanes, n_blocks, block, n_mats, n_light_slots, k, rr_depth;
-  int sky_mode, blob_len;
+  int sky_mode, blob_len, n_nodes;
   bool use_nee, use_mis;
-  bool blocked_in_res;  // verdicts in residual row 7; scand, sctn unread
 };
 
-// K7, K9 and K7's blocked_in_res mode (kMxu false), and K7m (kMxu true: a
+// K7 and K9 (kMxu false: the shadow walk or a tile's shadow list), K7's
+// blocked_in_res mode (kVerdict: the verdicts), and K7m (kMxu true: a
 // shadow list a row, swept in the expanded form).
-template <bool kMxu>
-__global__ void __launch_bounds__(kThreadsWf) shade_kernel(ShadeParams prm) {
+template <bool kMxu, bool kVerdict>
+__global__ void __launch_bounds__(kThreadsWf,
+                                  kMxu || kVerdict ? 1 : kShadeMinBlocks)
+    shade_kernel(ShadeParams prm) {
   extern __shared__ float smem[];
   float* s_blob = smem;
   float* s_lsb = s_blob + prm.blob_len;                 // 6
@@ -548,8 +587,8 @@ __global__ void __launch_bounds__(kThreadsWf) shade_kernel(ShadeParams prm) {
   const size_t n = (size_t)prm.n_lanes;
   const float* res = prm.res + i;
   const int group = kMxu ? i / kRow : i / kTile;
-  const bool lists = prm.use_nee && prm.n_light_slots > 0 &&
-                     !prm.blocked_in_res;
+  const bool lists = prm.use_nee && prm.n_light_slots > 0 && !kVerdict &&
+                     !prm.nodef;
   const float* mats = s_blob + kWfMatOff;
   const WavefrontGeometry<kMxu> geo{
       res[0], res[n], res[2 * n], res[3 * n], res[4 * n], prm.prims,
@@ -557,7 +596,8 @@ __global__ void __launch_bounds__(kThreadsWf) shade_kernel(ShadeParams prm) {
       lists ? prm.sctn + (size_t)group * prm.n_blocks : prm.sctn, mats,
       s_mtypes, mats + kWfMatStride * prm.n_mats, prm.block,
       prm.blocked ? prm.blocked + i : nullptr,
-      prm.blocked_in_res ? res + 7 * n : nullptr, prm.cmat, prm.bctr};
+      kVerdict ? res + 7 * n : nullptr, prm.cmat, prm.bctr,
+      kVerdict ? nullptr : prm.nodef, prm.nodei, prm.n_nodes};
   const SceneView sc{s_blob, s_meta, s_lsb, 0, prm.n_light_slots, s_meta[2],
                      prm.sky_mode};
   const uint32_t pid = (uint32_t)prm.ids[i];
@@ -593,7 +633,7 @@ __global__ void __launch_bounds__(kThreadsWf) anyhit_kernel(AnyhitParams prm) {
         0.0f, 0.0f, 0.0f, 0.0f, -1.0f, prm.prims,
         prm.scand + (size_t)tile * (prm.n_blocks + 1),
         prm.sctn + (size_t)tile * prm.n_blocks, nullptr, nullptr, nullptr,
-        prm.block, nullptr, nullptr};
+        prm.block, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0};
     hit = geo.sweep(r[0], r[s], r[2 * s], r[3 * s], r[4 * s], r[5 * s],
                     r[6 * s]);
   }
@@ -840,8 +880,10 @@ extern "C" int spt_wavefront_raygen(void* st, void* ids, const void* blob,
 extern "C" int spt_wavefront_isect(void* res, const void* st,
                                    const void* prims, const void* cand,
                                    const void* ctn, const void* cmat,
-                                   const void* bctr, int stride, int n_lanes,
-                                   int n_blocks, int block, void* stream) {
+                                   const void* bctr, const void* nodef,
+                                   const void* nodei, int stride, int n_lanes,
+                                   int n_blocks, int block, int n_nodes,
+                                   void* stream) {
   spt::IsectParams prm;
   prm.res = static_cast<float*>(res);
   prm.st = static_cast<const float*>(st);
@@ -850,10 +892,13 @@ extern "C" int spt_wavefront_isect(void* res, const void* st,
   prm.ctn = static_cast<const float*>(ctn);
   prm.cmat = static_cast<const float*>(cmat);
   prm.bctr = static_cast<const float*>(bctr);
+  prm.nodef = static_cast<const float*>(nodef);
+  prm.nodei = static_cast<const int*>(nodei);
   prm.stride = stride;
   prm.n_lanes = n_lanes;
   prm.n_blocks = n_blocks;
   prm.block = block;
+  prm.n_nodes = n_nodes;
   if (n_lanes <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cmat)
@@ -869,10 +914,10 @@ extern "C" int spt_wavefront_shade(
     void* st, const void* ids, const void* res, const void* blob,
     const void* meta, const void* lsb, const void* prims, const void* mtypes,
     const void* scand, const void* sctn, void* blocked, const void* cmat,
-    const void* bctr, int stride, int n_lanes,
-    int n_blocks, int block, int n_mats, int n_light_slots, int k,
-    int rr_depth, int use_nee, int use_mis, int sky_mode, int blocked_in_res,
-    void* stream) {
+    const void* bctr, const void* nodef, const void* nodei, int stride,
+    int n_lanes, int n_blocks, int block, int n_mats, int n_light_slots,
+    int k, int rr_depth, int use_nee, int use_mis, int sky_mode,
+    int blocked_in_res, int n_nodes, void* stream) {
   spt::ShadeParams prm;
   prm.st = static_cast<float*>(st);
   prm.ids = static_cast<const int*>(ids);
@@ -887,6 +932,9 @@ extern "C" int spt_wavefront_shade(
   prm.blocked = static_cast<float*>(blocked);
   prm.cmat = static_cast<const float*>(cmat);
   prm.bctr = static_cast<const float*>(bctr);
+  prm.nodef = static_cast<const float*>(nodef);
+  prm.nodei = static_cast<const int*>(nodei);
+  prm.n_nodes = n_nodes;
   prm.stride = stride;
   prm.n_lanes = n_lanes;
   prm.n_blocks = n_blocks;
@@ -898,18 +946,18 @@ extern "C" int spt_wavefront_shade(
   prm.sky_mode = sky_mode;
   prm.use_nee = use_nee != 0;
   prm.use_mis = use_mis != 0;
-  prm.blocked_in_res = blocked_in_res != 0;
   prm.blob_len = spt::kWfMatOff + spt::kWfMatStride * n_mats +
                  spt::kWfLightStride * (n_light_slots > 1 ? n_light_slots : 1);
   if (n_lanes <= 0) return 0;
   const size_t smem = sizeof(float) * (prm.blob_len + 6 + 3 + n_mats);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = spt::blocks_for(n_lanes);
   if (cmat)
-    spt::shade_kernel<true><<<spt::blocks_for(n_lanes), spt::kThreadsWf,
-                              smem, s>>>(prm);
+    spt::shade_kernel<true, false><<<grid, spt::kThreadsWf, smem, s>>>(prm);
+  else if (blocked_in_res)
+    spt::shade_kernel<false, true><<<grid, spt::kThreadsWf, smem, s>>>(prm);
   else
-    spt::shade_kernel<false><<<spt::blocks_for(n_lanes), spt::kThreadsWf,
-                               smem, s>>>(prm);
+    spt::shade_kernel<false, false><<<grid, spt::kThreadsWf, smem, s>>>(prm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1018,4 +1066,27 @@ extern "C" int spt_wavefront_bounce_bwd(
   spt::bounce_bwd_kernel<<<spt::blocks_for(stride), spt::kThreadsWf, smem,
                            static_cast<cudaStream_t>(stream)>>>(prm);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of kThreadsWf threads an SM holds of kernel `which` (0: K6, 1: K7
+// and K9, 2: K11, 3: K8, 4: K10) with `smem` bytes of dynamic shared
+// memory, by the occupancy calculator; tools/wf_ablate.py reports it.
+extern "C" int spt_wavefront_blocks_per_sm(int which, int smem) {
+  using namespace spt;
+  const void* fn = nullptr;
+  switch (which) {
+    case 0: fn = reinterpret_cast<const void*>(isect_kernel<false>); break;
+    case 1:
+      fn = reinterpret_cast<const void*>(shade_kernel<false, false>);
+      break;
+    case 2: fn = reinterpret_cast<const void*>(bounce_kernel<false>); break;
+    case 3: fn = reinterpret_cast<const void*>(anyhit_kernel); break;
+    case 4: fn = reinterpret_cast<const void*>(bounce_bwd_kernel); break;
+    default: return -1;
+  }
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreadsWf,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return blocks;
 }

@@ -59,14 +59,16 @@ ENTRIES = {
         # st, ids, blob, meta, width, height, tiles_x, tiles_per_img,
         # n_tiles, n_lanes, dof, inv_w, inv_h, aspect, stream
         "spt_wavefront_raygen": [_P] * 4 + [_I] * 7 + [_F, _F, _F, _P],
-        # res, st, prims, cand, ctn, cmat, bctr (K6m; null for K6), stride,
-        # n_lanes, n_blocks, block, stream
-        "spt_wavefront_isect": [_P] * 7 + [_I] * 4 + [_P],
+        # res, st, prims, cand, ctn, cmat, bctr (K6m; null for K6), nodef,
+        # nodei (K6's tree mode; null for the lists), stride, n_lanes,
+        # n_blocks, block, n_nodes, stream
+        "spt_wavefront_isect": [_P] * 9 + [_I] * 5 + [_P],
         # st, ids, res, blob, meta, lsb, prims, mtypes, scand, sctn,
         # blocked (K9; null for K7), cmat, bctr (K7m; null otherwise),
-        # stride, n_lanes, n_blocks, block, n_mats, n_light_slots, k,
-        # rr_depth, use_nee, use_mis, sky_mode, blocked_in_res, stream
-        "spt_wavefront_shade": [_P] * 13 + [_I] * 12 + [_P],
+        # nodef, nodei (the shadow walks; null for the lists), stride,
+        # n_lanes, n_blocks, block, n_mats, n_light_slots, k, rr_depth,
+        # use_nee, use_mis, sky_mode, blocked_in_res, n_nodes, stream
+        "spt_wavefront_shade": [_P] * 15 + [_I] * 13 + [_P],
         # st, ids, blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn,
         # res (K11g; null for K11), stride, n_lanes, n_nodes, n_blocks,
         # block, n_mats, n_light_slots, k, rr_depth, use_nee, use_mis,
@@ -79,6 +81,8 @@ ENTRIES = {
         # stride, n_lanes, n_mats, n_light_slots, k, rr_depth, use_nee,
         # use_mis, sky_mode, stream
         "spt_wavefront_bounce_bwd": [_P] * 11 + [_I] * 9 + [_P],
+        # which (0 K6, 1 K7/K9, 2 K11, 3 K8, 4 K10), smem -> blocks an SM
+        "spt_wavefront_blocks_per_sm": [_I, _I],
     },
     "megakernel_bvh_grad": {
         # img, grad_s, grad_g, blob, meta, lsb, nodef, nodei, prims, mtypes,

@@ -6,23 +6,29 @@ keeps every ray's state in device memory between kernels and splits each
 bounce at its hit:
 
   K5 raygen -> [ sort by a coherence key (not at bounce 0)
-                 -> precull: each tile's rays slab-tested against every
-                    leaf block's box -> per-tile candidate lists
-                 -> K6 intersect: nearest hit over the lists -> residual
-                 -> shadow rays rebuilt from the residual
-                    (``physics.nee_shadow_setup``) and preculled
-                 -> K7 shade: ``trace_bounce`` on the rebuilt hit, any-hit
-                    sweep of the shadow lists; state in place
+                 -> K6 intersect: each ray's nearest hit by a walk of the
+                    packed tree (one thread a ray) -> residual
+                 -> K7 shade: ``trace_bounce`` on the rebuilt hit, each
+                    shadow ray walking the tree; state in place
                  -> env-map radiance on the lanes that missed
                ] x depth -> scatter-add by pixel id
+
+The JAX package culls each tile's rays against every leaf block's box
+first and sweeps per-tile candidate lists, because a TPU walks a packet
+behind one scalar node pointer; a thread of the card walks its own ray,
+so the split path builds no lists.  The lists (``precull_tiles``, and
+``shadow_rays`` rebuilt from K6's residual and culled too) remain where a
+tree is not at hand or JAX's form is the point: the prim-sharded render
+(a shard holds leaf blocks, not a tree), ``mxu=True`` and ``split=False``
+with ``precull``.  ``GLUE_CALLS`` counts their calls.
 
 The stream is one float32 (19, R) buffer: the 17 state channels (``C_*``)
 and, bit for bit, the int32 pixel and sample ids.  R counts 1024-lane tiles
 of 32x32 swizzled pixels, ``chunk_spp`` images of them and one all-pad tile.
 Every random draw is keyed on the ids the ray carries, so no permutation of
 the stream changes a ray's result: the sort is invisible to the estimator.
-After a sort the alive rays form a prefix; K6, K7 and the preculls run over
-that prefix only, its length read to the host once per bounce.
+After a sort the alive rays form a prefix; the kernels and the preculls run
+over that prefix only, its length read to the host once per bounce.
 
 Two other forms of a bounce, as in the JAX package (neither the default):
 
@@ -42,12 +48,16 @@ Two other forms of a bounce, as in the JAX package (neither the default):
 Each kernel has a wrapper and a plain PyTorch version: ``raygen`` /
 ``raygen_plain`` (K5), ``isect`` / ``isect_plain`` (K6), ``shade`` /
 ``shade_plain`` (K7), ``bounce`` / ``bounce_plain`` (K11), ``isect_mxu``
-/ ``isect_mxu_plain`` (K6m), ``shade_mxu`` / ``shade_mxu_plain`` (K7m).  A wrapper runs the plain version for CPU tensors and
-launches the hand-written kernel (``csrc/wavefront.cu``) for CUDA tensors,
-or raises.  The glue between them (sort, precull, shadow rays, env map,
-scatter) is torch ops, as it was XLA around the TPU kernels.
-``LAUNCHES["k5"]``, ``["k6"]``, ``["k7"]``, ``["k11"]``, ``["k6m"]`` and
-``["k7m"]`` count the kernels' launches;
+/ ``isect_mxu_plain`` (K6m), ``shade_mxu`` / ``shade_mxu_plain`` (K7m).
+K6 and K7 take the tree (``tree=(nodef, nodei)``: the walks) or lists
+(K6 the tiles' candidate lists, K7 the shadow lists).  A wrapper runs the
+plain version for CPU tensors and launches the hand-written kernel
+(``csrc/wavefront.cu``) for CUDA tensors, or raises.  The glue between
+them (sort, precull, shadow rays, env map, scatter) is torch ops, as it
+was XLA around the TPU kernels.  ``LAUNCHES["k5"]``, ``["k6"]``,
+``["k7"]``, ``["k11"]``, ``["k6m"]`` and ``["k7m"]`` count the kernels'
+launches (K6 and K7 walking the tree; over lists ``["k6l"]`` and
+``["k7l"]``);
 ``LAUNCHES["plain"]`` counts one per call of any plain version, so a
 wavefront render on the CPU adds one per chunk for raygen and two per
 bounce that has alive rays.
@@ -112,6 +122,9 @@ D_BITS = 0
 
 PRECULL_TILE_CHUNK = 64   # tiles per precull step: bounds the (chunk, 1024,
                           # n_blocks) intermediates
+
+# Calls of the list-building glue: ``precull_tiles`` and ``shadow_rays``.
+GLUE_CALLS = {"precull": 0, "shadow_rays": 0}
 
 
 def _live_bits(qbits: int) -> int:
@@ -279,6 +292,7 @@ def precull_tiles(o3, d3, act, tmax, lob, hib, per_row: bool = False):
     1) and (tiles, 8, n_blocks), row ``r`` of tile ``t`` the list of lanes
     ``t * TILE + r * ROW ..``, as the JAX package's ``_precull_rays(
     per_row=True)`` lays them out."""
+    GLUE_CALLS["precull"] += 1
     nb = lob.shape[0]
     n_tiles = act.numel() // TILE
     dev = act.device
@@ -536,19 +550,50 @@ def _isect_lanes(test, prims, cand, ctn, st, n: int, block: int, glen: int,
     return t, _winner_res(prims, t, win, block)
 
 
-def isect_plain(prims: torch.Tensor, cand: torch.Tensor, ctn: torch.Tensor,
-                st: torch.Tensor, n_lanes: int, *, block: int,
-                stats: dict | None = None) -> torch.Tensor:
-    """Plain version of K6 -> residual (8, n_lanes): for lanes [0, n_lanes)
-    of the stream ``st`` (17, R), the nearest hit over their tiles' lists,
-    each lane testing its candidates in order, a block's ``block`` slots in
-    order with a strict ``<``, and stopping once the next candidate's bound
-    reaches its nearest distance.  ``stats``, if given, gets ``"spheres"``
-    (filled slots of the blocks tested), ``"blocks"``, ``"alive"`` (lanes
-    swept), ``"list_words"`` and ``"blocks_read"`` (``_list_reads``)
+def _tree_walk(tree, prims, block: int) -> _Walk:
+    """The plain walk of the packed tree ``tree`` = (nodef, nodei) over the
+    leaf blocks ``prims``."""
+    nodef, nodei = tree
+    return _Walk(nodef.reshape(-1, 8), nodei.reshape(-1, 8).long(),
+                 prims.reshape(-1, _N_PRIM_ATTRS, block), block)
+
+
+def _walk_lanes(walk: _Walk, st, n: int, block: int, stats: dict | None):
+    """(t, residual) of K6's tree mode over lanes [0, n) of the stream: each
+    alive lane's nearest hit by its walk of the tree (``_Walk.nearest``),
+    its winner's record by ``_winner_res``.  ``stats``, if given, gets
+    ``"alive"`` (lanes walked) and the walk's ``"nodes"`` and ``"spheres"``
     added."""
+    alive = st[C_ALIVE, :n] > 0.5
+    t, win, nodes, spheres = walk.nearest(
+        tuple(st[c, :n] for c in (C_OX, C_OY, C_OZ)),
+        tuple(st[c, :n] for c in (C_DX, C_DY, C_DZ)), alive)
+    if stats is not None:
+        _add_stats(stats, dict(alive=int(alive.sum()), nodes=nodes,
+                               spheres=spheres))
+    return t, _winner_res(walk.prims, t, win, block)
+
+
+def isect_plain(prims: torch.Tensor, cand: torch.Tensor | None,
+                ctn: torch.Tensor | None, st: torch.Tensor, n_lanes: int, *,
+                block: int, stats: dict | None = None,
+                tree=None) -> torch.Tensor:
+    """Plain version of K6 -> residual (8, n_lanes) of lanes [0, n_lanes)
+    of the stream ``st`` (17, R).  With ``tree`` = (nodef, nodei), K6's
+    tree mode: each alive lane's nearest hit by its walk of the tree
+    (``_walk_lanes``; ``cand`` and ``ctn`` are not read).  Else the
+    nearest hit over their tiles' lists, each lane testing its candidates
+    in order, a block's ``block`` slots in order with a strict ``<``, and
+    stopping once the next candidate's bound reaches its nearest distance.
+    ``stats``, if given, gets ``"alive"`` (lanes walked or swept) and the
+    walk's ``"nodes"`` and ``"spheres"``, or the sweep's ``"spheres"``
+    (filled slots of the blocks tested), ``"blocks"``, ``"list_words"``
+    and ``"blocks_read"`` (``_list_reads``) added."""
     LAUNCHES["plain"] += 1
     n = n_lanes
+    if tree is not None:
+        return _walk_lanes(_tree_walk(tree, prims, block), st, n, block,
+                           stats)[1]
     o = tuple(st[c, :n] for c in (C_OX, C_OY, C_OZ))
     d = tuple(st[c, :n] for c in (C_DX, C_DY, C_DZ))
     return _isect_lanes(_compact_test(prims.reshape(-1, _N_PRIM_ATTRS, block),
@@ -574,22 +619,43 @@ def _check_stream(st, ids=None):
                          f"tensor, got {ids.dtype} {tuple(ids.shape)}")
 
 
-def isect(prims: torch.Tensor, cand: torch.Tensor, ctn: torch.Tensor,
-          st: torch.Tensor, n_lanes: int, *, block: int) -> torch.Tensor:
-    """K6's wrapper: ``isect_plain``'s residual, on the stream's device."""
+def isect(prims: torch.Tensor, cand: torch.Tensor | None,
+          ctn: torch.Tensor | None, st: torch.Tensor, n_lanes: int, *,
+          block: int, tree=None) -> torch.Tensor:
+    """K6's wrapper: ``isect_plain``'s residual, on the stream's device
+    (``tree`` = (nodef, nodei): the tree mode, ``cand`` and ``ctn`` unread;
+    else the lists)."""
     if st.device.type == "cpu":
-        return isect_plain(prims, cand, ctn, st, n_lanes, block=block)
-    return _isect_launch("K6", prims, cand, ctn, st, n_lanes, block, None)
+        return isect_plain(prims, cand, ctn, st, n_lanes, block=block,
+                           tree=tree)
+    return _isect_launch("K6", prims, cand, ctn, st, n_lanes, block, None,
+                         tree)
+
+
+def _ptr(a) -> int:
+    return 0 if a is None else a.data_ptr()
+
+
+def _check_tree(name: str, nodef, nodei) -> int:
+    """Checks the packed tree a kernel walks -> its rows a table."""
+    n_nodes = nodef.numel() // 64
+    _check(nodef, "nodef", torch.float32, 64 * n_nodes)
+    _check(nodei, "nodei", torch.int32, 64 * n_nodes)
+    if nodef.data_ptr() % 16 or nodei.data_ptr() % 8:
+        raise ValueError(f"{name} reads node rows as float4 / int2: nodef "
+                         "must be 16-byte and nodei 8-byte aligned")
+    return n_nodes
 
 
 def _isect_launch(name, prims, cand, ctn, st, n_lanes: int, block: int,
-                  mxu) -> torch.Tensor:
-    """Checks and launches K6's kernel on CUDA tensors (K6m's, on per-row
-    lists, with ``mxu`` = (cmat, bctr)) -> the residual (8, n_lanes)."""
+                  mxu, tree=None) -> torch.Tensor:
+    """Checks and launches K6's kernel on CUDA tensors (its tree mode with
+    ``tree`` = (nodef, nodei); K6m's, on per-row lists, with ``mxu`` =
+    (cmat, bctr)) -> the residual (8, n_lanes)."""
     if st.device.type != "cuda":
         raise NotImplementedError(f"{name} has no kernel for {st.device}")
-    if any(a.device != st.device for a in (prims, cand, ctn,
-                                           *(mxu or ()))):
+    inputs = (prims, *((cand, ctn) if tree is None else tree), *(mxu or ()))
+    if any(a.device != st.device for a in inputs):
         raise ValueError(f"{name}'s inputs must lie on one device")
     _check_stream(st)
     nb = prims.numel() // (_N_PRIM_ATTRS * block)
@@ -597,7 +663,13 @@ def _isect_launch(name, prims, cand, ctn, st, n_lanes: int, block: int,
         raise ValueError(f"{name}: {n_lanes} lanes of a stream of "
                          f"{st.shape[1]}")
     _check(prims, "prims", torch.float32, _N_PRIM_ATTRS * block * nb)
-    _check_lists(cand, ctn, n_lanes // (TILE if mxu is None else ROW), nb)
+    n_nodes = 0
+    if tree is not None:
+        n_nodes = _check_tree(name, *tree)
+        cand = ctn = None
+    else:
+        _check_lists(cand, ctn, n_lanes // (TILE if mxu is None else ROW),
+                     nb)
     if mxu is not None:
         _check_cmat(*mxu, nb, block)
     res = torch.empty((N_RES, n_lanes), dtype=torch.float32, device=st.device)
@@ -605,14 +677,15 @@ def _isect_launch(name, prims, cand, ctn, st, n_lanes: int, block: int,
     lib = load_library("wavefront")
     with torch.cuda.device(st.device):
         err = lib.spt_wavefront_isect(
-            res.data_ptr(), st.data_ptr(), prims.data_ptr(), cand.data_ptr(),
-            ctn.data_ptr(),
-            *((0, 0) if mxu is None else (a.data_ptr() for a in mxu)),
-            st.shape[1], n_lanes, nb, block,
+            *(_ptr(a) for a in (res, st, prims, cand, ctn,
+                                *(mxu or (None, None)),
+                                *(tree or (None, None)))),
+            st.shape[1], n_lanes, nb, block, n_nodes,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES["k6" if mxu is None else "k6m"] += 1
+    LAUNCHES["k6m" if mxu is not None else "k6" if tree is not None
+             else "k6l"] += 1
     return res
 
 
@@ -675,6 +748,7 @@ def shadow_rays(st, ids, res, blob, lsb, nl: int, *, k: int, seed: int,
     the lanes whose shadow ray K7 traces (a hit that is not dielectric);
     elsewhere the values are unused.  ``mtypes``: material types, one int
     per material."""
+    GLUE_CALLS["shadow_rays"] += 1
     hit, (hx, hy, hz), (nsx, nsy, nsz) = _winner_hit(st, res)
     mt = torch.tensor(list(mtypes) + [0], dtype=torch.int32,
                       device=st.device)[torch.clamp(
@@ -826,35 +900,48 @@ def shade_plain(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
                 n_light_slots: int, rr_depth: int, use_nee: bool,
                 use_mis: bool, sky_mode: int, stats: dict | None = None,
                 blocked: torch.Tensor | None = None,
-                blocked_in_res: bool = False, mxu=None) -> None:
+                blocked_in_res: bool = False, mxu=None, tree=None) -> None:
     """Plain version of K7: bounce ``k`` of lanes [0, n_lanes) of the
     stream, in place.  ``trace_bounce`` on the hit rebuilt from ``res``;
-    each shadow ray tests its tile's shadow list in order and stops at its
-    first blocker or once the next candidate's bound reaches its t_max
-    (``_sweep_anyhit``; with ``mxu`` = (cmat, bctr) K7m's sweep of the
-    per-row lists).  With ``blocked_in_res`` (K7's mode for the
-    prim-sharded render) nothing is swept: a shadow ray is blocked where
-    residual row 7 holds more than 0.5, and ``scand``, ``sctn`` and
-    ``prims`` are not read.  Dead lanes keep their state; the miss flag is
-    set where an alive lane missed under an env-map sky, cleared
-    elsewhere.  ``stats``, if given, gets ``render_samples_plain``'s
-    per-bounce counts of this bounce (``"active"``, ``"hit"``,
-    ``"shadow"``, ``"lit"``) and the shadow sweep's counts added (zero
-    with ``blocked_in_res``).  ``blocked``, if given, (n_lanes,) float32,
-    receives the NEE shadow verdict: 1 where a traced shadow ray is
-    blocked, 0 elsewhere (K9's record, ``wavefront_grad.shade_fwd_plain``)."""
+    with ``tree`` = (nodef, nodei) each shadow ray walks the tree and stops
+    at its first blocker (``_Walk.anyhit``); else it tests its tile's
+    shadow list in order and stops at its first blocker or once the next
+    candidate's bound reaches its t_max (``_sweep_anyhit``; with ``mxu`` =
+    (cmat, bctr) K7m's sweep of the per-row lists).  With
+    ``blocked_in_res`` (K7's mode for the prim-sharded render) nothing is
+    traced: a shadow ray is blocked where residual row 7 holds more than
+    0.5, and ``scand``, ``sctn``, ``tree`` and ``prims`` are not read.
+    Dead lanes keep their state; the miss flag is set where an alive lane
+    missed under an env-map sky, cleared elsewhere.  ``stats``, if given,
+    gets ``render_samples_plain``'s per-bounce counts of this bounce
+    (``"active"``, ``"hit"``, ``"shadow"``, ``"lit"``) and the shadow
+    test's counts added: the walks' ``"shadow_nodes"`` and
+    ``"shadow_spheres"``, or the sweep's ``"shadow_spheres"``,
+    ``"shadow_blocks"``, ``"shadow_list_words"`` and
+    ``"shadow_blocks_read"`` (zero with ``blocked_in_res``).  ``blocked``,
+    if given, (n_lanes,) float32, receives the NEE shadow verdict: 1 where
+    a traced shadow ray is blocked, 0 elsewhere (K9's record,
+    ``wavefront_grad.shade_fwd_plain``)."""
     LAUNCHES["plain"] += 1
     n = n_lanes
     prims = prims.reshape(-1, _N_PRIM_ATTRS, block)
     mats = blob[_MAT_OFF:_MAT_OFF + _MAT_STRIDE * n_mats].reshape(
         n_mats, _MAT_STRIDE)
-    sweep_stats = dict.fromkeys(("shadow_spheres", "shadow_blocks",
-                                 "shadow_list_words", "shadow_blocks_read"),
-                                0)
+    walk = None if tree is None or blocked_in_res else \
+        _tree_walk(tree, prims, block)
+    sweep_stats = dict.fromkeys(
+        ("shadow_nodes", "shadow_spheres") if walk is not None else
+        ("shadow_spheres", "shadow_blocks", "shadow_list_words",
+         "shadow_blocks_read"), 0)
 
     def occluded(ox, oy, oz, dx, dy, dz, tmax, need):
         if blocked_in_res:
             verdict = need & (res[7, :n] > 0.5)
+        elif walk is not None:
+            verdict, nodes, spheres = walk.anyhit((ox, oy, oz), (dx, dy, dz),
+                                                  tmax, need)
+            sweep_stats["shadow_nodes"] += nodes
+            sweep_stats["shadow_spheres"] += spheres
         else:
             verdict = _sweep_anyhit(prims, scand, sctn, (ox, oy, oz),
                                     (dx, dy, dz), tmax, need, sweep_stats,
@@ -874,35 +961,42 @@ def shade_plain(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
 def shade(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
           n_lanes: int, *, k: int, block: int, n_mats: int,
           n_light_slots: int, rr_depth: int, use_nee: bool, use_mis: bool,
-          sky_mode: int, blocked_in_res: bool = False) -> None:
+          sky_mode: int, blocked_in_res: bool = False, tree=None) -> None:
     """K7's wrapper: ``shade_plain``'s bounce, in place, on the stream's
-    device.  Without NEE, or with ``blocked_in_res`` (the shadow verdict
-    read from residual row 7; ``LAUNCHES["k7b"]`` counts these launches),
-    ``scand`` and ``sctn`` are not read."""
+    device.  Without NEE, with ``tree`` (the shadow walks) or with
+    ``blocked_in_res`` (the shadow verdict read from residual row 7;
+    ``LAUNCHES["k7b"]`` counts these launches), ``scand`` and ``sctn`` are
+    not read."""
     kw = dict(k=k, block=block, n_mats=n_mats, n_light_slots=n_light_slots,
               rr_depth=rr_depth, use_nee=use_nee, use_mis=use_mis,
-              sky_mode=sky_mode, blocked_in_res=blocked_in_res)
+              sky_mode=sky_mode, blocked_in_res=blocked_in_res, tree=tree)
     args = (blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res)
     if st.device.type == "cpu":
         return shade_plain(*args, n_lanes, **kw)
     _shade_launch("K7", args, n_lanes, None, **kw)
-    LAUNCHES["k7b" if blocked_in_res else "k7"] += 1
+    LAUNCHES["k7b" if blocked_in_res else "k7" if tree is not None
+             else "k7l"] += 1
 
 
 def _shade_launch(name, args, n_lanes: int, blocked, *, k: int, block: int,
                   n_mats: int, n_light_slots: int, rr_depth: int,
                   use_nee: bool, use_mis: bool, sky_mode: int,
-                  blocked_in_res: bool = False, mxu=None) -> None:
+                  blocked_in_res: bool = False, mxu=None,
+                  tree=None) -> None:
     """Checks and launches K7's kernel on CUDA tensors: K7 itself with
     ``blocked`` None, K9 (which also writes the (n_lanes,) shadow verdict
-    into ``blocked``) otherwise; with ``blocked_in_res`` the kernel reads
-    each verdict from residual row 7 instead of sweeping the lists; with
+    into ``blocked``) otherwise; with ``tree`` = (nodef, nodei) each shadow
+    ray walks the tree; with ``blocked_in_res`` the kernel reads each
+    verdict from residual row 7; else it sweeps the shadow lists, and with
     ``mxu`` = (cmat, bctr) it is K7m, sweeping per-row lists with the
     expanded quadratic."""
     blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res = args
     if st.device.type != "cuda":
         raise NotImplementedError(f"{name} has no kernel for {st.device}")
-    if any(a.device != st.device for a in args + tuple(mxu or ())):
+    walk = tree is not None and not blocked_in_res
+    inputs = (*args[:5], *(tree if walk else (scand, sctn)), *args[7:],
+              *(mxu or ()))
+    if any(a.device != st.device for a in inputs):
         raise ValueError(f"{name}'s inputs must lie on one device")
     _check_stream(st, ids)
     if not 0 <= n_lanes <= st.shape[1] or n_lanes % TILE:
@@ -916,7 +1010,11 @@ def _shade_launch(name, args, n_lanes: int, blocked, *, k: int, block: int,
     _check(prims, "prims", torch.float32, _N_PRIM_ATTRS * block * nb)
     _check(mtypes, "mtypes", torch.int32, n_mats)
     _check(res, "res", torch.float32, N_RES * n_lanes)
-    if use_nee and n_light_slots > 0 and not blocked_in_res:
+    n_nodes = 0
+    if walk:
+        n_nodes = _check_tree(name, *tree)
+        scand = sctn = None
+    elif use_nee and n_light_slots > 0 and not blocked_in_res:
         _check_lists(scand, sctn, n_lanes // (TILE if mxu is None else ROW),
                      nb)
     if mxu is not None:
@@ -927,13 +1025,13 @@ def _shade_launch(name, args, n_lanes: int, blocked, *, k: int, block: int,
     lib = load_library("wavefront")
     with torch.cuda.device(st.device):
         err = lib.spt_wavefront_shade(
-            *(a.data_ptr() for a in (st, ids, res, blob, meta, lsb, prims,
-                                     mtypes, scand, sctn)),
-            0 if blocked is None else blocked.data_ptr(),
+            *(_ptr(a) for a in (st, ids, res, blob, meta, lsb, prims,
+                                mtypes, scand, sctn, blocked)),
             *((0, 0) if mxu is None else (a.data_ptr() for a in mxu)),
+            *((a.data_ptr() for a in tree) if walk else (0, 0)),
             st.shape[1], n_lanes, nb, block, n_mats, n_light_slots, k,
             rr_depth, int(bool(use_nee)), int(bool(use_mis)), int(sky_mode),
-            int(bool(blocked_in_res)),
+            int(bool(blocked_in_res)), n_nodes,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -1193,8 +1291,7 @@ def bounce_plain(blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn, st,
     prims = prims.reshape(-1, _N_PRIM_ATTRS, block)
     mats = blob[_MAT_OFF:_MAT_OFF + _MAT_STRIDE * n_mats].reshape(
         n_mats, _MAT_STRIDE)
-    walk = _Walk(nodef.reshape(-1, 8), nodei.reshape(-1, 8).long(), prims,
-                 block)
+    walk = _tree_walk((nodef, nodei), prims, block)
     o = tuple(st[c, :n] for c in (C_OX, C_OY, C_OZ))
     d = tuple(st[c, :n] for c in (C_DX, C_DY, C_DZ))
     work = {}
@@ -1202,9 +1299,7 @@ def bounce_plain(blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn, st,
         t, res = _isect_lanes(_compact_test(prims, o, d), prims, cand, ctn,
                               st, n, block, TILE, work)
     else:
-        t, win, work["nodes"], work["spheres"] = walk.nearest(
-            o, d, st[C_ALIVE, :n] > 0.5)
-        res = _winner_res(prims, t, win, block)
+        t, res = _walk_lanes(walk, st, n, block, work)
     work.update(shadow_nodes=0, shadow_spheres=0)
 
     def occluded(ox, oy, oz, dx, dy, dz, tmax, need):
@@ -1254,18 +1349,13 @@ def _bounce_launch(name, args, n_lanes: int, record, *, k: int, block: int,
         raise ValueError(f"{name}: {n_lanes} lanes of a stream of "
                          f"{st.shape[1]}")
     nb = prims.numel() // (_N_PRIM_ATTRS * block)
-    n_nodes = nodef.numel() // 64
     _check(blob, "blob", torch.float32, _MAT_OFF + _MAT_STRIDE * n_mats
            + _LIGHT_STRIDE * max(n_light_slots, 1))
     _check(meta, "meta", torch.int32, 3)
     _check(lsb, "lsb", torch.float32, 6)
-    _check(nodef, "nodef", torch.float32, 64 * n_nodes)
-    _check(nodei, "nodei", torch.int32, 64 * n_nodes)
+    n_nodes = _check_tree(name, nodef, nodei)
     _check(prims, "prims", torch.float32, _N_PRIM_ATTRS * block * nb)
     _check(mtypes, "mtypes", torch.int32, n_mats)
-    if nodef.data_ptr() % 16 or nodei.data_ptr() % 8:
-        raise ValueError(f"{name} reads node rows as float4 / int2: nodef "
-                         "must be 16-byte and nodei 8-byte aligned")
     if precull:
         _check_lists(cand, ctn, n_lanes // TILE, nb)
     if record is not None:
@@ -1351,11 +1441,15 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
                       sort_min_rays: int, split: bool, precull: bool,
                       mxu: bool, stages: tuple,
                       times: dict | None) -> torch.Tensor:
-    """One chunk of ``chunk_spp`` images -> (H, W, 3) radiance sum."""
+    """One chunk of ``chunk_spp`` images -> (H, W, 3) radiance sum.  The
+    split bounce walks the tree (K6's tree mode, K7's shadow walks) and
+    builds no lists; the lists are built for ``mxu`` and for the fused
+    bounce with ``precull``."""
     k5, k6, k7, k11, k6m, k7m = stages
     block, n_mats = static["block"], static["n_mats"]
     n_light_slots = static["n_light_slots"]
     blob, prims = t["blob"], t["prims"]
+    tree = (t["nodef"], t["nodei"])
     clock = functools.partial(_timed, times, device=blob.device)
     with clock("raygen"):
         st, ids = k5(blob, meta, width=width, height=height,
@@ -1363,8 +1457,10 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
     buf = _stream_buffer(st, ids)
     n_tiles = st.shape[1] // TILE - 1
     lo, ext = _scene_sort_bounds(t["nodef"])
-    lob, hib = _leaf_block_bounds(prims.reshape(-1, _N_PRIM_ATTRS, block))
     mxu = mxu and split
+    lists = mxu or (precull and not split)
+    if lists:
+        lob, hib = _leaf_block_bounds(prims.reshape(-1, _N_PRIM_ATTRS, block))
     if mxu:
         cmat, bctr = build_cmat(prims.reshape(-1, _N_PRIM_ATTRS, block))
     nl = int(_np(meta[2]))
@@ -1387,7 +1483,7 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
             break
         n = nalive * TILE
         cand, ctn = none_i, none_f
-        if split or precull:
+        if lists:
             with clock("precull"):
                 cand, ctn = precull_tiles(
                     tuple(st[c, :n] for c in (C_OX, C_OY, C_OZ)),
@@ -1398,10 +1494,9 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
                 k11(blob, meta, t["lsb"], t["nodef"], t["nodei"], prims,
                     t["mtypes"], cand, ctn, st, ids, n, k=k,
                     precull=precull, **kw)
-        else:
-            with clock("k6m" if mxu else "k6"):
-                res = (k6m(prims, cmat, bctr, cand, ctn, st, n, block=block)
-                       if mxu else k6(prims, cand, ctn, st, n, block=block))
+        elif mxu:
+            with clock("k6m"):
+                res = k6m(prims, cmat, bctr, cand, ctn, st, n, block=block)
             scand, sctn = none_i, none_f
             if shadows:
                 with clock("shadow"):
@@ -1410,14 +1505,16 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
                         seed=seed, n_mats=n_mats, mtypes=static["mtypes"],
                         n_light_slots=n_light_slots)
                     scand, sctn = precull_tiles(so3, sd3, sneed, stmax, lob,
-                                                hib, per_row=mxu)
-            with clock("k7m" if mxu else "k7"):
-                if mxu:
-                    k7m(blob, meta, t["lsb"], prims, cmat, bctr, t["mtypes"],
-                        scand, sctn, st, ids, res, n, k=k, **kw)
-                else:
-                    k7(blob, meta, t["lsb"], prims, t["mtypes"], scand, sctn,
-                       st, ids, res, n, k=k, **kw)
+                                                hib, per_row=True)
+            with clock("k7m"):
+                k7m(blob, meta, t["lsb"], prims, cmat, bctr, t["mtypes"],
+                    scand, sctn, st, ids, res, n, k=k, **kw)
+        else:
+            with clock("k6"):
+                res = k6(prims, None, None, st, n, block=block, tree=tree)
+            with clock("k7"):
+                k7(blob, meta, t["lsb"], prims, t["mtypes"], None, None, st,
+                   ids, res, n, k=k, tree=tree, **kw)
         if sky_mode == SKY_ENVMAP:
             with clock("env"):
                 _add_env_radiance(st[:, :n], env)
@@ -1459,18 +1556,19 @@ def render_wavefront(scene: SceneData, camera, width: int, height: int,
     sorts the whole stream (for tests).  ``dof=None`` takes the thin lens
     iff the camera has an aperture.
 
-    Each bounce is split by default: K6 intersects, the glue rebuilds and
-    culls the shadow rays, K7 shades.  ``split=False`` runs it as one
-    kernel, K11, whose shadow rays walk the tree; there ``precull=False``
-    finds the nearest hit by the walk too, where ``precull`` (the default)
-    sweeps the tiles' lists as K6 does.  ``mxu=True`` runs the split
-    bounce's sweeps in their matmul form, K6m and K7m, over per-row lists.
-    As in the JAX package, ``precull`` acts on the fused bounce only and
-    ``mxu`` on the split bounce only.  Either way the image is the same
-    but at knife edges: the fused bounce equals the split one bit for bit
-    where no ray wins a leaf's padding slot (the fused bounce shades such a
-    winner, the split one takes the sky); the matmul form rounds
-    otherwise."""
+    Each bounce is split by default: K6 intersects, K7 shades, each ray's
+    nearest hit and shadow ray walking the tree.  ``split=False`` runs it
+    as one kernel, K11, whose shadow rays walk the tree too; there
+    ``precull=False`` finds the nearest hit by the walk, where ``precull``
+    (the default) sweeps the tiles' candidate lists (JAX's form).
+    ``mxu=True`` runs the split bounce's sweeps in their matmul form, K6m
+    and K7m, over per-row lists.  As in the JAX package, ``precull`` acts
+    on the fused bounce only and ``mxu`` on the split bounce only.  Either
+    way the image is the same but at knife edges: the walk and the lists
+    find the same winners but where two spheres tie exactly in t; the
+    fused bounce equals the split one bit for bit where no ray wins a
+    leaf's padding slot (the fused bounce shades such a winner, the split
+    one takes the sky); the matmul form rounds otherwise."""
     return _render(scene, camera, width, height, start_sample, spp,
                    max_bounces=max_bounces, rr_depth=rr_depth,
                    use_nee=use_nee, use_mis=use_mis, seed=seed, dof=dof,
@@ -1524,10 +1622,11 @@ def _render(scene: SceneData, camera, width: int, height: int,
 
 
 # fp32 operations of K6 and K7 (csrc/wavefront.cu), counted by hand as
-# K1_OPS are: a sphere test is K1's; K6 and K7 add one compare per
-# candidate block a lane takes (its bound against the lane's distance).
-# K7's bounce is K1's (hit, miss, shadow) less its nearest-hit sweep, plus
-# the rebuilt winner (a sphere test and the root choice, 20).
+# K1_OPS are: a sphere test is K1's; over lists K6 and K7 add one compare
+# per candidate block a lane takes (its bound against the lane's
+# distance); a walk costs K3's per-ray setup and per-node slab test
+# (K3_OPS).  K7's bounce is K1's (hit, miss, shadow) less its nearest-hit
+# sweep, plus the rebuilt winner (a sphere test and the root choice, 20).
 WF_OPS = dict(K1_OPS, block=1, rebuild=20)
 # K6m and K7m per lane and block swept: o' = o - bctr, d.o' and |o'|^2
 # (13); per slot, its two table columns of 8 products summed (30) and
@@ -1539,18 +1638,30 @@ MXU_OPS = dict(block=13, slot=44)
 
 def k6_op_count(stats: dict) -> int:
     """Lower count of K6's fp32 operations for ``isect_plain``'s stats:
-    filled slots tested, and the candidates taken."""
+    filled slots tested, and the candidates taken (list mode) or each
+    walk's setup and node tests (tree mode, whose stats hold
+    ``"nodes"``)."""
+    if "nodes" in stats:
+        return (stats["alive"] * K3_OPS["walk_setup"]
+                + stats["nodes"] * K3_OPS["node_test"]
+                + stats["spheres"] * WF_OPS["sphere_test"])
     return (stats["spheres"] * WF_OPS["sphere_test"]
             + stats["blocks"] * WF_OPS["block"])
 
 
 def k7_op_count(stats: dict) -> int:
-    """Lower count of K7's fp32 operations for ``shade_plain``'s stats."""
+    """Lower count of K7's fp32 operations for ``shade_plain``'s stats: the
+    bounce on the rebuilt winner and the shadow rays' walks (stats with
+    ``"shadow_nodes"``) or sweeps."""
+    if "shadow_nodes" in stats:
+        shadow = (stats["shadow"] * K3_OPS["walk_setup"]
+                  + stats["shadow_nodes"] * K3_OPS["node_test"])
+    else:
+        shadow = stats["shadow_blocks"] * WF_OPS["block"]
     return ((stats["active"] - stats["hit"]) * WF_OPS["miss"]
             + stats["hit"] * (WF_OPS["hit"] + WF_OPS["rebuild"])
             + stats["shadow"] * WF_OPS["shadow"]
-            + stats["shadow_spheres"] * WF_OPS["sphere_test"]
-            + stats["shadow_blocks"] * WF_OPS["block"])
+            + stats["shadow_spheres"] * WF_OPS["sphere_test"] + shadow)
 
 
 def k8_op_count(stats: dict) -> int:
@@ -1585,25 +1696,33 @@ def k7b_byte_count(stats: dict, n_lanes: int) -> int:
         + 4 * stats["shadow"]
 
 
-def k6_byte_count(stats: dict, n_lanes: int, block: int) -> int:
+def k6_byte_count(stats: dict, n_lanes: int, block: int,
+                  tree_words: int = 0) -> int:
     """Bytes K6 must move, each word once, for ``isect_plain``'s stats:
     every lane reads its alive flag and writes its residual, an alive lane
-    reads its origin and direction, plus the list words read and the four
-    float rows of each distinct leaf block swept."""
-    return 4 * ((1 + N_RES) * n_lanes + 6 * stats["alive"]
-                + stats["list_words"] + 4 * block * stats["blocks_read"])
+    reads its origin and direction, plus, in list mode, the list words read
+    and the four float rows of each distinct leaf block swept, or in tree
+    mode the tree (``tree_words``: nodef, nodei and prims, as K11's
+    count reads them)."""
+    lists = stats.get("list_words", 0) + 4 * block * stats.get(
+        "blocks_read", 0)
+    return 4 * ((1 + N_RES) * n_lanes + 6 * stats["alive"] + lists
+                + tree_words)
 
 
-def k7_byte_count(stats: dict, n_lanes: int, block: int) -> int:
+def k7_byte_count(stats: dict, n_lanes: int, block: int,
+                  tree_words: int = 0) -> int:
     """Bytes K7 must move, each word once, for ``shade_plain``'s stats: an
     alive lane reads 15 state channels (all but in_image and miss), its ids
     and 5 residual channels and writes 16 channels; a dead lane reads its
     alive flag and writes its miss flag; plus the shadow list words read
-    and the four float rows of each distinct leaf block swept."""
+    and the four float rows of each distinct leaf block swept, or the tree
+    the shadow rays walk (``tree_words``)."""
     a = stats["active"]
     return 4 * ((15 + N_IDS + 5 + 16) * a + 2 * (n_lanes - a)
-                + stats["shadow_list_words"]
-                + 4 * block * stats["shadow_blocks_read"])
+                + stats.get("shadow_list_words", 0)
+                + 4 * block * stats.get("shadow_blocks_read", 0)
+                + tree_words)
 
 
 def k6m_op_count(stats: dict, block: int) -> int:

@@ -7,22 +7,25 @@ radii), and so, through ``megakernel_bvh.pack_blob_torch`` and
 ``pack_prims_torch``, to the scene's parameters:
 
   K5 raygen -> [ sort (a permutation under autograd)
-                 -> precull, K6, shadow rays, shadow precull: on detached
-                    values, they only select
-                 -> shade op: K9 forward (K7 recording the NEE verdict),
-                    K10 backward (the bounce's adjoint on the recorded
-                    winner), per-prim cotangents scattered by the winner's
-                    (block, slot)
+                 -> K6 (its walk of the tree): on detached values, it only
+                    selects
+                 -> shade op: K9 forward (K7, its shadow rays walking the
+                    tree, recording the NEE verdict), K10 backward (the
+                    bounce's adjoint on the recorded winner), per-prim
+                    cotangents scattered by the winner's (block, slot)
                  -> env-map radiance, out of place
                ] x depth -> scatter-add by pixel id
+
+The walks take the tree refit to the parameters' centres and radii, so
+the winners and verdicts are the ones the current spheres give.
 
 The forward is K7's bounce on K6's winner, so a render equals the forward
 wavefront's; the backward never traverses.  Each bounce keeps its
 pre-bounce stream, ids and residual until ``backward``.  With
 ``split=False`` a bounce's forward is the fused bounce K11g instead (K11
-recording K6's residual and the shadow verdict: no K6, no shadow precull;
-its nearest hit by the tiles' lists or, ``precull=False``, by a walk of
-the refit tree), the same K10 backward:
+recording K6's residual and the shadow verdict: no K6; its nearest hit by
+the tiles' lists or, ``precull=False``, by a walk of the refit tree), the
+same K10 backward:
 
   K5 raygen -> [ sort -> (precull) -> bounce op: K11g forward, K10
                  backward -> env-map radiance ] x depth -> scatter
@@ -34,8 +37,8 @@ the refit tree), the same K10 backward:
   R), the per-lane d(centre, radius) (4, n) and the scalar gradients
   (n_scal,).  A wrapper runs the plain version for CPU tensors and
   launches the hand-written kernel (``csrc/wavefront.cu``) for CUDA
-  tensors, or raises.  ``LAUNCHES["k9"]``, ``["k10"]`` and ``["k11g"]``
-  count them.
+  tensors, or raises.  ``LAUNCHES["k9"]`` (``["k9l"]`` over the shadow
+  lists), ``["k10"]`` and ``["k11g"]`` count them.
 * ``make_wavefront_render_fn`` returns ``render(params, start_sample)``.
 
 Lanes past the alive prefix are neither shaded nor replayed: their state
@@ -64,7 +67,7 @@ from .wavefront import (C_ALIVE, C_DX, C_DY, C_DZ, C_LB, C_LG, C_LR,
                         _scene_sort_bounds, _shade_launch, _sort_span,
                         bounce_plain, isect, isect_plain, precull_tiles,
                         raygen, raygen_plain, sample_env_map, shade_plain,
-                        shadow_rays, stream_tiles)
+                        stream_tiles)
 
 # ---------------------------------------------------------------------------
 # K9: shade, recording the shadow verdict
@@ -74,8 +77,9 @@ from .wavefront import (C_ALIVE, C_DX, C_DY, C_DZ, C_LB, C_LG, C_LR,
 def shade_fwd_plain(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
                     n_lanes: int, **kw):
     """Plain version of K9 -> (new stream (17, R), blocked (n_lanes,)):
-    ``shade_plain``'s bounce on a copy of ``st``, and its NEE shadow
-    verdict (residual channel 7 of the backward)."""
+    ``shade_plain``'s bounce on a copy of ``st`` (its shadow rays walking
+    ``tree=`` or sweeping the lists), and its NEE shadow verdict (residual
+    channel 7 of the backward)."""
     out = st.clone()
     blocked = torch.zeros(n_lanes, dtype=torch.float32, device=st.device)
     shade_plain(blob, meta, lsb, prims, mtypes, scand, sctn, out, ids, res,
@@ -94,7 +98,7 @@ def shade_fwd(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
     blocked = torch.empty(n_lanes, dtype=torch.float32, device=st.device)
     _shade_launch("K9", (blob, meta, lsb, prims, mtypes, scand, sctn, out,
                          ids, res), n_lanes, blocked, **kw)
-    LAUNCHES["k9"] += 1
+    LAUNCHES["k9" if kw.get("tree") is not None else "k9l"] += 1
     return out, blocked
 
 
@@ -336,8 +340,8 @@ def _run_wavefront_diff(blob, meta, nodef, nodei, prims, env, static, *,
                         stages: tuple):
     """One differentiable chunk of ``chunk_spp`` images -> (H, W, 3)
     radiance sum, the forward wavefront's loop with each bounce behind
-    ``_BounceOp``: K6 and K9 (``split``), or K11g with its own walk or
-    list sweep (``precull``)."""
+    ``_BounceOp``: K6 and K9 walking the tree ``nodef``, ``nodei``
+    (``split``), or K11g with its own walk or list sweep (``precull``)."""
     k5, k6, k9, k10 = stages[:4]
     block, n_mats = static["block"], static["n_mats"]
     n_light_slots = static["n_light_slots"]
@@ -348,11 +352,11 @@ def _run_wavefront_diff(blob, meta, nodef, nodei, prims, env, static, *,
     st, ids = k5(blob_d, meta, width=width, height=height,
                  chunk_spp=chunk_spp, dof=dof)
     n_tiles = st.shape[1] // TILE - 1
-    lo, ext = _scene_sort_bounds(nodef)
-    lob, hib = _leaf_block_bounds(prims_d.reshape(-1, _N_PRIM_ATTRS, block))
-    nl = int(_np(meta[2]))
-    seed = int(_np(meta[1])) & rng.MASK32
-    shadows = use_nee and n_light_slots > 0
+    tree = (nodef.detach(), nodei)
+    lo, ext = _scene_sort_bounds(tree[0])
+    if precull and not split:
+        lob, hib = _leaf_block_bounds(prims_d.reshape(-1, _N_PRIM_ATTRS,
+                                                      block))
     none_i = torch.zeros((1, 1, 1), dtype=torch.int32, device=blob.device)
     none_f = torch.zeros((1, 1, 1), dtype=torch.float32, device=blob.device)
     nalive = n_tiles
@@ -367,34 +371,27 @@ def _run_wavefront_diff(blob, meta, nodef, nodei, prims, env, static, *,
         kw = dict(k=k, block=block, n_mats=n_mats,
                   n_light_slots=n_light_slots, rr_depth=rr_depth,
                   use_nee=use_nee, use_mis=use_mis, sky_mode=sky_mode)
-        cand, ctn = none_i, none_f
-        if split or precull:
-            cand, ctn = precull_tiles(
-                tuple(st_d[c, :n] for c in range(3)),
-                tuple(st_d[c, :n] for c in range(3, 6)), st_d[C_ALIVE, :n],
-                None, lob, hib)
         if split:
-            res = k6(prims_d, cand, ctn, st_d, n, block=block)
-            scand, sctn = none_i, none_f
-            if shadows:
-                so3, sd3, stmax, sneed = shadow_rays(
-                    st_d[:, :n], ids[:, :n], res, blob_d, lsb, nl, k=k,
-                    seed=seed, n_mats=n_mats, mtypes=static["mtypes"],
-                    n_light_slots=n_light_slots)
-                scand, sctn = precull_tiles(so3, sd3, sneed, stmax, lob, hib)
+            res = k6(prims_d, None, None, st_d, n, block=block, tree=tree)
 
-            def forward(blob_, prims_, st_, res=res, scand=scand, sctn=sctn,
-                        ids=ids, n=n, kw=kw):
-                out, blocked = k9(blob_, meta, lsb, prims_, mtypes, scand,
-                                  sctn, st_, ids, res, n, **kw)
+            def forward(blob_, prims_, st_, res=res, ids=ids, n=n, kw=kw):
+                out, blocked = k9(blob_, meta, lsb, prims_, mtypes, None,
+                                  None, st_, ids, res, n, tree=tree, **kw)
                 res8 = res.clone()
                 res8[7] = blocked
                 return out, res8
         else:
+            cand, ctn = none_i, none_f
+            if precull:
+                cand, ctn = precull_tiles(
+                    tuple(st_d[c, :n] for c in range(3)),
+                    tuple(st_d[c, :n] for c in range(3, 6)),
+                    st_d[C_ALIVE, :n], None, lob, hib)
+
             def forward(blob_, prims_, st_, cand=cand, ctn=ctn, ids=ids, n=n,
                         kw=kw):
-                return stages[4](blob_, meta, lsb, nodef.detach(), nodei,
-                                 prims_, mtypes, cand, ctn, st_, ids, n,
+                return stages[4](blob_, meta, lsb, tree[0], nodei, prims_,
+                                 mtypes, cand, ctn, st_, ids, n,
                                  precull=precull, **kw)
         cfg = dict(forward=forward, bounce_bwd=k10, meta=meta, lsb=lsb,
                    mtypes=mtypes, ids=ids, n_lanes=n,
@@ -424,7 +421,7 @@ def make_wavefront_render_fn(scene: SceneData, camera, width: int,
 
     ``params`` may hold any subset of ``diff.cuda_diff.PARAM_KEYS``;
     centres or radii refit the tree's boxes (``refit_nodef_torch``) each
-    call.  Samples go in chunks of as many whole images as ``chunk_rays``
+    call, and K6 and K9 walk the refit tree.  Samples go in chunks of as many whole images as ``chunk_rays``
     rays hold (JAX's grad default, one 1080p image a chunk); every chunk's
     bounces stay saved until ``backward``.  ``split=False`` runs each
     bounce's forward as the fused bounce K11g (its nearest hit by the

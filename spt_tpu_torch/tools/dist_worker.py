@@ -23,7 +23,9 @@ rank compiles the scene and camera from the parent's arrays, on
 of the port; every rank takes the same device, so ranks on "cuda" share
 one card.  ``backend`` defaults to "nccl" for a single rank on the card
 and to "gloo" otherwise (the CPU, or ranks sharing a card, which NCCL
-does not take).  Every report says which backend ran.
+does not take).  Every report says which backend ran, and sums over
+the ranks the kernels' launches (``launches``) and the list-building
+glue's calls (``glue_calls``: ``wavefront.GLUE_CALLS``).
 
 A rank that fails or hangs fails the launch: every rank has the
 collective ``timeout``, and the parent kills the group and raises once any
@@ -304,6 +306,7 @@ def _run_case(case, scenes, device):
     arrays.  Every rank enters the mesh's groups and the gathers."""
     import torch.distributed as dist
     from spt_tpu_torch.kernels import megakernel as mk
+    from spt_tpu_torch.kernels import wavefront as wf
     from spt_tpu_torch.parallel.mesh import make_render_mesh
     mesh = make_render_mesh(case.get("data"), case.get("prim", 1),
                             device=device)
@@ -314,6 +317,7 @@ def _run_case(case, scenes, device):
         torch.cuda.reset_peak_memory_stats(device)
     dist.barrier()
     mk.reset_launch_counts()
+    wf.GLUE_CALLS.update(dict.fromkeys(wf.GLUE_CALLS, 0))
     if member:
         scene, camera = scenes[case["scene"]]
         t0 = time.perf_counter()
@@ -323,6 +327,7 @@ def _run_case(case, scenes, device):
         wall = time.perf_counter() - t0
     rank_info = dict(
         member=member, wall_s=wall, launches=dict(mk.LAUNCHES),
+        glue_calls=dict(wf.GLUE_CALLS),
         peak_memory_gb=(torch.cuda.max_memory_allocated(device) / 1e9
                         if device.type == "cuda" else None),
         stats=ctx.get("stats"))
@@ -332,11 +337,14 @@ def _run_case(case, scenes, device):
     members = [r for r in ranks if r["member"]]
     launches = {k: sum(r["launches"][k] for r in members)
                 for k in mk.LAUNCHES}
+    glue_calls = {k: sum(r["glue_calls"][k] for r in members)
+                  for k in wf.GLUE_CALLS}
     out = dict(out, case=case["case"], data=mesh.data, prim=mesh.prim,
                backend=mesh.backend, device=str(device),
                device_name=(torch.cuda.get_device_name(device)
                             if device.type == "cuda" else "cpu"),
-               launches=launches, walls_s=[r["wall_s"] for r in members],
+               launches=launches, glue_calls=glue_calls,
+               walls_s=[r["wall_s"] for r in members],
                peak_memory_gb=[r["peak_memory_gb"] for r in members])
     stats = [r["stats"] for r in members if r["stats"] is not None]
     if stats:

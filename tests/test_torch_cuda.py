@@ -13,8 +13,11 @@ gradient and its per-lane bounce adjoint are held to chip_smoke.py's bars
 to K1's bar against its plain version, and equals K1 bit for bit on
 Cornell packed for the BVH walk (one leaf, the spheres in index order).
 The wavefront: K5 equals its plain version bit for bit, K6's residual
-equals the plain K6's, and K7's state and the whole render meet K1's bar
-against their plain versions.  The gradients, whose fields have heavy
+equals the plain K6's (its tree mode and its list mode), K7's state with
+the shadow walks equals its plain walk's bit for bit, and over the lists
+and in the whole render meets K1's bar against its plain version; the
+walks and the lists part only at exact t-ties and padding winners, and
+the split render builds no lists.  The gradients, whose fields have heavy
 tails (grazing hits), are held on typical scales (chip_smoke.py's
 ``tail_field_errors``: ``GRAD_REL`` in each field's body and in its tail
 above the 99th percentile; ``lanes_close``: the ``VJP_*`` bar with atol
@@ -22,7 +25,7 @@ taken from a channel's median nonzero magnitude, on 99.5% of lanes,
 and body and tail lanes within ``GRAD_REL``).  K4's image equals
 K3's (K1's bar) and its raw gradients meet that bar against the plain
 K4's; K9's state equals K7's bit for bit and its blocked mask the plain
-K9's; K10's per-lane cotangents and its scalar gradient meet theirs; the
+K9's (with the walks also its state); K10's per-lane cotangents and its scalar gradient meet theirs; the
 differentiable wavefront's image meets K1's bar and its gradients the
 field bar against its plain stages.  Rays that win padding slots (the
 padding scene) take no geometry gradient in K4 and K10.  K8's verdicts
@@ -42,8 +45,8 @@ from chip_smoke import (ATOL, ENCLOSURE_CAM, K2_CAPACITY_CAM, MAX_MEAN_REL,
                         VJP_RTOL, cornell, enclosure_scene, env_gradient,
                         grad_errors, grad_scene, k2_capacity_scene, k3_inputs,
                         lanes_close, padding_scene, raw_fields, scene_200,
-                        shadow_sray, tail_field_errors, vjp_lanes,
-                        wf_bounce, wf_inputs)
+                        route_differ, shadow_sray, tail_field_errors,
+                        vjp_lanes, wf_bounce, wf_inputs)
 from spt_tpu_torch.core import rng
 from spt_tpu_torch.diff import cuda_diff, gradients as G
 from spt_tpu_torch.kernels import megakernel as mk
@@ -265,12 +268,17 @@ def test_k5_equals_plain(cuda, lens):
 
 
 def test_k6_k7_match_plain(cuda):
-    """One bounce after raygen and a sort: K6's residual equals the plain
-    K6's, and K7's state meets K1's bar against the plain K7's."""
+    """One bounce after raygen and a sort: K6's residual over the lists
+    equals the plain K6's, and K7's state over the shadow lists meets K1's
+    bar against the plain K7's."""
     wf, sd, t, stc, meta = _wf_case(cuda)
     b = wf_bounce(torch, wf, t, stc, meta, 96, 64, 1, 3)
     st, ids, n, res = b["st"], b["ids"], b["n"], b["res"]
     block, prims = stc["block"], t["prims"]
+    before = dict(mk.LAUNCHES)
+    again = wf.isect(prims, b["cand"], b["ctn"], st, n, block=block)
+    assert mk.LAUNCHES == dict(before, k6l=before["k6l"] + 1)
+    assert torch.equal(again, res)
     assert torch.equal(res, wf.isect_plain(prims, b["cand"], b["ctn"], st, n,
                                            block=block))
     assert int((res[4] >= 0).sum()) > 0
@@ -290,6 +298,42 @@ def test_k6_k7_match_plain(cuda):
     assert not got[wf.C_MISS].any()
 
 
+@pytest.mark.parametrize("case", ["scene200", "padding"])
+def test_walks_match_plain_and_lists(cuda, case):
+    """K6's tree mode and K7's and K9's shadow walks on one bounce: K6's
+    residual equals its plain walk's, K7's and K9's state and K9's
+    verdicts their plain walks' bit for bit, and K9's state K7's; against
+    the list route every lane whose winner differs is an exact t-tie or a
+    padding winner (the padding scene has some)."""
+    from spt_tpu_torch.kernels import wavefront_grad as wg
+    wf, t, meta, b, kw, args = _grad_bounce(cuda, case)
+    st, ids, n, tree = b["st"], b["ids"], b["n"], b["tree"]
+    prims = t["prims"]
+    before = dict(mk.LAUNCHES)
+    res = wf.isect(prims, None, None, st, n, block=kw["block"], tree=tree)
+    assert mk.LAUNCHES == dict(before, k6=before["k6"] + 1)
+    assert torch.equal(res, b["res_t"])
+    assert torch.equal(res, wf.isect_plain(prims, None, None, st, n,
+                                           block=kw["block"], tree=tree))
+    route = route_differ(torch, wf, st[:, :n], res, b["res"])
+    assert route["other"] == 0, route
+    padding = int(((res[4] < 0) & (res[5] >= 0)).sum())
+    assert (padding + route["padding"] > 0) == (case == "padding")
+    base = b["buf"].clone()
+    st7, ids7 = _fresh(wf, base)
+    before = dict(mk.LAUNCHES)
+    wf.shade(*args[:5], None, None, st7, ids7, res, n, tree=tree, **kw)
+    out9, blocked = wg.shade_fwd(*args[:5], None, None, st, ids, res, n,
+                                 tree=tree, **kw)
+    assert mk.LAUNCHES == dict(before, k7=before["k7"] + 1,
+                               k9=before["k9"] + 1)
+    assert torch.equal(out9.view(torch.int32), st7.view(torch.int32))
+    out_p, blocked_p = wg.shade_fwd_plain(*args[:5], None, None, st, ids,
+                                          res, n, tree=tree, **kw)
+    assert torch.equal(out9.view(torch.int32), out_p.view(torch.int32))
+    assert torch.equal(blocked, blocked_p) and float(blocked.sum()) > 0
+
+
 @pytest.mark.parametrize("case", ["gradient", "envmap"])
 def test_wavefront_matches_plain(cuda, case):
     wf, sd, t, _, _ = _wf_case(cuda)
@@ -299,10 +343,11 @@ def test_wavefront_matches_plain(cuda, case):
         sd = scene.compile(device=cuda)
     cam = _scene200_camera(cuda, False)
     kw = dict(max_bounces=8, rr_depth=3, seed=3, sort_min_rays=0)
-    before = dict(mk.LAUNCHES)
+    before, glue = dict(mk.LAUNCHES), dict(wf.GLUE_CALLS)
     got = wf.render_wavefront(sd, cam, 48, 40, 0, 2, **kw)
     after = dict(mk.LAUNCHES)
     assert after["plain"] == before["plain"] and after["k5"] == before["k5"] + 1
+    assert wf.GLUE_CALLS == glue        # the split path builds no lists
     want = wf._render(sd, cam, 48, 40, 0, 2, stages=wf.PLAIN, **kw)
     got, want = got.cpu().numpy(), want.cpu().numpy()
     assert np.isfinite(got).all() and want.mean() > 0.01
@@ -394,14 +439,15 @@ def _grad_bounce(cuda, case="scene200"):
 
 
 def test_k9_matches_k7_and_plain(cuda):
-    """K9's state equals K7's bit for bit; against the plain K9 it meets
-    K1's bar and its blocked mask is equal on every lane."""
+    """K9 over the shadow lists: its state equals K7's bit for bit; against
+    the plain K9 it meets K1's bar and its blocked mask is equal on every
+    lane."""
     from spt_tpu_torch.kernels import wavefront_grad as wg
     wf, t, meta, b, kw, args = _grad_bounce(cuda)
     st, ids, n, res = b["st"], b["ids"], b["n"], b["res"]
     before = dict(mk.LAUNCHES)
     out, blocked = wg.shade_fwd(*args, st, ids, res, n, **kw)
-    assert mk.LAUNCHES == dict(before, k9=before["k9"] + 1)
+    assert mk.LAUNCHES == dict(before, k9l=before["k9l"] + 1)
     st7 = st.clone()
     wf.shade(*args, st7, ids, res, n, **kw)
     assert torch.equal(out.view(torch.int32), st7.view(torch.int32))

@@ -118,8 +118,10 @@ def test_sample_sharded_forward_matches_unsharded(group):
     want = _unsharded(scenes["s300"], 2)
     assert np.isfinite(rep["image"]).all() and want.mean() > 0.05
     np.testing.assert_array_equal(rep["image"], want)
-    # Each rank: one raygen and two plain kernels a bounce.
+    # Each rank: one raygen and two plain kernels a bounce, walking the
+    # tree: no lists built.
     assert rep["launches"]["plain"] >= 2 * (1 + 2)
+    assert not any(rep["glue_calls"].values()), rep["glue_calls"]
 
 
 @pytest.mark.parametrize("label", list(PRIM_CASES))
@@ -137,8 +139,10 @@ def test_prim_sharded_matches_unsharded(group, label):
     n_ranks = case["data"] * case["prim"]
     assert len(rep["stream_checks"]) == n_ranks
     assert all(c == KW["max_bounces"] for c in rep["stream_checks"])
-    # Each rank: a raygen, then K6, K8 and K7 reading its verdict a bounce.
+    # Each rank: a raygen, then K6, K8 and K7 reading its verdict a bounce,
+    # over lists (a shard holds leaf blocks, not a tree).
     assert rep["launches"]["plain"] == n_ranks * (1 + 3 * KW["max_bounces"])
+    assert rep["glue_calls"]["precull"] >= n_ranks * KW["max_bounces"]
     differ = np.flatnonzero((got != want).any(-1))
     if case["prim"] == 1:
         np.testing.assert_array_equal(got, want)
@@ -178,6 +182,7 @@ def test_dp_gradient_matches_single_process(group):
     # One all-reduce of the flat parameter vector, on each backward.
     assert rep["grad_vector_numel"] == sum(g.size for g in grads.values())
     assert rep["launches"]["plain"] > 0
+    assert not any(rep["glue_calls"].values()), rep["glue_calls"]
 
 
 def test_dp_grad_step_matches_single_process(group):

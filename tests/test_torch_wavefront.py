@@ -14,8 +14,10 @@
   t_max to 2e-5, and all bit for bit on 95% of the lanes (the shading
   normal and the light sample's frame go through the same rsqrt, sin and
   cos, and t_max cancels where a shadow ray grazes its light).
-* The plain K6's winner equals brute force over every sphere exactly, its
-  per-lane early exit included; what the sweeps read of the lists (the
+* The plain K6's winner equals brute force over every sphere exactly, over
+  the lists (its per-lane early exit included) and by its walk of the tree
+  (its tree mode, the split path's); the walk and the lists part only at
+  exact t-ties and padding winners; what the sweeps read of the lists (the
   kernels' byte counts) equals a walk of each lane on its own.
 * The plain wavefront against the plain K3 at the JAX suite's bar (97% of
   pixels ``isclose(rtol=2e-3, atol=2e-4)``, means within 1%); and, as
@@ -41,7 +43,8 @@ from spt_tpu.kernels import wavefront as jwf
 from spt_tpu_torch.kernels import megakernel as tmega
 from spt_tpu_torch.kernels import megakernel_bvh as tmbvh
 from spt_tpu_torch.kernels import wavefront as twf
-from chip_smoke import CAM_10K, env_gradient, scene_10k
+from chip_smoke import (CAM_10K, PAD_CAM, env_gradient, padding_scene,
+                        route_differ, scene_10k, wf_bounce, wf_inputs)
 from test_torch_bvh import big_camera, big_scene
 
 # One intra-op thread: these tests trace small tensors, where torch's
@@ -75,7 +78,8 @@ def big():
     cam = big_camera(spt_tpu)
     blob, meta3, nodef, nodei, prims, static = jmbvh._packed(sdj, cam, BLOCK)
     t = {k: torch.from_numpy(np.array(v)) for k, v in
-         (("blob", blob), ("nodef", nodef), ("prims", prims))}
+         (("blob", blob), ("nodef", nodef), ("nodei", nodei),
+          ("prims", prims))}
     t["lsb"] = torch.from_numpy(np.array(jphys.lsel_bounds_from_prims(prims)))
     return dict(j=(blob, nodef, prims), t=t, static=static,
                 nl=int(meta3[2]))
@@ -239,9 +243,11 @@ def test_scatter_image_matches_jax():
     _bits_equal(got.numpy(), want)
 
 
-def test_isect_plain_matches_brute_force(big):
-    """4,096 random rays, preculled per tile: the plain K6's winner and its
-    distance are brute force's over every valid sphere, exactly."""
+@pytest.mark.parametrize("mode", ["lists", "tree"])
+def test_isect_plain_matches_brute_force(big, mode):
+    """4,096 random rays: the plain K6's winner and its distance, over the
+    tiles' lists or by each lane's walk of the tree (its tree mode), are
+    brute force's over every valid sphere, exactly."""
     sd = big_scene(spt_tpu_torch).compile(device=CPU)
     t = big["t"]
     r = np.random.default_rng(11)
@@ -261,7 +267,8 @@ def test_isect_plain_matches_brute_force(big):
                                   st[twf.C_ALIVE], None, lob, hib)
     stats = {}
     res = twf.isect_plain(t["prims"], cand, ctn, st, n, block=BLOCK,
-                          stats=stats)
+                          stats=stats, tree=None if mode == "lists" else
+                          (t["nodef"], t["nodei"]))
     spheres = torch.cat([sd.centers, sd.radii[:, None]], 1)[sd.prim_valid]
     tj, ok = tmbvh.physics._sphere_t(spheres, *st[0:3], *st[3:6])
     t_bf, j_bf = torch.where(ok, tj, tmbvh.BIG).min(dim=0)
@@ -274,9 +281,40 @@ def test_isect_plain_matches_brute_force(big):
         assert torch.equal(res[a][found], want[found, a])
     mid = sd.mat_id[sd.prim_valid][j_bf].to(torch.float32)
     assert torch.equal(res[4][found], mid[found])
+    if mode == "tree":      # a walk tests fewer nodes than the tree has
+        assert stats["alive"] == int(alive.sum())
+        assert stats["alive"] < stats["nodes"] < stats["alive"] * (
+            t["nodef"].numel() // 64)
+        return
     # The early exit stops sweeps: fewer blocks than the lists hold.
     listed = int(cand[torch.arange(n) // twf.TILE, 0, 0][alive].sum())
     assert 0 < stats["blocks"] < listed
+
+
+@pytest.mark.parametrize("case", ["scene300", "padding"])
+def test_isect_walk_matches_lists(case):
+    """K6's plain tree mode against its plain list sweep on one sorted
+    bounce (16x16 x 2 spp, leaf block 32): every lane whose winner differs
+    is an exact t-tie or a padding winner (``route_differ``), and none
+    differs on the 300-sphere scene; the padding scene's rays win padding
+    slots either way."""
+    if case == "padding":
+        sd = padding_scene(spt_tpu_torch).compile(device=CPU)
+        cam = spt_tpu_torch.Camera.look_at(device=CPU, **PAD_CAM)
+    else:
+        sd = scene_10k(spt_tpu_torch, n=300).compile(device=CPU)
+        cam = spt_tpu_torch.Camera.look_at(device=CPU, **CAM_10K)
+    t, stc, meta = wf_inputs(torch, twf, twf, sd, cam, 5)
+    b = wf_bounce(torch, twf, t, stc, meta, 16, 16, 0, 5)
+    n, res_t, res = b["n"], b["res_t"], b["res"]
+    route = route_differ(torch, twf, b["st"][:, :n], res_t, res)
+    assert route["other"] == 0, route
+    assert int((res_t[4] >= 0).sum()) > 0
+    padding = int(((res_t[4] < 0) & (res_t[5] >= 0)).sum())
+    if case == "padding":
+        assert padding > 0
+    else:
+        assert route["lanes"] == 0 and padding == 0
 
 
 def test_sweep_list_reads_match_per_lane_walk():

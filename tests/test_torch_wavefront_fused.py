@@ -20,6 +20,9 @@ K7m): their plain versions and glue, within the port, on the CPU.
   the per-tile precull bit for bit.
 * ``build_cmat`` and ``_seg_blocked`` against the JAX package's on random
   inputs from a numpy seed: the table to 1 ulp, the verdicts exactly.
+* Which paths build lists: the split path (forward and gradient) and the
+  fused walk none, the fused bounce with ``precull`` the nearest-hit lists,
+  the matmul form those and the shadow lists.
 
 Config 5 cut to 300 spheres (160 for the gradients), leaf block 8, at most
 32x32 pixels, depth 3.  Whole renders against JAX's are in
@@ -212,3 +215,31 @@ def test_seg_blocked_matches_jax():
                               jnp.asarray(tmax), jnp.ones(20000, bool))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert 0 < int(got.sum()) < 20000
+
+
+@pytest.mark.parametrize("path,precull,shadow", [
+    ("split", 0, 0), ("split_grad", 0, 0), ("fused_walk", 0, 0),
+    ("fused", 1, 0), ("mxu", 2, 1)])
+def test_which_paths_build_lists(path, precull, shadow):
+    """The split path, forward and under grad, walks the tree and calls
+    neither ``precull_tiles`` nor ``shadow_rays`` (``GLUE_CALLS``); a
+    bounce of the fused bounce with ``precull`` builds the nearest-hit
+    lists and without it none, one of the matmul form both lists."""
+    sd = _scene(160)
+    before = dict(twf.GLUE_CALLS)
+    if path == "split_grad":
+        render = twg.make_wavefront_render_fn(
+            sd, _camera(), 16, 16, spp=1, max_bounces=2, rr_depth=2, seed=5,
+            sort_min_rays=0)
+        params = {k: v.clone().requires_grad_(True) for k, v in
+                  TG.get_params(sd, ("albedo", "centers")).items()}
+        render(params, 0).sum().backward()
+    else:
+        opts = {"split": {}, "fused_walk": dict(split=False, precull=False),
+                "fused": dict(split=False), "mxu": dict(mxu=True)}[path]
+        twf.render_wavefront(sd, _camera(), 16, 16, 0, 1, **dict(
+            KW, max_bounces=2), **opts)
+    calls = {k: twf.GLUE_CALLS[k] - before[k] for k in before}
+    bounces = 2
+    assert calls == {"precull": bounces * precull,
+                     "shadow_rays": bounces * shadow}, calls

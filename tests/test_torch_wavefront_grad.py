@@ -16,6 +16,11 @@
   bit: K9 is K7 on a copy, recording the shadow verdict.
 * Lanes whose winner is a padding slot: K9 (plain) shades them as K7 does,
   bit for bit, and K10 (plain) gives them no geometry cotangent.
+* K9's shadow rays walking the tree (the split path's) give the verdicts
+  and state of its sweep of the shadow lists, bit for bit, and with
+  centres among the parameters the walks take the refit tree: a sphere
+  moved out of every leaf box is seen, the value and gradients are the
+  fused render's over lists culled from the moved spheres.
 """
 
 import jax
@@ -180,3 +185,77 @@ def test_padding_winners_take_no_gradient():
     assert float(dgeo[:, padding].abs().sum()) == 0.0
     assert float(dgeo[:, ~padding].abs().sum()) > 0.0
     assert bool(torch.isfinite(din).all() and torch.isfinite(dscal).all())
+
+
+@pytest.mark.parametrize("case", ["scene", "padding"])
+def test_shadow_walk_equals_shadow_lists(case):
+    """K9's plain version (K7's bounce recording its verdict) with its
+    shadow rays walking the tree against sweeping the shadow lists, on the
+    same winners (K6's list-mode residual) of one sorted bounce of the
+    160-sphere scene and of the padding scene: the same verdict on every
+    lane and the same state bit for bit (no shadow ray grazes a leaf box
+    here), with the walks' counts."""
+    if case == "padding":
+        sd = padding_scene(spt_tpu_torch).compile(device=CPU)
+        cam = spt_tpu_torch.Camera.look_at(device=CPU, **PAD_CAM)
+    else:
+        sd, cam = scene_10k(spt_tpu_torch, n=160).compile(device=CPU), \
+            _camera()
+    t, stc, meta = wf_inputs(torch, twf, twf, sd, cam, 4)
+    b = wf_bounce(torch, twf, t, stc, meta, 16, 16, 0, 4)
+    n, res = b["n"], b["res"]
+    st, ids = b["buf"][:twf.N_CH], b["buf"][twf.N_CH:].view(torch.int32)
+    kw = dict(k=0, block=stc["block"], n_mats=stc["n_mats"],
+              n_light_slots=stc["n_light_slots"], rr_depth=5, use_nee=True,
+              use_mis=True, sky_mode=sd.sky_mode)
+    args = (t["blob"], meta, t["lsb"], t["prims"], t["mtypes"])
+    stats = {}
+    out_w, blocked_w = twg.shade_fwd_plain(*args, None, None, st, ids, res,
+                                           n, tree=b["tree"], stats=stats,
+                                           **kw)
+    out_l, blocked_l = twg.shade_fwd_plain(*args, b["scand"], b["sctn"], st,
+                                           ids, res, n, **kw)
+    assert torch.equal(blocked_w, blocked_l) and float(blocked_w.sum()) > 0
+    assert torch.equal(out_w.view(torch.int32), out_l.view(torch.int32))
+    assert stats["shadow"] > 0
+    assert stats["shadow_nodes"] >= stats["shadow"]
+    assert stats["shadow_spheres"] > 0 and "shadow_blocks" not in stats
+    assert twf.k7_op_count(stats) > 0
+
+
+def test_split_walks_the_refit_tree(monkeypatch):
+    """A sphere moved by the ``centers`` parameter out of every leaf box
+    (into the view, 10 units before the camera): the split render walks
+    the tree refit to it (``refit_nodef_torch``) and gives the fused
+    render's value and gradients over lists culled from the moved spheres'
+    own boxes; with the packed tree's stale boxes its walks miss the
+    sphere."""
+    sd = scene_10k(spt_tpu_torch, n=160).compile(device=CPU)
+    kw = dict(spp=1, max_bounces=2, rr_depth=2, seed=5, sort_min_rays=0)
+    centers = TG.get_params(sd, ("centers",))["centers"].clone()
+    centers[1] = torch.tensor([0.0, 0.0, 0.0])
+
+    def run(**opts):
+        render = twg.make_wavefront_render_fn(sd, _camera(), 16, 16, **kw,
+                                              **opts)
+        params = {"centers": centers.clone().requires_grad_(True),
+                  "albedo": TG.get_params(sd, ("albedo",))["albedo"]
+                  .clone().requires_grad_(True)}
+        img = render(params, 0)
+        img.sum().backward()
+        return img.detach(), {k: p.grad for k, p in params.items()}
+
+    img, grads = run()
+    img_f, grads_f = run(split=False, precull=True)
+    still = twg.make_wavefront_render_fn(sd, _camera(), 16, 16, **kw)(
+        {}, 0)
+    assert torch.equal(img, img_f)
+    assert not torch.equal(img, still)      # the moved sphere is seen
+    for k in grads:
+        torch.testing.assert_close(grads[k], grads_f[k], rtol=1e-5,
+                                   atol=1e-7)
+    assert float(grads["centers"][1].abs().sum()) > 0
+    stale = twg.packed(sd, _camera(), twg.BLOCK)[0]["nodef"]
+    monkeypatch.setattr(twg, "refit_nodef_torch", lambda sc, st: stale)
+    img_s, _ = run()
+    assert not torch.equal(img_s, img)
