@@ -758,10 +758,10 @@ def run() -> int:
            for i, fn, line, tpu in ((5, "raygen", 154, "_raygen_kernel"),
                                     (6, "isect", 490, "_isect_kernel"),
                                     (7, "shade", 582, "_shade_kernel"))]
-        + [dict(name="K6l wavefront isect, lists (prim shards)", route="cuda",
-                source="spt_tpu_torch/csrc/wavefront.cu",
+        + [dict(name="K6l wavefront isect, lists (on no render path)",
+                route="cuda", source="spt_tpu_torch/csrc/wavefront.cu",
                 replaces="spt_tpu/kernels/wavefront.py:490::_isect_kernel "
-                         "(per shard: spt_tpu/parallel/wavefront_prim.py:153)",
+                         "(the list form)",
                 launches=sum(by_path("k6l").values()),
                 launches_by_path=by_path("k6l"), **wf["k6l"],
                 library_ms=None, checked_against_plain=True)]
@@ -784,8 +784,13 @@ def run() -> int:
                 launches_by_path=by_path(key), **pr[key], library_ms=None,
                 checked_against_plain=True)
            for key, name, replaces in (
-               ("k8", "K8 wavefront anyhit",
-                "spt_tpu/kernels/wavefront.py:556::_anyhit_kernel"),
+               ("k8", "K8 wavefront shadow verdicts, walking a prim "
+                "shard's tree",
+                "spt_tpu/kernels/wavefront.py:556::_anyhit_kernel "
+                "(spt_tpu/parallel/wavefront_prim.py:195)"),
+               ("k8l", "K8l wavefront anyhit, lists (on no render path)",
+                "spt_tpu/kernels/wavefront.py:556::_anyhit_kernel "
+                "(the list form)"),
                ("k7b", "K7b wavefront shade, blocked_in_res",
                 "spt_tpu/kernels/wavefront.py:582::_shade_kernel "
                 "(blocked_in_res=True; spt_tpu/parallel/wavefront_prim.py"
@@ -1644,7 +1649,7 @@ def run_wf_phases(torch, T, mk, dev, card, k3) -> dict:
                       **{k: out["k6"][k] for k in ("fp32_ops", "bytes",
                                                    "bound_ms", "bound_by")}),
               k7=dict(ptxas_of(_build.BUILD_INFO, "wavefront",
-                               "shade_kernelILb0ELb0E"),
+                               "shade_kernelILb0ELb0ELb1E"),
                       **{k: out["k7"][k] for k in ("fp32_ops", "bytes",
                                                    "bound_ms", "bound_by")})))
     del nums, pad, tp
@@ -2025,7 +2030,7 @@ def run_grad_phases(torch, T, mk, dev, card, k3) -> dict:
     emit(dict(phase="k9_timing", card=card, k9_ms=c5["k9_ms"],
               k9_bounce1_ms=c51["k9_ms"], alive=stats["active"],
               **ptxas_of(_build.BUILD_INFO, "wavefront",
-                         "shade_kernelILb0ELb0E"),
+                         "shade_kernelILb0ELb0ELb1E"),
               **{k: out["k9"][k] for k in ("fp32_ops", "bytes", "bound_ms",
                                            "bound_by", "plain_ms")}))
     emit(dict(phase="k10_timing", card=card, k10_ms=c5["k10_ms"],
@@ -2222,76 +2227,177 @@ def run_grad_phases(torch, T, mk, dev, card, k3) -> dict:
 # takes no two ranks on one device), prim=2 or data=2.
 DIST_RANKS = 2
 DIST_TIMEOUT = 600.0
+# The kernels of the prim-sharded path: raygen, K6 walking the shard's
+# tree, K8 and K7 reading the merged verdict.
+PRIM_KERNELS = ("k5", "k6", "k8", "k7b")
 GRAD_KEYS = ("albedo", "emission", "roughness", "centers", "radii")
 
 
-def k8_case(torch, wf, wg, t, stc, meta, b, k, sky_mode, label, reps):
-    """K8 against its plain version on one config-5 bounce, on the whole
-    leaf table and on each half (the shards of a prim=2 render, each with
-    its own shadow lists), verdicts bit for bit; the halves' MAX against
-    K9's verdict on the whole table.  Returns the whole table's numbers."""
-    from spt_tpu_torch.parallel.wavefront_prim import _local_blocks
-    block, n = stc["block"], b["n"]
-    sray = shadow_sray(torch, wf, t, stc, b, k, BIG_SEED)
+def brute_blocked(torch, wf, mb, local, sray, lanes):
+    """Whether each of ``lanes`` (indices) of the shadow rays ``sray`` has
+    a blocker among every slot of the leaf blocks ``local``: a sphere test
+    with TMIN < t < tmax, no box or list culling any."""
+    pr = local.transpose(1, 2).reshape(1, -1, 5).transpose(1, 2)
+    out = []
+    for chunk in lanes.split(256):
+        m = chunk.numel()
+        tj, ok = mb._leaf_t(pr.expand(m, -1, -1),
+                            *(sray[a, chunk] for a in range(6)))
+        out.append((ok & (tj < sray[6, chunk][:, None])).any(dim=1))
+    return torch.cat(out) if out else torch.zeros(0, dtype=torch.bool,
+                                                  device=sray.device)
+
+
+def prim_shard_case(torch, wf, wg, mb, t, stc, meta, b, k, skies, label,
+                    reps):
+    """The prim-sharded path's kernels on one bounce ``b`` (``wf_bounce``'s
+    or ``wf_advance``'s), on the whole tree and on each prim=2 shard's
+    (``shard_tree``), the merged winner being K6's tree-mode winner over
+    the whole table: K6's tree mode on each shard's tree and K8 (under
+    each sky of ``skies``) against their plain versions, bit for bit; K8l
+    on the glue's shadow rays and each part's lists against its plain
+    version, bit for bit.  Against the list route it counts the lanes
+    where K6 on a shard's tree parts from K6l on the shard's lists
+    (``route_differ``: none but exact ties and padding winners) and the
+    verdicts where K8 parts from K8l, each of which must be a blocker that
+    one route's box test culled (a grazing ray: brute force over the
+    part's slots finds the blocker).  The shards' MAX against the whole's
+    verdicts and K9's.  Returns the whole tree's K8 and K8l numbers, K6's
+    on shard 0, and K9's verdicts."""
+    from spt_tpu_torch.parallel.wavefront_prim import _shard_tree
+    block, n, st, ids, res = (stc["block"], b["n"], b["st"], b["ids"],
+                              b["res_t"])
     prims = t["prims"].reshape(-1, 5, block)
-    rows, whole = {}, None
-    for part_label, part in (("whole", prims),
-                             ("half0", _local_blocks(prims, 2, 0)[0]),
-                             ("half1", _local_blocks(prims, 2, 1)[0])):
-        part = part.contiguous()
-        scand, sctn = wf.precull_tiles(
-            tuple(sray[:3]), tuple(sray[3:6]), sray[7], sray[6],
-            *wf._leaf_block_bounds(part))
-        ms = [cuda_ms(torch, lambda: wf.anyhit(part, scand, sctn, sray, n,
-                                               block=block))[1]
-              for _ in range(reps)]
-        got = wf.anyhit(part, scand, sctn, sray, n, block=block)
-        stats = {}
+    nb = prims.shape[0]
+    half = -(-nb // 2)
+    sray = shadow_sray(torch, wf, t, stc, dict(b, res=res), k, BIG_SEED)
+    args = (t["blob"], meta, t["lsb"])
+    kw = dict(k=k, block=block, n_mats=stc["n_mats"],
+              n_light_slots=stc["n_light_slots"], rr_depth=RR, use_nee=True,
+              use_mis=True)
+    head = st[:, :n]
+    rows, out, verdicts = {}, {}, {}
+    for part, (lo, hi) in (("whole", (0, nb)), ("shard0", (0, half)),
+                           ("shard1", (half, nb))):
+        local = prims[lo:hi].contiguous()
+        tree = _shard_tree(t, stc, lo, hi)
+        lob, hib = wf._leaf_block_bounds(local)
+        row = dict(blocks=hi - lo, nodes=tree[0].shape[0] // 8)
+        if part != "whole":
+            k6_ms = min(cuda_ms(torch, lambda: wf.isect(
+                local, None, None, st, n, block=block, tree=tree))[1]
+                for _ in range(reps))
+            res_s = wf.isect(local, None, None, st, n, block=block,
+                             tree=tree)
+            k6_stats = {}
+            with torch.inference_mode():
+                res_p, k6_p_ms = cuda_ms(torch, lambda: wf.isect_plain(
+                    local, None, None, st, n, block=block, stats=k6_stats,
+                    tree=tree))
+            cand, ctn = wf.precull_tiles(
+                tuple(head[c] for c in range(3)),
+                tuple(head[c] for c in range(3, 6)), head[wf.C_ALIVE],
+                None, lob, hib)
+            k6l_ms = min(cuda_ms(torch, lambda: wf.isect(
+                local, cand, ctn, st, n, block=block))[1]
+                for _ in range(reps))
+            res_l = wf.isect(local, cand, ctn, st, n, block=block)
+            route = route_differ(torch, wf, head, res_s, res_l)
+            differ = bits_differ(torch, res_s, res_p)
+            row.update(k6_ms=k6_ms, k6_plain_ms=k6_p_ms, k6_lanes_differ=differ,
+                       k6l_ms=k6l_ms, k6_differ_from_lists=route,
+                       k6_nodes_per_lane=k6_stats["nodes"]
+                       / max(k6_stats["alive"], 1))
+            check(differ == 0, f"{label} {part}: K6 on the shard's tree "
+                               f"differs from its plain walk on {differ} "
+                               "lanes")
+            check(route["other"] == 0,
+                  f"{label} {part}: K6 on the shard's tree and K6l part on "
+                  f"{route['other']} lanes without a tie or a padding "
+                  "winner")
+            if part == "shard0":
+                out["k6"] = dict(ms=k6_ms, plain_ms=k6_p_ms, stats=k6_stats,
+                                 tree_words=sum(a.numel() for a in tree)
+                                 + local.numel())
+            del res_s, res_p, res_l, cand, ctn
+        for sky in skies:
+            kw8 = dict(kw, sky_mode=sky)
+            ms = [cuda_ms(torch, lambda: wf.shadow_verdicts(
+                *args, local, t["mtypes"], st, ids, res, n, tree=tree,
+                **kw8))[1] for _ in range(reps)]
+            got = wf.shadow_verdicts(*args, local, t["mtypes"], st, ids, res,
+                                     n, tree=tree, **kw8)
+            stats = {}
+            with torch.inference_mode():
+                want, p_ms = cuda_ms(torch, lambda: wf.shadow_verdicts_plain(
+                    *args, local, t["mtypes"], st, ids, res, n, tree=tree,
+                    stats=stats, **kw8))
+            differ = int((got != want).sum())
+            row[f"k8_sky{sky}"] = dict(k8_ms=ms, plain_ms=p_ms,
+                                       lanes_differ=differ,
+                                       blocked=int(got.sum()),
+                                       shadow_rays=stats["shadow"])
+            check(differ == 0, f"{label} {part} sky {sky}: K8 differs from "
+                               f"its plain version on {differ} lanes")
+            if sky == skies[0]:
+                verdicts[part] = got
+                if part == "whole":
+                    out["k8"] = dict(ms=min(ms), plain_ms=p_ms, stats=stats,
+                                     tree_words=sum(a.numel() for a in tree)
+                                     + local.numel())
+        scand, sctn = wf.precull_tiles(tuple(sray[:3]), tuple(sray[3:6]),
+                                       sray[7], sray[6], lob, hib)
+        l_ms = min(cuda_ms(torch, lambda: wf.anyhit(
+            local, scand, sctn, sray, n, block=block))[1]
+            for _ in range(reps))
+        got_l = wf.anyhit(local, scand, sctn, sray, n, block=block)
+        l_stats = {}
         with torch.inference_mode():
-            want, p_ms = cuda_ms(torch, lambda: wf.anyhit_plain(
-                part, scand, sctn, sray, n, block=block, stats=stats))
-        differ = int((got != want).sum())
-        rows[part_label] = dict(k8_ms=ms, plain_ms=p_ms, lanes_differ=differ,
-                                blocked=int(got.sum()),
-                                shadow_candidates_per_tile=float(
-                                    scand[:, 0, 0].double().mean()),
-                                blocks_per_ray=stats["shadow_blocks"]
-                                / max(stats["shadow"], 1))
-        check(differ == 0, f"{label} {part_label}: K8 differs from its "
-                           f"plain version on {differ} lanes")
-        if part_label == "whole":
-            whole = dict(ms=min(ms), plain_ms=p_ms, stats=stats,
-                         verdict=got)
-        else:
-            rows[part_label]["verdict"] = got
-    merged = torch.maximum(rows["half0"].pop("verdict"),
-                           rows["half1"].pop("verdict"))
-    args9 = (t["blob"], meta, t["lsb"], t["prims"], t["mtypes"], b["scand"],
-             b["sctn"])
-    kw9 = dict(k=k, block=block, n_mats=stc["n_mats"],
-               n_light_slots=stc["n_light_slots"], rr_depth=RR, use_nee=True,
-               use_mis=True, sky_mode=sky_mode)
-    _, blocked9 = wg.shade_fwd(*args9, b["st"], b["ids"], b["res"], n, **kw9)
-    max_differ = int((merged != whole["verdict"]).sum())
-    k9_differ = int((merged != blocked9).sum())
-    emit(dict(phase="k8_vs_plain", case=label, lanes=n,
+            want_l, l_p_ms = cuda_ms(torch, lambda: wf.anyhit_plain(
+                local, scand, sctn, sray, n, block=block, stats=l_stats))
+        differ = int((got_l != want_l).sum())
+        check(differ == 0, f"{label} {part}: K8l differs from its plain "
+                           f"version on {differ} lanes")
+        parted = torch.nonzero(verdicts[part] != got_l[:n])[:, 0]
+        real = brute_blocked(torch, wf, mb, local, sray, parted)
+        row.update(k8l_ms=l_ms, k8l_plain_ms=l_p_ms, k8l_lanes_differ=differ,
+                   k8_differ_from_lists=int(parted.numel()),
+                   k8_differ_lists_culled=int(
+                       (real & (got_l[parted] < 0.5)).sum()),
+                   k8_differ_walk_culled=int(
+                       (real & (verdicts[part][parted] < 0.5)).sum()))
+        check(bool(real.all()), f"{label} {part}: K8 and K8l part on "
+                                f"{int((~real).sum())} rays with no blocker")
+        if part == "whole":
+            out["k8l"] = dict(ms=l_ms, plain_ms=l_p_ms, stats=l_stats)
+        rows[part] = row
+        del scand, sctn, got_l, want_l
+    merged = torch.maximum(verdicts["shard0"], verdicts["shard1"])
+    _, blocked9 = wg.shade_fwd(*args, t["prims"], t["mtypes"], None, None,
+                               st, ids, res, n, tree=b["tree"],
+                               sky_mode=skies[0], **kw)
+    max_differ = int((merged != verdicts["whole"]).sum())
+    k9_differ = int((verdicts["whole"] != blocked9).sum())
+    emit(dict(phase="prim_shard_vs_plain", case=label, lanes=n,
               need=int((sray[7] > 0.5).sum()), **rows,
-              halves_max_differ_from_whole=max_differ,
-              halves_max_differ_from_k9=k9_differ))
+              shards_max_differ_from_whole=max_differ,
+              whole_differ_from_k9=k9_differ))
     check(max_differ == 0 and k9_differ == 0,
-          f"{label}: the halves' MAX differs from the whole table's K8 on "
-          f"{max_differ} lanes, from K9's verdict on {k9_differ}")
-    check(int(whole["verdict"].sum()) > 0, f"{label}: no shadow ray blocked")
-    whole["blocked9"] = blocked9
-    return whole
+          f"{label}: the shards' MAX differs from the whole tree's K8 on "
+          f"{max_differ} lanes, the whole's from K9's verdict on {k9_differ}")
+    check(int(verdicts["whole"].sum()) > 0, f"{label}: no shadow ray blocked")
+    out["blocked9"] = blocked9
+    return out
 
 
 def run_prim_phases(torch, T, mk, dev, card, k3) -> dict:
-    """K8 and K7's ``blocked_in_res`` mode against their plain versions on
-    config-5 bounces, and the prim-sharded wavefront's main path under
-    NCCL at world size 1 (config 5, 1920x1080 x 4 spp, both skies) against
-    the facade's render of the same samples.  Returns the launch counts,
-    the kernels line's numbers and the facade's images."""
+    """K6 on the prim shards' trees, K8, K8l and K7's ``blocked_in_res``
+    mode against their plain versions on config-5 bounces and the padding
+    scene (``prim_shard_case``), and the prim-sharded wavefront's main path
+    under NCCL at world size 1 (config 5, 1920x1080 x 4 spp, both skies)
+    against the facade's render of the same samples: K5, K6, K8 and K7b
+    only, no lists built, the image equal to the facade's.  Returns the
+    launch counts, the kernels line's numbers and the facade's images."""
     import tempfile
     import torch.distributed as dist
     from spt_tpu_torch.diff import gradients as G
@@ -2306,18 +2412,20 @@ def run_prim_phases(torch, T, mk, dev, card, k3) -> dict:
     sd10, cam10 = k3["sd10"], k3["cam10"]
     block = wf.BLOCK
 
-    # 29. K8 on a config-5 bounce (1920x1080 x 2 spp) at bounce 0 and
-    # bounce 1, on the whole leaf table and on its halves ------------------
+    # 29. K6 on each prim=2 shard's tree, K8 on the whole tree and on each
+    # shard's, and K8l on the glue's rays and lists, on config-5 bounces 0
+    # and 1 (1920x1080 x 2 spp, both skies) and on the padding scene --------
     t, stc, meta = wf_inputs(torch, wf, mb, sd10, cam10, BIG_SEED)
     b0 = wf_bounce(torch, wf, t, stc, meta, BIG_W, BIG_H, 0, BIG_SEED)
     base0 = b0["buf"].clone()
     sky = sd10.sky_mode
-    k8 = k8_case(torch, wf, wg, t, stc, meta, b0, 0, sky, "config5_bounce0",
-                 3)
+    skies = (sky, wf.SKY_ENVMAP)
+    k8 = prim_shard_case(torch, wf, wg, mb, t, stc, meta, b0, 0, skies,
+                         "config5_bounce0", 3)
 
-    # 30. K7 reading K9's verdict (blocked_in_res) against K7 sweeping, on
+    # 30. K7 reading K9's verdict (blocked_in_res) against K7 walking, on
     # every lane of the same bounce, with either sky ----------------------
-    res8 = b0["res"].clone()
+    res8 = b0["res_t"].clone()
     res8[7] = k8["blocked9"]
     args = (t["blob"], meta, t["lsb"], t["prims"], t["mtypes"])
     none = torch.zeros((1, 1, 1), device=dev)
@@ -2327,32 +2435,27 @@ def run_prim_phases(torch, T, mk, dev, card, k3) -> dict:
         kw7 = dict(k=0, block=block, n_mats=stc["n_mats"],
                    n_light_slots=stc["n_light_slots"], rr_depth=RR,
                    use_nee=True, use_mis=True, sky_mode=sky_k7)
-        sweep, read, plain = base0.clone(), base0.clone(), base0.clone()
-
-        def stream(buf):
-            return buf[:wf.N_CH], buf[wf.N_CH:].view(torch.int32)
-
-        wf.shade(*args, b0["scand"], b0["sctn"], *stream(sweep), b0["res"],
-                 n, **kw7)
+        walk, read, plain = base0.clone(), base0.clone(), base0.clone()
+        wf.shade(*args, None, None, *stream_of(torch, wf, walk),
+                 b0["res_t"], n, tree=b0["tree"], **kw7)
         ms = []
         for _ in range(3):
             read.copy_(base0)
             ms.append(cuda_ms(torch, lambda: wf.shade(
-                *args, none.int(), none, *stream(read), res8, n,
-                blocked_in_res=True, **kw7))[1])
+                *args, none.int(), none, *stream_of(torch, wf, read), res8,
+                n, blocked_in_res=True, **kw7))[1])
         stats = {}
         with torch.inference_mode():
             _, p_ms = cuda_ms(torch, lambda: wf.shade_plain(
-                *args, none.int(), none, *stream(plain), res8, n,
-                blocked_in_res=True, stats=stats, **kw7))
-        differ = int((read.view(torch.int32) != sweep.view(torch.int32))
-                     .any(dim=0).sum())
+                *args, none.int(), none, *stream_of(torch, wf, plain), res8,
+                n, blocked_in_res=True, stats=stats, **kw7))
+        differ = bits_differ(torch, read, walk)
         res = compare(read[:wf.N_CH, :n].T, plain[:wf.N_CH, :n].T)
         emit(dict(phase="k7b_vs_plain", case=label, lanes=n,
                   lanes_differ_from_k7=differ, k7b_ms=ms, plain_ms=p_ms,
                   shadow_rays=stats["shadow"], **res))
         check(differ == 0, f"{label}: K7 reading the verdict differs from "
-                           f"K7 sweeping on {differ} lanes")
+                           f"K7 walking on {differ} lanes")
         check(res["finite"] and res["frac_close"] >= MIN_CLOSE,
               f"{label}: K7b against its plain version: {res}")
         if label == "config5_bounce0":
@@ -2367,24 +2470,60 @@ def run_prim_phases(torch, T, mk, dev, card, k3) -> dict:
                               fp32_ops=ops, bytes=n_bytes)
             out["k7b"]["bound_ms"], out["k7b"]["bound_by"] = bound(ops,
                                                                    n_bytes)
-        del sweep, read, plain
-    k8_1 = k8_case(torch, wf, wg, t, stc, meta,
-                   wf_advance(torch, wf, t, stc, meta, b0, 0, BIG_SEED, sky),
-                   1, sky, "config5_bounce1", 1)
-    ops, n_bytes = wf.k8_op_count(k8["stats"]), wf.k8_byte_count(
-        k8["stats"], n, block)
-    out["k8"] = dict(ms=k8["ms"], plain_ms=k8["plain_ms"], max_abs_err=0.0,
-                     plain_size=f"{n} rays (config 5, bounce 0, whole "
-                                "table, counting its work)",
+        del walk, read, plain
+    k8_1 = prim_shard_case(
+        torch, wf, wg, mb, t, stc, meta,
+        wf_advance(torch, wf, t, stc, meta, b0, 0, BIG_SEED, sky), 1,
+        skies, "config5_bounce1", 1)
+    uniform_bytes = 4 * (t["blob"].numel() + t["lsb"].numel() + meta.numel()
+                         + stc["n_mats"])
+    s8, s8l, s6 = k8["k8"]["stats"], k8["k8l"]["stats"], k8["k6"]["stats"]
+    ops, n_bytes = wf.k8_op_count(s8), wf.k8_byte_count(
+        s8, n, k8["k8"]["tree_words"]) + uniform_bytes
+    out["k8"] = dict(ms=k8["k8"]["ms"], plain_ms=k8["k8"]["plain_ms"],
+                     max_abs_err=0.0,
+                     plain_size=f"{n} rays (config 5, bounce 0, the whole "
+                                "tree, counting its work)",
                      fp32_ops=ops, bytes=n_bytes)
     out["k8"]["bound_ms"], out["k8"]["bound_by"] = bound(ops, n_bytes)
-    emit(dict(phase="k8_timing", card=card, k8_ms=k8["ms"],
-              k8_ms_bounce1=k8_1["ms"], need=k8["stats"]["shadow"],
-              **ptxas_of(_build.BUILD_INFO, "wavefront", "anyhit_kernel"),
-              **{k: out["k8"][k] for k in ("fp32_ops", "bytes", "bound_ms",
-                                           "bound_by", "plain_ms")}))
+    ops, n_bytes = wf.k8l_op_count(s8l), wf.k8l_byte_count(s8l, n, block)
+    out["k8l"] = dict(ms=k8["k8l"]["ms"], plain_ms=k8["k8l"]["plain_ms"],
+                      max_abs_err=0.0,
+                      plain_size=f"{n} rays (config 5, bounce 0, whole "
+                                 "table, counting its work)",
+                      fp32_ops=ops, bytes=n_bytes)
+    out["k8l"]["bound_ms"], out["k8l"]["bound_by"] = bound(ops, n_bytes)
+    ops = wf.k6_op_count(s6)
+    n_bytes = wf.k6_byte_count(s6, n, block, k8["k6"]["tree_words"])
+    k6_shard_bound = bound(ops, n_bytes)
+    emit(dict(phase="prim_kernels_timing", card=card,
+              k8_ms=k8["k8"]["ms"], k8_ms_bounce1=k8_1["k8"]["ms"],
+              k8l_ms=k8["k8l"]["ms"], k8l_ms_bounce1=k8_1["k8l"]["ms"],
+              k6_shard0_ms=k8["k6"]["ms"],
+              k6_shard0_ms_bounce1=k8_1["k6"]["ms"],
+              k6_shard0_bound_ms=k6_shard_bound[0],
+              k6_shard0_bound_by=k6_shard_bound[1],
+              shadow_rays=s8["shadow"],
+              k8=dict(ptxas_of(_build.BUILD_INFO, "wavefront",
+                               "shade_kernelILb0ELb0ELb0E"),
+                      **{k: out["k8"][k] for k in (
+                          "fp32_ops", "bytes", "bound_ms", "bound_by",
+                          "plain_ms")}),
+              k8l=dict(ptxas_of(_build.BUILD_INFO, "wavefront",
+                                "anyhit_kernel"),
+                       **{k: out["k8l"][k] for k in (
+                           "fp32_ops", "bytes", "bound_ms", "bound_by",
+                           "plain_ms")})))
     del b0, base0, res8, k8, k8_1, t
     torch.cuda.empty_cache()
+    sdpad = padding_scene(T).compile(device=dev)
+    tp, stp, metap = wf_inputs(torch, wf, mb, sdpad, T.Camera.look_at(
+        device=dev, **PAD_CAM), BIG_SEED)
+    prim_shard_case(torch, wf, wg, mb, tp, stp, metap,
+                    wf_bounce(torch, wf, tp, stp, metap, 240, 136, 0,
+                              BIG_SEED), 0, (sdpad.sky_mode, wf.SKY_ENVMAP),
+                    "padding_bounce0", 1)
+    del tp
 
     # 31. Main path: the prim-sharded wavefront under NCCL at world size 1,
     # config 5 at 1920x1080 x 4 spp with its sky and with the env map,
@@ -2393,6 +2532,14 @@ def run_prim_phases(torch, T, mk, dev, card, k3) -> dict:
     pm.init_distributed("nccl", f"file://{rdzv}/rendezvous", 1, 0, 300.0)
     try:
         mesh = pm.make_render_mesh(data=1, prim=1, device=dev)
+        # NCCL makes its communicator at the first collective: that one,
+        # timed alone, so the renders' walls leave it out.
+        t0 = time.perf_counter()
+        pm.all_reduce(torch.zeros(1, device=dev), dist.ReduceOp.SUM,
+                      mesh.prim_group, "nccl")
+        torch.cuda.synchronize()
+        emit(dict(phase="nccl_first_collective",
+                  seconds=time.perf_counter() - t0))
         kw = dict(max_bounces=DEPTH, rr_depth=RR, seed=BIG_SEED)
         out["launches"] = {k: 0 for k in mk.LAUNCHES}
         out["facade"] = {}
@@ -2405,12 +2552,14 @@ def run_prim_phases(torch, T, mk, dev, card, k3) -> dict:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             mk.reset_launch_counts()
+            reset_glue(wf)
             t0 = time.perf_counter()
             img = render_wavefront_prim_sharded(sd, cam10, BIG_W, BIG_H, 0,
                                                 BIG_SPP, mesh, **kw)
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
             counts = dict(mk.LAUNCHES)
+            glue = dict(wf.GLUE_CALLS)
             peak = torch.cuda.max_memory_allocated() / 1e9
             tracer = big_tracer(T, dev, scene)
             tracer.render_to_completion()
@@ -2418,18 +2567,23 @@ def run_prim_phases(torch, T, mk, dev, card, k3) -> dict:
             torch.cuda.synchronize()
             out["facade"][label] = (scene, sd, want)
             res = compare(img, want)
+            differ = int((img != want).any(-1).sum())
             emit(dict(phase="prim_main_path", case=label, backend="nccl",
                       world_size=1, data=1, prim=1, size=f"{BIG_W}x{BIG_H}",
                       spp=BIG_SPP, wall_s=wall_s, peak_memory_gb=peak,
-                      launches=counts,
-                      pixels_differ_from_facade=int((img != want).any(-1)
-                                                    .sum()),
+                      launches=counts, glue_calls=glue,
+                      pixels_differ_from_facade=differ,
                       vs_facade=res, mean=float(img.mean()) / BIG_SPP))
-            check(all(counts[k] > 0 for k in ("k5", "k6l", "k8", "k7b")),
-                  f"{label}: K5, K6l, K8 or K7b was not launched: {counts}")
+            check(all(counts[k] > 0 for k in PRIM_KERNELS),
+                  f"{label}: K5, K6, K8 or K7b was not launched: {counts}")
             check(all(v == 0 for k, v in counts.items()
-                      if k not in ("k5", "k6l", "k8", "k7b")),
-                  f"{label}: other kernels or plain versions ran: {counts}")
+                      if k not in PRIM_KERNELS),
+                  f"{label}: other kernels, a list form or a plain version "
+                  f"ran: {counts}")
+            check(not any(glue.values()),
+                  f"{label}: the prim path built lists: {glue}")
+            check(differ == 0, f"{label}: the prim=1 image differs from the "
+                               f"facade's on {differ} pixels")
             check(tuple(img.shape) == (BIG_H, BIG_W, 3), f"{label}: shape")
             check(res["finite"] and res["frac_close"] >= MIN_CLOSE
                   and res["mean_rel"] <= MAX_MEAN_REL,
@@ -2517,7 +2671,8 @@ def run_dist_phases(torch, T, mk, dev, card, k3, prim) -> dict:
                   ranks=DIST_RANKS, data=1, prim=2, size=f"{BIG_W}x{BIG_H}",
                   spp=BIG_SPP, walls_s=rep["walls_s"],
                   peak_memory_gb=rep["peak_memory_gb"],
-                  launches=rep["launches"], pixels_differ=len(differ),
+                  launches=rep["launches"], glue_calls=rep["glue_calls"],
+                  pixels_differ=len(differ),
                   tie_pixels=len(rep["tie_pixels"]),
                   tie_lanes=rep["tie_lanes"],
                   differing_pixels_without_a_tie=len(not_ties),
@@ -2525,9 +2680,14 @@ def run_dist_phases(torch, T, mk, dev, card, k3, prim) -> dict:
                   collectives=rep["collectives"],
                   collective_mb=[b / 1e6 for b in rep["collective_bytes"]],
                   collective_ms=rep["collective_ms"], vs_unsharded=res))
-        check(all(rep["launches"][k] > 0 for k in ("k5", "k6l", "k8",
-                                                   "k7b")),
-              f"{label}: K5, K6l, K8 or K7b was not launched")
+        check(all(rep["launches"][k] > 0 for k in PRIM_KERNELS),
+              f"{label}: K5, K6, K8 or K7b was not launched")
+        check(all(v == 0 for k, v in rep["launches"].items()
+                  if k not in PRIM_KERNELS),
+              f"{label}: other kernels, a list form or a plain version ran: "
+              f"{rep['launches']}")
+        check(not any(rep["glue_calls"].values()),
+              f"{label}: the prim path built lists: {rep['glue_calls']}")
         check(not not_ties, f"{label}: {len(not_ties)} of {len(differ)} "
                             f"differing pixels had no cross-shard tie")
         check(res["finite"] and res["frac_close"] >= MIN_CLOSE,

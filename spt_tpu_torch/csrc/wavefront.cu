@@ -11,11 +11,14 @@
 // once.  R is a multiple of the 1024-lane tile.  Between the kernels the
 // glue (torch ops in kernels/wavefront.py) sorts the stream by a coherence
 // key.  On the split path K6 and K7 walk the packed tree one thread a ray
-// (BvhWalk, bvh.cuh, as K3 and K11 do), so the glue builds no lists there;
-// the prim-sharded render (a shard holds leaf blocks, no tree) and the
-// matmul form still cull each tile's (or row's) rays against every leaf
-// block's box (the precull: one candidate list a group, nearest-first) and
-// rebuild and cull the shadow rays too.
+// (BvhWalk, bvh.cuh, as K3 and K11 do), and on the prim-sharded path K6
+// and K8 walk the shard's tree (the packed tree cut to its leaf blocks,
+// megakernel_bvh.py::shard_tree), so the glue builds no lists there; the
+// matmul form and the fused bounce with its precull still cull each
+// tile's (or row's) rays against every leaf block's box (the precull: one
+// candidate list a group, nearest-first), and K8's and K7's list forms,
+// which the tools and checks still launch, sweep shadow rays rebuilt and
+// culled by the glue.
 //
 // * K5 replaces spt_tpu/kernels/wavefront.py::_raygen_kernel (launched by
 //   _raygen_launch): the initial state of every lane of chunk_spp images
@@ -26,13 +29,14 @@
 //   megakernel_bvh.py::_cand_sweep_nearest): every ray's nearest hit,
 //   written as an 8-channel residual (hcx hcy hcz hr hmid hblk hslot 0;
 //   hmid -1 where nothing was hit, or where a leaf's padding slot won).  One
-//   thread per ray.  Tree mode (the split path): each thread walks the tree
-//   (BvhWalk::nearest_slot), stack-free, its octant's table, a slab test a
-//   node; the residual is the one K11g's walk records.  The TPU walked a
-//   1024-ray packet behind one scalar node pointer, a serial chain on its
-//   scalar unit, and so took lists instead; a thread walks its own ray
-//   here.  List mode (the prim shards, which hold leaf blocks and no tree):
-//   the tile's candidate blocks in order, the 1024 threads of a tile reading
+//   thread per ray.  Tree mode (the split path, and on the prim-sharded
+//   path the shard's tree, whose block ids are local): each thread walks
+//   the tree (BvhWalk::nearest_slot), stack-free, its octant's table, a
+//   slab test a node; the residual is the one K11g's walk records.  The TPU
+//   walked a 1024-ray packet behind one scalar node pointer, a serial
+//   chain on its scalar unit, and so took lists instead; a thread walks its
+//   own ray here.  List mode (K6l; the tools and checks launch it): the
+//   tile's candidate blocks in order, the 1024 threads of a tile reading
 //   the same entries and blocks (broadcast loads through L1); the TPU kernel
 //   stops a whole packet once the next candidate's entry bound passes the
 //   packet's worst winner, each thread here stops on its own once the bound
@@ -64,13 +68,21 @@
 //   K8's verdicts.  Bound: K7's bytes less the tree, plus 4 bytes a shadow
 //   ray.
 // * K8 replaces wavefront.py::_anyhit_kernel (launched at spt_tpu/parallel/
-//   wavefront_prim.py:195): the occlusion verdict of shadow rays given as 8
-//   channels (pox poy poz ldx ldy ldz tmax need) against one prim shard's
-//   leaf blocks, by K7's sweep (WavefrontGeometry::sweep) of the tile's
-//   shadow list; 1 where blocked, 0 where not, for lanes without need and
-//   past the prefix.  One thread per lane, no shared memory, no syncs.
-//   Bound: fp32 operations of the sphere tests (the bytes, 8 channels a
-//   ray in and one out plus the blocks swept, come close).
+//   wavefront_prim.py:195): the occlusion verdicts of one prim shard's
+//   leaf blocks.  The TPU kernel took shadow rays that XLA glue rebuilt
+//   from the merged winner and swept the precull's lists; here K8 is K9
+//   (shade_kernel, kStore false): each thread runs its lane's bounce on the
+//   merged winner (the same called wf_bounce as K7b, so the shadow ray is
+//   K7b's bit for bit), its shadow ray walking the shard's tree
+//   (BvhWalk::any_hit), and writes the verdict, not the path: 1 where
+//   blocked, 0 where no shadow ray was traced or it was not blocked.  No
+//   glue, no shadow-ray tensor, no lists.  Bound: fp32 operations of the
+//   shadow setup and walks, or the bytes (the ray, ids and winner in, the
+//   verdict out, the shard's tree).
+//   K8l, its list form (anyhit_kernel; on no render path): verdicts of
+//   shadow rays given as 8 channels (pox poy poz ldx ldy ldz tmax need),
+//   by K7's sweep (WavefrontGeometry::sweep) of the tile's shadow list.
+//   One thread per lane, no shared memory, no syncs.
 // * K9 replaces spt_tpu/kernels/wavefront_grad.py::_shade_fwd_kernel
 //   (launched by _shade_op): K7 on a copy of the stream (kernels/
 //   wavefront_grad.py clones it, since the backward keeps the pre-bounce
@@ -146,6 +158,8 @@ constexpr int kThreadsWf = 256;
 // the same bits (tools/wf_ablate.py's k7_lb_* builds; PERF.md).  K7
 // reading its verdicts runs 2.6 times slower so built, and is not.
 constexpr int kShadeMinBlocks = 4;
+// Blocks an SM that K8 (shade_kernel<false, false, false>) is built for.
+constexpr int kVerdictMinBlocks = 4;
 constexpr int kNCh = 17;                   // float channels of the stream
 constexpr int kChAlive = 13, kChSpec = 14, kChInimg = 15, kChMiss = 16;
 constexpr int kWfMatOff = 21;              // blob: camera 15, sky 6, mats
@@ -553,11 +567,14 @@ struct ShadeParams {
 };
 
 // K7 and K9 (kMxu false: the shadow walk or a tile's shadow list), K7's
-// blocked_in_res mode (kVerdict: the verdicts), and K7m (kMxu true: a
-// shadow list a row, swept in the expanded form).
-template <bool kMxu, bool kVerdict>
+// blocked_in_res mode (kVerdict: the verdicts), K7m (kMxu true: a shadow
+// list a row, swept in the expanded form), and K8 (kStore false: K9's
+// verdicts alone, the stream read and not written).
+template <bool kMxu, bool kVerdict, bool kStore = true>
 __global__ void __launch_bounds__(kThreadsWf,
-                                  kMxu || kVerdict ? 1 : kShadeMinBlocks)
+                                  kMxu || kVerdict ? 1
+                                  : kStore         ? kShadeMinBlocks
+                                                   : kVerdictMinBlocks)
     shade_kernel(ShadeParams prm) {
   extern __shared__ float smem[];
   float* s_blob = smem;
@@ -578,7 +595,7 @@ __global__ void __launch_bounds__(kThreadsWf,
   float* st = prm.st + i;
   if (prm.blocked) prm.blocked[i] = 0.0f;
   if (!(st[kChAlive * s] > 0.5f)) {
-    st[kChMiss * s] = 0.0f;
+    if constexpr (kStore) st[kChMiss * s] = 0.0f;
     return;
   }
   Path p;
@@ -605,7 +622,7 @@ __global__ void __launch_bounds__(kThreadsWf,
   const bool missed = wf_bounce(sc, geo, p, pid, sample, (uint32_t)s_meta[1],
                                 prm.k, prm.rr_depth, prm.use_nee,
                                 prm.use_mis);
-  store_path(st, s, p, missed, prm.sky_mode);
+  if constexpr (kStore) store_path(st, s, p, missed, prm.sky_mode);
 }
 
 // ---------------------------------------------------------------------------
@@ -917,7 +934,7 @@ extern "C" int spt_wavefront_shade(
     const void* bctr, const void* nodef, const void* nodei, int stride,
     int n_lanes, int n_blocks, int block, int n_mats, int n_light_slots,
     int k, int rr_depth, int use_nee, int use_mis, int sky_mode,
-    int blocked_in_res, int n_nodes, void* stream) {
+    int blocked_in_res, int n_nodes, int store_path, void* stream) {
   spt::ShadeParams prm;
   prm.st = static_cast<float*>(st);
   prm.ids = static_cast<const int*>(ids);
@@ -956,6 +973,9 @@ extern "C" int spt_wavefront_shade(
     spt::shade_kernel<true, false><<<grid, spt::kThreadsWf, smem, s>>>(prm);
   else if (blocked_in_res)
     spt::shade_kernel<false, true><<<grid, spt::kThreadsWf, smem, s>>>(prm);
+  else if (!store_path)
+    spt::shade_kernel<false, false, false><<<grid, spt::kThreadsWf, smem,
+                                             s>>>(prm);
   else
     spt::shade_kernel<false, false><<<grid, spt::kThreadsWf, smem, s>>>(prm);
   return static_cast<int>(cudaGetLastError());
@@ -1069,8 +1089,9 @@ extern "C" int spt_wavefront_bounce_bwd(
 }
 
 // Blocks of kThreadsWf threads an SM holds of kernel `which` (0: K6, 1: K7
-// and K9, 2: K11, 3: K8, 4: K10) with `smem` bytes of dynamic shared
-// memory, by the occupancy calculator; tools/wf_ablate.py reports it.
+// and K9, 2: K11, 3: K8l, 4: K10, 5: K8, 6: K7b) with `smem` bytes of
+// dynamic shared memory, by the occupancy calculator; tools/wf_ablate.py
+// reports it.
 extern "C" int spt_wavefront_blocks_per_sm(int which, int smem) {
   using namespace spt;
   const void* fn = nullptr;
@@ -1082,6 +1103,12 @@ extern "C" int spt_wavefront_blocks_per_sm(int which, int smem) {
     case 2: fn = reinterpret_cast<const void*>(bounce_kernel<false>); break;
     case 3: fn = reinterpret_cast<const void*>(anyhit_kernel); break;
     case 4: fn = reinterpret_cast<const void*>(bounce_bwd_kernel); break;
+    case 5:
+      fn = reinterpret_cast<const void*>(shade_kernel<false, false, false>);
+      break;
+    case 6:
+      fn = reinterpret_cast<const void*>(shade_kernel<false, true>);
+      break;
     default: return -1;
   }
   int blocks = 0;

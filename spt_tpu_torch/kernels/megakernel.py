@@ -23,10 +23,11 @@ order s = 0 … spp-1.
 launches (``"k4"``, see ``megakernel_bvh_grad``), the wavefront's K5, K6
 and K7 launches (``"k5"``, ``"k6"``, ``"k7"``: K6's tree mode and K7's
 shadow walks, the split path's; see ``wavefront``), its gradient's K9 and
-K10 launches (``"k9"``, ``"k10"``, see ``wavefront_grad``), K6, K7 and K9
-over lists (``"k6l"``, the prim shards'; ``"k7l"``, ``"k9l"``), the
-prim-sharded wavefront's K8 (any-hit, ``"k8"``) and K7 reading its merged
-shadow verdict (``"k7b"``, see ``wavefront``),
+K10 launches (``"k9"``, ``"k10"``, see ``wavefront_grad``), K6, K7, K8
+and K9 over lists (``"k6l"``, ``"k7l"``, ``"k8l"``, ``"k9l"``), the
+prim-sharded wavefront's K8 (its shadow verdicts, walking the shard's
+tree, ``"k8"``) and K7 reading the verdicts merged over the shards
+(``"k7b"``, see ``wavefront``),
 the wavefront's matmul-form sweeps (``"k6m"``, ``"k7m"``) and fused bounce
 (``"k11"``, see ``wavefront``) and the fused bounce under grad
 (``"k11g"``, see ``wavefront_grad``), and plain-version runs of any of them (``"plain"``: one per
@@ -62,7 +63,8 @@ MAX_PRIMS = 128
 
 LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0, "k6": 0, "k7": 0,
             "k7b": 0, "k8": 0, "k9": 0, "k10": 0, "k6m": 0, "k7m": 0,
-            "k11": 0, "k11g": 0, "k6l": 0, "k7l": 0, "k9l": 0, "plain": 0}
+            "k11": 0, "k11g": 0, "k6l": 0, "k7l": 0, "k8l": 0, "k9l": 0,
+            "plain": 0}
 
 
 def reset_launch_counts() -> None:

@@ -127,8 +127,10 @@ def pack_bvh_scene(scene: SceneData, camera, block: int = BLOCK):
     holds the ints and tables that parameterize the kernel (``n_mats``,
     ``mtypes``, ``n_light_slots``, ``block``, ``n_nodes`` per table,
     ``n_blocks``, ``block_prim_ids``, ``light_prims``, ``node_cover``,
-    ``octant_perm``), ``builder``, the BVH builder that ran, and
-    ``seconds``: host time of the BVH build, the octant tables and all."""
+    ``octant_perm``, ``tree``: the (n_nodes, 8) preorder ``nodef`` and
+    ``nodei`` the octant tables were made from), ``builder``, the BVH
+    builder that ran, and ``seconds``: host time of the BVH build, the
+    octant tables and all."""
     t0 = time.perf_counter()
     centers = _np(scene.centers).astype(np.float32)
     radii = _np(scene.radii).astype(np.float32)
@@ -212,7 +214,7 @@ def pack_bvh_scene(scene: SceneData, camera, block: int = BLOCK):
                   n_light_slots=n_lights, block=block, n_nodes=n_nodes,
                   n_blocks=n_blocks, block_prim_ids=block_prim_ids,
                   light_prims=light_prims, node_cover=node_cover,
-                  builder=bvh.builder)
+                  tree=(nodef, nodei), builder=bvh.builder)
     t1 = time.perf_counter()
     nodef8, nodei8, perm = _octant_tables(nodef, nodei)
     static["octant_perm"] = perm
@@ -221,6 +223,50 @@ def pack_bvh_scene(scene: SceneData, camera, block: int = BLOCK):
                              pack=time.perf_counter() - t0)
     return (blob, np.asarray([0, 0, n_lights], np.int32), nodef8, nodei8,
             prims, static)
+
+
+def shard_tree(static, lo: int, hi: int):
+    """The packed tree cut to the leaf blocks [lo, hi) -> its 8 octant
+    tables (nodef8, nodei8), as ``pack_bvh_scene`` makes the whole tree's:
+    the tree a prim shard walks over its range of the leaf table.
+
+    Leaf blocks are numbered in preorder, so a range is a run of
+    consecutive leaves, and a node's subtree holds one of them where it
+    meets the run's span of rows.  Kept: each such node, but for an inner
+    node with one such child (its box would be that child's), so a
+    one-leaf range is a tree of one leaf.  Preorder stays; a kept node's
+    skip is the count of kept nodes before the end of its subtree; its box
+    the union of its kept leaves' build boxes (their rows of ``nodef``);
+    block ids local (block - lo).  The whole range [0, n_blocks) gives the
+    packed tree's own tables.  Raises ValueError on an empty range."""
+    nodef, nodei = static["tree"]
+    leaves = np.flatnonzero(nodei[:, 1] >= 0)    # block b at row leaves[b]
+    if not 0 <= lo < hi <= len(leaves):
+        raise ValueError(f"leaf blocks [{lo}, {hi}) of {len(leaves)}")
+    rows = np.arange(nodef.shape[0])
+    skip = nodei[:, 0].astype(np.int64)
+    first, last = leaves[lo], leaves[hi - 1]
+    holds = (rows <= last) & (skip > first)
+    c1 = np.minimum(rows + 1, len(rows) - 1)
+    c2 = np.minimum(skip[c1], len(rows) - 1)
+    two = (rows + 1 < len(rows)) & (skip[c1] < skip)
+    inner = nodei[:, 1] < 0
+    one_child = inner & (holds[c1] != (two & holds[c2]))
+    keep = holds & ~one_child
+    before = np.concatenate([[0], np.cumsum(keep)])  # kept rows before a row
+    kept = np.flatnonzero(keep)
+    span = leaves[lo:hi]
+    out_f = np.zeros((len(kept), 8), np.float32)
+    out_i = np.zeros((len(kept), 8), np.int32)
+    for r, i in enumerate(kept):
+        own = nodef[span[np.searchsorted(span, i):np.searchsorted(span,
+                                                                 skip[i])]]
+        out_f[r, 0:3] = own[:, 0:3].min(axis=0)
+        out_f[r, 3:6] = own[:, 3:6].max(axis=0)
+    out_i[:, 0] = before[skip[kept]]
+    out_i[:, 1] = np.where(inner[kept], -1, nodei[kept, 1] - lo)
+    nodef8, nodei8, _ = _octant_tables(out_f, out_i)
+    return nodef8, nodei8
 
 
 # ---------------------------------------------------------------------------

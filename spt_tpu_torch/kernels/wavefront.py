@@ -16,11 +16,11 @@ bounce at its hit:
 The JAX package culls each tile's rays against every leaf block's box
 first and sweeps per-tile candidate lists, because a TPU walks a packet
 behind one scalar node pointer; a thread of the card walks its own ray,
-so the split path builds no lists.  The lists (``precull_tiles``, and
-``shadow_rays`` rebuilt from K6's residual and culled too) remain where a
-tree is not at hand or JAX's form is the point: the prim-sharded render
-(a shard holds leaf blocks, not a tree), ``mxu=True`` and ``split=False``
-with ``precull``.  ``GLUE_CALLS`` counts their calls.
+so the split path builds no lists, and neither does the prim-sharded
+render, whose shards walk their own trees.  The lists (``precull_tiles``,
+and ``shadow_rays`` rebuilt from K6's residual and culled too) remain
+where JAX's form is the point: ``mxu=True`` and ``split=False`` with
+``precull``.  ``GLUE_CALLS`` counts their calls.
 
 The stream is one float32 (19, R) buffer: the 17 state channels (``C_*``)
 and, bit for bit, the int32 pixel and sample ids.  R counts 1024-lane tiles
@@ -62,12 +62,16 @@ launches (K6 and K7 walking the tree; over lists ``["k6l"]`` and
 wavefront render on the CPU adds one per chunk for raygen and two per
 bounce that has alive rays.
 
-The primitive-sharded render (``parallel/wavefront_prim.py``) adds two:
-K8, ``anyhit`` / ``anyhit_plain``, K7's shadow sweep alone on one shard's
-leaf blocks (``LAUNCHES["k8"]``), and K7 reading the shadow verdict merged
-over the shards from residual row 7 instead of sweeping (``shade(...,
-blocked_in_res=True)``, ``LAUNCHES["k7b"]``); ``winner_t`` rebuilds each
-lane's nearest distance for the merge.
+The primitive-sharded render (``parallel/wavefront_prim.py``) runs K6's
+tree mode on its shard's tree (``megakernel_bvh.shard_tree``) and adds
+two: K8, ``shadow_verdicts`` / ``shadow_verdicts_plain``, K9's bounce on
+the merged winner with its shadow ray walking the shard's tree, keeping
+the verdict and not the path (``LAUNCHES["k8"]``), and K7 reading the
+verdict merged over the shards from residual row 7 instead of tracing
+(``shade(..., blocked_in_res=True)``, ``LAUNCHES["k7b"]``); ``winner_t``
+rebuilds each lane's nearest distance for the merge.  K8's list form,
+``anyhit`` / ``anyhit_plain``, K7's shadow sweep alone over given shadow
+rays and lists (``LAUNCHES["k8l"]``), is on no render path.
 
 A padding slot of a leaf block (centre 0, radius 0, id -1) can win K6's
 sweep where the float quadratic says a ray through the origin hits it;
@@ -982,13 +986,14 @@ def _shade_launch(name, args, n_lanes: int, blocked, *, k: int, block: int,
                   n_mats: int, n_light_slots: int, rr_depth: int,
                   use_nee: bool, use_mis: bool, sky_mode: int,
                   blocked_in_res: bool = False, mxu=None,
-                  tree=None) -> None:
+                  tree=None, store: bool = True) -> None:
     """Checks and launches K7's kernel on CUDA tensors: K7 itself with
     ``blocked`` None, K9 (which also writes the (n_lanes,) shadow verdict
-    into ``blocked``) otherwise; with ``tree`` = (nodef, nodei) each shadow
-    ray walks the tree; with ``blocked_in_res`` the kernel reads each
-    verdict from residual row 7; else it sweeps the shadow lists, and with
-    ``mxu`` = (cmat, bctr) it is K7m, sweeping per-row lists with the
+    into ``blocked``) otherwise, and without ``store`` K8, which writes
+    the verdicts and not the stream; with ``tree`` = (nodef, nodei) each
+    shadow ray walks the tree; with ``blocked_in_res`` the kernel reads
+    each verdict from residual row 7; else it sweeps the shadow lists, and
+    with ``mxu`` = (cmat, bctr) it is K7m, sweeping per-row lists with the
     expanded quadratic."""
     blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res = args
     if st.device.type != "cuda":
@@ -1031,27 +1036,72 @@ def _shade_launch(name, args, n_lanes: int, blocked, *, k: int, block: int,
             *((a.data_ptr() for a in tree) if walk else (0, 0)),
             st.shape[1], n_lanes, nb, block, n_mats, n_light_slots, k,
             rr_depth, int(bool(use_nee)), int(bool(use_mis)), int(sky_mode),
-            int(bool(blocked_in_res)), n_nodes,
+            int(bool(blocked_in_res)), n_nodes, int(bool(store)),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 # ---------------------------------------------------------------------------
-# K8: any-hit
+# K8: the shadow verdicts of one prim shard
 # ---------------------------------------------------------------------------
 
-N_SRAY = 8           # K8's shadow rays: pox poy poz ldx ldy ldz tmax need
+
+def shadow_verdicts_plain(blob, meta, lsb, prims, mtypes, st, ids, res,
+                          n_lanes: int, *, tree, k: int, block: int,
+                          n_mats: int, n_light_slots: int, rr_depth: int,
+                          use_nee: bool, use_mis: bool, sky_mode: int,
+                          stats: dict | None = None) -> torch.Tensor:
+    """Plain version of K8 -> (n_lanes,) float32 verdicts: bounce ``k`` of
+    lanes [0, n_lanes) on the winner rebuilt from ``res`` (the residual
+    merged over the prim shards), each shadow ray walking ``tree`` =
+    (nodef, nodei), one shard's tree over its leaf blocks ``prims``; 1
+    where a traced shadow ray is blocked, 0 elsewhere.  K9's plain walk
+    (``shade_plain`` with ``tree`` and ``blocked``) on a copy of the lanes
+    that is thrown away, so the rays are the ones K7 traces on the same
+    inputs.  ``stats`` as ``shade_plain``'s."""
+    n = n_lanes
+    verdict = torch.zeros(n, dtype=torch.float32, device=st.device)
+    shade_plain(blob, meta, lsb, prims, mtypes, None, None,
+                st[:, :n].clone(), ids[:, :n], res, n, k=k, block=block,
+                n_mats=n_mats, n_light_slots=n_light_slots,
+                rr_depth=rr_depth, use_nee=use_nee, use_mis=use_mis,
+                sky_mode=sky_mode, stats=stats, blocked=verdict, tree=tree)
+    return verdict
+
+
+def shadow_verdicts(blob, meta, lsb, prims, mtypes, st, ids, res,
+                    n_lanes: int, *, tree, k: int, block: int, n_mats: int,
+                    n_light_slots: int, rr_depth: int, use_nee: bool,
+                    use_mis: bool, sky_mode: int) -> torch.Tensor:
+    """K8's wrapper: ``shadow_verdicts_plain``'s verdicts, on the stream's
+    device.  The kernel is K9's (``shade_kernel``) built to keep the
+    verdict and not store the path, so its shadow rays are K7b's bit for
+    bit; the stream is read, not written."""
+    kw = dict(k=k, block=block, n_mats=n_mats, n_light_slots=n_light_slots,
+              rr_depth=rr_depth, use_nee=use_nee, use_mis=use_mis,
+              sky_mode=sky_mode)
+    if st.device.type == "cpu":
+        return shadow_verdicts_plain(blob, meta, lsb, prims, mtypes, st, ids,
+                                     res, n_lanes, tree=tree, **kw)
+    verdict = torch.empty(n_lanes, dtype=torch.float32, device=st.device)
+    _shade_launch("K8", (blob, meta, lsb, prims, mtypes, None, None, st, ids,
+                         res), n_lanes, verdict, tree=tree, store=False, **kw)
+    LAUNCHES["k8"] += 1
+    return verdict
+
+
+N_SRAY = 8           # K8l's shadow rays: pox poy poz ldx ldy ldz tmax need
 
 
 def anyhit_plain(prims: torch.Tensor, scand: torch.Tensor, sctn: torch.Tensor,
                  sray: torch.Tensor, n_lanes: int, *, block: int,
                  stats: dict | None = None) -> torch.Tensor:
-    """Plain version of K8 -> (R,) float32 verdicts of the shadow rays
-    ``sray`` (8, R) against the leaf blocks ``prims``: for lanes [0,
-    n_lanes) with ``need`` (row 7 above 0.5), K7's shadow sweep of their
-    tiles' lists (``_sweep_anyhit``), 1 where the ray is blocked; 0 on the
-    other lanes and past ``n_lanes``.  ``stats``, if given, gets
+    """Plain version of K8's list form (K8l) -> (R,) float32 verdicts of
+    the shadow rays ``sray`` (8, R) against the leaf blocks ``prims``: for
+    lanes [0, n_lanes) with ``need`` (row 7 above 0.5), K7's shadow sweep
+    of their tiles' lists (``_sweep_anyhit``), 1 where the ray is blocked;
+    0 on the other lanes and past ``n_lanes``.  ``stats``, if given, gets
     ``"shadow"`` (the lanes swept) and the sweep's counts added."""
     LAUNCHES["plain"] += 1
     n = n_lanes
@@ -1069,13 +1119,13 @@ def anyhit_plain(prims: torch.Tensor, scand: torch.Tensor, sctn: torch.Tensor,
 
 def anyhit(prims: torch.Tensor, scand: torch.Tensor, sctn: torch.Tensor,
            sray: torch.Tensor, n_lanes: int, *, block: int) -> torch.Tensor:
-    """K8's wrapper: ``anyhit_plain``'s verdicts, on the rays' device."""
+    """K8l's wrapper: ``anyhit_plain``'s verdicts, on the rays' device."""
     if sray.device.type == "cpu":
         return anyhit_plain(prims, scand, sctn, sray, n_lanes, block=block)
     if sray.device.type != "cuda":
-        raise NotImplementedError(f"K8 has no kernel for {sray.device}")
+        raise NotImplementedError(f"K8l has no kernel for {sray.device}")
     if any(a.device != sray.device for a in (prims, scand, sctn)):
-        raise ValueError("K8's inputs must lie on one device")
+        raise ValueError("K8l's inputs must lie on one device")
     r = sray.shape[1] if sray.dim() == 2 else -1
     if sray.dtype != torch.float32 or sray.dim() != 2 \
             or sray.shape[0] != N_SRAY or not sray.is_contiguous() \
@@ -1084,7 +1134,7 @@ def anyhit(prims: torch.Tensor, scand: torch.Tensor, sctn: torch.Tensor,
                          f"a multiple of {TILE}; got {sray.dtype} "
                          f"{tuple(sray.shape)}")
     if not 0 <= n_lanes <= r or n_lanes % TILE:
-        raise ValueError(f"K8: {n_lanes} lanes of {r} shadow rays")
+        raise ValueError(f"K8l: {n_lanes} lanes of {r} shadow rays")
     nb = prims.numel() // (_N_PRIM_ATTRS * block)
     _check(prims, "prims", torch.float32, _N_PRIM_ATTRS * block * nb)
     _check_lists(scand, sctn, n_lanes // TILE, nb)
@@ -1097,8 +1147,8 @@ def anyhit(prims: torch.Tensor, scand: torch.Tensor, sctn: torch.Tensor,
             scand.data_ptr(), sctn.data_ptr(), r, n_lanes, nb, block,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"K8 launch failed: CUDA error {err}")
-    LAUNCHES["k8"] += 1
+        raise RuntimeError(f"K8l launch failed: CUDA error {err}")
+    LAUNCHES["k8l"] += 1
     return out
 
 
@@ -1665,14 +1715,34 @@ def k7_op_count(stats: dict) -> int:
 
 
 def k8_op_count(stats: dict) -> int:
-    """Lower count of K8's fp32 operations for ``anyhit_plain``'s stats:
+    """Lower count of K8's fp32 operations for ``shadow_verdicts_plain``'s
+    stats: the winner rebuilt on each hit, each shadow ray's setup and its
+    walk of the shard's tree (the rest of the bounce, which K8 runs and
+    throws away, is not counted)."""
+    return (stats["hit"] * WF_OPS["rebuild"]
+            + stats["shadow"] * (WF_OPS["shadow"] + K3_OPS["walk_setup"])
+            + stats["shadow_nodes"] * K3_OPS["node_test"]
+            + stats["shadow_spheres"] * WF_OPS["sphere_test"])
+
+
+def k8_byte_count(stats: dict, n_lanes: int, tree_words: int) -> int:
+    """Bytes K8 must move, each word once, for ``shadow_verdicts_plain``'s
+    stats: every lane reads its alive flag and writes its verdict, an alive
+    lane reads its origin, direction, ids and 5 residual channels, plus the
+    shard's tree (``tree_words``: nodef, nodei and prims)."""
+    return 4 * (2 * n_lanes + (6 + N_IDS + 5) * stats["active"]
+                + tree_words)
+
+
+def k8l_op_count(stats: dict) -> int:
+    """Lower count of K8l's fp32 operations for ``anyhit_plain``'s stats:
     K7's shadow sweep alone."""
     return (stats["shadow_spheres"] * WF_OPS["sphere_test"]
             + stats["shadow_blocks"] * WF_OPS["block"])
 
 
-def k8_byte_count(stats: dict, n_lanes: int, block: int) -> int:
-    """Bytes K8 must move, each word once, for ``anyhit_plain``'s stats:
+def k8l_byte_count(stats: dict, n_lanes: int, block: int) -> int:
+    """Bytes K8l must move, each word once, for ``anyhit_plain``'s stats:
     every lane reads its need flag and writes its verdict, a lane that
     needs one reads its 7 other ray channels, plus the shadow list words
     read and the four float rows of each distinct leaf block swept."""

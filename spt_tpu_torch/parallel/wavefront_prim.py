@@ -1,34 +1,39 @@
 """The sorted wavefront with the scene's leaf blocks sharded over ``prim``.
 
 The port of ``spt_tpu.parallel.wavefront_prim``: the packed leaf-block table
-is cut into one range of blocks per prim rank, and every bounce runs the
-wavefront's kernels on the local range, merging across ``prim`` with
-collectives:
+is cut into one range of blocks per prim rank, with the packed tree cut to
+that range (``megakernel_bvh.shard_tree``: leaf blocks are numbered in
+preorder, so a range is a run of leaves; at prim=1 the packed tree
+itself), and every bounce runs the wavefront's kernels on the local range,
+merging across ``prim`` with collectives:
 
 per bounce, on every (data, prim) rank
   1. sort the stream (stable: every prim rank holds the same stream and
      applies the same permutation, so lane i is the same ray everywhere;
      the alive prefix is asserted equal over ``prim``);
-  2. precull against the local leaf blocks, then K6 -> the local winner;
+  2. K6 walking the shard's tree -> the local winner (local block ids);
   3. ``wavefront.winner_t`` and a MIN all-reduce over ``prim``; on equal
      distances the lowest prim index wins (a MIN all-reduce of the index
      where t equals the least), the local block id is rebased to the global
      one (+ nb_local * prim index), and the winner's fields are merged by a
      SUM all-reduce in which exactly one rank contributes;
-  4. the shadow rays rebuilt from the merged winner, preculled against the
-     local blocks and swept by K8 (any-hit), the verdicts merged by a MAX
-     all-reduce into residual row 7;
+  4. K8: each lane's bounce on the merged winner, its shadow ray walking
+     the shard's tree, keeping only the verdict; the verdicts merged by a
+     MAX all-reduce into residual row 7;
   5. K7 reading that verdict (``blocked_in_res``) on the merged winner:
-     every prim rank shades the same lanes from the same inputs, so the
+     the same bounce on the same inputs as K8's (so the shadow rays the
+     verdicts are for are its own), on every prim rank alike, so the
      stream stays the same on all of them;
   6. the env-map step where the sky is an environment map.
 
 The image is summed over ``data`` only.  Each rank holds a range of
 ceil(n_blocks / prim) leaf blocks (the last one the rest): the point is
-memory (the scene scales with the prim axis), not less work per rank.  Matches the unsharded wavefront but where a lane's nearest
-hits on two shards lie at exactly the same distance (the merge breaks the
-tie by prim index, the sweep by candidate order); ``stats`` records those
-lanes.  Forward only, as in the JAX package.
+memory (the scene scales with the prim axis), not less work per rank.
+Matches the unsharded wavefront but where a lane's nearest hits on two
+shards lie at exactly the same distance (the merge breaks the tie by prim
+index, the walk by visit order); ``stats`` records those lanes.  No lists
+are built (``wavefront.GLUE_CALLS`` stays 0).  Forward only, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -38,11 +43,11 @@ import functools
 import torch
 import torch.distributed as dist
 
-from ..core import rng
 from ..core.scene import SKY_ENVMAP, SceneData
 from ..kernels import wavefront as wf
 from ..kernels.megakernel import _np
-from ..kernels.megakernel_bvh import BLOCK, _N_PRIM_ATTRS, packed
+from ..kernels.megakernel_bvh import (BLOCK, _N_PRIM_ATTRS, packed,
+                                      shard_tree)
 from .mesh import RenderMesh, all_reduce
 
 _NO_SHARD = 1 << 30
@@ -65,6 +70,21 @@ def _local_blocks(prims: torch.Tensor, n_shards: int,
                          f"{n_shards} empty (stride {nb_local}); use fewer "
                          f"prim shards")
     return prims[lo:hi].contiguous(), nb_local
+
+
+def _shard_tree(t: dict, static: dict, lo: int, hi: int):
+    """(nodef, nodei) on ``t``'s device: the tree over leaf blocks [lo, hi)
+    (``shard_tree``; the packed tree itself for the whole table), made once
+    per packed scene and kept in its ``static``."""
+    if (lo, hi) == (0, static["n_blocks"]):
+        return t["nodef"], t["nodei"]
+    dev = t["nodef"].device
+    trees = static.setdefault("shard_trees", {})
+    key = (lo, hi, str(dev))
+    if key not in trees:
+        trees[key] = tuple(torch.from_numpy(a).to(dev)
+                           for a in shard_tree(static, lo, hi))
+    return trees[key]
 
 
 def _same(reduce, values: list, device, what: str) -> None:
@@ -102,8 +122,9 @@ def render_wavefront_prim_sharded(scene: SceneData, camera, width: int,
     """Wavefront forward with samples over ``data`` and leaf blocks over
     ``prim``; the (H, W, 3) radiance sum over ``spp``, on every rank.
 
-    Runs K5, K6, K8 and K7 (``blocked_in_res``) on the scene's device (the
-    plain versions for a scene on the CPU), the wavefront's loop and sort
+    Runs K5, K6 (its tree mode on the shard's tree), K8 and K7
+    (``blocked_in_res``) on the scene's device (the plain versions for a
+    scene on the CPU), the wavefront's loop and sort
     policy (``sort_min_rays``, the tiered prefix sorts, chunks of
     ``chunk_rays``).  ``stats``, if given, gets ``"tie_pixels"`` (the pixel
     ids of the lanes whose nearest hits on two or more prim ranks lay at the
@@ -117,6 +138,8 @@ def render_wavefront_prim_sharded(scene: SceneData, camera, width: int,
     local, nb_local = _local_blocks(
         t["prims"].reshape(-1, _N_PRIM_ATTRS, block), mesh.prim,
         mesh.prim_idx)
+    lo = nb_local * mesh.prim_idx
+    tree = _shard_tree(t, static, lo, lo + local.shape[0])
     if dof is None:
         dof = bool(float(_np(camera.aperture)) > 0.0)
     env = scene.env_map if scene.sky_mode == SKY_ENVMAP else None
@@ -137,7 +160,8 @@ def render_wavefront_prim_sharded(scene: SceneData, camera, width: int,
         n = min(chunk_spp, spp_rank - s)
         meta = torch.tensor([base + s, seed, static["n_light_slots"]],
                             dtype=torch.int32).to(scene.device)
-        part = _chunk(t, static, local, nb_local, env, meta, mesh, reduce,
+        part = _chunk(t, static, local, tree, nb_local, env, meta, mesh,
+                      reduce,
                       stats, width=width, height=height, chunk_spp=n,
                       max_bounces=max_bounces, rr_depth=rr_depth,
                       use_nee=bool(use_nee), use_mis=bool(use_mis),
@@ -148,7 +172,7 @@ def render_wavefront_prim_sharded(scene: SceneData, camera, width: int,
     return all_reduce(img, dist.ReduceOp.SUM, mesh.data_group, mesh.backend)
 
 
-def _chunk(t: dict, static: dict, local, nb_local: int, env, meta,
+def _chunk(t: dict, static: dict, local, tree, nb_local: int, env, meta,
            mesh: RenderMesh, reduce, stats: dict | None, *, width: int,
            height: int, chunk_spp: int, max_bounces: int, rr_depth: int,
            use_nee: bool, use_mis: bool, sky_mode: int, dof: bool,
@@ -165,10 +189,10 @@ def _chunk(t: dict, static: dict, local, nb_local: int, env, meta,
     buf = wf._stream_buffer(st, ids)
     n_tiles = st.shape[1] // wf.TILE - 1
     lo, ext = wf._scene_sort_bounds(t["nodef"])
-    lob, hib = wf._leaf_block_bounds(local)
-    nl = int(_np(meta[2]))
-    seed = int(_np(meta[1])) & rng.MASK32
     shadows = use_nee and n_light_slots > 0
+    kw = dict(block=block, n_mats=n_mats, n_light_slots=n_light_slots,
+              rr_depth=rr_depth, use_nee=use_nee, use_mis=use_mis,
+              sky_mode=sky_mode)
     none_i = torch.zeros((1, 1, 1), dtype=torch.int32, device=dev)
     none_f = torch.zeros((1, 1, 1), dtype=torch.float32, device=dev)
     nalive = n_tiles
@@ -182,27 +206,16 @@ def _chunk(t: dict, static: dict, local, nb_local: int, env, meta,
             break
         n = nalive * wf.TILE
         head = st[:, :n]
-        cand, ctn = wf.precull_tiles(
-            tuple(head[c] for c in (wf.C_OX, wf.C_OY, wf.C_OZ)),
-            tuple(head[c] for c in (wf.C_DX, wf.C_DY, wf.C_DZ)),
-            head[wf.C_ALIVE], None, lob, hib)
-        res = wf.isect(local, cand, ctn, st, n, block=block)
+        res = wf.isect(local, None, None, st, n, block=block, tree=tree)
         res_m = _merge_winners(head, res, nb_local, pidx, reduce, stats,
                                ids[0, :n])
         if shadows:
-            so3, sd3, stmax, sneed = wf.shadow_rays(
-                head, ids[:, :n], res_m, blob, lsb, nl, k=k, seed=seed,
-                n_mats=n_mats, mtypes=static["mtypes"],
-                n_light_slots=n_light_slots)
-            scand, sctn = wf.precull_tiles(so3, sd3, sneed, stmax, lob, hib)
-            sray = torch.stack([*so3, *sd3, stmax, sneed])
-            blocked = wf.anyhit(local, scand, sctn, sray, n, block=block)
+            blocked = wf.shadow_verdicts(blob, meta, lsb, local, t["mtypes"],
+                                         st, ids, res_m, n, tree=tree, k=k,
+                                         **kw)
             res_m[7] = reduce(blocked, dist.ReduceOp.MAX)
         wf.shade(blob, meta, lsb, local, t["mtypes"], none_i, none_f, st, ids,
-                 res_m, n, k=k, block=block, n_mats=n_mats,
-                 n_light_slots=n_light_slots, rr_depth=rr_depth,
-                 use_nee=use_nee, use_mis=use_mis, sky_mode=sky_mode,
-                 blocked_in_res=True)
+                 res_m, n, k=k, blocked_in_res=True, **kw)
         if sky_mode == SKY_ENVMAP:
             wf._add_env_radiance(head, env)
         if stats is not None:

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Where the split wavefront's time goes: K6 and K7/K9 in their forms, and
-the list-building glue, at every bounce of one config-5 chunk.
+the list-building glue, at every bounce of one config-5 chunk; with
+``--prim``, the same for the prim-sharded wavefront's K6 and K8.
 
     python3 spt_tpu_torch/tools/wf_ablate.py [--reps N] [--only TAG ...]
+    python3 spt_tpu_torch/tools/wf_ablate.py --prim [--reps N] [--only ...]
 
 Runs one chunk of BASELINE config 5 (``chip_smoke.scene_10k``: 10,000
 spheres, 466 leaf blocks of 32; 1920x1080 x 2 spp, the wavefront's chunk
@@ -33,11 +35,25 @@ the same inputs, it times (CUDA events, the least of ``--reps``):
 It checks that ``k6_walk_smem`` equals ``k6_walk`` bit for bit, and counts
 the lanes where the walk and the list routes part: K6's winners (each
 differing lane an exact tie in t or a padding winner), and K7's state and
-K9's verdicts.  Prints the card, then one JSON line per build (registers,
-stack, spills from ``-Xptxas -v``, blocks an SM by the occupancy
-calculator), one per sky and bounce, and one with the sums over the
-bounces.  Needs one CUDA card and nvcc; builds go to
-spt_tpu_torch/_build/.
+K9's verdicts.
+
+With ``--prim`` it runs the same chunk on one process as the prim-sharded
+render runs it, at prim=1 (the whole leaf table, the packed tree) and on
+each prim=2 shard's range of the table (``shard_tree``'s tree), the
+merged winner being K6's walk of the whole tree (the prim merge's but at
+cross-shard ties), the stream advanced by K7's walk form.  At every
+bounce, for each of the three parts, it times: ``precull`` (the part's
+lists for K6l), ``k6_lists`` (K6l), ``k6_walk`` (K6 on the part's tree),
+``shadow_rays`` (the glue's shadow rays from the merged winner, alone),
+``shadow_precull`` (their lists), ``k8_lists`` (K8l on them) and
+``k8_walk`` (K8, which traces its own shadow rays), and K8 in the
+``k8_lb_b`` builds (built for b blocks an SM); it counts the lanes where
+K6's walk parts from K6l and the verdicts where K8 parts from K8l.
+
+Prints the card, then one JSON line per build (registers, stack, spills
+from ``-Xptxas -v``, blocks an SM by the occupancy calculator), one per
+sky and bounce, and one with the sums over the bounces.  Needs one CUDA
+card and nvcc; builds go to spt_tpu_torch/_build/.
 """
 
 from __future__ import annotations
@@ -55,6 +71,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 
 _SHADE_BLOCKS = "constexpr int kShadeMinBlocks = 4;"
+_VERDICT_BLOCKS = "constexpr int kVerdictMinBlocks = 4;"
 _ISECT = "__global__ void __launch_bounds__(kThreadsWf) isect_kernel("
 _ISECT_LAUNCH = """  else
     spt::isect_kernel<false><<<spt::blocks_for(n_lanes), spt::kThreadsWf, 0,
@@ -169,6 +186,12 @@ def _shade_bounds(blocks: int):
              _SHADE_BLOCKS.replace("4", str(blocks)))]
 
 
+def _verdict_bounds(blocks: int):
+    """K8 built for ``blocks`` blocks an SM (1: no bound)."""
+    return [("wavefront.cu", _VERDICT_BLOCKS,
+             _VERDICT_BLOCKS.replace("4", str(blocks)))]
+
+
 def _isect_bounds(blocks: int):
     """K6 built for ``blocks`` blocks an SM (as built: no bound)."""
     return [("wavefront.cu", _ISECT, _ISECT.replace(
@@ -191,6 +214,7 @@ VARIANTS = {
          "isect_tree_smem_kernel);")],
     **{f"k7_lb_{b}": _shade_bounds(b) for b in (1, 2, 3)},
     **{f"k6_lb_{b}": _isect_bounds(b) for b in (6, 8)},
+    **{f"k8_lb_{b}": _verdict_bounds(b) for b in (1, 2, 3)},
     # K7 without a bound and without its list sweep, or without its walk
     # (a time probe: its shadow rays then see nothing): which branch sets
     # the registers the compiler takes alone
@@ -220,9 +244,11 @@ def ptxas(lines, kernel):
 
 # The kernels reported per build: ptxas name, occupancy index.
 KERNELS = {"k6": ("isect_kernelILb0", 0),
-           "k7": ("shade_kernelILb0ELb0E", 1),
-           "k11": ("bounce_kernelILb0", 2), "k8": ("anyhit_kernel", 3),
-           "k10": ("bounce_bwd_kernel", 4)}
+           "k7": ("shade_kernelILb0ELb0ELb1E", 1),
+           "k11": ("bounce_kernelILb0", 2), "k8l": ("anyhit_kernel", 3),
+           "k10": ("bounce_bwd_kernel", 4),
+           "k8": ("shade_kernelILb0ELb0ELb0E", 5),
+           "k7b": ("shade_kernelILb0ELb1E", 6)}
 
 
 def main() -> int:
@@ -230,6 +256,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--only", nargs="*", default=None,
                     help="build and time only these variants")
+    ap.add_argument("--prim", action="store_true",
+                    help="time the prim-sharded path's K6 and K8")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -248,8 +276,8 @@ def main() -> int:
                           text=True, timeout=60).stdout.strip()
     print(card, flush=True)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tags = [t for t in VARIANTS if not args.only or t in args.only
-            or t == "default"]
+    tags = [t for t in VARIANTS if t == "default" or (
+        t in args.only if args.only else t.startswith("k8_") == args.prim)]
 
     def build(tag):
         src = _build.BUILD_DIR / f"wf_{tag}"
@@ -291,7 +319,8 @@ def main() -> int:
                             blocks_per_sm=lib.spt_wavefront_blocks_per_sm(
                                 which, smem))
         print(json.dumps(row), flush=True)
-    run_bounces(builds, dev, card, args.reps)
+    (run_prim_bounces if args.prim else run_bounces)(builds, dev, card,
+                                                      args.reps)
     print(json.dumps(dict(seconds=time.perf_counter() - t_all)), flush=True)
     return 0
 
@@ -442,6 +471,132 @@ def run_bounces(builds: dict, dev, card: str, reps: int) -> None:
                 totals[sky][key] += v
             print(json.dumps(dict(row, card=card, ms=ms)), flush=True)
             del cand, ctn, scand, sctn, res_l, res_w, base, outs
+        del st, ids, buf
+        torch.cuda.empty_cache()
+    print(json.dumps(dict(phase="sums_over_bounces", card=card,
+                          chunk=f"{cs.BIG_W}x{cs.BIG_H} x 2 spp",
+                          ms=totals)), flush=True)
+
+
+def run_prim_bounces(builds: dict, dev, card: str, reps: int) -> None:
+    """The per-bounce timings of the prim-sharded path's kernels and glue
+    (the module's docstring, ``--prim``), each of ``builds`` loaded in its
+    turn.  Prints a line a sky and bounce and the sums."""
+    import torch
+    import chip_smoke as cs
+    import spt_tpu_torch as T
+    from spt_tpu_torch.kernels import _build, megakernel_bvh as mb
+    from spt_tpu_torch.kernels import wavefront as wf
+    from spt_tpu_torch.parallel.wavefront_prim import _shard_tree
+
+    sd10 = cs.scene_10k(T).compile(device=dev)
+    scene_env = cs.scene_10k(T)
+    scene_env.set_environment_map(cs.env_gradient())
+    sd_env = scene_env.compile(device=dev)
+    cam = T.Camera.look_at(device=dev, **cs.CAM_10K)
+    t, stc, meta = cs.wf_inputs(torch, wf, mb, sd10, cam, cs.BIG_SEED)
+
+    def use(tag):
+        _build._LOADED["wavefront"] = builds[tag][0]
+
+    def timed(fn):
+        best, out = None, None
+        for _ in range(reps):
+            out, ms = cs.cuda_ms(torch, fn)
+            best = ms if best is None else min(best, ms)
+        return out, best
+
+    block, prims = stc["block"], t["prims"].reshape(-1, 5, stc["block"])
+    nb = prims.shape[0]
+    half = -(-nb // 2)
+    parts = {}
+    for part, (lo, hi) in (("prim1", (0, nb)), ("prim2_shard0", (0, half)),
+                           ("prim2_shard1", (half, nb))):
+        local = prims[lo:hi].contiguous()
+        parts[part] = (local, _shard_tree(t, stc, lo, hi),
+                       wf._leaf_block_bounds(local))
+    tree = parts["prim1"][1]
+    nls = stc["n_light_slots"]
+    lo, ext = wf._scene_sort_bounds(t["nodef"])
+    totals = {}
+    for sky, sd in (("gradient", sd10), ("envmap", sd_env)):
+        env = sd.env_map.to(dev) if sky == "envmap" else None
+        use("default")
+        st, ids = wf.raygen(t["blob"], meta, width=cs.BIG_W,
+                            height=cs.BIG_H, chunk_spp=2, dof=False)
+        buf = wf._stream_buffer(st, ids)
+        n_tiles = st.shape[1] // wf.TILE - 1
+        nalive = n_tiles
+        kw = dict(block=block, n_mats=stc["n_mats"], n_light_slots=nls,
+                  rr_depth=cs.RR, use_nee=True, use_mis=True,
+                  sky_mode=sd.sky_mode)
+        args8 = (t["blob"], meta, t["lsb"])
+        for k in range(cs.DEPTH):
+            use("default")
+            lanes = wf._sort_span(k, nalive, n_tiles, 1 << 17, True)
+            if lanes is not None:
+                nalive = wf._sort_rays(buf, lanes, lo, ext)
+            if nalive == 0:
+                break
+            n = nalive * wf.TILE
+            head = st[:, :n]
+            res_m = wf.isect(t["prims"], None, None, st, n, block=block,
+                             tree=tree)
+            row = dict(sky=sky, bounce=k, lanes=n,
+                       alive=int((head[wf.C_ALIVE] > 0.5).sum()))
+            for part, (local, ptree, (lob, hib)) in parts.items():
+                ms = {}
+                rays = (tuple(head[c] for c in range(3)),
+                        tuple(head[c] for c in range(3, 6)),
+                        head[wf.C_ALIVE], None, lob, hib)
+                (cand, ctn), ms["precull"] = timed(
+                    lambda: wf.precull_tiles(*rays))
+                res_l, ms["k6_lists"] = timed(
+                    lambda: wf.isect(local, cand, ctn, st, n, block=block))
+                res_w, ms["k6_walk"] = timed(
+                    lambda: wf.isect(local, None, None, st, n, block=block,
+                                     tree=ptree))
+                (so3, sd3, stmax, sneed), ms["shadow_rays"] = timed(
+                    lambda: wf.shadow_rays(
+                        head, ids[:, :n], res_m, t["blob"], t["lsb"], nls,
+                        k=k, seed=cs.BIG_SEED, n_mats=stc["n_mats"],
+                        mtypes=stc["mtypes"], n_light_slots=nls))
+                (scand, sctn), ms["shadow_precull"] = timed(
+                    lambda: wf.precull_tiles(so3, sd3, sneed, stmax, lob,
+                                             hib))
+                sray = torch.stack([*so3, *sd3, stmax, sneed])
+                v_l, ms["k8_lists"] = timed(
+                    lambda: wf.anyhit(local, scand, sctn, sray, n,
+                                      block=block))
+                v_w, ms["k8_walk"] = timed(
+                    lambda: wf.shadow_verdicts(*args8, local, t["mtypes"],
+                                               st, ids, res_m, n, tree=ptree,
+                                               k=k, **kw))
+                out = dict(ms=ms, k6_differ_from_lists=cs.route_differ(
+                    torch, wf, head, res_w, res_l),
+                    k8_differ_from_lists=int((v_w != v_l).sum()),
+                    shadow_rays=int((sneed > 0.5).sum()))
+                for tag in builds:
+                    if tag.startswith("k8_"):
+                        use(tag)
+                        v_b, ms[f"k8_walk_{tag[3:]}"] = timed(
+                            lambda: wf.shadow_verdicts(
+                                *args8, local, t["mtypes"], st, ids, res_m,
+                                n, tree=ptree, k=k, **kw))
+                        out[f"{tag}_differ"] = int((v_b != v_w).sum())
+                        use("default")
+                row[part] = out
+                for key, v in ms.items():
+                    acc = totals.setdefault(sky, {}).setdefault(part, {})
+                    acc[key] = acc.get(key, 0.0) + v
+                del cand, ctn, res_l, res_w, scand, sctn, sray, v_l, v_w
+            # Advance the stream as render_wavefront does (and as the prim
+            # render does, but at cross-shard ties).
+            wf.shade(t["blob"], meta, t["lsb"], t["prims"], t["mtypes"], None,
+                     None, st, ids, res_m, n, k=k, tree=tree, **kw)
+            if env is not None:
+                wf._add_env_radiance(head, env)
+            print(json.dumps(dict(row, card=card)), flush=True)
         del st, ids, buf
         torch.cuda.empty_cache()
     print(json.dumps(dict(phase="sums_over_bounces", card=card,

@@ -430,6 +430,7 @@ def _grad_bounce(cuda, case="scene200"):
         wf, sd, t, stc, meta = _wf_case(cuda)
         k = 1
     b = wf_bounce(torch, wf, t, stc, meta, 96, 64, k, 3)
+    b["static"] = stc
     kw = dict(k=k, block=stc["block"], n_mats=stc["n_mats"],
               n_light_slots=stc["n_light_slots"], rr_depth=1, use_nee=True,
               use_mis=True, sky_mode=sd.sky_mode)
@@ -457,12 +458,55 @@ def test_k9_matches_k7_and_plain(cuda):
     assert np.isclose(got, want, rtol=RTOL, atol=ATOL).mean() >= MIN_CLOSE
 
 
+def _shard_ranges(nb):
+    """The whole leaf table and the two prim=2 shards' ranges of it."""
+    half = -(-nb // 2)
+    return ((0, nb), (0, half), (half, nb))
+
+
 @pytest.mark.parametrize("case", ["scene200", "padding"])
 def test_k8_matches_plain(cuda, case):
-    """K8's verdicts equal its plain version's on every lane, on the whole
-    leaf table and on each half of it (the shards of a prim=2 render, each
-    with its own lists); the halves' MAX equals the whole's, and that
-    K9's recorded verdict."""
+    """K8 (the bounce on the winner, each shadow ray walking a shard's
+    tree, the verdict kept) equals its plain version on every lane, on
+    the whole tree and on each prim=2 shard's tree; the shards' MAX
+    equals the whole's, and that K9's recorded verdict; the stream is
+    left as it was; and K6's tree mode on each shard's tree equals its
+    plain walk."""
+    from spt_tpu_torch.kernels import wavefront_grad as wg
+    from spt_tpu_torch.parallel.wavefront_prim import _shard_tree
+    wf, t, meta, b, kw, args = _grad_bounce(cuda, case)
+    st, ids, n, res = b["st"], b["ids"], b["n"], b["res_t"]
+    block = kw["block"]
+    prims = t["prims"].reshape(-1, 5, block)
+    before_buf = b["buf"].clone()
+    verdicts = []
+    for lo, hi in _shard_ranges(prims.shape[0]):
+        local = prims[lo:hi].contiguous()
+        tree = _shard_tree(t, b["static"], lo, hi)
+        before = dict(mk.LAUNCHES)
+        res_s = wf.isect(local, None, None, st, n, block=block, tree=tree)
+        got = wf.shadow_verdicts(*args[:3], local, args[4], st, ids, res, n,
+                                 tree=tree, **kw)
+        assert mk.LAUNCHES == dict(before, k6=before["k6"] + 1,
+                                   k8=before["k8"] + 1)
+        assert torch.equal(res_s, wf.isect_plain(local, None, None, st, n,
+                                                 block=block, tree=tree))
+        assert torch.equal(got, wf.shadow_verdicts_plain(
+            *args[:3], local, args[4], st, ids, res, n, tree=tree, **kw))
+        verdicts.append(got)
+    assert torch.equal(b["buf"], before_buf)
+    whole, a, c = verdicts
+    assert torch.equal(torch.maximum(a, c), whole)
+    _, blocked = wg.shade_fwd(*args[:5], None, None, st, ids, res, n,
+                              tree=b["tree"], **kw)
+    assert torch.equal(blocked, whole) and float(whole.sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["scene200", "padding"])
+def test_k8l_matches_plain(cuda, case):
+    """K8's list form (K8l) equals its plain version on every lane, on the
+    whole leaf table and on each half of it (each with its own lists); the
+    halves' MAX equals the whole's, and that K9's recorded verdict."""
     from spt_tpu_torch.kernels import wavefront_grad as wg
     from spt_tpu_torch.parallel.wavefront_prim import _local_blocks
     wf, t, meta, b, kw, args = _grad_bounce(cuda, case)
@@ -480,7 +524,7 @@ def test_k8_matches_plain(cuda, case):
             *wf._leaf_block_bounds(part))
         before = dict(mk.LAUNCHES)
         got = wf.anyhit(part, scand, sctn, sray, n, block=block)
-        assert mk.LAUNCHES == dict(before, k8=before["k8"] + 1)
+        assert mk.LAUNCHES == dict(before, k8l=before["k8l"] + 1)
         assert torch.equal(got, wf.anyhit_plain(part, scand, sctn, sray, n,
                                                 block=block))
         verdicts.append(got)

@@ -17,14 +17,15 @@ wavefront and its gradient in this process, on the same samples.
   data=2 x prim=2 and under an environment map, every pixel that differs
   is one where a lane's nearest hits on two prim ranks lay at the same
   distance (the ranks report those lanes), and the streams were held
-  bit-identical over ``prim`` after every bounce.
+  bit-identical over ``prim`` after every bounce; no rank built lists.
 * The DP gradient (``make_wavefront_dp_render_fn``, data=2) and
   ``make_dp_grad_step`` (data=2) against one process's gradient over the
   same samples: every field within ``GRAD_REL`` relative L2.
 * Without processes: the rank grid's layout, a spp that the data axis does
-  not divide, K8's plain version against a brute-force any-hit, the halves
+  not divide, K8l's plain version against a brute-force any-hit, the halves
   of a leaf table against the whole, K7 reading a verdict against K7
-  sweeping, ``winner_t`` against brute force and the padding blocks.
+  sweeping, ``winner_t`` against brute force, the padding blocks, and each
+  prim shard's tree (``shard_tree``) against brute force over its blocks.
 """
 
 import numpy as np
@@ -139,10 +140,10 @@ def test_prim_sharded_matches_unsharded(group, label):
     n_ranks = case["data"] * case["prim"]
     assert len(rep["stream_checks"]) == n_ranks
     assert all(c == KW["max_bounces"] for c in rep["stream_checks"])
-    # Each rank: a raygen, then K6, K8 and K7 reading its verdict a bounce,
-    # over lists (a shard holds leaf blocks, not a tree).
+    # Each rank: a raygen, then K6 and K8 walking its shard's tree and K7
+    # reading the merged verdict a bounce; no lists built.
     assert rep["launches"]["plain"] == n_ranks * (1 + 3 * KW["max_bounces"])
-    assert rep["glue_calls"]["precull"] >= n_ranks * KW["max_bounces"]
+    assert not any(rep["glue_calls"].values()), rep["glue_calls"]
     differ = np.flatnonzero((got != want).any(-1))
     if case["prim"] == 1:
         np.testing.assert_array_equal(got, want)
@@ -390,3 +391,77 @@ def test_shard_scene_prims_pads_to_the_shard_count():
     assert torch.equal(out.centers[:50], sd.centers)
     assert not out.prim_valid[50:].any() and (out.radii[50:] == 0).all()
     assert S.shard_scene_prims(out, 8) is out
+
+
+def _rays_at(spheres, n, seed):
+    """A (17, n) stream of ``n`` alive rays from random points of config
+    5's cube, each aimed near a random one of ``spheres`` (m, 4)."""
+    r = np.random.default_rng(seed)
+    sph = spheres.numpy()[r.integers(0, len(spheres), n)]
+    o = r.uniform(-40, 40, (n, 3)) + [0, 0, 60]
+    d = sph[:, :3] + r.uniform(-1.5, 1.5, (n, 3)) * sph[:, 3:] - o
+    st = torch.zeros(twf.N_CH, n)
+    st[0:3] = torch.from_numpy(o.T.astype(np.float32))
+    st[3:6] = torch.from_numpy((d / np.linalg.norm(d, axis=1)[:, None])
+                               .T.astype(np.float32))
+    st[twf.C_ALIVE] = 1.0
+    return st
+
+
+@pytest.mark.parametrize("scene,prim", [("s300", 2), ("s310", 4),
+                                        ("s300", "one_leaf")])
+def test_shard_tree_matches_brute_force(scene, prim):
+    """Each prim shard's tree (``shard_tree``) against brute force over
+    its own leaf blocks, 4,096 rays: the walk's nearest distance equals
+    the least over every slot of ``local`` exactly, its winner is that
+    slot but where two slots tie; and its tables: every local leaf once in
+    each octant table, skips forward and in range, each node's box holding
+    the boxes below it and its leaves' spheres."""
+    sd = scene_10k(T, n=int(scene[1:])).compile(device=CPU)
+    t, stc = twf.packed(sd, _camera(), BLOCK)
+    prims = t["prims"].reshape(-1, 5, BLOCK)
+    nb = prims.shape[0]
+    if prim == "one_leaf":
+        ranges = [(nb // 2, nb // 2 + 1)]
+    else:
+        s = -(-nb // prim)
+        ranges = [(s * i, min(nb, s * (i + 1))) for i in range(prim)]
+        assert [wp._local_blocks(prims, prim, i)[0].shape[0]
+                for i in range(prim)] == [hi - lo for lo, hi in ranges]
+    n = 4 * twf.TILE
+    for lo, hi in ranges:
+        local = prims[lo:hi].contiguous()
+        filled = local.transpose(1, 2).reshape(-1, 5)
+        st = _rays_at(filled[filled[:, 4] >= 0, :4], n, lo)
+        o, d = tuple(st[0:3]), tuple(st[3:6])
+        nodef, nodei = wp._shard_tree(t, stc, lo, hi)
+        m = nodef.shape[0] // 8
+        assert m == 2 * (hi - lo) - 1
+        walk = twf._tree_walk((nodef, nodei), local, BLOCK)
+        t_w, win, _, _ = walk.nearest(o, d, torch.ones(n, dtype=torch.bool))
+        tj, ok = tmb._leaf_t(local.reshape(1, -1, 5, BLOCK).transpose(
+            1, 2).reshape(1, 5, -1).expand(n, 5, -1), *o, *d)
+        tj = torch.where(ok, tj, twf.BIG)
+        t_bf, j_bf = tj.min(dim=1)
+        assert torch.equal(t_w, t_bf)
+        hit = t_bf < twf.BIG
+        assert 0.05 < float(hit.float().mean()) < 0.95
+        tie = (tj == t_bf[:, None]).sum(dim=1) > 1
+        assert torch.equal(win[hit & ~tie], j_bf[hit & ~tie])
+        f = nodef.reshape(8, m, 8)
+        i = nodei.reshape(8, m, 8).long()
+        for table in range(8):
+            blk, skip = i[table, :, 1], i[table, :, 0]
+            assert sorted(blk[blk >= 0].tolist()) == list(range(hi - lo))
+            assert bool(((skip > torch.arange(m)) & (skip <= m)).all())
+            for row in range(m):
+                below = f[table, row + 1:int(skip[row])]
+                box = f[table, row]
+                assert bool((below[:, :3] >= box[:3]).all()
+                            and (below[:, 3:6] <= box[3:6]).all())
+                if blk[row] >= 0:
+                    pr = local[int(blk[row])]
+                    fill = pr[4] >= 0
+                    c, r = pr[:3, fill], pr[3, fill]
+                    assert bool(((c - r).T >= box[:3]).all()
+                                and ((c + r).T <= box[3:6]).all())

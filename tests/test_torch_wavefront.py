@@ -19,6 +19,9 @@
   (its tree mode, the split path's); the walk and the lists part only at
   exact t-ties and padding winners; what the sweeps read of the lists (the
   kernels' byte counts) equals a walk of each lane on its own.
+* K8's plain version (the bounce's shadow verdicts, each ray walking a
+  tree) equals the glue's shadow rays walked by ``_Walk.anyhit``, on the
+  whole tree and on each prim=2 shard's.
 * The plain wavefront against the plain K3 at the JAX suite's bar (97% of
   pixels ``isclose(rtol=2e-3, atol=2e-4)``, means within 1%); and, as
   tests/test_wavefront.py pins JAX's, exactly invariant to the sort, to
@@ -315,6 +318,52 @@ def test_isect_walk_matches_lists(case):
         assert padding > 0
     else:
         assert route["lanes"] == 0 and padding == 0
+
+
+@pytest.mark.parametrize("k", [0, 1])
+def test_shadow_verdicts_match_glue_and_walk(k):
+    """K8's plain version (the bounce on K6's winner, each shadow ray
+    walking the tree, the verdict kept) against the route it replaces on
+    the prim path: the shadow rays rebuilt by the glue (``shadow_rays``)
+    and walked by ``_Walk.anyhit``, on bounces 0 and 1 of the 300-sphere
+    scene (16x16 x 2 spp, leaf block 32): equal on every lane, on the
+    whole tree and on each prim=2 shard's tree, whose MAX is the whole's;
+    the stream is left as it was."""
+    from spt_tpu_torch.parallel import wavefront_prim as wp
+    from chip_smoke import RR, wf_advance
+    sd = scene_10k(spt_tpu_torch, n=300).compile(device=CPU)
+    cam = spt_tpu_torch.Camera.look_at(device=CPU, **CAM_10K)
+    t, stc, meta = wf_inputs(torch, twf, twf, sd, cam, 5)
+    b = wf_bounce(torch, twf, t, stc, meta, 16, 16, 0, 5)
+    if k:
+        b = wf_advance(torch, twf, t, stc, meta, b, 0, 5, sd.sky_mode)
+    n, st, ids, res = b["n"], b["st"], b["ids"], b["res_t"]
+    block, nls = stc["block"], stc["n_light_slots"]
+    prims = t["prims"].reshape(-1, 5, block)
+    so3, sd3, stmax, sneed = twf.shadow_rays(
+        st[:, :n], ids[:, :n], res, t["blob"], t["lsb"], nls, k=k, seed=5,
+        n_mats=stc["n_mats"], mtypes=stc["mtypes"], n_light_slots=nls)
+    kw = dict(k=k, block=block, n_mats=stc["n_mats"], n_light_slots=nls,
+              rr_depth=RR, use_nee=True, use_mis=True, sky_mode=sd.sky_mode)
+    before = b["buf"].clone()
+    got = []
+    nb = prims.shape[0]
+    half = -(-nb // 2)
+    for lo, hi in ((0, nb), (0, half), (half, nb)):
+        local = prims[lo:hi].contiguous()
+        tree = wp._shard_tree(t, stc, lo, hi)
+        want = twf._tree_walk(tree, local, block).anyhit(
+            so3, sd3, stmax, sneed > 0.5)[0]
+        plain = tmega.LAUNCHES["plain"]
+        v = twf.shadow_verdicts(t["blob"], meta, t["lsb"], local,
+                                t["mtypes"], st, ids, res, n, tree=tree, **kw)
+        assert tmega.LAUNCHES["plain"] == plain + 1
+        assert torch.equal(v, want.to(torch.float32))
+        got.append(v)
+    assert torch.equal(b["buf"], before)
+    whole, a, c = got
+    assert 0 < float(whole.sum()) < float(sneed.sum())
+    assert torch.equal(torch.maximum(a, c), whole)
 
 
 def test_sweep_list_reads_match_per_lane_walk():
