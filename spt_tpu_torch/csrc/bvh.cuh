@@ -193,13 +193,19 @@ struct BvhWalk {
 
 using BvhGeometry = BvhWalk<false>;
 
-// One bounce, called rather than inlined into the sample loop.  Inlined,
-// the optimizing back end (ptxas at -O1 and above, and the driver's own
+// One bounce, called rather than inlined into the sample loop: K4's
+// (megakernel_bvh_grad.cu).  In K3's one-thread-a-pixel loop, inlined, the
+// optimizing back end (ptxas at -O1 and above, and the driver's own
 // compile of the PTX) gave images that part from the plain version's on 16
-// of 2,073,600 pixels at config 5 (NEE shadow decisions only; the PTX is
-// all round-to-nearest operations); built at -O0, or with this call, K3
-// equals the plain version on every pixel.  The cause is not known;
-// spt_tpu_torch/tools/k3_build_bits.py measures both forms.
+// of 2,073,600 pixels at config 5, 1 spp (NEE shadow decisions only; the
+// PTX is all round-to-nearest operations); built at -O0, or with this
+// call, K3 equalled the plain version on every pixel at 1 spp, but with
+// this call it parted on 998 pixels at 4 spp.  K3 now runs its
+// bounce inlined in its regenerating loop (megakernel_bvh.cu), where this
+// call hung at config 5.  The causes are not known (PERF.md).  K4's image
+// with this call equals K3's, and K3's the plain version's, on every value
+// at the gradient path's launch (2,000 spheres, 1080p x 4 spp), which
+// chip_smoke.py checks.
 template <bool kRecord>
 __device__ __noinline__ void bvh_bounce(const SceneView& sc,
                                         const BvhWalk<kRecord>& geo, Path& p,

@@ -30,10 +30,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRIES = {
     "megakernel": {
-        # out, blob, meta, lsb, width, height, spp, n_prims, n_light_slots,
-        # max_bounces, rr_depth, use_nee, use_mis, sky_mode, dof,
-        # inv_w, inv_h, aspect, stream
-        "spt_megakernel_fwd": [_P, _P, _P, _P] + [_I] * 11 + [_F, _F, _F, _P],
+        # out, blob, meta, lsb, next (scratch), counts (null: not counting),
+        # width, height, spp, n_prims, n_light_slots, max_bounces, rr_depth,
+        # use_nee, use_mis, sky_mode, dof, max_blocks, inv_w, inv_h, aspect,
+        # stream
+        "spt_megakernel_fwd": [_P] * 6 + [_I] * 12 + [_F, _F, _F, _P],
+        # n_prims, n_light_slots -> blocks an SM
+        "spt_megakernel_fwd_blocks_per_sm": [_I, _I],
+        "spt_megakernel_fwd_threads": [],
         # out, pixel, sample, dim, seed, n, stream
         "spt_counter_bits": [_P, _P, _P, _P, _P, _I, _P],
     },
@@ -50,10 +54,14 @@ ENTRIES = {
         "spt_megakernel_grad_blocks_per_sm": [_I, _I],
     },
     "megakernel_bvh": {
-        # out, blob, meta, lsb, nodef, nodei, prims, mtypes, width, height,
-        # spp, n_nodes, block, n_mats, n_light_slots, max_bounces, rr_depth,
-        # use_nee, use_mis, sky_mode, dof, inv_w, inv_h, aspect, stream
-        "spt_megakernel_bvh_fwd": [_P] * 8 + [_I] * 13 + [_F, _F, _F, _P],
+        # out, blob, meta, lsb, nodef, nodei, prims, mtypes, next (scratch),
+        # counts (null: not counting), width, height, spp, n_nodes, block,
+        # n_mats, n_light_slots, max_bounces, rr_depth, use_nee, use_mis,
+        # sky_mode, dof, max_blocks, inv_w, inv_h, aspect, stream
+        "spt_megakernel_bvh_fwd": [_P] * 10 + [_I] * 14 + [_F, _F, _F, _P],
+        # n_mats, n_light_slots -> blocks an SM
+        "spt_megakernel_bvh_fwd_blocks_per_sm": [_I, _I],
+        "spt_megakernel_bvh_fwd_threads": [],
     },
     "wavefront": {
         # st, ids, blob, meta, width, height, tiles_x, tiles_per_img,

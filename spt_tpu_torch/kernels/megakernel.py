@@ -17,6 +17,13 @@ order s = 0 … spp-1.
 * ``render_tiles`` packs a scene and camera and calls the wrapper; it is
   what the engine calls.  ``pack_blob_torch`` packs the blob with tensor
   ops, for gradients with respect to the scene.
+* The kernel is persistent and regenerates paths (``csrc/regen.cuh``).
+  ``launch`` makes one launch from a given library (the tools build other
+  sources), ``launch_config`` says its grid (asked once, as is the batch
+  counter), ``lane_counts`` counts how busy K1 or K3 keeps its lanes (its
+  counting instantiation), and
+  ``lanes_busy`` estimates that share for one thread a pixel from the
+  plain version's path lengths.
 
 ``LAUNCHES`` counts K1 launches (``"k1"``), K2 launches (``"k2"``, see
 ``megakernel_grad``), K3 launches (``"k3"``, see ``megakernel_bvh``), K4
@@ -251,7 +258,9 @@ def render_samples_plain(blob: torch.Tensor, meta: torch.Tensor,
     (lists of ints): ``"active"`` rays traced, ``"hit"`` rays that hit,
     ``"shadow"`` shadow rays K1 traces (NEE on a non-dielectric hit) and
     ``"lit"`` lanes whose light sample arrives; and ``"paths"``, the number
-    of camera paths.  The counts are summed on the tensors' device."""
+    of camera paths; and ``"lengths"``, the bounces each path ran, a
+    (samples, H, W) uint8 tensor (``lanes_busy`` reads it).  The counts are
+    summed on the tensors' device."""
     LAUNCHES["plain"] += 1
     sc = PlainScene(blob, meta, lsb, n_prims, n_light_slots)
     return render_paths_plain(
@@ -276,8 +285,10 @@ def render_paths_plain(blob: torch.Tensor, sc: PlainScene, samples, *,
     acc = torch.zeros(3, n_pix, dtype=torch.float32, device=blob.device)
     counts = None if stats is None else torch.zeros(
         max_bounces, 4, dtype=torch.int64, device=blob.device)
+    lengths = None if stats is None else torch.zeros(
+        len(samples), n_pix, dtype=torch.uint8, device=blob.device)
     nee = use_nee and n_light_slots > 0 and sc.nl > 0
-    for s in samples:
+    for i, s in enumerate(samples):
         sample = int(s) & rng.MASK32
         pid, state, aux = camera_paths(blob, sample, width=width,
                                        height=height, seed=sc.seed, dof=dof)
@@ -292,6 +303,7 @@ def render_paths_plain(blob: torch.Tensor, sc: PlainScene, samples, *,
                 sc.theta, state, aux, sc.uniforms(pid, sample, k), sc.nl,
                 cfg, *plug)
             if counts is not None:
+                lengths[i] += active
                 zero = torch.zeros_like(tape.hit)
                 counts[k] += torch.stack([
                     active, tape.hit, tape.hit & ~tape.m_die if nee else zero,
@@ -304,6 +316,7 @@ def render_paths_plain(blob: torch.Tensor, sc: PlainScene, samples, *,
                              counts.T.tolist()):
             stats[name] = row
         stats["paths"] = n_pix * len(samples)
+        stats["lengths"] = lengths.reshape(len(samples), height, width)
     return acc.T.reshape(height, width, 3)
 
 
@@ -345,6 +358,37 @@ def k1_op_count(stats: dict, n_prims: int) -> int:
             + shadow * (K1_OPS["shadow"] + n_prims * K1_OPS["sphere_test"]))
 
 
+def lanes_busy(lengths: torch.Tensor, tile=None) -> dict:
+    """How busy a warp's lanes keep when a warp runs its 32 lanes' paths of
+    one sample together and waits for the longest, as K1 and K3 did before
+    path regeneration: the lane-iterations that run a bounce (``busy``)
+    against the 32 lanes times the iterations the warps run
+    (``lane_slots``), and their ratio (``share``).
+
+    ``lengths`` (samples, H, W): the bounces each path ran (the plain
+    version's ``stats["lengths"]``).  ``tile=None`` groups 32 consecutive
+    pixel ids into a warp (K1: a thread a pixel); ``tile=(8, 4)`` an 8x4
+    pixel tile (K3).  Lanes past the image's edge are idle lanes of their
+    warp."""
+    n_s, h, w = lengths.shape
+    runs = lengths.to(torch.int64)
+    if tile is None:
+        flat = runs.reshape(n_s, h * w)
+        warps = torch.nn.functional.pad(flat, (0, -(h * w) % 32)).reshape(
+            n_s, -1, 32)
+    else:
+        tw, th = tile
+        if tw * th != 32:
+            raise ValueError(f"a tile of {tw}x{th} is not a warp of 32")
+        g = torch.nn.functional.pad(runs, (0, -w % tw, 0, -h % th))
+        warps = g.reshape(n_s, g.shape[1] // th, th, g.shape[2] // tw,
+                          tw).permute(0, 1, 3, 2, 4).reshape(n_s, -1, 32)
+    busy = int(runs.sum())
+    slots = 32 * int(warps.amax(-1).sum())
+    return dict(busy=busy, lane_slots=slots,
+                share=busy / slots if slots else None)
+
+
 def _check(t: torch.Tensor, name: str, dtype, numel: int) -> None:
     if t.dtype != dtype or t.numel() != numel or not t.is_contiguous():
         raise ValueError(f"{name}: want a contiguous {dtype} tensor of "
@@ -377,22 +421,114 @@ def megakernel_fwd(blob: torch.Tensor, meta: torch.Tensor, lsb: torch.Tensor,
            _META_FIXED + n_prims + max(n_light_slots, 1))
     _check(lsb, "lsb", torch.float32, 6)
     from ._build import load_library
-    lib = load_library()
-    out = torch.empty((height, width, 3), dtype=torch.float32,
-                      device=blob.device)
-    with torch.cuda.device(blob.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.spt_megakernel_fwd(
-            out.data_ptr(), blob.data_ptr(), meta.data_ptr(), lsb.data_ptr(),
-            width, height, spp, n_prims, n_light_slots, max_bounces,
-            rr_depth, int(bool(use_nee)), int(bool(use_mis)), int(sky_mode),
-            int(bool(dof)), ctypes.c_float(_f32(1.0 / width)),
-            ctypes.c_float(_f32(1.0 / height)),
-            ctypes.c_float(_f32(width / height)), stream)
-    if err != 0:
-        raise RuntimeError(f"K1 launch failed: CUDA error {err}")
+    out = launch(load_library(), blob, meta, lsb, **kw)
     LAUNCHES["k1"] += 1
     return out
+
+
+# The persistent grids, per (library, device, C entry, scene shape), and
+# the counters their launches hand pixel batches out from, per (device,
+# stream): each asked for or made once.
+_GRIDS: dict = {}
+_COUNTERS: dict = {}
+
+
+def grid_config(lib, entry: str, device, *shape: int) -> dict:
+    """A persistent kernel's grid from ``lib`` (``entry``: its C entry,
+    e.g. ``spt_megakernel_fwd``) for a scene whose shared memory the ints
+    ``shape`` size: threads a block, blocks an SM at its launch bound (the
+    occupancy calculator), SMs, and ``blocks`` = SMs x blocks an SM, the
+    most a launch runs (fewer where an image has fewer 8x4-pixel batches
+    than the grid has warps)."""
+    dev = torch.device(device)
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (lib, idx, entry, shape)
+    got = _GRIDS.get(key)
+    if got is None:
+        with torch.cuda.device(idx):
+            bps = getattr(lib, f"{entry}_blocks_per_sm")(*shape)
+        if bps <= 0:
+            raise RuntimeError(f"{entry}: no block fits an SM ({bps})")
+        sms = torch.cuda.get_device_properties(idx).multi_processor_count
+        got = _GRIDS[key] = dict(threads=getattr(lib, f"{entry}_threads")(),
+                                 blocks_per_sm=bps, sms=sms,
+                                 blocks=sms * bps)
+    return got
+
+
+def batch_counter(device) -> torch.Tensor:
+    """The uint32 scratch from which a persistent launch on ``device``'s
+    current stream hands out its pixel batches; each launch zeroes it on
+    the stream first, so launches on one stream share it."""
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    got = _COUNTERS.get(key)
+    if got is None:
+        got = _COUNTERS[key] = torch.empty(1, dtype=torch.int32,
+                                           device=device)
+    return got
+
+
+def launch(lib, blob, meta, lsb, *, width: int, height: int, spp: int,
+           n_prims: int, n_light_slots: int, max_bounces: int, rr_depth: int,
+           use_nee: bool, use_mis: bool, sky_mode: int, dof: bool,
+           counts: torch.Tensor | None = None) -> torch.Tensor:
+    """One launch of K1 from the library ``lib`` (the package's build, or a
+    tool's build of other sources) on the current stream -> (H, W, 3).
+    ``counts`` (two int64 on the card), where given, takes the counting
+    instantiation's lane slots and busy lanes (``lane_counts``)."""
+    dev = blob.device
+    out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+    grid = launch_config(lib, dev, n_prims=n_prims,
+                         n_light_slots=n_light_slots)
+    with torch.cuda.device(dev):
+        err = lib.spt_megakernel_fwd(
+            out.data_ptr(), blob.data_ptr(), meta.data_ptr(), lsb.data_ptr(),
+            batch_counter(dev).data_ptr(),
+            None if counts is None else counts.data_ptr(),
+            width, height, spp, n_prims, n_light_slots, max_bounces,
+            rr_depth, int(bool(use_nee)), int(bool(use_mis)), int(sky_mode),
+            int(bool(dof)), grid["blocks"],
+            ctypes.c_float(_f32(1.0 / width)),
+            ctypes.c_float(_f32(1.0 / height)),
+            ctypes.c_float(_f32(width / height)),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K1 launch failed: CUDA error {err}")
+    return out
+
+
+def launch_config(lib, device, *, n_prims: int, n_light_slots: int) -> dict:
+    """K1's persistent grid from ``lib`` (``grid_config``)."""
+    return grid_config(lib, "spt_megakernel_fwd", device, n_prims,
+                       n_light_slots)
+
+
+def lane_counts(kernel: str, *args, **kw) -> dict:
+    """How busy K1 (``kernel="k1"``) or K3 (``"k3"``) keeps its lanes: one
+    launch of the package's counting instantiation (the same schedule;
+    each warp adds up its iterations that run a bounce) on CUDA tensors,
+    inputs and keywords as ``megakernel_fwd``'s or ``megakernel_bvh_fwd``'s
+    -> ``lane_slots`` (32 a warp's such iteration), ``busy`` (lanes that
+    ran a bounce in them) and their ratio ``share``.  Counted in
+    ``LAUNCHES[kernel]``."""
+    from ._build import load_library
+    if kernel == "k1":
+        launch_fn, library = launch, "megakernel"
+    elif kernel == "k3":
+        from .megakernel_bvh import launch as launch_fn
+        library = "megakernel_bvh"
+    else:
+        raise ValueError(f"lane counts are K1's or K3's, not {kernel!r}")
+    if args[0].device.type != "cuda":
+        raise ValueError("the lane counts come from the kernel: they take "
+                         "CUDA tensors")
+    counts = torch.zeros(2, dtype=torch.int64, device=args[0].device)
+    launch_fn(load_library(library), *args, counts=counts, **kw)
+    LAUNCHES[kernel] += 1
+    slots, busy = counts.tolist()
+    return dict(lane_slots=slots, busy=busy,
+                share=busy / slots if slots else None)
 
 
 def counter_bits_cuda(pixel: torch.Tensor, sample: torch.Tensor,

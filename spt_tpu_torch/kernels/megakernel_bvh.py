@@ -23,6 +23,9 @@ shadow test taken by walking the tree instead of testing every sphere.
   sphere tests for the bound (``stats``).
 * ``render_tiles_bvh`` packs a scene and camera (cached by content) and
   calls the wrapper; it is what the engine calls.
+* ``launch`` and ``launch_config`` are K1's (see ``megakernel``) for K3,
+  which is persistent and regenerates paths too; ``megakernel.lane_counts``
+  counts its lanes.
 
 A winner in a padding slot (material id -1) takes K1's row for an invalid
 sphere: Lambert, black, ior 1.5, so K3 and K1 agree on it too.
@@ -43,7 +46,8 @@ from ..core.materials import DIELECTRIC, LAMBERT, METAL
 from ..core.scene import SceneData
 from . import physics
 from .megakernel import (K1_OPS, LAUNCHES, PlainScene, _SKY_OFF, _check, _f32,
-                         _np, render_paths_plain)
+                         _np, batch_counter, grid_config,
+                         render_paths_plain)
 
 BLOCK = 32       # spheres per BVH leaf block
 
@@ -620,22 +624,45 @@ def megakernel_bvh_fwd(blob: torch.Tensor, meta: torch.Tensor,
         raise ValueError("K3 reads node rows as float4 / int2: nodef must be "
                          "16-byte and nodei 8-byte aligned")
     from ._build import load_library
-    lib = load_library("megakernel_bvh")
-    out = torch.empty((height, width, 3), dtype=torch.float32,
-                      device=blob.device)
-    with torch.cuda.device(blob.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.spt_megakernel_bvh_fwd(
-            out.data_ptr(), *(a.data_ptr() for a in args), width, height,
-            spp, n_rows // 8, block, n_mats, n_light_slots,
-            max_bounces, rr_depth, int(bool(use_nee)), int(bool(use_mis)),
-            int(sky_mode), int(bool(dof)), ctypes.c_float(_f32(1.0 / width)),
-            ctypes.c_float(_f32(1.0 / height)),
-            ctypes.c_float(_f32(width / height)), stream)
-    if err != 0:
-        raise RuntimeError(f"K3 launch failed: CUDA error {err}")
+    out = launch(load_library("megakernel_bvh"), *args, **kw)
     LAUNCHES["k3"] += 1
     return out
+
+
+def launch(lib, blob, meta, lsb, nodef, nodei, prims, mtypes, *, width: int,
+           height: int, spp: int, block: int, n_mats: int,
+           n_light_slots: int, max_bounces: int, rr_depth: int,
+           use_nee: bool, use_mis: bool, sky_mode: int, dof: bool,
+           counts: torch.Tensor | None = None) -> torch.Tensor:
+    """One launch of K3 from the library ``lib`` (the package's build, or a
+    tool's build of other sources) on the current stream -> (H, W, 3).
+    ``counts`` as ``megakernel.launch``'s."""
+    dev = blob.device
+    out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+    grid = launch_config(lib, dev, n_mats=n_mats,
+                         n_light_slots=n_light_slots)
+    with torch.cuda.device(dev):
+        err = lib.spt_megakernel_bvh_fwd(
+            out.data_ptr(), *(a.data_ptr() for a in (
+                blob, meta, lsb, nodef, nodei, prims, mtypes)),
+            batch_counter(dev).data_ptr(),
+            None if counts is None else counts.data_ptr(),
+            width, height, spp, nodef.numel() // 64, block, n_mats,
+            n_light_slots, max_bounces, rr_depth, int(bool(use_nee)),
+            int(bool(use_mis)), int(sky_mode), int(bool(dof)),
+            grid["blocks"], ctypes.c_float(_f32(1.0 / width)),
+            ctypes.c_float(_f32(1.0 / height)),
+            ctypes.c_float(_f32(width / height)),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K3 launch failed: CUDA error {err}")
+    return out
+
+
+def launch_config(lib, device, *, n_mats: int, n_light_slots: int) -> dict:
+    """K3's persistent grid from ``lib`` (``megakernel.grid_config``)."""
+    return grid_config(lib, "spt_megakernel_bvh_fwd", device, n_mats,
+                       n_light_slots)
 
 
 # Packed tables by a content fingerprint of scene + camera (object ids

@@ -7,7 +7,8 @@ has neither.  There, from the repo root (the suite's conftest imports jax):
 
 Tolerance: the RNG bits are equal exactly; K1 against its plain version is
 held to chip_smoke.py's bar (99.9% of pixels isclose(rtol=2e-3,
-atol=2e-4), means within 0.1%).  K2's image equals K1's bit for bit; its
+atol=2e-4), means within 0.1%), and on ragged images, K3's too, to every
+value equal; their counting launches count the plain paths' bounces.  K2's image equals K1's bit for bit; its
 gradient and its per-lane bounce adjoint are held to chip_smoke.py's bars
 (``GRAD_REL`` / ``GRAD_ABS`` per field, ``VJP_*`` per lane).  K3 is held
 to K1's bar against its plain version, and equals K1 bit for bit on
@@ -41,8 +42,9 @@ import torch
 
 import spt_tpu_torch as T
 from chip_smoke import (ATOL, ENCLOSURE_CAM, K2_CAPACITY_CAM, MAX_MEAN_REL,
-                        MIN_CLOSE, PAD_CAM, RTOL, VJP_ATOL_REL, VJP_MIN_CLOSE,
-                        VJP_RTOL, cornell, enclosure_scene, env_gradient,
+                        MIN_CLOSE, PAD_CAM, RAGGED, RTOL, VJP_ATOL_REL,
+                        VJP_MIN_CLOSE, VJP_RTOL, cornell, enclosure_scene,
+                        env_gradient,
                         grad_errors, grad_scene, k2_capacity_scene, k3_inputs,
                         lanes_close, padding_scene, raw_fields, scene_200,
                         route_differ, shadow_sray, tail_field_errors,
@@ -101,6 +103,41 @@ def test_k1_matches_plain(cuda, case):
     close = np.isclose(got, want, rtol=RTOL, atol=ATOL).all(axis=-1)
     assert close.mean() >= MIN_CLOSE
     assert abs(got.mean() - want.mean()) <= MAX_MEAN_REL * want.mean()
+
+
+# K1 equals its plain version value for value: on ragged images (a width
+# not a multiple of 32, a height not of 8, a pixel count not of a warp's
+# batch), at 1 and 3 spp, from a start sample above 0, with a thin lens.
+@pytest.mark.parametrize("case,spp,start", [
+    ("cornell", 3, 7), ("demo38", 1, 0), ("thin_lens", 1, 5)])
+def test_k1_equals_plain_on_ragged_images(cuda, case, spp, start):
+    sd, cam = _case(case, cuda)
+    w, h = RAGGED
+    blob, meta, lsb, static = mk.pack_uniforms(sd, cam, start, 3)
+    kw = dict(width=w, height=h, spp=spp, max_bounces=8, rr_depth=3,
+              use_nee=True, use_mis=True, sky_mode=sd.sky_mode,
+              dof=case == "thin_lens", **static)
+    got = mk.megakernel_fwd(blob, meta, lsb, **kw)
+    want = mk.render_tiles_plain(blob, meta, lsb, **kw)
+    assert float(want.mean()) > 0.01
+    assert int((got != want).sum()) == 0
+
+
+def test_k1_lane_counts_add_up_to_the_plain_paths(cuda):
+    """The counting launch's busy lanes are the bounces the plain paths
+    ran, and its image the kernel's."""
+    sd, cam = _case("cornell", cuda)
+    blob, meta, lsb, static = mk.pack_uniforms(sd, cam, 0, 3)
+    kw = dict(width=48, height=32, spp=3, max_bounces=8, rr_depth=3,
+              use_nee=True, use_mis=True, sky_mode=sd.sky_mode, dof=False,
+              **static)
+    stats = {}
+    mk.render_tiles_plain(blob, meta, lsb, stats=stats, **kw)
+    before = dict(mk.LAUNCHES)
+    lanes = mk.lane_counts("k1", blob, meta, lsb, **kw)
+    assert mk.LAUNCHES == dict(before, k1=before["k1"] + 1)
+    assert lanes["busy"] == int(stats["lengths"].sum())
+    assert 0 < lanes["share"] <= 1 and lanes["lane_slots"] % 32 == 0
 
 
 def test_facade_launches_k1(cuda):
@@ -220,6 +257,33 @@ def test_k3_matches_plain(cuda, lens):
     close = np.isclose(got, want, rtol=RTOL, atol=ATOL).all(axis=-1)
     assert close.mean() >= MIN_CLOSE
     assert abs(got.mean() - want.mean()) <= MAX_MEAN_REL * want.mean()
+
+
+# K3 equals its plain version value for value on ragged images, at 1 and
+# 3 spp, from a start sample above 0, with a thin lens, and on the padding
+# scene, whose rays win leaf padding slots.
+@pytest.mark.parametrize("case,spp,start", [
+    ("scene200", 3, 7), ("scene200_thin_lens", 1, 5), ("padding", 3, 3)])
+def test_k3_equals_plain_on_ragged_images(cuda, case, spp, start):
+    if case == "padding":
+        sd = padding_scene(T).compile(device=cuda)
+        cam = T.Camera.look_at(device=cuda, **PAD_CAM)
+    else:
+        sd = scene_200(T).compile(device=cuda)
+        cam = _scene200_camera(cuda, case.endswith("lens"))
+    args, k3kw, _ = k3_inputs(torch, mb, sd, cam, 3, start=start)
+    w, h = RAGGED
+    kw = dict(width=w, height=h, spp=spp, max_bounces=8, rr_depth=3,
+              use_nee=True, use_mis=True, sky_mode=sd.sky_mode,
+              dof=case.endswith("lens"), **k3kw)
+    got = mb.megakernel_bvh_fwd(*args, **kw)
+    want = mb.render_tiles_bvh_plain(*args, **kw)
+    assert float(want.mean()) > 0.01
+    assert int((got != want).sum()) == 0
+    lanes = mk.lane_counts("k3", *args, **kw)
+    stats = {}
+    mb.render_tiles_bvh_plain(*args, stats=stats, **kw)
+    assert lanes["busy"] == int(stats["lengths"].sum())
 
 
 def test_k3_equals_k1_on_cornell(cuda):

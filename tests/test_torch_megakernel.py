@@ -107,3 +107,48 @@ def test_wrapper_routes_cpu_tensors_to_plain():
     assert img.shape == (6, 8, 3) and float(img.mean()) > 0.1  # sky-lit
     assert tmega.LAUNCHES == dict(before, plain=before["plain"] + 1)
 
+
+def test_path_lengths_count_the_bounces():
+    """``stats["lengths"]``, the bounces each path ran, adds up per bounce
+    to the active rays counted, and stays within the depth."""
+    sd = cornell_scene(spt_tpu_torch).compile(device="cpu")
+    blob, meta, lsb, static = tmega.pack_uniforms(
+        sd, cornell_camera(spt_tpu_torch), 0, 3)
+    stats = {}
+    tmega.render_tiles_plain(blob, meta, lsb, stats=stats, width=W, height=H,
+                             spp=2, max_bounces=3, rr_depth=1, use_nee=True,
+                             use_mis=True, sky_mode=sd.sky_mode, dof=False,
+                             **static)
+    lengths = stats["lengths"]
+    assert lengths.shape == (2, H, W) and lengths.dtype == torch.uint8
+    assert int(lengths.sum()) == sum(stats["active"])
+    for k, active in enumerate(stats["active"]):
+        assert int((lengths > k).sum()) == active
+    assert 1 <= int(lengths.min()) and int(lengths.max()) <= 3
+
+
+@pytest.mark.parametrize("tile", [None, (8, 4)])
+def test_lanes_busy_against_a_hand_count(tile):
+    """A 4x8-pixel image is one warp in either grouping.  Sample 0: one
+    lane runs 8 bounces and 31 run 1, so the warp runs 8 iterations with
+    39 of 256 lane slots busy; sample 1: every lane 3 bounces, 96 of 96."""
+    lengths = torch.ones(2, 4, 8, dtype=torch.uint8)
+    lengths[0, 2, 5] = 8
+    lengths[1] = 3
+    assert tmega.lanes_busy(lengths, tile) == dict(
+        busy=135, lane_slots=352, share=135 / 352)
+
+
+def test_lanes_busy_groups_lanes_as_the_kernels_did():
+    """A 4x10 image.  One thread a pixel (K1): pixel ids 0-31 and 32-39 (8
+    lanes and 24 idle); 8x4 tiles (K3): columns 0-7 and 8-9."""
+    lengths = torch.zeros(1, 4, 10, dtype=torch.uint8)
+    lengths[0, 0, 0] = 1       # id 0: K1's warp 0, K3's tile 0
+    lengths[0, 0, 9] = 5       # id 9: K1's warp 0, K3's tile 1
+    lengths[0, 3, 9] = 2       # id 39: K1's warp 1, K3's tile 1
+    assert tmega.lanes_busy(lengths) == dict(
+        busy=8, lane_slots=32 * (5 + 2), share=8 / 224)
+    assert tmega.lanes_busy(lengths, (8, 4)) == dict(
+        busy=8, lane_slots=32 * (1 + 5), share=8 / 192)
+    with pytest.raises(ValueError):
+        tmega.lanes_busy(lengths, (8, 8))
