@@ -1,7 +1,10 @@
-// The packed BVH walked per thread, and the bounce over it: K3's geometry
-// (csrc/megakernel_bvh.cu), shared with K4 (csrc/megakernel_bvh_grad.cu),
-// whose forward sweep is K3's and records each bounce's winner and shadow
-// verdict for its backward sweep.  See megakernel_bvh.cu for the design.
+// The packed BVH walked per thread: K3's geometry (csrc/megakernel_bvh.cu),
+// shared with K4 (csrc/megakernel_bvh_grad.cu), whose forward sweep is K3's
+// and records each bounce's winner and shadow verdict for its backward
+// sweep, and with the wavefront's walks (csrc/wavefront.cu).  Both K3 and
+// K4 inline their bounce: called as a __noinline__ function, K3's parted
+// from the plain version or hung (tools/k3_build_bits.py's bounce_called
+// builds; PERF.md).  See megakernel_bvh.cu for the design.
 #pragma once
 
 #include <cstdint>
@@ -192,27 +195,5 @@ struct BvhWalk {
 };
 
 using BvhGeometry = BvhWalk<false>;
-
-// One bounce, called rather than inlined into the sample loop: K4's
-// (megakernel_bvh_grad.cu).  In K3's one-thread-a-pixel loop, inlined, the
-// optimizing back end (ptxas at -O1 and above, and the driver's own
-// compile of the PTX) gave images that part from the plain version's on 16
-// of 2,073,600 pixels at config 5, 1 spp (NEE shadow decisions only; the
-// PTX is all round-to-nearest operations); built at -O0, or with this
-// call, K3 equalled the plain version on every pixel at 1 spp, but with
-// this call it parted on 998 pixels at 4 spp.  K3 now runs its
-// bounce inlined in its regenerating loop (megakernel_bvh.cu), where this
-// call hung at config 5.  The causes are not known (PERF.md).  K4's image
-// with this call equals K3's, and K3's the plain version's, on every value
-// at the gradient path's launch (2,000 spheres, 1080p x 4 spp), which
-// chip_smoke.py checks.
-template <bool kRecord>
-__device__ __noinline__ void bvh_bounce(const SceneView& sc,
-                                        const BvhWalk<kRecord>& geo, Path& p,
-                                        uint32_t pid, uint32_t sample,
-                                        uint32_t seed, int k, int rr_depth,
-                                        bool use_nee, bool use_mis) {
-  trace_bounce(sc, geo, p, pid, sample, seed, k, rr_depth, use_nee, use_mis);
-}
 
 }  // namespace spt

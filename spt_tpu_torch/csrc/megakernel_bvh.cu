@@ -33,7 +33,7 @@
 // from a counter, a warp a batch, so a warp's primary rays walk alike; a
 // lane whose path ends starts its pixel's next sample, or its warp's next
 // pixel, in the same iteration.  The bounce is inlined: called
-// (bvh.cuh's bvh_bounce, as the old loop did), this loop hung at config 5
+// (__noinline__, as the old loop did), this loop hung at config 5
 // when ptxas optimized it, and the old loop with the call parted from the
 // plain version on 998 pixels at config 5, 4 spp, where this one equals it
 // on every pixel (PERF.md).  The image is written unswizzled

@@ -17,6 +17,8 @@
 
 namespace spt {
 
+constexpr unsigned kWarpMask = 0xFFFFFFFFu;   // every lane of a warp
+
 // float32 roundings of the constants the JAX package folds.
 constexpr float kTmin = 1e-3f;
 constexpr float kEps = 1e-4f;

@@ -19,9 +19,9 @@
 // forward sweep recorded, takes the recorded shadow verdict and adds into
 // sphere rows of its thread's copy of the gradient (RecordedSphere,
 // SphereSink); K4 and K10 rebuild the hit from a recorded
-// winner, take the recorded shadow verdict and add into the scalar vector of
-// sky, material rows and light slots, keeping the winner's centre and radius
-// cotangent per lane (RebuiltGeometry, ScalarSink).
+// winner, take the recorded shadow verdict and keep the lane's sky, material
+// row, light slot and winner cotangents in registers for a warp sum
+// (RebuiltGeometry, LaneSink).
 #pragma once
 
 #include <cstdint>
@@ -290,45 +290,153 @@ struct RebuiltGeometry {
   }
 };
 
-// K4's and K10's sink: the sky, material rows and light slots into g
-// (shared memory: sky 6, then 8 per material, then 7 per light slot, the
-// blob's order from its sky on), the winner's centre and radius cotangent
-// kept in dgeo for the caller.  A padding winner (id n_mats) gets none.
-struct ScalarSink {
-  float* g;
+// K4's and K10's sink: one lane's share of one bounce's theta cotangent,
+// kept in registers for its warp to sum (flush_scalars, flush_geometry)
+// where the old sink added each value with a shared atomic of its own, so
+// that the lanes of a warp, which meet on the few rows of the sky, a
+// material and a light, waited on each other's addresses.  It keeps the
+// sky's floats or the winner's material row (a bounce either misses or
+// hits, never both), the light slot's 7 floats, and the winner's centre
+// and radius; each row by its offset in the scalar vector (sky 6, then 8
+// per material, then 7 per light slot, the blob's order from its sky on;
+// -1: nothing).  A padding winner (id n_mats) gets nothing.
+struct LaneSink {
   int n_mats;
-  float dgeo[4];
+  int row = -1;
+  float v[8] = {};
+  int light_row = -1;
+  float lv[7] = {};
+  bool geo = false;    // dgeo is the winner's own
+  float dgeo[4] = {};
 
-  __device__ __forceinline__ void sky(int i, float v) { grad_add(g, i, v); }
+  __device__ __forceinline__ void sky(int i, float x) {
+    row = 0;
+    v[i] += x;
+  }
   __device__ __forceinline__ void light(int l, V3 toc_b, float lrr_b,
                                         V3 le_b) {
-    float* row = g + 6 + 8 * n_mats + 7 * l;
-    grad_add(row, 0, toc_b.x);
-    grad_add(row, 1, toc_b.y);
-    grad_add(row, 2, toc_b.z);
-    grad_add(row, 3, lrr_b);
-    grad_add(row, 4, le_b.x);
-    grad_add(row, 5, le_b.y);
-    grad_add(row, 6, le_b.z);
+    light_row = 6 + 8 * n_mats + 7 * l;
+    lv[0] = toc_b.x;
+    lv[1] = toc_b.y;
+    lv[2] = toc_b.z;
+    lv[3] = lrr_b;
+    lv[4] = le_b.x;
+    lv[5] = le_b.y;
+    lv[6] = le_b.z;
   }
   __device__ __forceinline__ void hit(int m, V3 C_b, float r_b, V3 a_b,
                                       V3 e_b, float rough_b, float ior_b) {
     if (m >= n_mats) return;
+    geo = true;
     dgeo[0] = C_b.x;
     dgeo[1] = C_b.y;
     dgeo[2] = C_b.z;
     dgeo[3] = r_b;
-    float* row = g + 6 + 8 * m;
-    grad_add(row, 0, a_b.x);
-    grad_add(row, 1, a_b.y);
-    grad_add(row, 2, a_b.z);
-    grad_add(row, 3, e_b.x);
-    grad_add(row, 4, e_b.y);
-    grad_add(row, 5, e_b.z);
-    grad_add(row, 6, rough_b);
-    grad_add(row, 7, ior_b);
+    row = 6 + 8 * m;
+    v[0] = a_b.x;
+    v[1] = a_b.y;
+    v[2] = a_b.z;
+    v[3] = e_b.x;
+    v[4] = e_b.y;
+    v[5] = e_b.z;
+    v[6] = rough_b;
+    v[7] = ior_b;
   }
 };
+
+// Sums x over each group of lanes that hold one key (peers: the lane's
+// group, as __match_any_sync gives it) into the group's lowest lane, in
+// log2(group size) rounds of one shuffle a value: each round every lane
+// adds its next remaining peer's partial sum, then the lanes of odd rank
+// drop out (E. Westphal's reduction of peers, NVIDIA developer blog, 2015).
+// The other lanes' x end as partial sums.  Every lane of the warp calls it.
+template <int N>
+__device__ __forceinline__ void sum_peers(unsigned peers, float (&x)[N]) {
+  const unsigned lane = threadIdx.x & 31u;
+  unsigned rank = __popc(peers & ((1u << lane) - 1u));
+  unsigned above = peers & (0xFFFFFFFEu << lane);
+  while (__any_sync(kWarpMask, above != 0u)) {
+    const int next = __ffs(above) - 1;       // -1: no peer left above
+    const int from = next < 0 ? (int)lane : next;
+    for (int a = 0; a < N; ++a) {
+      const float t = __shfl_sync(kWarpMask, x[a], from);
+      if (next >= 0) x[a] += t;
+    }
+    above &= ~__ballot_sync(kWarpMask, (rank & 1u) != 0u);
+    rank >>= 1;
+  }
+}
+
+// Whether this lane is the lowest of its peers.
+__device__ __forceinline__ bool leads(unsigned peers) {
+  return (int)(threadIdx.x & 31u) == __ffs(peers) - 1;
+}
+
+// One row of N floats of every lane of the warp, summed by the row's key
+// (offset; -1: none), each sum added by one lane into g (the warp's copy
+// of the scalar vector in shared memory) with an atomic a nonzero value.
+template <int N>
+__device__ __forceinline__ void flush_row(int key, const float (&x)[N],
+                                          int n, float* g) {
+  if (!__any_sync(kWarpMask, key >= 0)) return;
+  float s[N];
+  for (int a = 0; a < N; ++a) s[a] = x[a];
+  const unsigned peers = __match_any_sync(kWarpMask, key);
+  sum_peers(peers, s);
+  if (key >= 0 && leads(peers))
+    for (int a = 0; a < n; ++a)
+      if (s[a] != 0.0f) atomicAdd(g + key + a, s[a]);
+}
+
+// The warp's lane sinks summed into g by row: sky, material and light rows.
+__device__ __forceinline__ void flush_scalars(const LaneSink& sink,
+                                              float* g) {
+  flush_row(sink.row, sink.v, sink.row == 0 ? 6 : 8, g);
+  flush_row(sink.light_row, sink.lv, 7, g);
+}
+
+// The warp's winners' centre and radius cotangents added into a prim
+// table of rows of `block` floats: `key` the index of the winner's first
+// row entry (-1: no winner of its own), attribute a at key + a * block.
+// With kMerge the lanes of one winner are summed first and one lane adds
+// (a sorted stream's neighbours, and a pixel tile's primary rays, share
+// winners); else each lane adds its own.
+template <bool kMerge>
+__device__ __forceinline__ void flush_geometry(int key, const float (&d)[4],
+                                               float* table, int block) {
+  float s[4] = {d[0], d[1], d[2], d[3]};
+  if constexpr (kMerge) {
+    if (!__any_sync(kWarpMask, key >= 0)) return;
+    const unsigned peers = __match_any_sync(kWarpMask, key);
+    sum_peers(peers, s);
+    if (!leads(peers)) return;
+  }
+  if (key < 0) return;
+  for (int a = 0; a < 4; ++a)
+    if (s[a] != 0.0f) atomicAdd(table + key + (size_t)a * block, s[a]);
+}
+
+// The copies of the scalar vector (n_scal floats) a block of `threads`
+// keeps after `fixed` floats of shared memory: one a warp where they fit
+// in the 48 KB a block gets without asking, else one.
+inline int scalar_copies(int fixed, int n_scal, int threads) {
+  const int warps = threads / 32;
+  return sizeof(float) * (fixed + (size_t)warps * n_scal) <= 48 * 1024
+             ? warps
+             : 1;
+}
+
+// The block's copies of the scalar vector (n floats each) summed into
+// out, one atomic a nonzero entry.
+__device__ __forceinline__ void flush_block(const float* g, int copies, int n,
+                                            float* out) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    float v = 0.0f;
+    for (int c = 0; c < copies; ++c) v += g[c * n + i];
+    if (v != 0.0f) atomicAdd(out + i, v);
+  }
+}
 
 // Reverse mode of trace_bounce for an active path p (its entry state) at
 // bounce k, against geometry geo.  ct holds the cotangent of the 13 output

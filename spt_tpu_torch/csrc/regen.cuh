@@ -28,7 +28,6 @@
 
 namespace spt {
 
-constexpr unsigned kWarpMask = 0xFFFFFFFFu;
 constexpr int kBatchW = 8, kBatchH = 4;   // a warp's batch: an 8x4 tile
 
 struct RegenArgs {

@@ -94,12 +94,18 @@
 //   _bwd_pallas_call): one bounce's adjoint.  One thread per lane replays
 //   its bounce through bounce_vjp (physics_adj.cuh) on the winner rebuilt
 //   from the residual and the recorded verdict (RebuiltGeometry), taking
-//   the post-bounce cotangent to the pre-bounce one, and writes its
-//   winner's centre and radius cotangent; the sky, material and light
-//   gradients are summed per block in shared memory (shared atomics) and
-//   added to the global vector once a block, as K2 adds them.  Bound: fp32
-//   operations of the replay and its adjoint (the bytes, some 230 a lane,
-//   come close).
+//   the post-bounce cotangent to the pre-bounce one.  Each lane keeps its
+//   share of theta's cotangent in registers (LaneSink); its warp sums the
+//   shares of lanes that meet on a sky, material or light row into the
+//   warp's copy of the scalar vector in shared memory, added to the
+//   global vector once a block, and sums the winners' centre and radius
+//   cotangents of lanes that share a leaf slot (neighbours of the sorted
+//   stream often do), one lane adding each sum into the prim table
+//   d(prims) by a global atomic.  So the step scatters no per-lane
+//   cotangents after the kernel, as the TPU kernel's caller does, and no
+//   lane waits on another's shared atomic.
+//   Bound: the bytes, about 200 an alive lane (the replay's fp32
+//   operations come close); built for kBwdMinBlocks blocks an SM.
 // * K6m and K7m replace wavefront.py::_isect_kernel_mxu (:524) and
 //   _shade_kernel_mxu (:668; both launched only with mxu=True): K6's and
 //   K7's contracts over per-row lists (a list per 128-lane row), a slot's
@@ -160,6 +166,11 @@ constexpr int kThreadsWf = 256;
 constexpr int kShadeMinBlocks = 4;
 // Blocks an SM that K8 (shade_kernel<false, false, false>) is built for.
 constexpr int kVerdictMinBlocks = 4;
+// Blocks an SM that K10 (bounce_bwd_kernel) is built for: 2, 128
+// registers with 172 B of spills; on an H100 30% faster at config-5
+// bounce 0 than the compiler's own 154 registers and 1 block, and 1, 3
+// or 4 blocks were all slower (tools/wf_ablate.py --k10; PERF.md).
+constexpr int kBwdMinBlocks = 2;
 constexpr int kNCh = 17;                   // float channels of the stream
 constexpr int kChAlive = 13, kChSpec = 14, kChInimg = 15, kChMiss = 16;
 constexpr int kWfMatOff = 21;              // blob: camera 15, sky 6, mats
@@ -784,7 +795,7 @@ __global__ void __launch_bounds__(kThreadsWf) bounce_kernel(BounceParams prm) {
 
 struct BounceBwdParams {
   float* din;           // (17, stride): cotangent of the pre-bounce stream
-  float* dgeo;          // (4, n_lanes): d(cx, cy, cz, r) of each winner
+  float* dprims;        // (n_blocks + 1, 5, block): winners' d(cx cy cz r)
   float* dscal;         // sky 6, materials 8 n_mats, lights 7 L; zeroed
   const float* st;      // (17, stride): the pre-bounce stream
   const int* ids;       // (2, stride)
@@ -795,11 +806,12 @@ struct BounceBwdParams {
   const float* lsb;     // 6
   const int* mtypes;    // n_mats
   int stride, n_lanes, n_mats, n_light_slots, k, rr_depth, sky_mode;
-  int blob_len, n_scal;
+  int n_blocks, block;
+  int blob_len, n_scal, copies;
   bool use_nee, use_mis;
 };
 
-__global__ void __launch_bounds__(kThreadsWf)
+__global__ void __launch_bounds__(kThreadsWf, kBwdMinBlocks)
     bounce_bwd_kernel(BounceBwdParams prm) {
   extern __shared__ float smem[];
   float* s_blob = smem;
@@ -807,12 +819,13 @@ __global__ void __launch_bounds__(kThreadsWf)
   float* s_lsb = s_invalid + kWfMatStride;              // 6
   int* s_meta = reinterpret_cast<int*>(s_lsb + 6);      // 3
   int* s_mtypes = s_meta + 3;                           // n_mats
-  float* s_grad = reinterpret_cast<float*>(s_mtypes + prm.n_mats);  // n_scal
+  // copies x n_scal: the warps' copies of the scalar gradient
+  float* s_grad = reinterpret_cast<float*>(s_mtypes + prm.n_mats);
   for (int a = threadIdx.x; a < prm.blob_len; a += blockDim.x)
     s_blob[a] = prm.blob[a];
   for (int a = threadIdx.x; a < prm.n_mats; a += blockDim.x)
     s_mtypes[a] = prm.mtypes[a];
-  for (int a = threadIdx.x; a < prm.n_scal; a += blockDim.x)
+  for (int a = threadIdx.x; a < prm.copies * prm.n_scal; a += blockDim.x)
     s_grad[a] = 0.0f;
   if (threadIdx.x < kWfMatStride)
     s_invalid[threadIdx.x] = threadIdx.x == kWfMatStride - 1 ? 1.5f : 0.0f;
@@ -822,12 +835,13 @@ __global__ void __launch_bounds__(kThreadsWf)
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const size_t s = (size_t)prm.stride;
+  LaneSink sink{prm.n_mats};
+  int key = -1;   // the winner's first entry in dprims; -1: none of its own
   if (i < prm.n_lanes) {
     const float* st = prm.st + i;
     const float* cti = prm.ct + i;
     float ct[13];
     for (int c = 0; c < 13; ++c) ct[c] = cti[c * s];
-    float dgeo[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (st[kChAlive * s] > 0.5f) {
       Path p;
       load_path(st, s, p);
@@ -840,11 +854,15 @@ __global__ void __launch_bounds__(kThreadsWf)
                                 mats + kWfMatStride * prm.n_mats, prm.n_mats};
       const SceneView sc{s_blob, s_meta, s_lsb, 0, prm.n_light_slots,
                          s_meta[2], prm.sky_mode};
-      ScalarSink sink{s_grad, prm.n_mats, {0.0f, 0.0f, 0.0f, 0.0f}};
       bounce_vjp(sc, geo, sink, p, (uint32_t)prm.ids[i],
                  (uint32_t)prm.ids[s + i], (uint32_t)s_meta[1], prm.k,
                  prm.rr_depth, prm.use_nee, prm.use_mis, ct);
-      for (int a = 0; a < 4; ++a) dgeo[a] = sink.dgeo[a];
+      // A winner of its own, its slot clamped into the table as
+      // kernels/wavefront_grad.py::_grads_from_bwd clamps it.
+      if (sink.geo)
+        key = min(max((int)res[5 * n], 0), prm.n_blocks - 1) * kWfPrimAttrs *
+                  prm.block +
+              min(max((int)res[6 * n], 0), prm.block - 1);
     }
     float* din = prm.din + i;
     for (int c = 0; c < 13; ++c) din[c * s] = ct[c];
@@ -852,13 +870,29 @@ __global__ void __launch_bounds__(kThreadsWf)
     din[kChSpec * s] = 0.0f;
     din[kChInimg * s] = cti[kChInimg * s];
     din[kChMiss * s] = 0.0f;
-    for (int a = 0; a < 4; ++a) prm.dgeo[a * (size_t)prm.n_lanes + i] = dgeo[a];
   } else if (i < prm.stride) {
     for (int c = 0; c < kNCh; ++c) prm.din[c * s + i] = prm.ct[c * s + i];
   }
-  __syncthreads();
-  for (int a = threadIdx.x; a < prm.n_scal; a += blockDim.x)
-    if (s_grad[a] != 0.0f) atomicAdd(prm.dscal + a, s_grad[a]);
+  flush_scalars(sink, s_grad + ((threadIdx.x >> 5) % prm.copies) *
+                                   prm.n_scal);
+  flush_geometry<true>(key, sink.dgeo, prm.dprims, prm.block);
+  flush_block(s_grad, prm.copies, prm.n_scal, prm.dscal);
+}
+
+// K10's shared memory: the uniforms, then the scalar gradient's copies.
+inline int bwd_fixed(int n_mats, int n_light_slots) {
+  return kWfMatOff + kWfMatStride * n_mats +
+         kWfLightStride * (n_light_slots > 1 ? n_light_slots : 1) +
+         kWfMatStride + 6 + 3 + n_mats;
+}
+
+inline int bwd_n_scal(int n_mats, int n_light_slots) {
+  return 6 + kWfMatStride * n_mats + kWfLightStride * n_light_slots;
+}
+
+inline size_t bwd_smem(int n_mats, int n_light_slots, int copies) {
+  return sizeof(float) * (bwd_fixed(n_mats, n_light_slots) +
+                          (size_t)copies * bwd_n_scal(n_mats, n_light_slots));
 }
 
 inline unsigned blocks_for(int n) {
@@ -1049,15 +1083,18 @@ extern "C" int spt_wavefront_anyhit(void* blocked, const void* sray,
   return static_cast<int>(cudaGetLastError());
 }
 
+// dprims: (n_blocks + 1) x 5 x block floats, zeroed: each alive lane's
+// winner's d(cx cy cz r) is added at its (block, slot) (the last block
+// row, a discard row of _grads_from_bwd's, is never reached).
 extern "C" int spt_wavefront_bounce_bwd(
-    void* din, void* dgeo, void* dscal, const void* st, const void* ids,
+    void* din, void* dprims, void* dscal, const void* st, const void* ids,
     const void* res, const void* ct, const void* blob, const void* meta,
     const void* lsb, const void* mtypes, int stride, int n_lanes, int n_mats,
     int n_light_slots, int k, int rr_depth, int use_nee, int use_mis,
-    int sky_mode, void* stream) {
+    int sky_mode, int n_blocks, int block, void* stream) {
   spt::BounceBwdParams prm;
   prm.din = static_cast<float*>(din);
-  prm.dgeo = static_cast<float*>(dgeo);
+  prm.dprims = static_cast<float*>(dprims);
   prm.dscal = static_cast<float*>(dscal);
   prm.st = static_cast<const float*>(st);
   prm.ids = static_cast<const int*>(ids);
@@ -1074,18 +1111,36 @@ extern "C" int spt_wavefront_bounce_bwd(
   prm.k = k;
   prm.rr_depth = rr_depth;
   prm.sky_mode = sky_mode;
+  prm.n_blocks = n_blocks;
+  prm.block = block;
   prm.use_nee = use_nee != 0;
   prm.use_mis = use_mis != 0;
   prm.blob_len = spt::kWfMatOff + spt::kWfMatStride * n_mats +
                  spt::kWfLightStride * (n_light_slots > 1 ? n_light_slots : 1);
-  prm.n_scal = 6 + spt::kWfMatStride * n_mats + spt::kWfLightStride *
-                                                    n_light_slots;
+  prm.n_scal = spt::bwd_n_scal(n_mats, n_light_slots);
   if (stride <= 0) return 0;
-  const size_t smem = sizeof(float) * (prm.blob_len + spt::kWfMatStride + 6 +
-                                       3 + n_mats + prm.n_scal);
+  prm.copies = spt::scalar_copies(spt::bwd_fixed(n_mats, n_light_slots),
+                                  prm.n_scal, spt::kThreadsWf);
+  const size_t smem = spt::bwd_smem(n_mats, n_light_slots, prm.copies);
   spt::bounce_bwd_kernel<<<spt::blocks_for(stride), spt::kThreadsWf, smem,
                            static_cast<cudaStream_t>(stream)>>>(prm);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K10's blocks an SM for the scene's shared memory (the occupancy
+// calculator).
+extern "C" int spt_wavefront_bounce_bwd_blocks_per_sm(int n_mats,
+                                                      int n_light_slots) {
+  using namespace spt;
+  const int copies = scalar_copies(bwd_fixed(n_mats, n_light_slots),
+                                   bwd_n_scal(n_mats, n_light_slots),
+                                   kThreadsWf);
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, bounce_bwd_kernel, kThreadsWf,
+          bwd_smem(n_mats, n_light_slots, copies)) != cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 // Blocks of kThreadsWf threads an SM holds of kernel `which` (0: K6, 1: K7

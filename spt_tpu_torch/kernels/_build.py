@@ -86,10 +86,12 @@ ENTRIES = {
         # blocked, sray, prims, scand, sctn, stride, n_lanes, n_blocks,
         # block, stream
         "spt_wavefront_anyhit": [_P] * 5 + [_I] * 4 + [_P],
-        # din, dgeo, dscal, st, ids, res, ct, blob, meta, lsb, mtypes,
+        # din, dprims, dscal, st, ids, res, ct, blob, meta, lsb, mtypes,
         # stride, n_lanes, n_mats, n_light_slots, k, rr_depth, use_nee,
-        # use_mis, sky_mode, stream
-        "spt_wavefront_bounce_bwd": [_P] * 11 + [_I] * 9 + [_P],
+        # use_mis, sky_mode, n_blocks, block, stream
+        "spt_wavefront_bounce_bwd": [_P] * 11 + [_I] * 11 + [_P],
+        # n_mats, n_light_slots -> K10's blocks an SM
+        "spt_wavefront_bounce_bwd_blocks_per_sm": [_I, _I],
         # which (0 K6, 1 K7/K9, 2 K11, 3 K8l, 4 K10, 5 K8, 6 K7b), smem
         # -> blocks an SM
         "spt_wavefront_blocks_per_sm": [_I, _I],
@@ -100,6 +102,8 @@ ENTRIES = {
         # max_bounces, rr_depth, use_nee, use_mis, sky_mode, dof, inv_w,
         # inv_h, aspect, stream
         "spt_megakernel_bvh_grad": [_P] * 11 + [_I] * 13 + [_F, _F, _F, _P],
+        # n_mats, n_light_slots -> blocks an SM
+        "spt_megakernel_bvh_grad_blocks_per_sm": [_I, _I],
     },
 }
 

@@ -11,8 +11,8 @@ radii), and so, through ``megakernel_bvh.pack_blob_torch`` and
                     selects
                  -> shade op: K9 forward (K7, its shadow rays walking the
                     tree, recording the NEE verdict), K10 backward (the
-                    bounce's adjoint on the recorded winner), per-prim
-                    cotangents scattered by the winner's (block, slot)
+                    bounce's adjoint on the recorded winner, its per-prim
+                    cotangents summed by the winner's (block, slot))
                  -> env-map radiance, out of place
                ] x depth -> scatter-add by pixel id
 
@@ -32,13 +32,17 @@ same K10 backward:
 
 * ``shade_fwd`` / ``shade_fwd_plain`` (K9): K7 out of place, plus the
   (n,) blocked mask.  ``bounce_fwd`` / ``bounce_fwd_plain`` (K11g): K11
-  out of place, plus the (8, n) residual.  ``bounce_bwd`` /
-  ``bounce_bwd_plain`` (K10): one bounce's adjoint from the saved state and residual -> d(state_in) (17,
-  R), the per-lane d(centre, radius) (4, n) and the scalar gradients
-  (n_scal,).  A wrapper runs the plain version for CPU tensors and
-  launches the hand-written kernel (``csrc/wavefront.cu``) for CUDA
-  tensors, or raises.  ``LAUNCHES["k9"]`` (``["k9l"]`` over the shadow
-  lists), ``["k10"]`` and ``["k11g"]`` count them.
+  out of place, plus the (8, n) residual.  ``bounce_bwd_plain`` (K10's
+  plain version): one bounce's adjoint from the saved state and residual
+  -> d(state_in) (17, R), the per-lane d(centre, radius) (4, n) and the
+  scalar gradients (n_scal,); ``bounce_bwd`` (K10's wrapper) gives
+  d(centre, radius) summed into the prim table instead (the kernel adds
+  each winner's into it; on the CPU ``bounce_bwd_scattered``: the plain
+  version and ``_grads_from_bwd``'s scatter).  A wrapper runs the plain
+  version for CPU tensors and launches the hand-written kernel
+  (``csrc/wavefront.cu``) for CUDA tensors, or raises.
+  ``LAUNCHES["k9"]`` (``["k9l"]`` over the shadow lists), ``["k10"]`` and
+  ``["k11g"]`` count them.
 * ``make_wavefront_render_fn`` returns ``render(params, start_sample)``.
 
 Lanes past the alive prefix are neither shaded nor replayed: their state
@@ -181,17 +185,37 @@ def bounce_bwd_plain(blob, meta, lsb, mtypes, st, ids, res, ct, n_lanes: int,
     return din, dgeo, dscal
 
 
+def bounce_bwd_scattered(blob, meta, lsb, mtypes, st, ids, res, ct,
+                         n_lanes: int, *, n_blocks: int, block: int, **kw):
+    """K10's wrapper's outputs by its plain version: ``bounce_bwd_plain``,
+    its per-lane d(centre, radius) scattered into the prim table by
+    ``_grads_from_bwd`` -> (din (17, R), d_prims (n_blocks, 5, block),
+    dscal (n_scal,)).  ``kw``: ``bounce_bwd_plain``'s keywords."""
+    din, dgeo, dscal = bounce_bwd_plain(blob, meta, lsb, mtypes, st, ids, res,
+                                        ct, n_lanes, **kw)
+    _, d_prims = _grads_from_bwd(blob, res, dgeo, dscal, n_mats=kw["n_mats"],
+                                 n_light_slots=kw["n_light_slots"],
+                                 n_blocks=n_blocks, block=block)
+    return din, d_prims, dscal
+
+
 def bounce_bwd(blob, meta, lsb, mtypes, st, ids, res, ct, n_lanes: int, *,
                k: int, n_mats: int, n_light_slots: int, rr_depth: int,
-               use_nee: bool, use_mis: bool, sky_mode: int):
-    """K10's wrapper: ``bounce_bwd_plain``'s outputs on the stream's
-    device."""
+               use_nee: bool, use_mis: bool, sky_mode: int, n_blocks: int,
+               block: int):
+    """K10's wrapper -> (din (17, R), d_prims (n_blocks, 5, block), dscal
+    (n_scal,)): ``bounce_bwd_plain``'s din and dscal, and its lanes'
+    d(centre, radius) summed into the prim table at each lane's winner's
+    (block, slot), as ``_grads_from_bwd`` sums them.  On the CPU
+    ``bounce_bwd_scattered``; on the card the kernel adds into the table
+    itself."""
     kw = dict(k=k, n_mats=n_mats, n_light_slots=n_light_slots,
               rr_depth=rr_depth, use_nee=use_nee, use_mis=use_mis,
               sky_mode=sky_mode)
     args = (blob, meta, lsb, mtypes, st, ids, res, ct)
     if st.device.type == "cpu":
-        return bounce_bwd_plain(*args, n_lanes, **kw)
+        return bounce_bwd_scattered(*args, n_lanes, n_blocks=n_blocks,
+                                    block=block, **kw)
     if st.device.type != "cuda":
         raise NotImplementedError(f"K10 has no kernel for {st.device}")
     if any(a.device != st.device for a in args):
@@ -202,6 +226,9 @@ def bounce_bwd(blob, meta, lsb, mtypes, st, ids, res, ct, n_lanes: int, *,
     if ct.shape[1] != r or not 0 <= n_lanes <= r or n_lanes % TILE:
         raise ValueError(f"K10: {n_lanes} lanes of a stream of {r}, "
                          f"cotangent of {ct.shape[1]}")
+    if n_blocks <= 0 or block <= 0:
+        raise ValueError(f"K10: a prim table of {n_blocks} blocks of "
+                         f"{block}")
     _check(blob, "blob", torch.float32, _MAT_OFF + _MAT_STRIDE * n_mats
            + _LIGHT_STRIDE * max(n_light_slots, 1))
     _check(meta, "meta", torch.int32, 3)
@@ -209,22 +236,23 @@ def bounce_bwd(blob, meta, lsb, mtypes, st, ids, res, ct, n_lanes: int, *,
     _check(mtypes, "mtypes", torch.int32, n_mats)
     _check(res, "res", torch.float32, N_RES * n_lanes)
     din = torch.empty_like(ct)
-    dgeo = torch.empty((4, n_lanes), dtype=torch.float32, device=st.device)
+    d_prims = torch.zeros((n_blocks + 1, _N_PRIM_ATTRS, block),
+                          dtype=torch.float32, device=st.device)
     dscal = torch.zeros(n_scalars(n_mats, n_light_slots),
                         dtype=torch.float32, device=st.device)
     from ._build import load_library
     lib = load_library("wavefront")
     with torch.cuda.device(st.device):
         err = lib.spt_wavefront_bounce_bwd(
-            *(a.data_ptr() for a in (din, dgeo, dscal, st, ids, res, ct,
+            *(a.data_ptr() for a in (din, d_prims, dscal, st, ids, res, ct,
                                      blob, meta, lsb, mtypes)),
             r, n_lanes, n_mats, n_light_slots, k, rr_depth,
-            int(bool(use_nee)), int(bool(use_mis)), int(sky_mode),
-            torch.cuda.current_stream().cuda_stream)
+            int(bool(use_nee)), int(bool(use_mis)), int(sky_mode), n_blocks,
+            block, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K10 launch failed: CUDA error {err}")
     LAUNCHES["k10"] += 1
-    return din, dgeo, dscal
+    return din, d_prims[:n_blocks], dscal
 
 
 # ---------------------------------------------------------------------------
@@ -232,17 +260,36 @@ def bounce_bwd(blob, meta, lsb, mtypes, st, ids, res, ct, n_lanes: int, *,
 # ---------------------------------------------------------------------------
 
 
+class _PermuteLanes(torch.autograd.Function):
+    """x (C, n) -> x[:, order] for a permutation ``order``.  The cotangent
+    goes back by a gather too, at the inverse permutation, so each lane's
+    comes back unchanged; ``index_select``'s own backward would add it
+    into zeros with an ``index_add_``."""
+
+    @staticmethod
+    def forward(ctx, x, order):
+        ctx.save_for_backward(order)
+        return x.index_select(1, order)
+
+    @staticmethod
+    def backward(ctx, ct):
+        order, = ctx.saved_tensors
+        inverse = torch.empty_like(order)
+        inverse[order] = torch.arange(order.numel(), device=order.device)
+        return ct.index_select(1, inverse), None
+
+
 def _sort_rays_diff(st, ids, n_lanes: int, lo, ext):
     """``wavefront._sort_rays`` out of place and under autograd: lanes [0,
     n_lanes) of ``st`` (17, R) and ``ids`` (2, R) gathered by the sort of
     the coherence key, the rest kept.  The gather's cotangent goes back by
-    the same permutation (``index_select``'s backward adds each value into
-    a zero), so it is exact.  Returns (st, ids, alive prefix in tiles)."""
+    the inverse permutation (``_PermuteLanes``), so it is exact.  Returns
+    (st, ids, alive prefix in tiles)."""
     part = st[:, :n_lanes]
     key = _coherence_key(part.detach(), lo, ext)
     n_alive = int((key < _dead_key(Q_BITS)).sum())
     order = torch.sort(key, stable=True).indices
-    st_s = part.index_select(1, order)
+    st_s = _PermuteLanes.apply(part, order)
     ids_s = ids[:, :n_lanes].index_select(1, order)
     if n_lanes < st.shape[1]:
         st_s = torch.cat([st_s, st[:, n_lanes:]], dim=1)
@@ -267,14 +314,9 @@ def _add_env_radiance_diff(st, env, n_lanes: int):
     return out
 
 
-def _grads_from_bwd(blob, res, dgeo, dscal, *, n_mats: int,
-                    n_light_slots: int, n_blocks: int, block: int):
-    """K10's raw outputs -> (d_blob, d_prims (n_blocks, 5, block)).  The
-    scalar gradients land on the blob's sky, material and light rows (the
-    camera carries none); each lane's d(centre, radius) is added at its
-    winner's (block, slot) of the prim table, one ``index_add_`` of a flat
-    (block, attribute, slot) index.  Lanes without a winner of their own
-    (``hmid < 0``: a miss or a padding slot) add into a discard slot."""
+def _blob_grad(blob, dscal, *, n_mats: int, n_light_slots: int):
+    """K10's scalar gradients on the blob: its sky, material and light rows
+    (the camera carries none)."""
     light_off = _MAT_OFF + _MAT_STRIDE * n_mats
     d_blob = torch.zeros_like(blob)
     d_blob[_SKY_OFF:_SKY_OFF + N_SKY_ATTRS] = dscal[:N_SKY_ATTRS]
@@ -283,6 +325,20 @@ def _grads_from_bwd(blob, res, dgeo, dscal, *, n_mats: int,
     if n_light_slots:
         d_blob[light_off:light_off + _LIGHT_STRIDE * n_light_slots] = \
             dscal[N_SKY_ATTRS + _MAT_STRIDE * n_mats:]
+    return d_blob
+
+
+def _grads_from_bwd(blob, res, dgeo, dscal, *, n_mats: int,
+                    n_light_slots: int, n_blocks: int, block: int):
+    """The plain K10's raw outputs -> (d_blob, d_prims (n_blocks, 5,
+    block)).  The scalar gradients land on the blob (``_blob_grad``); each
+    lane's d(centre, radius) is added at its winner's (block, slot) of the
+    prim table, one ``index_add_`` of a flat (block, attribute, slot)
+    index.  Lanes without a winner of their own (``hmid < 0``: a miss or a
+    padding slot) add into a discard slot.  The kernel adds into the table
+    itself (``bounce_bwd``)."""
+    d_blob = _blob_grad(blob, dscal, n_mats=n_mats,
+                        n_light_slots=n_light_slots)
     ok = res[4] >= 0.0
     blk = torch.where(ok, torch.clamp(res[5].long(), 0, max(n_blocks - 1, 0)),
                       n_blocks)
@@ -301,8 +357,10 @@ class _BounceOp(torch.autograd.Function):
     ``cfg["forward"](blob, prims, st)`` -> (new stream, residual with the
     shadow verdict in row 7): K9 on K6's winner (the split bounce) or K11g
     (the fused one).  Backward: K10 replays the bounce from ``st`` and the
-    residual, both saved.  The lists, ids and residual come from detached
-    values and carry no gradient."""
+    residual, both saved, and gives d(prims) summed by winner; on the CPU,
+    and with the ``PLAIN`` stages, the plain version and
+    ``_grads_from_bwd``'s scatter.  The lists, ids and residual come from
+    detached values and carry no gradient."""
 
     @staticmethod
     def forward(ctx, blob, prims, st, cfg):
@@ -315,15 +373,13 @@ class _BounceOp(torch.autograd.Function):
     def backward(ctx, ct):
         blob, st, res8 = ctx.saved_tensors
         cfg = ctx.cfg
-        kw = dict(cfg["kw"])
-        block = kw.pop("block")
-        din, dgeo, dscal = cfg["bounce_bwd"](
+        kw = cfg["kw"]
+        din, d_prims, dscal = cfg["bounce_bwd"](
             blob, cfg["meta"], cfg["lsb"], cfg["mtypes"], st, cfg["ids"],
-            res8, ct.contiguous(), cfg["n_lanes"], **kw)
-        d_blob, d_prims = _grads_from_bwd(
-            blob, res8, dgeo, dscal, n_mats=kw["n_mats"],
-            n_light_slots=kw["n_light_slots"], n_blocks=cfg["n_blocks"],
-            block=block)
+            res8, ct.contiguous(), cfg["n_lanes"], n_blocks=cfg["n_blocks"],
+            **kw)
+        d_blob = _blob_grad(blob, dscal, n_mats=kw["n_mats"],
+                            n_light_slots=kw["n_light_slots"])
         return d_blob, d_prims, din, None
 
 
@@ -403,7 +459,7 @@ def _run_wavefront_diff(blob, meta, nodef, nodei, prims, env, static, *,
 
 
 KERNELS = (raygen, isect, shade_fwd, bounce_bwd, bounce_fwd)
-PLAIN = (raygen_plain, isect_plain, shade_fwd_plain, bounce_bwd_plain,
+PLAIN = (raygen_plain, isect_plain, shade_fwd_plain, bounce_bwd_scattered,
          bounce_fwd_plain)
 
 
@@ -501,15 +557,17 @@ def k10_op_count(stats: dict) -> int:
             + stats["lit"] * K2_OPS["lit"])
 
 
-def k10_byte_count(stats: dict, n_lanes: int, n_stream: int,
-                   n_scal: int) -> int:
+def k10_byte_count(stats: dict, n_lanes: int, n_stream: int, n_scal: int,
+                   n_blocks: int, block: int) -> int:
     """Bytes K10 must move, each word once: an alive lane reads 15 state
-    channels, its ids, 6 residual channels (winner and verdict) and 14
-    cotangent channels (13 and in_image) and writes 17 and its 4 geometry
-    cotangents; a dead lane of the prefix reads its alive flag and 14
-    cotangent channels and writes 17 and 4; a lane past the prefix copies
-    17; the scalar gradients are written once."""
+    channels, its ids, 6 residual channels (winner and verdict), where it
+    hit the winner's block and slot, and 14 cotangent channels (13 and
+    in_image), and writes 17; a dead lane of the prefix reads its alive
+    flag and 14 cotangent channels and writes 17; a lane past the prefix
+    copies 17; the scalar gradients and the prim table's centre and radius
+    rows (4 of each block's 5) are written once."""
     a = stats["active"]
-    return 4 * ((15 + N_IDS + 6 + 14 + N_CH + 4) * a
-                + (1 + 14 + N_CH + 4) * (n_lanes - a)
-                + 2 * N_CH * (n_stream - n_lanes) + n_scal)
+    return 4 * ((15 + N_IDS + 6 + 14 + N_CH) * a + 2 * stats["hit"]
+                + (1 + 14 + N_CH) * (n_lanes - a)
+                + 2 * N_CH * (n_stream - n_lanes) + n_scal
+                + 4 * n_blocks * block)

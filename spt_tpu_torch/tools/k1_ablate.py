@@ -8,8 +8,8 @@ with one edit each, timed on the launches the main paths make.
 Times, for K1 and K3 as built by the package and for copies of ``csrc``
 with one edit (``VARIANTS``: ``__launch_bounds__`` of (threads, blocks an
 SM) per kernel, K1's shadow test stopping at its first blocker, K3's leaf
-loops stopping at a block's first padding slot; K3's bounce called as
-bvh.cuh's ``bvh_bounce`` is ``k3_build_bits.py``'s), these launches
+loops stopping at a block's first padding slot; K3's bounce called as a
+``__noinline__`` function is ``k3_build_bits.py``'s), these launches
 (``make_cases``):
 
 * ``k1_cornell_256``: K1's headline launch, chip_smoke.py's Cornell

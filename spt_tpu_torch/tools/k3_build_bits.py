@@ -10,9 +10,9 @@ several ways: the port's own flags (``_build.NVCC_FLAGS``, ``default``);
 the same with ``-Xptxas -O0`` or ``-Xcicc -O0``; as PTX only
 (``code=compute_90a``), which the driver's own compiler turns into machine
 code when the library loads; and from copies of the sources with one edit
-that keeps what the kernel computes (the bounce called, bvh.cuh's
-``__noinline__`` ``bvh_bounce``, as the one-thread-a-pixel K3 and K4 have
-it, also at ``-Xptxas -O0``; the shadow walk not inlined), or, for
+that keeps what the kernel computes (the bounce called, a ``__noinline__``
+``bvh_bounce``, as the one-thread-a-pixel K3 and the first K4 had it,
+also at ``-Xptxas -O0``; the shadow walk not inlined), or, for
 ``no_shadow_test``, with the shadow test removed, held against a plain
 version whose shadow walk never blocks.  For each case (depth 8 with
 NEE+MIS, depth 8 without NEE, depth 3, and Russian roulette from bounce 0)
@@ -43,17 +43,31 @@ _OCCLUDED = ("  __device__ __forceinline__ bool occluded(float ox, float oy, "
              "float oz,\n")
 _SHADOW = ("    bool blocked = geo.occluded(pox, poy, poz, ldx, ldy, ldz, "
            "t_l - 1e-3f);")
+# K3's bounce called as a __noinline__ function, as the one-thread-a-pixel
+# K3 and the first K4 called it.
+_KERNEL = "template <bool kCount>\n__global__"
+_CALLED = """template <bool kRecord>
+__device__ __noinline__ void bvh_bounce(const SceneView& sc,
+                                        const BvhWalk<kRecord>& geo, Path& p,
+                                        uint32_t pid, uint32_t sample,
+                                        uint32_t seed, int k, int rr_depth,
+                                        bool use_nee, bool use_mis) {
+  trace_bounce(sc, geo, p, pid, sample, seed, k, rr_depth, use_nee, use_mis);
+}
+
+"""
+_BOUNCE_CALLED = [
+    ("megakernel_bvh.cu", _KERNEL, _CALLED + _KERNEL),
+    ("megakernel_bvh.cu", _INLINED, _INLINED.replace("trace_bounce",
+                                                     "bvh_bounce"))]
 # tag -> (extra nvcc flags, None for PTX only), [(file, old, new)]
 VARIANTS = {
     "default": ([], []),
     "ptxas_O0": (["-Xptxas", "-O0"], []),
     "cicc_O0": (["-Xcicc", "-O0"], []),
     "driver_jit": (None, []),
-    "bounce_called": ([], [("megakernel_bvh.cu", _INLINED, _INLINED.replace(
-        "trace_bounce", "bvh_bounce"))]),
-    "bounce_called_O0": (["-Xptxas", "-O0"], [
-        ("megakernel_bvh.cu", _INLINED, _INLINED.replace("trace_bounce",
-                                                         "bvh_bounce"))]),
+    "bounce_called": ([], _BOUNCE_CALLED),
+    "bounce_called_O0": (["-Xptxas", "-O0"], _BOUNCE_CALLED),
     "occluded_noinline": ([], [("bvh.cuh", _OCCLUDED,
                                 _OCCLUDED.replace("__forceinline__",
                                                   "__noinline__"))]),

@@ -54,6 +54,25 @@ Prints the card, then one JSON line per build (registers, stack, spills
 from ``-Xptxas -v``, blocks an SM by the occupancy calculator), one per
 sky and bounce, and one with the sums over the bounces.  Needs one CUDA
 card and nvcc; builds go to spt_tpu_torch/_build/.
+
+    python3 spt_tpu_torch/tools/wf_ablate.py --k10 [--old CSRC_DIR]
+        [--reps N] [--only TAG ...] [--timeout SECONDS]
+
+times K10, the bounce's adjoint, on config 5's bounces 0 and 1 (its
+gradient sky; the stream as chip_smoke.py's ``k10_vs_plain`` makes it:
+raygen, a sort, K6's walk, K9's verdicts, a random cotangent), built from
+the package's sources and from copies with one edit (``K10_VARIANTS``:
+``__launch_bounds__`` of 1-4 blocks an SM, no merge of equal winners
+before d(prims)'s atomics, the warp sums' adds as stores) and, with
+``--old``, an earlier K10's sources (``K10_OLD_VARIANTS``: as built,
+launch bounds, the sink's shared atomics as stores), whose per-lane
+d(centre, radius) the step scatters with ``_grads_from_bwd`` (timed
+beside it).  Each build runs in a process of its own (``faulted``,
+``hung`` past ``--timeout``), the reference first and again last, and
+prints its registers, spills and blocks an SM, and per bounce the least
+of ``--reps`` launches' milliseconds (with the wrapper's zeroed outputs)
+and its din (``lanes_close``), d(prims) and dscal (``tail_field_errors``)
+against the plain K10 and ``_grads_from_bwd``.
 """
 
 from __future__ import annotations
@@ -258,12 +277,27 @@ def main() -> int:
                     help="build and time only these variants")
     ap.add_argument("--prim", action="store_true",
                     help="time the prim-sharded path's K6 and K8")
+    ap.add_argument("--k10", action="store_true",
+                    help="time K10, the bounce's adjoint, in its builds")
+    ap.add_argument("--old", type=Path, default=None,
+                    help="with --k10: csrc directory of an earlier K10")
+    ap.add_argument("--timeout", type=float, default=300.0,
+                    help="seconds a K10 build's process may take")
+    # --time-k10 TAG OLD: one K10 build's launches (time_k10)
+    ap.add_argument("--time-k10", nargs=2, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("wf_ablate: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.time_k10:
+        print(json.dumps(time_k10(args.time_k10[0], args.time_k10[1] == "1",
+                                  args.reps)))
+        return 0
+    if args.k10:
+        return main_k10(args)
     import chip_smoke as cs
     import spt_tpu_torch as T
     from spt_tpu_torch.kernels import _build, megakernel_bvh as mb
@@ -602,6 +636,224 @@ def run_prim_bounces(builds: dict, dev, card: str, reps: int) -> None:
     print(json.dumps(dict(phase="sums_over_bounces", card=card,
                           chunk=f"{cs.BIG_W}x{cs.BIG_H} x 2 spp",
                           ms=totals)), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# K10
+# ---------------------------------------------------------------------------
+
+_BWD_BLOCKS = "constexpr int kBwdMinBlocks = 2;"
+_BWD_GEO = "  flush_geometry<true>(key, sink.dgeo, prm.dprims, prm.block);"
+_FLUSH = ("  flush_row(sink.row, sink.v, sink.row == 0 ? 6 : 8, g);\n"
+          "  flush_row(sink.light_row, sink.lv, 7, g);\n")
+_OLD_BWD = "__launch_bounds__(kThreadsWf)\n    bounce_bwd_kernel("
+_OLD_ADD = "  if (v != 0.0f) atomicAdd(g + i, v);\n"
+
+# tag -> [(file, old, new)] on the package's K10
+K10_VARIANTS = {
+    "k10": [],
+    **{f"k10_lb_{b}": [("wavefront.cu", _BWD_BLOCKS,
+                        _BWD_BLOCKS.replace("2;", f"{b};"))]
+       for b in (1, 3, 4)},
+    # each lane adds its own winner's cotangent into d(prims)
+    "k10_no_merge": [("wavefront.cu", _BWD_GEO,
+                      _BWD_GEO.replace("<true>", "<false>"))],
+    # the scalar gradient's warp sums dropped: each lane stores its own
+    # row (a time bound only; the gradient is wrong)
+    "k10_stores": [("physics_adj.cuh", _FLUSH,
+                    "  if (sink.row >= 0)\n"
+                    "    for (int a = 0; a < 8; ++a) g[sink.row + a] = "
+                    "sink.v[a];\n"
+                    "  if (sink.light_row >= 0)\n"
+                    "    for (int a = 0; a < 7; ++a) g[sink.light_row + a] = "
+                    "sink.lv[a];\n")],
+}
+# tag -> [(file, old, new)] on an earlier K10's sources (--old)
+K10_OLD_VARIANTS = {
+    "old": [],
+    **{f"old_lb_{b}": [("wavefront.cu", _OLD_BWD, _OLD_BWD.replace(
+        "(kThreadsWf)", f"(kThreadsWf, {b})"))] for b in (2, 3, 4)},
+    # the sink's shared atomics as plain stores (a time bound only)
+    "old_stores": [("physics_adj.cuh", _OLD_ADD,
+                    "  if (v != 0.0f) g[i] = v;\n")],
+}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# An earlier K10's entry: din, dgeo, dscal, st, ids, res, ct, blob, meta,
+# lsb, mtypes, stride, n_lanes, n_mats, n_light_slots, k, rr_depth,
+# use_nee, use_mis, sky_mode, stream.
+OLD_K10_ENTRY = [_P] * 11 + [_I] * 9 + [_P]
+
+
+def _k10_lib(tag: str) -> Path:
+    from spt_tpu_torch.kernels import _build
+    return _build.BUILD_DIR / f"libwfk10_{tag}.so"
+
+
+def build_k10(tag: str, csrc: Path, edits) -> tuple:
+    """Copy ``csrc``, apply ``edits``, build the wavefront's kernels ->
+    (tag, K10's ptxas facts)."""
+    from spt_tpu_torch.kernels import _build
+    src = _build.BUILD_DIR / f"wfk10_{tag}"
+    shutil.rmtree(src, ignore_errors=True)
+    shutil.copytree(csrc, src)
+    for name, old, new in edits:
+        text = (src / name).read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"{tag}: {name} has no single {old!r}")
+        (src / name).write_text(text.replace(old, new))
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
+                           str(_k10_lib(tag)), str(src / "wavefront.cu")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tag}: nvcc failed\n{proc.stderr}")
+    return tag, ptxas((proc.stdout + proc.stderr).splitlines(),
+                      "bounce_bwd_kernel")
+
+
+def time_k10(tag: str, old: bool, reps: int) -> dict:
+    """One K10 build's launches on config 5's bounces 0 and 1, in a
+    process of its own; the stream made by the package's kernels."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    import spt_tpu_torch as T
+    from spt_tpu_torch.kernels import _build, megakernel_bvh as mb
+    from spt_tpu_torch.kernels import wavefront as wf
+    from spt_tpu_torch.kernels import wavefront_grad as wg
+    dev = torch.device("cuda")
+    lib = ctypes.CDLL(str(_k10_lib(tag)))
+    fn = lib.spt_wavefront_bounce_bwd
+    fn.argtypes = OLD_K10_ENTRY if old else \
+        _build.ENTRIES["wavefront"]["spt_wavefront_bounce_bwd"]
+    fn.restype = ctypes.c_int
+    sd = cs.scene_10k(T).compile(device=dev)
+    cam = T.Camera.look_at(device=dev, **cs.CAM_10K)
+    t, stc, meta = cs.wf_inputs(torch, wf, mb, sd, cam, cs.BIG_SEED)
+    block, n_mats, nls = stc["block"], stc["n_mats"], stc["n_light_slots"]
+    n_blocks = t["prims"].numel() // (5 * block)
+    n_scal = wg.n_scalars(n_mats, nls)
+    if old:     # its shared memory: uniforms, one copy of the vector
+        lib.spt_wavefront_blocks_per_sm.argtypes = [_I, _I]
+        row = dict(blocks_per_sm=lib.spt_wavefront_blocks_per_sm(
+            4, 4 * (t["blob"].numel() + 8 + 6 + 3 + n_mats + n_scal)))
+    else:
+        fn_b = lib.spt_wavefront_bounce_bwd_blocks_per_sm
+        fn_b.argtypes = [_I, _I]
+        row = dict(blocks_per_sm=fn_b(n_mats, nls))
+    b = cs.wf_bounce(torch, wf, t, stc, meta, cs.BIG_W, cs.BIG_H, 0,
+                     cs.BIG_SEED)
+    stream = torch.cuda.current_stream().cuda_stream
+    for k in (0, 1):
+        n, res_k, tree = b["n"], b["res_t"], b["tree"]
+        st, ids = b["st"], b["ids"]
+        kw9 = dict(k=k, block=block, n_mats=n_mats, n_light_slots=nls,
+                   rr_depth=cs.RR, use_nee=True, use_mis=True,
+                   sky_mode=sd.sky_mode)
+        _, blocked = wg.shade_fwd(t["blob"], meta, t["lsb"], t["prims"],
+                                  t["mtypes"], None, None, st, ids, res_k, n,
+                                  tree=tree, **kw9)
+        res8 = res_k.clone()
+        res8[7] = blocked
+        ct = torch.from_numpy(np.random.default_rng(11).normal(
+            size=tuple(st.shape)).astype(np.float32)).to(dev)
+        kw10 = {a: v for a, v in kw9.items() if a != "block"}
+        bargs = (t["blob"], meta, t["lsb"], t["mtypes"], st, ids, res8, ct,
+                 n)
+        gkw = dict(n_mats=n_mats, n_light_slots=nls, n_blocks=n_blocks,
+                   block=block)
+        with torch.inference_mode():
+            din_p, dgeo_p, dscal_p = wg.bounce_bwd_plain(*bargs, **kw10)
+            _, dpr_p = wg._grads_from_bwd(t["blob"], res8, dgeo_p, dscal_p,
+                                          **gkw)
+
+        def launch():
+            din = torch.empty_like(ct)
+            dscal = torch.zeros(n_scal, device=dev)
+            out = (torch.empty((4, n), device=dev) if old else
+                   torch.zeros((n_blocks + 1, 5, block), device=dev))
+            ptrs = [a.data_ptr() for a in (din, out, dscal, st, ids, res8,
+                                           ct, t["blob"], meta, t["lsb"],
+                                           t["mtypes"])]
+            ints = [st.shape[1], n, n_mats, nls, k, cs.RR, 1, 1,
+                    sd.sky_mode] + ([] if old else [n_blocks, block])
+            if fn(*ptrs, *ints, stream) != 0:
+                raise RuntimeError(f"{tag}: K10 launch failed")
+            return din, out, dscal
+
+        din, out, dscal = launch()
+        torch.cuda.synchronize()
+        res = dict(lanes=n, ms_all=[cs.cuda_ms(torch, launch)[1]
+                                    for _ in range(reps)])
+        res["ms"] = min(res["ms_all"])
+        if old:
+            scatter = [cs.cuda_ms(torch, lambda: wg._grads_from_bwd(
+                t["blob"], res8, out, dscal, **gkw))[1] for _ in range(reps)]
+            res.update(scatter_ms=min(scatter),
+                       k10_and_scatter_ms=res["ms"] + min(scatter))
+            out = wg._grads_from_bwd(t["blob"], res8, out, dscal, **gkw)[1]
+        else:
+            out = out[:n_blocks]
+        errs, _ = cs.tail_field_errors({"d_prims": out, "dscal": dscal},
+                                       {"d_prims": dpr_p, "dscal": dscal_p})
+        lanes = cs.lanes_close(din[:13, :n], din_p[:13, :n])
+        res.update(din_ok=lanes["ok"], din_frac_close=lanes["frac_close"],
+                   grad_ok=all(e["ok"] for e in errs.values()),
+                   grad=dict((key, dict(body_rel=e["body_rel"],
+                                        tail_rel=e["tail_rel"],
+                                        frac_close=e["frac_close"]))
+                             for key, e in errs.items()),
+                   flags_equal=bool(torch.equal(din[13:], din_p[13:])
+                                    and torch.equal(din[:, n:],
+                                                    din_p[:, n:])))
+        row[f"bounce{k}"] = res
+        del din_p, dgeo_p, dpr_p, din, out, ct
+        if k == 0:
+            b = cs.wf_advance(torch, wf, t, stc, meta, b, 0, cs.BIG_SEED,
+                              sd.sky_mode)
+    return row
+
+
+def main_k10(args) -> int:
+    """Build K10's variants, then time each build in a process of its own,
+    the reference first and again last."""
+    from spt_tpu_torch.kernels import _build
+    t0 = time.perf_counter()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    _build.build("wavefront")       # the package's, which makes the stream
+    jobs = [(tag, _build.CSRC, edits) for tag, edits in K10_VARIANTS.items()]
+    if args.old is not None:
+        jobs += [(tag, args.old, edits)
+                 for tag, edits in K10_OLD_VARIANTS.items()]
+    if args.only:
+        jobs = [j for j in jobs if j[0] in args.only]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        facts = dict(pool.map(lambda j: build_k10(*j), jobs))
+    print(json.dumps(dict(phase="build", seconds=time.perf_counter() - t0,
+                          builds=list(facts))), flush=True)
+    ref_tag = next(t for t in ("k10", "old") if t in facts)
+    order = [ref_tag] + [t for t in facts if t != ref_tag] + [ref_tag]
+    for n, tag in enumerate(order):
+        row = dict(variant=tag, card=card, run=n, **facts[tag])
+        try:
+            proc = subprocess.run(
+                [sys.executable, __file__, "--reps", str(args.reps),
+                 "--time-k10", tag, "1" if tag.startswith("old") else "0"],
+                capture_output=True, text=True, timeout=args.timeout)
+        except subprocess.TimeoutExpired as e:
+            row.update(hung=True, log=str(e.stdout)[-800:])
+        else:
+            if proc.returncode != 0:
+                row.update(faulted=True,
+                           log=(proc.stdout + proc.stderr)[-1500:])
+            else:
+                row.update(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(row), flush=True)
+    print(json.dumps(dict(seconds=time.perf_counter() - t0)), flush=True)
+    return 0
 
 
 if __name__ == "__main__":

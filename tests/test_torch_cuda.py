@@ -26,7 +26,9 @@ taken from a channel's median nonzero magnitude, on 99.5% of lanes,
 and body and tail lanes within ``GRAD_REL``).  K4's image equals
 K3's (K1's bar) and its raw gradients meet that bar against the plain
 K4's; K9's state equals K7's bit for bit and its blocked mask the plain
-K9's (with the walks also its state); K10's per-lane cotangents and its scalar gradient meet theirs; the
+K9's (with the walks also its state); K10's per-lane cotangents, its
+prim table and its scalar gradient meet the plain K10's and its
+scatter's; K4's image equals K3's value for value on ragged images; the
 differentiable wavefront's image meets K1's bar and its gradients the
 field bar against its plain stages.  Rays that win padding slots (the
 padding scene) take no geometry gradient in K4 and K10.  K8's verdicts
@@ -443,6 +445,31 @@ def _ct(dev, w, h, seed=4):
         0.5, 1.5, (h, w, 3)).astype(np.float32)).to(dev)
 
 
+# K4's image equals K3's value for value on ragged images, at 1 and 3 spp,
+# from a start sample above 0, with a thin lens, and on the padding scene.
+@pytest.mark.parametrize("case,spp,start", [
+    ("scene200", 3, 7), ("scene200_thin_lens", 1, 5), ("padding", 3, 3)])
+def test_k4_equals_k3_on_ragged_images(cuda, case, spp, start):
+    from spt_tpu_torch.kernels import megakernel_bvh_grad as mbg
+    if case == "padding":
+        sd = padding_scene(T).compile(device=cuda)
+        cam = T.Camera.look_at(device=cuda, **PAD_CAM)
+    else:
+        sd = scene_200(T).compile(device=cuda)
+        cam = _scene200_camera(cuda, case.endswith("lens"))
+    args, k3kw, _ = k3_inputs(torch, mb, sd, cam, 3, start=start)
+    w, h = RAGGED
+    kw = dict(width=w, height=h, spp=spp, max_bounces=8, rr_depth=3,
+              use_nee=True, use_mis=True, sky_mode=sd.sky_mode,
+              dof=case.endswith("lens"), **k3kw)
+    img, _, gg = mbg.megakernel_bvh_grad(
+        *args, mbg.swizzle_ct(_ct(cuda, w, h), w, h), **kw)
+    want = mb.megakernel_bvh_fwd(*args, **kw)
+    assert float(want.mean()) > 0.01
+    assert int((img != want).sum()) == 0
+    assert bool(torch.isfinite(gg).all()) and float(gg.abs().sum()) > 0
+
+
 @pytest.mark.parametrize("case", ["scene200", "padding"])
 def test_k4_matches_plain(cuda, case):
     """K4's image equals K3's; its raw gradients are held to GRAD_REL in
@@ -630,12 +657,14 @@ def test_k7_reading_the_verdict_matches_k7(cuda, case):
 
 @pytest.mark.parametrize("case", ["scene200", "padding"])
 def test_k10_matches_plain(cuda, case):
-    """K10 against the plain K10 on one bounce: d(state) and dgeo by
+    """K10 against the plain K10 on one bounce: d(state) by
     ``lanes_close`` (the VJP_* bar on a typical lane's scale, on
     K10_MIN_CLOSE of the lanes; GRAD_REL in body and tail), the flags'
-    and the suffix's cotangents exactly, dscal within GRAD_REL in body and
-    tail.  In the padding case lanes that won a padding slot (``hmid`` -1,
-    a block) get no dgeo."""
+    and the suffix's cotangents exactly; its d(prims), summed in the
+    kernel by winner, and dscal within GRAD_REL in body and tail of the
+    plain K10's dgeo scattered by ``_grads_from_bwd``.  In the padding
+    case lanes that won a padding slot (``hmid`` -1, a block) add
+    nothing: their slots get no gradient."""
     from spt_tpu_torch.kernels import wavefront_grad as wg
     wf, t, meta, b, kw, args = _grad_bounce(cuda, case)
     st, ids, n, res = b["st"], b["ids"], b["n"], b["res"]
@@ -646,20 +675,59 @@ def test_k10_matches_plain(cuda, case):
         size=tuple(st.shape)).astype(np.float32)).to(cuda)
     kw10 = {k: v for k, v in kw.items() if k != "block"}
     bargs = (t["blob"], meta, t["lsb"], t["mtypes"], st, ids, res8, ct, n)
+    block = kw["block"]
+    n_blocks = t["prims"].numel() // (5 * block)
     before = dict(mk.LAUNCHES)
-    din, dgeo, dscal = wg.bounce_bwd(*bargs, **kw10)
+    din, d_prims, dscal = wg.bounce_bwd(*bargs, **kw10, n_blocks=n_blocks,
+                                        block=block)
     assert mk.LAUNCHES == dict(before, k10=before["k10"] + 1)
     din_p, dgeo_p, dscal_p = wg.bounce_bwd_plain(*bargs, **kw10)
-    for a, b_ in ((din[:13, :n], din_p[:13, :n]), (dgeo, dgeo_p)):
-        res_ = lanes_close(a, b_)
-        assert res_["ok"], res_
+    _, d_prims_p = wg._grads_from_bwd(
+        t["blob"], res8, dgeo_p, dscal_p, n_mats=kw["n_mats"],
+        n_light_slots=kw["n_light_slots"], n_blocks=n_blocks, block=block)
+    res_ = lanes_close(din[:13, :n], din_p[:13, :n])
+    assert res_["ok"], res_
     assert torch.equal(din[13:], din_p[13:])
     assert torch.equal(din[:, n:], din_p[:, n:])
-    errs, _ = tail_field_errors({"dscal": dscal}, {"dscal": dscal_p})
-    assert errs["dscal"]["ok"], errs
+    errs, _ = tail_field_errors({"d_prims": d_prims, "dscal": dscal},
+                                {"d_prims": d_prims_p, "dscal": dscal_p})
+    assert all(e["ok"] for e in errs.values()), errs
+    assert float(d_prims_p.abs().sum()) > 0
     padding = ((res[4] < 0) & (res[5] >= 0))[:n]
     assert (int(padding.sum()) > 0) == (case == "padding")
-    assert float(dgeo[:, padding].abs().sum()) == 0.0
+    pad = t["prims"].reshape(-1, 5, block)[:, 4, :] < 0
+    assert float(d_prims[:, :4].abs().sum(1)[pad].sum()) == 0.0
+
+
+def test_k10_sums_winners_as_the_scatter(cuda):
+    """K10's d(prims) on a stream where many lanes share few winners (the
+    padding scene's bounce 0, its camera's narrow field: whole warps on
+    one sphere) against the plain K10 and ``_grads_from_bwd``'s
+    ``index_add_``, at the same bar; every slot the scatter gives a
+    gradient gets one from the kernel, and no other."""
+    from spt_tpu_torch.kernels import wavefront_grad as wg
+    wf, t, meta, b, kw, args = _grad_bounce(cuda, "padding")
+    st, ids, n, res = b["st"], b["ids"], b["n"], b["res"]
+    _, blocked = wg.shade_fwd_plain(*args, st, ids, res, n, **kw)
+    res8 = res.clone()
+    res8[7] = blocked
+    ct = torch.ones_like(st)
+    kw10 = {k: v for k, v in kw.items() if k != "block"}
+    bargs = (t["blob"], meta, t["lsb"], t["mtypes"], st, ids, res8, ct, n)
+    block = kw["block"]
+    n_blocks = t["prims"].numel() // (5 * block)
+    _, d_prims, _ = wg.bounce_bwd(*bargs, **kw10, n_blocks=n_blocks,
+                                  block=block)
+    din_p, dgeo_p, dscal_p = wg.bounce_bwd_plain(*bargs, **kw10)
+    _, d_prims_p = wg._grads_from_bwd(
+        t["blob"], res8, dgeo_p, dscal_p, n_mats=kw["n_mats"],
+        n_light_slots=kw["n_light_slots"], n_blocks=n_blocks, block=block)
+    errs, _ = tail_field_errors({"d_prims": d_prims}, {"d_prims": d_prims_p})
+    assert errs["d_prims"]["ok"], errs
+    assert torch.equal(d_prims != 0, d_prims_p != 0)
+    own = res8[4, :n] >= 0
+    assert int(own.sum()) > 64 * int(torch.unique(
+        res8[5, :n][own] * block + res8[6, :n][own]).numel())
 
 
 @pytest.mark.parametrize("case", ["gradient", "envmap"])

@@ -259,3 +259,49 @@ def test_split_walks_the_refit_tree(monkeypatch):
     monkeypatch.setattr(twg, "refit_nodef_torch", lambda sc, st: stale)
     img_s, _ = run()
     assert not torch.equal(img_s, img)
+
+
+@pytest.mark.parametrize("case", ["scene", "padding"])
+def test_k10_wrapper_on_the_cpu_is_plain_and_scatter(case):
+    """K10's wrapper on CPU tensors (``bounce_bwd``: the kernel's contract,
+    d(prims) summed by winner) equals the plain K10 followed by
+    ``_grads_from_bwd``'s scatter bit for bit, on one sorted bounce of the
+    160-sphere scene at 16x16 and of the padding scene, whose padding
+    winners' slots get nothing."""
+    if case == "padding":
+        sd = padding_scene(spt_tpu_torch).compile(device=CPU)
+        cam = spt_tpu_torch.Camera.look_at(device=CPU, **PAD_CAM)
+    else:
+        sd = scene_10k(spt_tpu_torch, n=160).compile(device=CPU)
+        cam = _camera()
+    t, stc, meta = wf_inputs(torch, twf, twf, sd, cam, 4)
+    b0 = wf_bounce(torch, twf, t, stc, meta, 16, 16, 0, 4)
+    n, res = b0["n"], b0["res"]
+    st, ids = b0["buf"][:twf.N_CH], b0["buf"][twf.N_CH:].view(torch.int32)
+    kw = dict(k=0, n_mats=stc["n_mats"], n_light_slots=stc["n_light_slots"],
+              rr_depth=5, use_nee=True, use_mis=True, sky_mode=sd.sky_mode)
+    block = stc["block"]
+    _, blocked = twg.shade_fwd_plain(
+        t["blob"], meta, t["lsb"], t["prims"], t["mtypes"], b0["scand"],
+        b0["sctn"], st, ids, res, n, block=block, **kw)
+    res8 = res.clone()
+    res8[7] = blocked
+    ct = torch.from_numpy(np.random.default_rng(8).normal(
+        size=tuple(st.shape)).astype(np.float32))
+    args = (t["blob"], meta, t["lsb"], t["mtypes"], st, ids, res8, ct, n)
+    n_blocks = t["prims"].numel() // (5 * block)
+    din, d_prims, dscal = twg.bounce_bwd(*args, **kw, n_blocks=n_blocks,
+                                         block=block)
+    din_p, dgeo_p, dscal_p = twg.bounce_bwd_plain(*args, **kw)
+    d_blob_p, d_prims_p = twg._grads_from_bwd(
+        t["blob"], res8, dgeo_p, dscal_p, n_mats=kw["n_mats"],
+        n_light_slots=kw["n_light_slots"], n_blocks=n_blocks, block=block)
+    assert d_prims.shape == (n_blocks, 5, block)
+    for got, want in ((din, din_p), (d_prims, d_prims_p), (dscal, dscal_p)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(twg._blob_grad(t["blob"], dscal, n_mats=kw["n_mats"],
+                                      n_light_slots=kw["n_light_slots"]),
+                       d_blob_p)
+    assert float(d_prims[:, :4].abs().sum()) > 0.0
+    pad = t["prims"].reshape(-1, 5, block)[:, 4, :] < 0
+    assert float(d_prims[:, :4].abs().sum(1)[pad].sum()) == 0.0
