@@ -21,9 +21,10 @@ K7 reading the merged shadow verdict, under NCCL at world size 1, then on 2
 spawned gloo ranks on the one card prim-sharded, sample-sharded and its
 data-parallel gradient; and config 5 through the wavefront's other bounce
 forms, each against the split form: the fused bounce K11 with the
-precull's lists and with the walk, the matmul-form sweeps K6m and K7m,
-and the fused gradient, K11g forward and K10 backward), and times the
-kernels and the wavefront's glue.
+precull's lists (culled per ray by the leaf boxes) and with the walk, the
+matmul-form sweeps K6m and K7m (its verdict pass, then K7b's kernel), and
+the fused gradient, K11g forward and K10 backward), and times the kernels
+and the wavefront's glue.
 Each phase prints one JSON line; any
 failure exits nonzero and prints no result.  The last two lines are the
 kernels table and ``{"ok": true, "device": {...}}``.
@@ -836,8 +837,12 @@ def run() -> int:
            for key, name, replaces in (
                ("k6m", "K6m wavefront isect, matmul form",
                 "spt_tpu/kernels/wavefront.py:524::_isect_kernel_mxu"),
-               ("k7m", "K7m wavefront shade, matmul form",
+               ("k7m", "K7m wavefront shade, matmul form: the bounce on "
+                "its verdicts (K7b's kernel)",
                 "spt_tpu/kernels/wavefront.py:668::_shade_kernel_mxu"),
+               ("k7mv", "K7m wavefront shade, matmul form: the verdict pass",
+                "spt_tpu/kernels/wavefront.py:668::_shade_kernel_mxu "
+                "(its shadow sweep)"),
                ("k11", "K11 wavefront fused bounce",
                 "spt_tpu/kernels/wavefront.py:194::_bounce_kernel"),
                ("k11g", "K11g wavefront fused bounce, recording",
@@ -1700,7 +1705,7 @@ def run_wf_phases(torch, T, mk, dev, card, k3) -> dict:
                       **{k: out["k6"][k] for k in ("fp32_ops", "bytes",
                                                    "bound_ms", "bound_by")}),
               k7=dict(ptxas_of(_build.BUILD_INFO, "wavefront",
-                               "shade_kernelILb0ELb0ELb1E"),
+                               "shade_kernelILb0ELb1E"),
                       **{k: out["k7"][k] for k in ("fp32_ops", "bytes",
                                                    "bound_ms", "bound_by")})))
     del nums, pad, tp
@@ -2115,7 +2120,7 @@ def run_grad_phases(torch, T, mk, dev, card, k3) -> dict:
     emit(dict(phase="k9_timing", card=card, k9_ms=c5["k9_ms"],
               k9_bounce1_ms=c51["k9_ms"], alive=stats["active"],
               **ptxas_of(_build.BUILD_INFO, "wavefront",
-                         "shade_kernelILb0ELb0ELb1E"),
+                         "shade_kernelILb0ELb1E"),
               **{k: out["k9"][k] for k in ("fp32_ops", "bytes", "bound_ms",
                                            "bound_by", "plain_ms")}))
     emit(dict(phase="k10_timing", card=card, k10_ms=c5["k10_ms"],
@@ -2604,7 +2609,7 @@ def run_prim_phases(torch, T, mk, dev, card, k3) -> dict:
               k6_shard0_bound_by=k6_shard_bound[1],
               shadow_rays=s8["shadow"],
               k8=dict(ptxas_of(_build.BUILD_INFO, "wavefront",
-                               "shade_kernelILb0ELb0ELb0E"),
+                               "shade_kernelILb0ELb0E"),
                       **{k: out["k8"][k] for k in (
                           "fp32_ops", "bytes", "bound_ms", "bound_by",
                           "plain_ms")}),
@@ -2900,23 +2905,27 @@ def check_state(res, label):
           f"{label}: means differ by {res['mean_rel']:.5f}")
 
 
-def k11_case(torch, wf, wg, t, stc, meta, b, k, precull, sky, reps):
+def k11_case(torch, wf, wg, t, stc, meta, b, k, precull, sky, reps,
+             boxes):
     """K11 and K11g on one config-5 bounce from the same state, against
     the plain K11 (its record the plain K11g's) and against the split
     bounce (K6's tree-mode winner, K7's state, K9's verdict, the shadow
-    rays walking the tree).  Returns the numbers and K11g's outputs."""
+    rays walking the tree); with ``precull`` their list sweep culled by
+    ``boxes``, as the render runs it.  Returns the numbers and K11g's
+    outputs."""
     n, base = b["n"], b["buf"].clone()
     kw = dict(k=k, block=stc["block"], n_mats=stc["n_mats"],
               n_light_slots=stc["n_light_slots"], rr_depth=RR, use_nee=True,
-              use_mis=True, sky_mode=sky)
+              use_mis=True, sky_mode=sky, boxes=boxes)
     fargs = (t["blob"], meta, t["lsb"], t["nodef"], t["nodei"], t["prims"],
              t["mtypes"], b["cand"], b["ctn"])
     args7 = (t["blob"], meta, t["lsb"], t["prims"], t["mtypes"], None, None)
     split = base.clone()
+    kw7 = {a: v for a, v in kw.items() if a != "boxes"}
     wf.shade(*args7, *stream_of(torch, wf, split), b["res_t"], n,
-             tree=b["tree"], **kw)
+             tree=b["tree"], **kw7)
     _, blocked9 = wg.shade_fwd(*args7, *stream_of(torch, wf, base),
-                               b["res_t"], n, tree=b["tree"], **kw)
+                               b["res_t"], n, tree=b["tree"], **kw7)
     got = base.clone()
     ms = []
     for _ in range(reps):
@@ -2938,9 +2947,17 @@ def k11_case(torch, wf, wg, t, stc, meta, b, k, precull, sky, reps):
     a, c = got[:wf.N_CH, :n], plain[:wf.N_CH, :n]
     res = state_close(torch, wf, a, c)
     padding = int(((b["res_t"][4] < 0) & (b["res_t"][5] >= 0)).sum())
+    # Lanes where K11 parts from its plain version, by cause: an exact
+    # t-tie or a padding winner on either side of K11g's and the plain
+    # record (route_differ's classes); "other" must be 0.
+    differ = ((a.view(torch.int32) != c.view(torch.int32)).any(0)
+              | (res_g.view(torch.int32) != rec.view(torch.int32)).any(0))
+    why = route_differ(torch, wf, base[:wf.N_CH, :n], res_g, rec)
+    why["other"] += int((differ & ~(res_g.view(torch.int32)
+                                    != rec.view(torch.int32)).any(0)).sum())
     row = dict(
         lanes=n, alive=stats["active"], padding_winners=padding,
-        lanes_differ=bits_differ(torch, a, c),
+        lanes_differ=bits_differ(torch, a, c), plain_differ_by_cause=why,
         k11g_lanes_differ_from_k11=bits_differ(torch, out_g[:, :n], a),
         winner_lanes_differ=bits_differ(torch, res_g[:7], rec[:7]),
         verdict_lanes_differ=int((res_g[7] != rec[7]).sum()),
@@ -2950,10 +2967,16 @@ def k11_case(torch, wf, wg, t, stc, meta, b, k, precull, sky, reps):
         verdict_lanes_differ_from_k9=int((res_g[7] != blocked9).sum()),
         k11_ms=ms, k11g_ms=ms_g, plain_ms=p_ms,
         nodes_per_lane=stats.get("nodes", 0) / n,
+        blocks_swept_per_lane=stats.get("blocks", 0) / max(stats["active"],
+                                                            1),
+        blocks_culled_per_lane=stats.get("culled_blocks", 0)
+        / max(stats["active"], 1),
         shadow_nodes_per_ray=stats["shadow_nodes"] / max(stats["shadow"], 1),
         **res)
     label = f"K11 at bounce {k}, precull={precull}"
     check_state(res, label)
+    check(why["other"] == 0, f"{label}: {why} lanes differ from the plain "
+                             "K11 but at no tie or padding winner")
     check(row["k11g_lanes_differ_from_k11"] == 0,
           f"{label}: K11g's state differs from K11's")
     check(row["winner_lanes_differ"] == 0,
@@ -2968,7 +2991,8 @@ def k11_case(torch, wf, wg, t, stc, meta, b, k, precull, sky, reps):
                      res_g=res_g, err=res["max_abs_err"])
 
 
-def k6m_k7m_case(torch, wf, t, stc, meta, b, k, sky, cmat, bctr, reps):
+def k6m_k7m_case(torch, wf, t, stc, meta, b, k, sky, cmat, bctr, cslot,
+                 reps):
     """K6m and K7m on one config-5 bounce, on per-row lists made from its
     stream, against their plain versions (K6m's residual bit for bit,
     K7m's state at K1's bar) and against K6 and K7."""
@@ -2993,22 +3017,48 @@ def k6m_k7m_case(torch, wf, t, stc, meta, b, k, sky, cmat, bctr, reps):
         n_light_slots=nls)
     scand, sctn = wf.precull_tiles(so3, sd3, sneed, stmax, lob, hib,
                                    per_row=True)
+    sray = torch.stack([*so3, *sd3, stmax, sneed])
     kw = dict(k=k, block=block, n_mats=stc["n_mats"], n_light_slots=nls,
               rr_depth=RR, use_nee=True, use_mis=True, sky_mode=sky)
-    args = (t["blob"], meta, t["lsb"], prims, cmat, bctr, t["mtypes"], scand,
+    args = (t["blob"], meta, t["lsb"], prims, cslot, bctr, t["mtypes"], scand,
             sctn)
     base = b["buf"].clone()
     got = base.clone()
-    ms7 = []
+    # K7m as the render launches it (its verdict pass, then K7b's kernel
+    # on the verdicts), then each launch alone.
+    res_k7, res_p7 = res.clone(), res.clone()
+    ms7, msv, msb = [], [], []
     for _ in range(reps):
         got.copy_(base)
         ms7.append(cuda_ms(torch, lambda: wf.shade_mxu(
-            *args, *stream_of(torch, wf, got), res, n, **kw))[1])
-    plain, k7 = base.clone(), base.clone()
-    s7 = {}
+            *args, *stream_of(torch, wf, got), res_k7, n, sray=sray,
+            **kw))[1])
+    verdict, verdict_p = (torch.full((n,), -1.0, device=st.device)
+                          for _ in range(2))
+    for _ in range(reps):
+        msv.append(cuda_ms(torch, lambda: wf.mxu_verdicts(
+            prims, cslot, bctr, scand, sctn, sray, verdict, n,
+            block=block))[1])
+    bounce_only = base.clone()
+    for _ in range(reps):
+        bounce_only.copy_(base)
+        msb.append(cuda_ms(torch, lambda: wf.shade(
+            t["blob"], meta, t["lsb"], prims, t["mtypes"], None, None,
+            *stream_of(torch, wf, bounce_only), res_k7, n,
+            blocked_in_res=True, **kw))[1])
+    plain, plain_b, k7 = base.clone(), base.clone(), base.clone()
+    s7, sv, sb = {}, {}, {}
     with torch.inference_mode():
         _, p7_ms = cuda_ms(torch, lambda: wf.shade_mxu_plain(
-            *args, *stream_of(torch, wf, plain), res, n, stats=s7, **kw))
+            *args, *stream_of(torch, wf, plain), res_p7, n, sray=sray,
+            stats=s7, **kw))
+        _, pv_ms = cuda_ms(torch, lambda: wf.mxu_verdicts_plain(
+            prims, cslot, bctr, scand, sctn, sray, verdict_p, n, block=block,
+            stats=sv))
+        _, pb_ms = cuda_ms(torch, lambda: wf.shade_plain(
+            t["blob"], meta, t["lsb"], prims, t["mtypes"], None, None,
+            *stream_of(torch, wf, plain_b), res_p7, n, blocked_in_res=True,
+            stats=sb, **kw))
     wf.shade(t["blob"], meta, t["lsb"], prims, t["mtypes"], b["scand"],
              b["sctn"], *stream_of(torch, wf, k7), b["res"], n, **kw)
     a, c = got[:wf.N_CH, :n], plain[:wf.N_CH, :n]
@@ -3023,15 +3073,29 @@ def k6m_k7m_case(torch, wf, t, stc, meta, b, k, sky, cmat, bctr, reps):
                 plain_ms=p6_ms)
     row7 = dict(lanes=n, lanes_differ=bits_differ(torch, a, c),
                 lanes_differ_from_k7=bits_differ(torch, a, k7[:wf.N_CH, :n]),
+                verdicts_differ=int((verdict != verdict_p).sum()),
+                render_verdicts_differ=int((res_k7[7] != res_p7[7]).sum()),
+                bounce_only_lanes_differ=bits_differ(
+                    torch, bounce_only[:wf.N_CH, :n], a),
+                shadow_rays=s7["shadow"],
                 shadow_blocks_per_ray=s7["shadow_blocks"]
-                / max(s7["shadow"], 1), k7m_ms=ms7, plain_ms=p7_ms, **res7)
+                / max(s7["shadow"], 1), k7m_ms=ms7, verdict_pass_ms=msv,
+                bounce_ms=msb, plain_ms=p7_ms, verdict_pass_plain_ms=pv_ms,
+                bounce_plain_ms=pb_ms, **res7)
     check(row6["lanes_differ"] == 0,
           f"K6m at bounce {k}: {row6['lanes_differ']} residual lanes differ")
     check(row6["hits"] > 0, f"K6m at bounce {k}: no hit")
     check_state(res7, f"K7m at bounce {k}")
-    return row6, row7, dict(s6=s6, s7=s7, ms6=min(ms6), ms7=min(ms7),
-                            p6_ms=p6_ms, p7_ms=p7_ms,
-                            err=res7["max_abs_err"])
+    check(row7["verdicts_differ"] == 0 and row7["render_verdicts_differ"] == 0,
+          f"K7m's verdict pass at bounce {k}: {row7['verdicts_differ']} / "
+          f"{row7['render_verdicts_differ']} verdicts differ from the plain "
+          "pass's")
+    check(row7["bounce_only_lanes_differ"] == 0,
+          f"K7m at bounce {k}: its bounce alone parts from the entry's")
+    return row6, row7, dict(s6=s6, s7=s7, sv=sv, sb=sb, ms6=min(ms6),
+                            ms7=min(ms7), msv=min(msv), msb=min(msb),
+                            p6_ms=p6_ms, p7_ms=p7_ms, pv_ms=pv_ms,
+                            pb_ms=pb_ms, err=res7["max_abs_err"])
 
 
 def run_fused_phases(torch, T, mk, dev, card, k3) -> dict:
@@ -3055,7 +3119,9 @@ def run_fused_phases(torch, T, mk, dev, card, k3) -> dict:
     uniform_bytes = 4 * (t["blob"].numel() + t["lsb"].numel() + meta.numel()
                          + stc["n_mats"])
     tree_words = sum(t[k].numel() for k in ("nodef", "nodei", "prims"))
-    cmat, bctr = wf.build_cmat(t["prims"].reshape(-1, 5, block))
+    cmat, bctr, cslot = wf.mxu_tables(t, block)
+    boxes = wf.leaf_boxes(*wf._leaf_block_bounds(
+        t["prims"].reshape(-1, 5, block)))
 
     # 33. K11, K11g (with either nearest hit), K6m and K7m on config-5
     # bounces 0 and 1, each against its plain version ------------------
@@ -3068,11 +3134,11 @@ def run_fused_phases(torch, T, mk, dev, card, k3) -> dict:
         reps = 3 if k == 0 else 1
         for precull in (True, False):
             row, nums[k, precull] = k11_case(torch, wf, wg, t, stc, meta, b,
-                                             k, precull, sky, reps)
+                                             k, precull, sky, reps, boxes)
             emit(dict(phase="k11_vs_plain", case=f"config5_bounce{k}",
                       precull=precull, **row))
         row6, row7, nums[k, "mxu"] = k6m_k7m_case(
-            torch, wf, t, stc, meta, b, k, sky, cmat, bctr, reps)
+            torch, wf, t, stc, meta, b, k, sky, cmat, bctr, cslot, reps)
         emit(dict(phase="k6m_vs_plain", case=f"config5_bounce{k}", **row6))
         emit(dict(phase="k7m_vs_plain", case=f"config5_bounce{k}", **row7))
         if k == 0:
@@ -3106,45 +3172,81 @@ def run_fused_phases(torch, T, mk, dev, card, k3) -> dict:
                         fp32_ops=ops, bytes=n_bytes)
         out[key]["bound_ms"], out[key]["bound_by"] = bound(ops, n_bytes)
     walk_ops = wf.k11_op_count(s11w["stats"])
+    culled_ops = wf.k11_op_count(s11["stats"], culled=True)
+    lib = _build.load_library("wavefront")
+    smem11 = 4 * (t["blob"].numel() + 8 + 6 + 3 + stc["n_mats"])
     emit(dict(phase="k11_timing", card=card, k11_ms=s11["ms"],
               k11g_ms=s11["ms_g"], k11_walk_ms=s11w["ms"],
               k11g_walk_ms=s11w["ms_g"], k11_bounce1_ms=nums[1, True]["ms"],
               k11_walk_bounce1_ms=nums[1, False]["ms"],
+              k11g_bounce1_ms=nums[1, True]["ms_g"],
+              k11g_walk_bounce1_ms=nums[1, False]["ms_g"],
+              culled_fp32_ops=culled_ops,
+              culled_bound_ms=bound(culled_ops, out["k11"]["bytes"])[0],
+              culled_fp32_ops_bounce1=wf.k11_op_count(nums[1, True]["stats"],
+                                                      culled=True),
+              fp32_ops_bounce1=wf.k11_op_count(nums[1, True]["stats"]),
               walk_fp32_ops=walk_ops,
               walk_bound_ms=bound(walk_ops, wf.k11_byte_count(
                   s11w["stats"], n0, tree_words) + uniform_bytes)[0],
-              k11=ptxas_of(_build.BUILD_INFO, "wavefront",
-                           "bounce_kernelILb0"),
-              k11g=ptxas_of(_build.BUILD_INFO, "wavefront",
-                            "bounce_kernelILb1"),
+              k11=dict(ptxas_of(_build.BUILD_INFO, "wavefront",
+                                "bounce_kernelILb0"),
+                       blocks_per_sm=lib.spt_wavefront_blocks_per_sm(
+                           2, smem11)),
+              k11g=dict(ptxas_of(_build.BUILD_INFO, "wavefront",
+                                 "bounce_kernelILb1"),
+                        blocks_per_sm=lib.spt_wavefront_blocks_per_sm(
+                            7, smem11)),
               **{k: out["k11"][k] for k in ("fp32_ops", "bytes", "bound_ms",
                                             "bound_by", "plain_ms")}))
     ops6 = wf.k6m_op_count(sm["s6"], block)
     bytes6 = wf.k6m_byte_count(sm["s6"], n0, block)
-    ops7 = wf.k7m_op_count(sm["s7"], block)
-    bytes7 = wf.k7m_byte_count(sm["s7"], n0, block) + uniform_bytes
+    ops7 = wf.k7b_op_count(sm["sb"])
+    bytes7 = wf.k7b_byte_count(sm["sb"], n0) + uniform_bytes
+    opsv = wf.k7mv_op_count(sm["sv"], block)
+    bytesv = wf.k7mv_byte_count(dict(sm["sv"], shadow=sm["s7"]["shadow"]),
+                                n0, block)
     out["k6m"] = dict(ms=sm["ms6"], plain_ms=sm["p6_ms"], max_abs_err=0.0,
                       plain_size=f"{n0} rays (config 5, bounce 0, per-row "
                                  "lists, counting its work)",
                       fp32_ops=ops6, bytes=bytes6)
-    out["k7m"] = dict(ms=sm["ms7"], plain_ms=sm["p7_ms"],
+    # K7m's two launches, each beside its own plain step: the bounce (K7b's
+    # kernel on the verdicts) and the verdict pass.
+    out["k7m"] = dict(ms=sm["msb"], plain_ms=sm["pb_ms"],
                       max_abs_err=max(sm["err"], nums[1, "mxu"]["err"]),
-                      plain_size=f"{n0} rays (config 5, bounce 0, per-row "
-                                 "lists, counting its work)",
+                      plain_size=f"{n0} rays (config 5, bounce 0, the "
+                                 "verdicts read, counting its work)",
                       fp32_ops=ops7, bytes=bytes7)
-    for key, ops, n_bytes in (("k6m", ops6, bytes6), ("k7m", ops7, bytes7)):
+    out["k7mv"] = dict(ms=sm["msv"], plain_ms=sm["pv_ms"], max_abs_err=0.0,
+                       plain_size=f"{n0} rays (config 5, bounce 0, per-row "
+                                  "shadow lists, counting its work)",
+                       fp32_ops=opsv, bytes=bytesv)
+    for key, ops, n_bytes in (("k6m", ops6, bytes6), ("k7m", ops7, bytes7),
+                              ("k7mv", opsv, bytesv)):
         out[key]["bound_ms"], out[key]["bound_by"] = bound(ops, n_bytes)
     emit(dict(phase="k6m_k7m_timing", card=card, k6m_ms=sm["ms6"],
               k7m_ms=sm["ms7"], k6m_bounce1_ms=nums[1, "mxu"]["ms6"],
               k7m_bounce1_ms=nums[1, "mxu"]["ms7"],
+              k7m_verdict_pass_ms=sm["msv"], k7m_bounce_ms=sm["msb"],
+              k7m_verdict_pass_bounce1_ms=nums[1, "mxu"]["msv"],
+              k7m_bounce_bounce1_ms=nums[1, "mxu"]["msb"],
+              k7m_plain_ms=sm["p7_ms"],
               k6m=dict(ptxas_of(_build.BUILD_INFO, "wavefront",
                                 "isect_kernelILb1"),
                        **{k: out["k6m"][k] for k in (
                            "fp32_ops", "bytes", "bound_ms", "bound_by")}),
               k7m=dict(ptxas_of(_build.BUILD_INFO, "wavefront",
-                                "shade_kernelILb1"),
+                                "shade_kernelILb1ELb1E"),
+                       blocks_per_sm=lib.spt_wavefront_blocks_per_sm(
+                           6, smem11 - 32),
                        **{k: out["k7m"][k] for k in (
-                           "fp32_ops", "bytes", "bound_ms", "bound_by")})))
+                           "fp32_ops", "bytes", "bound_ms", "bound_by")}),
+              k7mv=dict(ptxas_of(_build.BUILD_INFO, "wavefront",
+                                 "mxu_verdict_kernel"),
+                        blocks_per_sm=lib
+                        .spt_wavefront_mxu_verdicts_blocks_per_sm(block),
+                        **{k: out["k7mv"][k] for k in (
+                            "fp32_ops", "bytes", "bound_ms", "bound_by")})))
     del nums, s11, s11w, sm
     torch.cuda.empty_cache()
 
@@ -3160,7 +3262,7 @@ def run_fused_phases(torch, T, mk, dev, card, k3) -> dict:
     out["launches"] = {m: {k: 0 for k in mk.LAUNCHES}
                        for m in ("fused", "mxu")}
     want_k = {"fused": ("k5", "k11"), "fused_walk": ("k5", "k11"),
-              "mxu": ("k5", "k6m", "k7m")}
+              "mxu": ("k5", "k6m", "k7m", "k7mv")}
     for label, sd in (("config5", sd10), ("config5_envmap", sd_env)):
         t0 = time.perf_counter()
         split_img = wf.render_wavefront(sd, cam10, BIG_W, BIG_H, 0, BIG_SPP,

@@ -118,8 +118,19 @@
 //   in float32 on the CUDA cores, in the plain version's order, and reads
 //   the winner from prims: the same values, bit for bit with the plain
 //   version.  Tensor cores would round to TF32 (ROADMAP.md, item 14).
-//   Bound: fp32 operations of the expanded tests.  Same kernels as K6 and
-//   K7, the form a template parameter, so K6's and K7's code is theirs.
+//   Bound: fp32 operations of the expanded tests.  K6m is K6's kernel, the
+//   form a template parameter.  K7m is two launches: a verdict pass
+//   (mxu_verdict_kernel), writing K6m's residual row 7, and K7b's kernel
+//   reading its verdicts there.  Swept
+//   inside the bounce, as K7's lists are, the shadow test was bound by
+//   latency: the row's lanes reached it at different points of a
+//   divergent bounce, each slot's columns 16 dependent loads 2 block
+//   floats apart, one block of 154 registers an SM.  The pass takes the
+//   shadow rays the glue built the row lists for, and a row's four warps
+//   sweep its list together over each candidate's table, staged once in
+//   shared memory by cp.async from a slot-major copy (two buffers, the
+//   next candidate's copy in flight), a column two 16-byte reads, the 8
+//   products in the plain version's order, so the same bits.
 // * K11 replaces wavefront.py::_bounce_kernel (:194, launched at :1139
 //   with split=False), K11g wavefront_grad.py::_bounce_fwd_kernel (:86,
 //   launched at :573): the whole bounce in one kernel, in place on the
@@ -130,9 +141,17 @@
 //   K7's do; trace_bounce on the winner, a padding
 //   winner resolved as JAX's fused bounce resolves it (kNoMaterial).
 //   K11g (kRecord) writes K6's residual and the shadow verdict in row 7,
-//   which K10 replays.  One thread per ray, its walk stack-free; the
-//   bounce is called, not inlined, as K3's is.  Bound: fp32 operations of
-//   the walks and the bounce (the bytes: the state, the lists, the tree).
+//   which K10 replays.  One thread per ray, its walk stack-free.  A tile's
+//   list is the union over 1024 rays; after bounce 0 their directions
+//   scatter, and a ray swept every slot of blocks its own ray misses.  So
+//   the list sweep tests each candidate's box (the leaf blocks' boxes the
+//   glue culls with, passed in) against the lane's own ray first and skips
+//   a block the ray misses or enters past its nearest t so far
+//   (list_nearest given the boxes); the plain version skips the same
+//   blocks.  The bounce is inlined (trace_bounce, as K3 and K4 have it)
+//   and the kernel built for kBounceMinBlocks blocks an SM.  Bound: fp32
+//   operations of the walks and the bounce (the bytes: the state, the
+//   lists, the tree).
 //
 // Lanes past the alive prefix (the sorted stream's dead suffix) are not
 // launched: K6, K7, K9 and K11 take the prefix length, where the TPU kernels
@@ -158,19 +177,24 @@ constexpr int kTile = 1024;                // lanes of a stream tile
 constexpr int kRow = 128;                  // lanes of a row (K6m's, K7m's lists)
 constexpr int kTileW = 32;                 // its pixels: 32 x 32, swizzled
 constexpr int kThreadsWf = 256;
-// Blocks an SM that K7 and K9 (shade_kernel<false, false>) are built for:
+// Blocks an SM that K7 and K9 (shade_kernel<false, true>) are built for:
 // 64 registers with 132 B of spills, where the compiler alone takes 120
 // registers and 2 blocks; on an H100 23% faster over a config-5 chunk,
 // the same bits (tools/wf_ablate.py's k7_lb_* builds; PERF.md).  K7
 // reading its verdicts runs 2.6 times slower so built, and is not.
 constexpr int kShadeMinBlocks = 4;
-// Blocks an SM that K8 (shade_kernel<false, false, false>) is built for.
+// Blocks an SM that K8 (shade_kernel<false, false>) is built for.
 constexpr int kVerdictMinBlocks = 4;
 // Blocks an SM that K10 (bounce_bwd_kernel) is built for: 2, 128
 // registers with 172 B of spills; on an H100 30% faster at config-5
 // bounce 0 than the compiler's own 154 registers and 1 block, and 1, 3
 // or 4 blocks were all slower (tools/wf_ablate.py --k10; PERF.md).
 constexpr int kBwdMinBlocks = 2;
+// Blocks an SM that K11 and K11g (bounce_kernel) are built for: 5, 48
+// registers with 312 B of spills; on an H100 at config-5 bounces 0 and 1
+// 5-7% faster than 2 or 3 blocks (80 registers), 4 and 6 within 1%
+// (tools/wf_ablate.py --k11; PERF.md).
+constexpr int kBounceMinBlocks = 5;
 constexpr int kNCh = 17;                   // float channels of the stream
 constexpr int kChAlive = 13, kChSpec = 14, kChInimg = 15, kChMiss = 16;
 constexpr int kWfMatOff = 21;              // blob: camera 15, sky 6, mats
@@ -253,9 +277,15 @@ struct CompactSlots {
 // and A = (dx, dy, dz, 0, o'x, o'y, o'z, 1), column c of the block's
 // (8, 2 block) table (build_cmat) dotted with A, its 8 products summed in
 // order, is b + d.o' (c = j) and cterm - |o'|^2 (c = block + j).  Float32
-// on the CUDA cores, in the plain version's order.
+// on the CUDA cores, in the plain version's order.  kStaged (K7m's
+// verdict pass): the block's table is begun where the pass staged it in
+// shared memory, from the table's slot-major copy, (n_blocks, 2 block,
+// 8): a column is 8 adjacent floats, two 16-byte reads, where
+// build_cmat's layout (K6m's, read from global memory) puts them 2 block
+// floats apart.
+template <bool kStaged>
 struct ExpandedSlots {
-  const float* cmat;    // (n_blocks, 8, 2 block)
+  const float* cmat;    // K6m: (n_blocks, 8, 2 block); staged: unread
   const float* bctr;    // (n_blocks, 3)
   int block;
   float ox, oy, oz, dx, dy, dz;
@@ -264,7 +294,11 @@ struct ExpandedSlots {
   float dor, o2;
 
   __device__ __forceinline__ void begin(int blk) {
-    cb = cmat + (size_t)blk * 16 * block;
+    begin_at(cmat + (size_t)blk * 16 * block, blk);
+  }
+  // Block blk, its table read at `table`.
+  __device__ __forceinline__ void begin_at(const float* table, int blk) {
+    cb = table;
     const float opx = ox - __ldg(bctr + 3 * blk);
     const float opy = oy - __ldg(bctr + 3 * blk + 1);
     const float opz = oz - __ldg(bctr + 3 * blk + 2);
@@ -280,9 +314,24 @@ struct ExpandedSlots {
     o2 = opx * opx + opy * opy + opz * opz;
   }
   __device__ __forceinline__ float column(int c) const {
-    float sum = __ldg(cb + c) * a[0];
-    for (int r = 1; r < 8; ++r) sum = sum + __ldg(cb + r * 2 * block + c) * a[r];
-    return sum;
+    if constexpr (kStaged) {
+      const float4* q = reinterpret_cast<const float4*>(cb + 8 * c);
+      const float4 u = q[0], v = q[1];
+      float sum = u.x * a[0];
+      sum = sum + u.y * a[1];
+      sum = sum + u.z * a[2];
+      sum = sum + u.w * a[3];
+      sum = sum + v.x * a[4];
+      sum = sum + v.y * a[5];
+      sum = sum + v.z * a[6];
+      sum = sum + v.w * a[7];
+      return sum;
+    } else {
+      float sum = __ldg(cb + c) * a[0];
+      for (int r = 1; r < 8; ++r)
+        sum = sum + __ldg(cb + r * 2 * block + c) * a[r];
+      return sum;
+    }
   }
   __device__ __forceinline__ bool hit(int j, float& tj) const {
     const float b = column(j) - dor;
@@ -310,20 +359,54 @@ struct ExpandedSlots {
   }
 };
 
+// A leaf block's box, row blk of `boxes` (8 floats a row: lo xyz, hi xyz,
+// 2 pad, as a tree node's row), against the ray: BvhWalk::node's slab
+// test and its arithmetic, below tmax.
+__device__ __forceinline__ bool box_hit(const float* boxes, int blk,
+                                        float ox, float oy, float oz,
+                                        float ivx, float ivy, float ivz,
+                                        float tmax) {
+  const float4* f = reinterpret_cast<const float4*>(boxes) + 2 * blk;
+  const float4 a = __ldg(f), b = __ldg(f + 1);
+  float t0 = (a.x - ox) * ivx, t1 = (a.w - ox) * ivx;
+  float tn = fminf(t0, t1), tf = fmaxf(t0, t1);
+  t0 = (a.y - oy) * ivy;
+  t1 = (b.x - oy) * ivy;
+  tn = fmaxf(tn, fminf(t0, t1));
+  tf = fminf(tf, fmaxf(t0, t1));
+  t0 = (a.z - oz) * ivz;
+  t1 = (b.y - oz) * ivz;
+  tn = fmaxf(tn, fminf(t0, t1));
+  tf = fminf(tf, fmaxf(t0, t1));
+  return tn <= tf && tf > kTmin && tn < tmax;
+}
+
 // A ray's nearest hit over its list (cl: count, block ids; tl: their entry
 // bounds, nondecreasing): candidates in order, a block's slots in order
 // with a strict '<', stopping once the next candidate's bound reaches the
 // nearest distance so far (a later block cannot hold a nearer hit: t >=
 // box entry >= bound >= t_lane).  t: kBig or less in, the nearest out.
 // Returns the winner's block, -1 for none, and its slot in win_j.
+// With boxes (K11's sweep) each candidate's box is tested against the
+// lane's own ray first, and a block the ray misses, or enters at or past
+// the nearest t so far, is skipped: the winner stays the same but where
+// the float slab test and quadratic disagree at a box's edge, or a padding
+// slot (outside its block's box) would have won.  A warp skips a block
+// that none of its lanes needs.  Without boxes (null: K6's and K6m's
+// lists) the box test compiles away.
 template <class Slots>
 __device__ __forceinline__ int list_nearest(const int* cl, const float* tl,
-                                            Slots& s, float& t, int& win_j) {
+                                            const float* boxes, Slots& s,
+                                            float& t, int& win_j) {
+  const float ivx = safe_inv(s.dx), ivy = safe_inv(s.dy),
+              ivz = safe_inv(s.dz);
   int win_blk = -1;
   const int ncand = __ldg(cl);
   for (int c = 0; c < ncand; ++c) {
     if (__ldg(tl + c) >= t) break;        // no nearer hit in what is left
     const int blk = __ldg(cl + 1 + c);
+    if (boxes && !box_hit(boxes, blk, s.ox, s.oy, s.oz, ivx, ivy, ivz, t))
+      continue;
     s.begin(blk);
     for (int j = 0; j < s.block; ++j) {
       float tj;
@@ -429,9 +512,9 @@ __global__ void __launch_bounds__(kThreadsWf) isect_kernel(IsectParams prm) {
     const int* cl = prm.cand + (size_t)group * (prm.n_blocks + 1);
     const float* tl = prm.ctn + (size_t)group * prm.n_blocks;
     if constexpr (kMxu) {
-      ExpandedSlots slots{prm.cmat, prm.bctr, prm.block, ox, oy, oz,
-                          dx, dy, dz};
-      win_blk = list_nearest(cl, tl, slots, t, win_j);
+      ExpandedSlots<false> slots{prm.cmat, prm.bctr, prm.block, ox, oy, oz,
+                                 dx, dy, dz};
+      win_blk = list_nearest(cl, tl, nullptr, slots, t, win_j);
     } else if (prm.nodef) {
       const BvhWalk<false> walk{prm.nodef, prm.nodei, prm.prims, nullptr,
                                 nullptr, nullptr, nullptr, prm.n_nodes,
@@ -439,7 +522,7 @@ __global__ void __launch_bounds__(kThreadsWf) isect_kernel(IsectParams prm) {
       win_blk = walk.nearest_slot(ox, oy, oz, dx, dy, dz, t, win_j);
     } else {
       CompactSlots slots{prm.prims, prm.block, ox, oy, oz, dx, dy, dz};
-      win_blk = list_nearest(cl, tl, slots, t, win_j);
+      win_blk = list_nearest(cl, tl, nullptr, slots, t, win_j);
     }
   }
   const size_t n = (size_t)prm.n_lanes;
@@ -465,10 +548,9 @@ __global__ void __launch_bounds__(kThreadsWf) isect_kernel(IsectParams prm) {
 
 // K7's geometry: the lane's nearest hit rebuilt from K6's winner, and its
 // shadow test: a walk of the tree (nodef non-null), or its tile's shadow
-// candidate list (kMxu, K7m: its row's list, swept in the expanded form),
-// or the verdict read from the residual (blocked_in_res).  With `blocked`
-// (K9) the shadow test also writes its verdict there.
-template <bool kMxu>
+// candidate list, or the verdict read from the residual (blocked_in_res:
+// K7b's and K7m's).  With `blocked` (K9) the shadow test also writes its
+// verdict there.
 struct WavefrontGeometry {
   static constexpr int kLightEmit = 4;
   float hcx, hcy, hcz, hr, hmid;
@@ -482,8 +564,6 @@ struct WavefrontGeometry {
   float* blocked;       // K9: this lane's verdict; K7: null
   const float* verdict; // blocked_in_res: residual row 7 at this lane; else
                         // null (sweep the shadow list)
-  const float* cmat;    // K7m: build_cmat's tables; else null
-  const float* bctr;
   const float* nodef;   // the tree (shadow rays walk it), or null (lists)
   const int* nodei;
   int n_nodes;
@@ -528,13 +608,8 @@ struct WavefrontGeometry {
   __device__ __forceinline__ bool sweep(float ox, float oy, float oz,
                                         float dx, float dy, float dz,
                                         float tmax) const {
-    if constexpr (kMxu) {
-      ExpandedSlots slots{cmat, bctr, block, ox, oy, oz, dx, dy, dz};
-      return list_anyhit(scl, stl, slots, tmax);
-    } else {
-      CompactSlots slots{prims, block, ox, oy, oz, dx, dy, dz};
-      return list_anyhit(scl, stl, slots, tmax);
-    }
+    CompactSlots slots{prims, block, ox, oy, oz, dx, dy, dz};
+    return list_anyhit(scl, stl, slots, tmax);
   }
 
   __device__ __forceinline__ const float* light(int l) const {
@@ -542,10 +617,12 @@ struct WavefrontGeometry {
   }
 };
 
-// One bounce, called rather than inlined, as K3 calls its bounce: an
-// inlined bounce in K3 parted from the plain version on a few NEE shadow
-// decisions at config 5 (ROADMAP.md), and K7's shadow rays must be the ones
-// the glue culled for.  K11 calls its bounce the same way.
+// One bounce, called rather than inlined, by shade_kernel (K7, K7b, K7m,
+// K8, K9): K8 traces the shadow rays K7b's bounce would, bit for bit,
+// through this same call, and K7's list form sweeps lists the glue culled
+// for its shadow rays.  K11 and K11g inline their bounce, as K3 and K4
+// do; each is held bit for bit against its plain version and the split
+// bounce (chip_smoke.py).
 template <class Geometry>
 __device__ __noinline__ bool wf_bounce(const SceneView& sc,
                                        const Geometry& geo, Path& p,
@@ -568,8 +645,6 @@ struct ShadeParams {
   const int* scand;     // (groups, n_blocks + 1), unread without NEE, with
   const float* sctn;    // (groups, n_blocks)       the tree or the verdicts
   float* blocked;       // K9: (n_lanes,) shadow verdicts; K7: null
-  const float* cmat;    // K7m: (n_blocks, 8, 2 block); else null
-  const float* bctr;    // K7m: (n_blocks, 3)
   const float* nodef;   // the shadow walk's tree: 8 tables x n_nodes rows;
   const int* nodei;     //   null: the lists
   int stride, n_lanes, n_blocks, block, n_mats, n_light_slots, k, rr_depth;
@@ -577,15 +652,15 @@ struct ShadeParams {
   bool use_nee, use_mis;
 };
 
-// K7 and K9 (kMxu false: the shadow walk or a tile's shadow list), K7's
-// blocked_in_res mode (kVerdict: the verdicts), K7m (kMxu true: a shadow
-// list a row, swept in the expanded form), and K8 (kStore false: K9's
-// verdicts alone, the stream read and not written).
-template <bool kMxu, bool kVerdict, bool kStore = true>
+// K7 and K9 (the shadow walk or a tile's shadow list), K7's
+// blocked_in_res mode (kVerdict: the verdicts; K7b, and K7m after its
+// verdict pass), and K8 (kStore false: K9's verdicts alone, the stream
+// read and not written).
+template <bool kVerdict, bool kStore = true>
 __global__ void __launch_bounds__(kThreadsWf,
-                                  kMxu || kVerdict ? 1
-                                  : kStore         ? kShadeMinBlocks
-                                                   : kVerdictMinBlocks)
+                                  kVerdict ? 1
+                                  : kStore ? kShadeMinBlocks
+                                           : kVerdictMinBlocks)
     shade_kernel(ShadeParams prm) {
   extern __shared__ float smem[];
   float* s_blob = smem;
@@ -614,18 +689,18 @@ __global__ void __launch_bounds__(kThreadsWf,
 
   const size_t n = (size_t)prm.n_lanes;
   const float* res = prm.res + i;
-  const int group = kMxu ? i / kRow : i / kTile;
+  const int tile = i / kTile;
   const bool lists = prm.use_nee && prm.n_light_slots > 0 && !kVerdict &&
                      !prm.nodef;
   const float* mats = s_blob + kWfMatOff;
-  const WavefrontGeometry<kMxu> geo{
+  const WavefrontGeometry geo{
       res[0], res[n], res[2 * n], res[3 * n], res[4 * n], prm.prims,
-      lists ? prm.scand + (size_t)group * (prm.n_blocks + 1) : prm.scand,
-      lists ? prm.sctn + (size_t)group * prm.n_blocks : prm.sctn, mats,
+      lists ? prm.scand + (size_t)tile * (prm.n_blocks + 1) : prm.scand,
+      lists ? prm.sctn + (size_t)tile * prm.n_blocks : prm.sctn, mats,
       s_mtypes, mats + kWfMatStride * prm.n_mats, prm.block,
       prm.blocked ? prm.blocked + i : nullptr,
-      kVerdict ? res + 7 * n : nullptr, prm.cmat, prm.bctr,
-      kVerdict ? nullptr : prm.nodef, prm.nodei, prm.n_nodes};
+      kVerdict ? res + 7 * n : nullptr, kVerdict ? nullptr : prm.nodef,
+      prm.nodei, prm.n_nodes};
   const SceneView sc{s_blob, s_meta, s_lsb, 0, prm.n_light_slots, s_meta[2],
                      prm.sky_mode};
   const uint32_t pid = (uint32_t)prm.ids[i];
@@ -657,11 +732,11 @@ __global__ void __launch_bounds__(kThreadsWf) anyhit_kernel(AnyhitParams prm) {
   bool hit = false;
   if (i < prm.n_lanes && r[7 * s] > 0.5f) {
     const int tile = i / kTile;
-    const WavefrontGeometry<false> geo{
+    const WavefrontGeometry geo{
         0.0f, 0.0f, 0.0f, 0.0f, -1.0f, prm.prims,
         prm.scand + (size_t)tile * (prm.n_blocks + 1),
         prm.sctn + (size_t)tile * prm.n_blocks, nullptr, nullptr, nullptr,
-        prm.block, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0};
+        prm.block, nullptr, nullptr, nullptr, nullptr, 0};
     hit = geo.sweep(r[0], r[s], r[2 * s], r[3 * s], r[4 * s], r[5 * s],
                     r[6 * s]);
   }
@@ -669,13 +744,100 @@ __global__ void __launch_bounds__(kThreadsWf) anyhit_kernel(AnyhitParams prm) {
 }
 
 // ---------------------------------------------------------------------------
+// K7m's verdict pass.
+// ---------------------------------------------------------------------------
+
+struct MxuVerdictParams {
+  float* verdict;       // (n_lanes,): residual row 7
+  const float* sray;    // (8, n_lanes): pox poy poz ldx ldy ldz tmax need
+  const float* cslot;   // (n_blocks, 2 block, 8): build_cmat's, slot-major
+  const float* bctr;    // (n_blocks, 3)
+  const int* scand;     // (rows, n_blocks + 1): count, block ids
+  const float* sctn;    // (rows, n_blocks): entry bounds, nondecreasing
+  int n_lanes, n_blocks, block;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// One block a 128-lane row: the row's lanes sweep its shadow list together,
+// each candidate's table staged once in shared memory by cp.async for the
+// row's four warps, the next candidate's copy in flight while the lanes
+// test this one (two buffers).  Each lane: the candidates in order, a
+// block's slots in order, stopping at its first blocker (verdict 1) or
+// once the next candidate's bound reaches its tmax (the plain version's
+// _sweep_anyhit with mxu=); the row stops when every lane has.
+__global__ void __launch_bounds__(kRow) mxu_verdict_kernel(
+    MxuVerdictParams prm) {
+  extern __shared__ float4 s_tab[];                   // 2 x 4 block
+  const int row = blockIdx.x;
+  const int i = row * kRow + threadIdx.x;
+  const size_t n = (size_t)prm.n_lanes;
+  const float* r = prm.sray + i;
+  const float tmax = r[6 * n];
+  bool done = !(r[7 * n] > 0.5f), hit = false;
+  ExpandedSlots<true> slots{nullptr,  prm.bctr, prm.block, r[0],    r[n],
+                            r[2 * n], r[3 * n], r[4 * n],  r[5 * n]};
+  const int* cl = prm.scand + (size_t)row * (prm.n_blocks + 1);
+  const float* tl = prm.sctn + (size_t)row * prm.n_blocks;
+  const int ncand = __ldg(cl);
+  const int quads = 4 * prm.block;                    // a table's float4s
+  auto stage = [&](int c) {
+    const float4* src = reinterpret_cast<const float4*>(prm.cslot) +
+                        (size_t)__ldg(cl + 1 + c) * quads;
+    float4* dst = s_tab + (c & 1) * quads;
+    for (int a = threadIdx.x; a < quads; a += blockDim.x)
+      cp_async16(dst + a, src + a);
+    cp_async_commit();
+  };
+  if (ncand > 0) stage(0);
+  for (int c = 0; c < ncand; ++c) {
+    if (!done && __ldg(tl + c) >= tmax) done = true;
+    // Every lane is past candidate c - 1, so its buffer may be refilled.
+    if (!__syncthreads_or(!done)) break;
+    if (c + 1 < ncand) {
+      stage(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                                  // candidate c staged
+    if (!done) {
+      slots.begin_at(reinterpret_cast<const float*>(s_tab + (c & 1) * quads),
+                     __ldg(cl + 1 + c));
+      for (int j = 0; j < prm.block; ++j)
+        if (slots.blocks(j, tmax)) {
+          hit = done = true;
+          break;
+        }
+    }
+  }
+  cp_async_wait<0>();
+  prm.verdict[i] = hit ? 1.0f : 0.0f;
+}
+
+// ---------------------------------------------------------------------------
 // K11 and K11g: the fused bounce.
 // ---------------------------------------------------------------------------
 
 // K11's geometry: the lane's nearest hit by K6's sweep of its tile's list
-// (cl non-null: the precull) or by K3's walk of the tree, resolved as the
-// JAX package's fused bounce resolves it: a padding winner (material id
-// -1) has no material (kNoMaterial; K3 gives it K1's invalid row instead).
+// (cl non-null: the precull), each candidate's box tested against the
+// lane's ray first (boxes non-null), or by K3's walk of the tree, resolved
+// as the JAX package's fused bounce resolves it: a padding winner
+// (material id -1) has no material (kNoMaterial; K3 gives it K1's invalid
+// row instead).
 // Every shadow ray walks the tree (BvhWalk::any_hit) with the tmax
 // trace_bounce gives it.  With kRecord (K11g) the walk writes the lane's
 // residual: K6's winner record, the shadow verdict at rec[7].
@@ -686,6 +848,7 @@ struct FusedGeometry {
   BvhWalk<kRecord> walk;
   const int* cl;        // the tile's list (count, block ids), or null
   const float* tl;      // its entry bounds
+  const float* boxes;   // the leaf blocks' boxes, or null
 
   __device__ __forceinline__ bool nearest(float ox, float oy, float oz,
                                           float dx, float dy, float dz,
@@ -695,7 +858,7 @@ struct FusedGeometry {
       CompactSlots slots{walk.prims, walk.block, ox, oy, oz, dx, dy, dz};
       t = kBig;
       int win_j = 0;
-      const int win_blk = list_nearest(cl, tl, slots, t, win_j);
+      const int win_blk = list_nearest(cl, tl, boxes, slots, t, win_j);
       found = win_blk >= 0;
       if (found)
         walk.winner(win_blk, win_j, h);
@@ -731,6 +894,8 @@ struct BounceParams {
   const int* mtypes;    // n_mats
   const int* cand;      // precull: (tiles, n_blocks + 1); else unread
   const float* ctn;     // precull: (tiles, n_blocks)
+  const float* boxes;   // precull: (n_blocks, 8) leaf boxes, or null (the
+                        // list sweep unculled)
   float* res;           // K11g: (8, n_lanes) residual; K11: null
   int stride, n_lanes, n_nodes, n_blocks, block, n_mats, n_light_slots, k;
   int rr_depth, sky_mode, blob_len;
@@ -741,7 +906,8 @@ struct BounceParams {
 // one kernel, in place; a dead lane keeps its state and has its miss flag
 // cleared (K11g: residual 0 0 0 0 -1 -1 -1 0, as K6 writes it).
 template <bool kRecord>
-__global__ void __launch_bounds__(kThreadsWf) bounce_kernel(BounceParams prm) {
+__global__ void __launch_bounds__(kThreadsWf, kBounceMinBlocks)
+    bounce_kernel(BounceParams prm) {
   extern __shared__ float smem[];
   float* s_blob = smem;
   float* s_invalid = s_blob + prm.blob_len;             // 8
@@ -774,13 +940,14 @@ __global__ void __launch_bounds__(kThreadsWf) bounce_kernel(BounceParams prm) {
         {prm.nodef, prm.nodei, prm.prims, mats, s_mtypes, s_invalid,
          mats + kWfMatStride * prm.n_mats, prm.n_nodes, prm.block, rec},
         prm.precull ? prm.cand + (size_t)tile * (prm.n_blocks + 1) : nullptr,
-        prm.precull ? prm.ctn + (size_t)tile * prm.n_blocks : nullptr};
+        prm.precull ? prm.ctn + (size_t)tile * prm.n_blocks : nullptr,
+        prm.boxes};
     const SceneView sc{s_blob, s_meta, s_lsb, 0, prm.n_light_slots,
                        s_meta[2], prm.sky_mode};
-    const bool missed = wf_bounce(sc, geo, p, (uint32_t)prm.ids[i],
-                                  (uint32_t)prm.ids[s + i],
-                                  (uint32_t)s_meta[1], prm.k, prm.rr_depth,
-                                  prm.use_nee, prm.use_mis);
+    const bool missed = trace_bounce(sc, geo, p, (uint32_t)prm.ids[i],
+                                     (uint32_t)prm.ids[s + i],
+                                     (uint32_t)s_meta[1], prm.k,
+                                     prm.rr_depth, prm.use_nee, prm.use_mis);
     store_path(st, s, p, missed, prm.sky_mode);
   }
   if constexpr (kRecord) {
@@ -964,11 +1131,11 @@ extern "C" int spt_wavefront_isect(void* res, const void* st,
 extern "C" int spt_wavefront_shade(
     void* st, const void* ids, const void* res, const void* blob,
     const void* meta, const void* lsb, const void* prims, const void* mtypes,
-    const void* scand, const void* sctn, void* blocked, const void* cmat,
-    const void* bctr, const void* nodef, const void* nodei, int stride,
-    int n_lanes, int n_blocks, int block, int n_mats, int n_light_slots,
-    int k, int rr_depth, int use_nee, int use_mis, int sky_mode,
-    int blocked_in_res, int n_nodes, int store_path, void* stream) {
+    const void* scand, const void* sctn, void* blocked, const void* nodef,
+    const void* nodei, int stride, int n_lanes, int n_blocks, int block,
+    int n_mats, int n_light_slots, int k, int rr_depth, int use_nee,
+    int use_mis, int sky_mode, int blocked_in_res, int n_nodes,
+    int store_path, void* stream) {
   spt::ShadeParams prm;
   prm.st = static_cast<float*>(st);
   prm.ids = static_cast<const int*>(ids);
@@ -981,8 +1148,6 @@ extern "C" int spt_wavefront_shade(
   prm.scand = static_cast<const int*>(scand);
   prm.sctn = static_cast<const float*>(sctn);
   prm.blocked = static_cast<float*>(blocked);
-  prm.cmat = static_cast<const float*>(cmat);
-  prm.bctr = static_cast<const float*>(bctr);
   prm.nodef = static_cast<const float*>(nodef);
   prm.nodei = static_cast<const int*>(nodei);
   prm.n_nodes = n_nodes;
@@ -1003,22 +1168,57 @@ extern "C" int spt_wavefront_shade(
   const size_t smem = sizeof(float) * (prm.blob_len + 6 + 3 + n_mats);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned grid = spt::blocks_for(n_lanes);
-  if (cmat)
-    spt::shade_kernel<true, false><<<grid, spt::kThreadsWf, smem, s>>>(prm);
-  else if (blocked_in_res)
-    spt::shade_kernel<false, true><<<grid, spt::kThreadsWf, smem, s>>>(prm);
+  if (blocked_in_res)
+    spt::shade_kernel<true><<<grid, spt::kThreadsWf, smem, s>>>(prm);
   else if (!store_path)
-    spt::shade_kernel<false, false, false><<<grid, spt::kThreadsWf, smem,
-                                             s>>>(prm);
-  else
     spt::shade_kernel<false, false><<<grid, spt::kThreadsWf, smem, s>>>(prm);
+  else
+    spt::shade_kernel<false><<<grid, spt::kThreadsWf, smem, s>>>(prm);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K7m's verdict pass: verdict (n_lanes,) float32, 1 where the lane's shadow
+// ray (sray, the glue's) is blocked; n_lanes a multiple of kRow.
+extern "C" int spt_wavefront_mxu_verdicts(void* verdict, const void* sray,
+                                          const void* cslot, const void* bctr,
+                                          const void* scand, const void* sctn,
+                                          int n_lanes, int n_blocks, int block,
+                                          void* stream) {
+  spt::MxuVerdictParams prm;
+  prm.verdict = static_cast<float*>(verdict);
+  prm.sray = static_cast<const float*>(sray);
+  prm.cslot = static_cast<const float*>(cslot);
+  prm.bctr = static_cast<const float*>(bctr);
+  prm.scand = static_cast<const int*>(scand);
+  prm.sctn = static_cast<const float*>(sctn);
+  prm.n_lanes = n_lanes;
+  prm.n_blocks = n_blocks;
+  prm.block = block;
+  if (n_lanes <= 0) return 0;
+  if (n_lanes % spt::kRow) return static_cast<int>(cudaErrorInvalidValue);
+  spt::mxu_verdict_kernel<<<n_lanes / spt::kRow, spt::kRow,
+                            2 * 16 * block * sizeof(float),
+                            static_cast<cudaStream_t>(stream)>>>(prm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of kRow threads an SM holds of K7m's verdict pass, for leaf
+// blocks of `block` slots (two staged tables), by the occupancy
+// calculator.
+extern "C" int spt_wavefront_mxu_verdicts_blocks_per_sm(int block) {
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, spt::mxu_verdict_kernel, spt::kRow,
+          2 * 16 * block * sizeof(float)) != cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 extern "C" int spt_wavefront_bounce(
     void* st, const void* ids, const void* blob, const void* meta,
     const void* lsb, const void* nodef, const void* nodei, const void* prims,
-    const void* mtypes, const void* cand, const void* ctn, void* res,
+    const void* mtypes, const void* cand, const void* ctn,
+    const void* boxes, void* res,
     int stride, int n_lanes, int n_nodes, int n_blocks, int block,
     int n_mats, int n_light_slots, int k, int rr_depth, int use_nee,
     int use_mis, int sky_mode, int precull, void* stream) {
@@ -1034,6 +1234,7 @@ extern "C" int spt_wavefront_bounce(
   prm.mtypes = static_cast<const int*>(mtypes);
   prm.cand = static_cast<const int*>(cand);
   prm.ctn = static_cast<const float*>(ctn);
+  prm.boxes = static_cast<const float*>(boxes);
   prm.res = static_cast<float*>(res);
   prm.stride = stride;
   prm.n_lanes = n_lanes;
@@ -1144,26 +1345,23 @@ extern "C" int spt_wavefront_bounce_bwd_blocks_per_sm(int n_mats,
 }
 
 // Blocks of kThreadsWf threads an SM holds of kernel `which` (0: K6, 1: K7
-// and K9, 2: K11, 3: K8l, 4: K10, 5: K8, 6: K7b) with `smem` bytes of
-// dynamic shared memory, by the occupancy calculator; tools/wf_ablate.py
-// reports it.
+// and K9, 2: K11, 3: K8l, 4: K10, 5: K8, 6: K7b and K7m's bounce, 7:
+// K11g) with `smem` bytes of dynamic shared memory, by the occupancy
+// calculator; tools/wf_ablate.py and chip_smoke.py report it.
 extern "C" int spt_wavefront_blocks_per_sm(int which, int smem) {
   using namespace spt;
   const void* fn = nullptr;
   switch (which) {
     case 0: fn = reinterpret_cast<const void*>(isect_kernel<false>); break;
-    case 1:
-      fn = reinterpret_cast<const void*>(shade_kernel<false, false>);
-      break;
+    case 1: fn = reinterpret_cast<const void*>(shade_kernel<false>); break;
     case 2: fn = reinterpret_cast<const void*>(bounce_kernel<false>); break;
     case 3: fn = reinterpret_cast<const void*>(anyhit_kernel); break;
     case 4: fn = reinterpret_cast<const void*>(bounce_bwd_kernel); break;
     case 5:
-      fn = reinterpret_cast<const void*>(shade_kernel<false, false, false>);
+      fn = reinterpret_cast<const void*>(shade_kernel<false, false>);
       break;
-    case 6:
-      fn = reinterpret_cast<const void*>(shade_kernel<false, true>);
-      break;
+    case 6: fn = reinterpret_cast<const void*>(shade_kernel<true>); break;
+    case 7: fn = reinterpret_cast<const void*>(bounce_kernel<true>); break;
     default: return -1;
   }
   int blocks = 0;

@@ -72,28 +72,34 @@ ENTRIES = {
         # n_blocks, block, n_nodes, stream
         "spt_wavefront_isect": [_P] * 9 + [_I] * 5 + [_P],
         # st, ids, res, blob, meta, lsb, prims, mtypes, scand, sctn,
-        # blocked (K9 and K8; null for K7), cmat, bctr (K7m; null
-        # otherwise), nodef, nodei (the shadow walks; null for the lists),
-        # stride, n_lanes, n_blocks, block, n_mats, n_light_slots, k,
-        # rr_depth, use_nee, use_mis, sky_mode, blocked_in_res, n_nodes,
-        # store_path (0: K8, the verdicts alone), stream
-        "spt_wavefront_shade": [_P] * 15 + [_I] * 14 + [_P],
+        # blocked (K9 and K8; null for K7), nodef, nodei (the shadow walks;
+        # null for the lists), stride, n_lanes, n_blocks, block, n_mats,
+        # n_light_slots, k, rr_depth, use_nee, use_mis, sky_mode,
+        # blocked_in_res, n_nodes, store_path (0: K8, the verdicts alone),
+        # stream
+        "spt_wavefront_shade": [_P] * 13 + [_I] * 14 + [_P],
         # st, ids, blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn,
-        # res (K11g; null for K11), stride, n_lanes, n_nodes, n_blocks,
-        # block, n_mats, n_light_slots, k, rr_depth, use_nee, use_mis,
-        # sky_mode, precull, stream
-        "spt_wavefront_bounce": [_P] * 12 + [_I] * 13 + [_P],
+        # boxes (the list sweep's cull; null: none), res (K11g; null for
+        # K11), stride, n_lanes, n_nodes, n_blocks, block, n_mats,
+        # n_light_slots, k, rr_depth, use_nee, use_mis, sky_mode, precull,
+        # stream
+        "spt_wavefront_bounce": [_P] * 13 + [_I] * 13 + [_P],
         # blocked, sray, prims, scand, sctn, stride, n_lanes, n_blocks,
         # block, stream
         "spt_wavefront_anyhit": [_P] * 5 + [_I] * 4 + [_P],
+        # verdict, sray, cslot, bctr, scand, sctn, n_lanes, n_blocks, block,
+        # stream (K7m's verdict pass)
+        "spt_wavefront_mxu_verdicts": [_P] * 6 + [_I] * 3 + [_P],
+        # block -> the verdict pass's blocks an SM
+        "spt_wavefront_mxu_verdicts_blocks_per_sm": [_I],
         # din, dprims, dscal, st, ids, res, ct, blob, meta, lsb, mtypes,
         # stride, n_lanes, n_mats, n_light_slots, k, rr_depth, use_nee,
         # use_mis, sky_mode, n_blocks, block, stream
         "spt_wavefront_bounce_bwd": [_P] * 11 + [_I] * 11 + [_P],
         # n_mats, n_light_slots -> K10's blocks an SM
         "spt_wavefront_bounce_bwd_blocks_per_sm": [_I, _I],
-        # which (0 K6, 1 K7/K9, 2 K11, 3 K8l, 4 K10, 5 K8, 6 K7b), smem
-        # -> blocks an SM
+        # which (0 K6, 1 K7/K9, 2 K11, 3 K8l, 4 K10, 5 K8, 6 K7b and K7m's
+        # bounce, 7 K11g), smem -> blocks an SM
         "spt_wavefront_blocks_per_sm": [_I, _I],
     },
     "megakernel_bvh_grad": {

@@ -35,7 +35,8 @@ and K9 over lists (``"k6l"``, ``"k7l"``, ``"k8l"``, ``"k9l"``), the
 prim-sharded wavefront's K8 (its shadow verdicts, walking the shard's
 tree, ``"k8"``) and K7 reading the verdicts merged over the shards
 (``"k7b"``, see ``wavefront``),
-the wavefront's matmul-form sweeps (``"k6m"``, ``"k7m"``) and fused bounce
+the wavefront's matmul-form sweeps (``"k6m"``, ``"k7m"``, and
+``"k7mv"`` K7m's verdict pass) and fused bounce
 (``"k11"``, see ``wavefront``) and the fused bounce under grad
 (``"k11g"``, see ``wavefront_grad``), and plain-version runs of any of them (``"plain"``: one per
 call of a plain version, so a wavefront render on the CPU adds one per
@@ -70,8 +71,8 @@ MAX_PRIMS = 128
 
 LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0, "k6": 0, "k7": 0,
             "k7b": 0, "k8": 0, "k9": 0, "k10": 0, "k6m": 0, "k7m": 0,
-            "k11": 0, "k11g": 0, "k6l": 0, "k7l": 0, "k8l": 0, "k9l": 0,
-            "plain": 0}
+            "k7mv": 0, "k11": 0, "k11g": 0, "k6l": 0, "k7l": 0, "k8l": 0,
+            "k9l": 0, "plain": 0}
 
 
 def reset_launch_counts() -> None:

@@ -33,17 +33,20 @@ over that prefix only, its length read to the host once per bounce.
 Two other forms of a bounce, as in the JAX package (neither the default):
 
 * ``split=False``: the fused bounce, K11, one kernel a bounce.  Its
-  nearest hit sweeps the precull's lists as K6 does (``precull``, the
-  default) or walks the tree as K3 does (``precull=False``: no precull at
-  all); its shadow rays always walk the tree, so there is no shadow stage:
+  nearest hit sweeps the precull's lists as K6 does, each lane skipping a
+  candidate whose leaf box (``leaf_boxes``) its own ray misses
+  (``precull``, the default), or walks the tree as K3 does
+  (``precull=False``: no precull at all); its shadow rays always walk the
+  tree, so there is no shadow stage:
 
     K5 raygen -> [ sort -> (precull) -> K11 bounce -> env map ] x depth
 
 * ``mxu=True``: K6m and K7m in place of K6 and K7, over per-row lists
   (``precull_tiles(per_row=True)``, a list a 128-lane row) with the
   sphere quadratic in the expanded, block-centred form the TPU ran as a
-  matmul (``build_cmat``'s tables; K7m's shadow test without a square
-  root, ``_seg_blocked``).
+  matmul (``build_cmat``'s tables, with K7m's slot-major copy, built once
+  a packing by ``mxu_tables``; K7m's shadow test without a square root,
+  ``_seg_blocked``).
 
 Each kernel has a wrapper and a plain PyTorch version: ``raygen`` /
 ``raygen_plain`` (K5), ``isect`` / ``isect_plain`` (K6), ``shade`` /
@@ -99,7 +102,7 @@ from .megakernel import (K1_OPS, LAUNCHES, PlainScene, _check, _f32, _np,
                          camera_rays)
 from .megakernel_bvh import (BLOCK, K3_OPS, _LIGHT_STRIDE, _MAT_OFF,
                              _MAT_STRIDE, _N_PRIM_ATTRS, _Walk, _leaf_t,
-                             _safe_inv, packed)
+                             _safe_inv, _slab, packed)
 
 TMIN = physics.TMIN
 BIG = physics.BIG
@@ -266,6 +269,25 @@ def _leaf_block_bounds(prims: torch.Tensor):
     lo = torch.where(valid[:, None, :], c - r, 3e38).amin(dim=2)
     hi = torch.where(valid[:, None, :], c + r, -3e38).amax(dim=2)
     return lo, hi
+
+
+def leaf_boxes(lob: torch.Tensor, hib: torch.Tensor) -> torch.Tensor:
+    """The leaf blocks' boxes as K11's list sweep reads them: (n_blocks, 8)
+    float32 rows lo xyz, hi xyz, 0 0, a tree node's row (``_slab``'s)."""
+    return torch.cat([lob, hib, torch.zeros_like(lob[:, :2])],
+                     dim=1).contiguous()
+
+
+def _box_cull(boxes: torch.Tensor, o, d):
+    """K11's cull: ``cull(idx, blk, tmax)`` -> whether lane ``idx[m]``'s ray
+    meets the box of its block ``blk[m]`` below ``tmax[m]`` (``_slab``, the
+    tree walk's node test, on ``leaf_boxes``' rows)."""
+    iv = tuple(_safe_inv(a) for a in d)
+
+    def cull(idx, blk, tmax):
+        return _slab(boxes[blk], *(a[idx] for a in o), *(a[idx] for a in iv),
+                     tmax)
+    return cull
 
 
 def _empty_lists(n_tiles: int, nb: int, device, n_grp: int = 1):
@@ -489,22 +511,33 @@ def _compact_test(prims, o, d):
 
 
 def _nearest_sweep(test, prims, cand, ctn, alive, glen: int,
-                   stats: dict | None):
+                   stats: dict | None, cull=None):
     """Each alive lane's nearest hit over its group's list (``glen`` lanes
     a group: a tile's or a row's), candidates in order, a block's slots in
     order with a strict ``<``, stopping once the next candidate's bound
-    reaches its nearest distance.  Returns (t (n,), BIG on a miss; win
+    reaches its nearest distance.  With ``cull`` (``_box_cull``: K11's
+    sweep) a lane skips a candidate whose box its ray misses or enters at or
+    past its nearest distance so far.  Returns (t (n,), BIG on a miss; win
     (n,) int64, the global slot ``block_id * block + j``, -1 on a miss);
-    ``prims`` (n_blocks, 5, block); ``stats`` as ``isect_plain``'s."""
+    ``prims`` (n_blocks, 5, block); ``stats`` as ``isect_plain``'s, and with
+    ``cull`` also ``"culled_blocks"`` and ``"culled_spheres"``: the
+    candidates skipped and their filled slots, which the unculled sweep
+    would have tested."""
     n = alive.numel()
     dev = alive.device
     block = prims.shape[2]
     filled = (prims[:, 4, :] >= 0.0).sum(dim=1)
     t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     win = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    work = torch.zeros(2, dtype=torch.int64, device=dev)
+    work = torch.zeros(4, dtype=torch.int64, device=dev)
 
     def step(idx, blk):
+        stop = torch.zeros_like(idx, dtype=torch.bool)   # the sweep goes on
+        if cull is not None:
+            keep = cull(idx, blk, t[idx])
+            work[2] += (~keep).sum()
+            work[3] += filled[blk[~keep]].sum()
+            idx, blk = idx[keep], blk[keep]
         tj, ok = test(idx, blk)
         tmin, j = torch.where(ok, tj, BIG).min(dim=1)
         better = tmin < t[idx]
@@ -512,7 +545,7 @@ def _nearest_sweep(test, prims, cand, ctn, alive, glen: int,
         win[idx] = torch.where(better, blk * block + j, win[idx])
         work[0] += filled[blk].sum()
         work[1] += idx.numel()
-        return torch.zeros_like(better)
+        return stop
 
     cand, ctn = _flat_lists(cand, ctn)
     group = torch.arange(n, device=dev) // glen
@@ -520,6 +553,9 @@ def _nearest_sweep(test, prims, cand, ctn, alive, glen: int,
     if stats is not None:
         stats["spheres"] = stats.get("spheres", 0) + int(work[0])
         stats["blocks"] = stats.get("blocks", 0) + int(work[1])
+        if cull is not None:
+            _add_stats(stats, dict(culled_blocks=int(work[2]),
+                                   culled_spheres=int(work[3])))
         words, blocks = _list_reads(cand, group, alive, *reach)
         for name, v in (("alive", int(alive.sum())), ("list_words", words),
                         ("blocks_read", blocks)):
@@ -545,12 +581,12 @@ def _winner_res(prims, t, win, block: int) -> torch.Tensor:
 
 
 def _isect_lanes(test, prims, cand, ctn, st, n: int, block: int, glen: int,
-                 stats: dict | None):
-    """(t, residual) of K6's sweep (or K6m's, by ``test``) over lanes [0,
-    n) of the stream."""
+                 stats: dict | None, cull=None):
+    """(t, residual) of K6's sweep (or K6m's, by ``test``; K11's, by
+    ``cull``) over lanes [0, n) of the stream."""
     prims = prims.reshape(-1, _N_PRIM_ATTRS, block)
     t, win = _nearest_sweep(test, prims, cand, ctn, st[C_ALIVE, :n] > 0.5,
-                            glen, stats)
+                            glen, stats, cull)
     return t, _winner_res(prims, t, win, block)
 
 
@@ -904,15 +940,15 @@ def shade_plain(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
                 n_light_slots: int, rr_depth: int, use_nee: bool,
                 use_mis: bool, sky_mode: int, stats: dict | None = None,
                 blocked: torch.Tensor | None = None,
-                blocked_in_res: bool = False, mxu=None, tree=None) -> None:
+                blocked_in_res: bool = False, tree=None) -> None:
     """Plain version of K7: bounce ``k`` of lanes [0, n_lanes) of the
     stream, in place.  ``trace_bounce`` on the hit rebuilt from ``res``;
     with ``tree`` = (nodef, nodei) each shadow ray walks the tree and stops
     at its first blocker (``_Walk.anyhit``); else it tests its tile's
     shadow list in order and stops at its first blocker or once the next
-    candidate's bound reaches its t_max (``_sweep_anyhit``; with ``mxu`` =
-    (cmat, bctr) K7m's sweep of the per-row lists).  With
-    ``blocked_in_res`` (K7's mode for the prim-sharded render) nothing is
+    candidate's bound reaches its t_max (``_sweep_anyhit``).  With
+    ``blocked_in_res`` (K7's mode for the prim-sharded render, and K7m's
+    after its verdict pass) nothing is
     traced: a shadow ray is blocked where residual row 7 holds more than
     0.5, and ``scand``, ``sctn``, ``tree`` and ``prims`` are not read.
     Dead lanes keep their state; the miss flag is set where an alive lane
@@ -948,8 +984,7 @@ def shade_plain(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
             sweep_stats["shadow_spheres"] += spheres
         else:
             verdict = _sweep_anyhit(prims, scand, sctn, (ox, oy, oz),
-                                    (dx, dy, dz), tmax, need, sweep_stats,
-                                    mxu)
+                                    (dx, dy, dz), tmax, need, sweep_stats)
         if blocked is not None:
             blocked.copy_(verdict)
         return verdict
@@ -985,23 +1020,21 @@ def shade(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
 def _shade_launch(name, args, n_lanes: int, blocked, *, k: int, block: int,
                   n_mats: int, n_light_slots: int, rr_depth: int,
                   use_nee: bool, use_mis: bool, sky_mode: int,
-                  blocked_in_res: bool = False, mxu=None,
-                  tree=None, store: bool = True) -> None:
+                  blocked_in_res: bool = False, tree=None,
+                  store: bool = True) -> None:
     """Checks and launches K7's kernel on CUDA tensors: K7 itself with
     ``blocked`` None, K9 (which also writes the (n_lanes,) shadow verdict
     into ``blocked``) otherwise, and without ``store`` K8, which writes
     the verdicts and not the stream; with ``tree`` = (nodef, nodei) each
-    shadow ray walks the tree; with ``blocked_in_res`` the kernel reads
-    each verdict from residual row 7; else it sweeps the shadow lists, and
-    with ``mxu`` = (cmat, bctr) it is K7m, sweeping per-row lists with the
-    expanded quadratic."""
+    shadow ray walks the tree; with ``blocked_in_res`` (K7b, K7m) the
+    kernel reads each verdict from residual row 7; else it sweeps the
+    shadow lists."""
     blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res = args
     if st.device.type != "cuda":
         raise NotImplementedError(f"{name} has no kernel for {st.device}")
     walk = tree is not None and not blocked_in_res
-    inputs = (*args[:5], *(tree if walk else (scand, sctn)), *args[7:],
-              *(mxu or ()))
-    if any(a.device != st.device for a in inputs):
+    inputs = (*args[:5], *(tree if walk else (scand, sctn)), *args[7:])
+    if any(a is not None and a.device != st.device for a in inputs):
         raise ValueError(f"{name}'s inputs must lie on one device")
     _check_stream(st, ids)
     if not 0 <= n_lanes <= st.shape[1] or n_lanes % TILE:
@@ -1020,10 +1053,7 @@ def _shade_launch(name, args, n_lanes: int, blocked, *, k: int, block: int,
         n_nodes = _check_tree(name, *tree)
         scand = sctn = None
     elif use_nee and n_light_slots > 0 and not blocked_in_res:
-        _check_lists(scand, sctn, n_lanes // (TILE if mxu is None else ROW),
-                     nb)
-    if mxu is not None:
-        _check_cmat(*mxu, nb, block)
+        _check_lists(scand, sctn, n_lanes // TILE, nb)
     if blocked is not None:
         _check(blocked, "blocked", torch.float32, n_lanes)
     from ._build import load_library
@@ -1032,7 +1062,6 @@ def _shade_launch(name, args, n_lanes: int, blocked, *, k: int, block: int,
         err = lib.spt_wavefront_shade(
             *(_ptr(a) for a in (st, ids, res, blob, meta, lsb, prims,
                                 mtypes, scand, sctn, blocked)),
-            *((0, 0) if mxu is None else (a.data_ptr() for a in mxu)),
             *((a.data_ptr() for a in tree) if walk else (0, 0)),
             st.shape[1], n_lanes, nb, block, n_mats, n_light_slots, k,
             rr_depth, int(bool(use_nee)), int(bool(use_mis)), int(sky_mode),
@@ -1182,6 +1211,24 @@ def build_cmat(prims: torch.Tensor):
     return torch.cat([top, bot], dim=2).contiguous(), ctr.contiguous()
 
 
+def slot_major(cmat: torch.Tensor) -> torch.Tensor:
+    """K7m's copy of ``build_cmat``'s tables, (n_blocks, 2 block, 8): slot
+    column c of block b at row (b, c), its 8 floats adjacent, so the kernel
+    reads a column in two 16-byte loads.  The same floats."""
+    return cmat.transpose(1, 2).contiguous()
+
+
+def mxu_tables(t: dict, block: int):
+    """(cmat, bctr, cslot) of the packed leaf blocks ``t["prims"]``:
+    ``build_cmat``'s tables and K7m's ``slot_major`` copy, built together
+    on first use and kept in the packing's tensors ``t`` (``packed``'s,
+    cached by the scene's content)."""
+    if "cslot" not in t:
+        cmat, bctr = build_cmat(t["prims"].reshape(-1, _N_PRIM_ATTRS, block))
+        t.update(cmat=cmat, bctr=bctr, cslot=slot_major(cmat))
+    return t["cmat"], t["bctr"], t["cslot"]
+
+
 def _expanded_quadratic(cm, ctr, o, d):
     """(b, cterm) (m, block) of m lanes against their blocks' slots in the
     expanded, block-centred form (the JAX package's ``_row_quadratic``):
@@ -1269,24 +1316,104 @@ def isect_mxu(prims: torch.Tensor, cmat: torch.Tensor, bctr: torch.Tensor,
                          (cmat, bctr))
 
 
-def shade_mxu_plain(blob, meta, lsb, prims, cmat, bctr, mtypes, scand, sctn,
-                    st, ids, res, n_lanes: int, **kw) -> None:
-    """Plain version of K7m: ``shade_plain`` with K7m's shadow sweep (the
-    per-row lists, the expanded quadratic, ``_seg_blocked``)."""
-    shade_plain(blob, meta, lsb, prims, mtypes, scand, sctn, st, ids, res,
-                n_lanes, mxu=(cmat.reshape(-1, 8, 2 * kw["block"]),
-                              bctr.reshape(-1, 3)), **kw)
+def mxu_verdicts_plain(prims, cslot, bctr, scand, sctn, sray, out,
+                       n_lanes: int, *, block: int,
+                       stats: dict | None = None) -> None:
+    """Plain version of K7m's verdict pass: ``out[:n_lanes]`` (float32)
+    gets 1 where the shadow ray ``sray`` (8, R; ``shadow_rays``' pox poy
+    poz ldx ldy ldz tmax need) of a lane that needs one is blocked, by
+    K7m's sweep of its row's shadow list (``_sweep_anyhit`` with ``mxu=``
+    on ``build_cmat``'s layout, read back from its ``slot_major`` copy
+    ``cslot``); 0 elsewhere.  ``stats`` as ``_sweep_anyhit``'s."""
+    LAUNCHES["plain"] += 1
+    n = n_lanes
+    out[:n] = _sweep_anyhit(
+        prims.reshape(-1, _N_PRIM_ATTRS, block), scand, sctn,
+        tuple(sray[a, :n] for a in range(3)),
+        tuple(sray[a, :n] for a in range(3, 6)), sray[6, :n],
+        sray[7, :n] > 0.5, stats, (cslot.reshape(-1, 2 * block, 8)
+                                   .transpose(1, 2), bctr.reshape(-1, 3)))
 
 
-def shade_mxu(blob, meta, lsb, prims, cmat, bctr, mtypes, scand, sctn, st,
-              ids, res, n_lanes: int, **kw) -> None:
+def mxu_verdicts(prims, cslot, bctr, scand, sctn, sray, out, n_lanes: int,
+                 *, block: int) -> None:
+    """K7m's verdict pass's wrapper: ``mxu_verdicts_plain``'s verdicts into
+    ``out`` on the rays' device, the kernel reading the tables'
+    ``slot_major`` copy ``cslot`` (``mxu_tables``');
+    ``LAUNCHES["k7mv"]`` counts its launches."""
+    if sray.device.type == "cpu":
+        return mxu_verdicts_plain(prims, cslot, bctr, scand, sctn, sray, out,
+                                  n_lanes, block=block)
+    if sray.device.type != "cuda":
+        raise NotImplementedError(f"K7m's verdict pass has no kernel for "
+                                  f"{sray.device}")
+    if any(a.device != sray.device for a in (cslot, bctr, scand, sctn, out)):
+        raise ValueError("K7m's verdict pass: inputs on one device")
+    nb = bctr.numel() // 3
+    if not 0 <= n_lanes <= sray.shape[-1] or n_lanes % TILE:
+        raise ValueError(f"K7m's verdict pass: {n_lanes} lanes")
+    _check(sray, "sray", torch.float32, N_SRAY * n_lanes)
+    _check(cslot, "cslot", torch.float32, nb * 16 * block)
+    _check(bctr, "bctr", torch.float32, nb * 3)
+    _check_lists(scand, sctn, n_lanes // ROW, nb)
+    if (out.dtype != torch.float32 or not out.is_contiguous()
+            or out.numel() < n_lanes):
+        raise ValueError(f"K7m's verdict pass: out must be contiguous "
+                         f"float32 of at least {n_lanes}")
+    from ._build import load_library
+    lib = load_library("wavefront")
+    with torch.cuda.device(sray.device):
+        err = lib.spt_wavefront_mxu_verdicts(
+            out.data_ptr(), sray.data_ptr(), cslot.data_ptr(),
+            bctr.data_ptr(), scand.data_ptr(), sctn.data_ptr(), n_lanes, nb,
+            block, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K7m's verdict pass failed: CUDA error {err}")
+    LAUNCHES["k7mv"] += 1
+
+
+def shade_mxu_plain(blob, meta, lsb, prims, cslot, bctr, mtypes, scand, sctn,
+                    st, ids, res, n_lanes: int, *, sray,
+                    stats: dict | None = None, **kw) -> None:
+    """Plain version of K7m: its verdict pass, then K7b's bounce.  Each
+    lane's shadow ray ``sray`` (8, R: ``shadow_rays``' stacked, the rays
+    the row lists ``scand``, ``sctn`` were culled for; None without NEE)
+    is swept over its row's list in the expanded form
+    (``mxu_verdicts_plain`` on ``mxu_tables``' ``cslot``, ``bctr``) into
+    residual row 7, which ``shade_plain``'s bounce reads
+    (``blocked_in_res``): the bounce traces the same rays, so this is the
+    bounce with K7m's sweep in it.  ``stats`` as ``shade_plain``'s, the
+    shadow sweep's counts the pass's."""
+    n = n_lanes
+    sweep = {}
+    if sray is not None:
+        mxu_verdicts_plain(prims, cslot, bctr, scand, sctn, sray, res[7], n,
+                           block=kw["block"], stats=sweep)
+    elif kw["use_nee"] and kw["n_light_slots"] > 0:
+        raise ValueError("K7m traces shadow rays: give their sray")
+    shade_plain(blob, meta, lsb, prims, mtypes, None, None, st, ids, res, n,
+                blocked_in_res=True, stats=stats, **kw)
+    if stats is not None:
+        stats.update(sweep)
+
+
+def shade_mxu(blob, meta, lsb, prims, cslot, bctr, mtypes, scand, sctn, st,
+              ids, res, n_lanes: int, *, sray, **kw) -> None:
     """K7m's wrapper: ``shade_mxu_plain``'s bounce, in place, on the
-    stream's device."""
+    stream's device: the verdict pass (``mxu_verdicts``) writes residual
+    row 7, then K7b's kernel runs the bounce on it (``LAUNCHES["k7m"]``
+    counts these)."""
     if st.device.type == "cpu":
-        return shade_mxu_plain(blob, meta, lsb, prims, cmat, bctr, mtypes,
-                               scand, sctn, st, ids, res, n_lanes, **kw)
-    _shade_launch("K7m", (blob, meta, lsb, prims, mtypes, scand, sctn, st,
-                          ids, res), n_lanes, None, mxu=(cmat, bctr), **kw)
+        return shade_mxu_plain(blob, meta, lsb, prims, cslot, bctr, mtypes,
+                               scand, sctn, st, ids, res, n_lanes, sray=sray,
+                               **kw)
+    if sray is not None:
+        mxu_verdicts(prims, cslot, bctr, scand, sctn, sray, res[7], n_lanes,
+                     block=kw["block"])
+    elif kw["use_nee"] and kw["n_light_slots"] > 0:
+        raise ValueError("K7m traces shadow rays: give their sray")
+    _shade_launch("K7m", (blob, meta, lsb, prims, mtypes, None, None, st, ids,
+                          res), n_lanes, None, blocked_in_res=True, **kw)
     LAUNCHES["k7m"] += 1
 
 
@@ -1321,21 +1448,27 @@ def bounce_plain(blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn, st,
                  ids, n_lanes: int, *, k: int, block: int, n_mats: int,
                  n_light_slots: int, rr_depth: int, use_nee: bool,
                  use_mis: bool, sky_mode: int, precull: bool,
+                 boxes: torch.Tensor | None = None,
                  stats: dict | None = None,
                  record: torch.Tensor | None = None) -> None:
     """Plain version of K11: bounce ``k`` of lanes [0, n_lanes) of the
     stream, in place, in one step.  The nearest hit by K6's sweep of the
     tiles' lists ``cand``, ``ctn`` when ``precull``, else by K3's walk of
     the tree (``megakernel_bvh._Walk``: each lane its own octant table);
-    ``trace_bounce`` on it, a padding winner resolved as
-    ``_fused_intersect`` says; each shadow ray walks the tree and stops at
-    its first blocker.  Dead lanes keep their state; the miss flag as
-    K7's.  ``record``, if given, (8, n_lanes) float32, receives K11g's
-    residual: K6's winner record and, in row 7, the shadow verdict (1
-    where a traced shadow ray is blocked).  ``stats``, if given, gets K7's
-    per-bounce counts, the nearest hit's (K6's sweep counts, or
-    ``"nodes"`` and ``"spheres"`` of the walk) and the shadow walks'
-    ``"shadow_nodes"`` and ``"shadow_spheres"`` added."""
+    with ``boxes`` (``leaf_boxes``, the render's) the sweep skips each
+    candidate whose box the lane's ray misses or enters at or past its
+    nearest distance so far (``_box_cull``), without them it tests every
+    candidate it takes, as K6's list mode does.  ``trace_bounce`` on it, a
+    padding winner resolved as ``_fused_intersect`` says; each shadow ray
+    walks the tree and stops at its first blocker.  Dead lanes keep their
+    state; the miss flag as K7's.  ``record``, if given, (8, n_lanes)
+    float32, receives K11g's residual: K6's winner record and, in row 7,
+    the shadow verdict (1 where a traced shadow ray is blocked).
+    ``stats``, if given, gets K7's per-bounce counts, the nearest hit's
+    (K6's sweep counts, with ``boxes`` also the candidates culled:
+    ``_nearest_sweep``'s; or ``"nodes"`` and ``"spheres"`` of the walk)
+    and the shadow walks' ``"shadow_nodes"`` and ``"shadow_spheres"``
+    added."""
     LAUNCHES["plain"] += 1
     n = n_lanes
     prims = prims.reshape(-1, _N_PRIM_ATTRS, block)
@@ -1346,8 +1479,9 @@ def bounce_plain(blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn, st,
     d = tuple(st[c, :n] for c in (C_DX, C_DY, C_DZ))
     work = {}
     if precull:
-        t, res = _isect_lanes(_compact_test(prims, o, d), prims, cand, ctn,
-                              st, n, block, TILE, work)
+        t, res = _isect_lanes(
+            _compact_test(prims, o, d), prims, cand, ctn, st, n, block, TILE,
+            work, None if boxes is None else _box_cull(boxes, o, d))
     else:
         t, res = _walk_lanes(walk, st, n, block, work)
     work.update(shadow_nodes=0, shadow_spheres=0)
@@ -1373,7 +1507,9 @@ def bounce_plain(blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn, st,
 def bounce(blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn, st, ids,
            n_lanes: int, **kw) -> None:
     """K11's wrapper: ``bounce_plain``'s bounce, in place, on the stream's
-    device.  Without ``precull``, ``cand`` and ``ctn`` are not read."""
+    device.  On the card ``precull`` needs the ``boxes`` (its list sweep
+    always culls by them); without ``precull``, ``cand``, ``ctn`` and
+    ``boxes`` are not read."""
     if st.device.type == "cpu":
         return bounce_plain(blob, meta, lsb, nodef, nodei, prims, mtypes,
                             cand, ctn, st, ids, n_lanes, **kw)
@@ -1385,14 +1521,21 @@ def bounce(blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn, st, ids,
 def _bounce_launch(name, args, n_lanes: int, record, *, k: int, block: int,
                    n_mats: int, n_light_slots: int, rr_depth: int,
                    use_nee: bool, use_mis: bool, sky_mode: int,
-                   precull: bool) -> None:
+                   precull: bool, boxes: torch.Tensor | None = None) -> None:
     """Checks and launches K11's kernel on CUDA tensors: K11 with
     ``record`` None, K11g (which also writes the (8, n_lanes) residual into
-    ``record``) otherwise."""
+    ``record``) otherwise; with ``precull`` its list sweep culls by the
+    leaf blocks' ``boxes``, which it then needs."""
     blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn, st, ids = args
     if st.device.type != "cuda":
         raise NotImplementedError(f"{name} has no kernel for {st.device}")
-    if any(a.device != st.device for a in args):
+    if not precull:
+        boxes = None
+    elif boxes is None:
+        raise ValueError(f"{name}'s list sweep culls by the leaf blocks' "
+                         f"boxes: give boxes")
+    if any(a.device != st.device for a in args) or (
+            boxes is not None and boxes.device != st.device):
         raise ValueError(f"{name}'s inputs must lie on one device")
     _check_stream(st, ids)
     if not 0 <= n_lanes <= st.shape[1] or n_lanes % TILE:
@@ -1408,6 +1551,7 @@ def _bounce_launch(name, args, n_lanes: int, record, *, k: int, block: int,
     _check(mtypes, "mtypes", torch.int32, n_mats)
     if precull:
         _check_lists(cand, ctn, n_lanes // TILE, nb)
+        _check(boxes, "boxes", torch.float32, 8 * nb)
     if record is not None:
         _check(record, "record", torch.float32, N_RES * n_lanes)
     from ._build import load_library
@@ -1416,7 +1560,7 @@ def _bounce_launch(name, args, n_lanes: int, record, *, k: int, block: int,
         err = lib.spt_wavefront_bounce(
             *(a.data_ptr() for a in (st, ids, blob, meta, lsb, nodef, nodei,
                                      prims, mtypes, cand, ctn)),
-            0 if record is None else record.data_ptr(),
+            _ptr(boxes), _ptr(record),
             st.shape[1], n_lanes, n_nodes, nb, block, n_mats, n_light_slots,
             k, rr_depth, int(bool(use_nee)), int(bool(use_mis)),
             int(sky_mode), int(bool(precull)),
@@ -1509,10 +1653,12 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
     lo, ext = _scene_sort_bounds(t["nodef"])
     mxu = mxu and split
     lists = mxu or (precull and not split)
+    boxes = None
     if lists:
         lob, hib = _leaf_block_bounds(prims.reshape(-1, _N_PRIM_ATTRS, block))
+        boxes = leaf_boxes(lob, hib)
     if mxu:
-        cmat, bctr = build_cmat(prims.reshape(-1, _N_PRIM_ATTRS, block))
+        cmat, bctr, cslot = mxu_tables(t, block)
     nl = int(_np(meta[2]))
     seed = int(_np(meta[1])) & rng.MASK32
     shadows = use_nee and n_light_slots > 0
@@ -1543,7 +1689,7 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
             with clock("k11"):
                 k11(blob, meta, t["lsb"], t["nodef"], t["nodei"], prims,
                     t["mtypes"], cand, ctn, st, ids, n, k=k,
-                    precull=precull, **kw)
+                    precull=precull, boxes=boxes, **kw)
         elif mxu:
             with clock("k6m"):
                 res = k6m(prims, cmat, bctr, cand, ctn, st, n, block=block)
@@ -1556,9 +1702,11 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
                         n_light_slots=n_light_slots)
                     scand, sctn = precull_tiles(so3, sd3, sneed, stmax, lob,
                                                 hib, per_row=True)
+                    sray = torch.stack([*so3, *sd3, stmax, sneed])
             with clock("k7m"):
-                k7m(blob, meta, t["lsb"], prims, cmat, bctr, t["mtypes"],
-                    scand, sctn, st, ids, res, n, k=k, **kw)
+                k7m(blob, meta, t["lsb"], prims, cslot, bctr, t["mtypes"],
+                    scand, sctn, st, ids, res, n, k=k,
+                    sray=sray if shadows else None, **kw)
         else:
             with clock("k6"):
                 res = k6(prims, None, None, st, n, block=block, tree=tree)
@@ -1810,34 +1958,47 @@ def k6m_byte_count(stats: dict, n_lanes: int, block: int) -> int:
                 + stats["list_words"] + (16 * block + 3) * stats["blocks_read"])
 
 
-def k7m_op_count(stats: dict, block: int) -> int:
-    """Lower count of K7m's fp32 operations for ``shade_mxu_plain``'s
-    stats: K7's, its shadow sweep in the expanded form (every slot of each
-    block a shadow ray takes)."""
-    return (k7_op_count(dict(stats, shadow_spheres=0))
-            + stats["shadow_blocks"] * (MXU_OPS["block"]
-                                        + block * MXU_OPS["slot"]))
+def k7mv_op_count(stats: dict, block: int) -> int:
+    """Lower count of the fp32 operations of K7m's verdict pass for
+    ``shade_mxu_plain``'s stats: each candidate a shadow ray takes, its
+    bound compared and every slot of its block in the expanded form.  (K7m's
+    bounce is K7b's: ``k7b_op_count``.)"""
+    return stats["shadow_blocks"] * (WF_OPS["block"] + MXU_OPS["block"]
+                                     + block * MXU_OPS["slot"])
 
 
-def k7m_byte_count(stats: dict, n_lanes: int, block: int) -> int:
-    """Bytes K7m must move, each word once: K7's, each distinct shadow
-    block read as its table and centre."""
-    return k7_byte_count(dict(stats, shadow_blocks_read=0), n_lanes, 0) \
-        + 4 * (16 * block + 3) * stats["shadow_blocks_read"]
+def k7mv_byte_count(stats: dict, n_lanes: int, block: int) -> int:
+    """Bytes K7m's verdict pass must move, each word once: every lane reads
+    its need flag and writes its verdict, a lane that needs one reads its 7
+    other ray channels, plus the shadow list words read and each distinct
+    block swept as its table and centre."""
+    return 4 * (2 * n_lanes + 7 * stats["shadow"]
+                + stats["shadow_list_words"]
+                + (16 * block + 3) * stats["shadow_blocks_read"])
 
 
-def k11_op_count(stats: dict) -> int:
+def k11_op_count(stats: dict, culled: bool = False) -> int:
     """Lower count of K11's fp32 operations for ``bounce_plain``'s stats:
     K7's bounce on a winner it found itself (no rebuild), its nearest hit
     by K6's sweep or by K3's walk (per lane the walk's setup, per node the
-    slab test), and every shadow ray's walk."""
+    slab test), and every shadow ray's walk.  A sweep culled by the boxes
+    is counted unculled (each candidate taken swept, the culled ones
+    added back), the work every earlier K11 did and its bound counts;
+    ``culled`` counts the culled sweep's own work instead: the blocks it
+    sweeps and a slab test a candidate taken."""
     walk = K3_OPS["walk_setup"]
+    skipped = stats.get("culled_blocks", 0)
     if "nodes" in stats:
         nearest = (stats["active"] * walk + stats["nodes"]
                    * K3_OPS["node_test"] + stats["spheres"]
                    * WF_OPS["sphere_test"])
+    elif culled:
+        nearest = (k6_op_count(stats)
+                   + (stats["blocks"] + skipped) * K3_OPS["node_test"])
     else:
-        nearest = k6_op_count(stats)
+        nearest = k6_op_count(dict(
+            stats, blocks=stats["blocks"] + skipped,
+            spheres=stats["spheres"] + stats.get("culled_spheres", 0)))
     return (nearest + (stats["active"] - stats["hit"]) * WF_OPS["miss"]
             + stats["hit"] * WF_OPS["hit"]
             + stats["shadow"] * (WF_OPS["shadow"] + walk)

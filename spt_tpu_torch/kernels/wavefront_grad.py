@@ -69,9 +69,9 @@ from .wavefront import (C_ALIVE, C_DX, C_DY, C_DZ, C_LB, C_LG, C_LR,
                         _check_stream, _coherence_key, _dead_key,
                         _leaf_block_bounds, _lights, _scatter_image,
                         _scene_sort_bounds, _shade_launch, _sort_span,
-                        bounce_plain, isect, isect_plain, precull_tiles,
-                        raygen, raygen_plain, sample_env_map, shade_plain,
-                        stream_tiles)
+                        bounce_plain, isect, isect_plain, leaf_boxes,
+                        precull_tiles, raygen, raygen_plain, sample_env_map,
+                        shade_plain, stream_tiles)
 
 # ---------------------------------------------------------------------------
 # K9: shade, recording the shadow verdict
@@ -410,9 +410,11 @@ def _run_wavefront_diff(blob, meta, nodef, nodei, prims, env, static, *,
     n_tiles = st.shape[1] // TILE - 1
     tree = (nodef.detach(), nodei)
     lo, ext = _scene_sort_bounds(tree[0])
+    boxes = None
     if precull and not split:
         lob, hib = _leaf_block_bounds(prims_d.reshape(-1, _N_PRIM_ATTRS,
                                                       block))
+        boxes = leaf_boxes(lob, hib)
     none_i = torch.zeros((1, 1, 1), dtype=torch.int32, device=blob.device)
     none_f = torch.zeros((1, 1, 1), dtype=torch.float32, device=blob.device)
     nalive = n_tiles
@@ -448,7 +450,7 @@ def _run_wavefront_diff(blob, meta, nodef, nodei, prims, env, static, *,
                         kw=kw):
                 return stages[4](blob_, meta, lsb, tree[0], nodei, prims_,
                                  mtypes, cand, ctn, st_, ids, n,
-                                 precull=precull, **kw)
+                                 precull=precull, boxes=boxes, **kw)
         cfg = dict(forward=forward, bounce_bwd=k10, meta=meta, lsb=lsb,
                    mtypes=mtypes, ids=ids, n_lanes=n,
                    n_blocks=prims.shape[0], kw=kw)

@@ -73,6 +73,28 @@ prints its registers, spills and blocks an SM, and per bounce the least
 of ``--reps`` launches' milliseconds (with the wrapper's zeroed outputs)
 and its din (``lanes_close``), d(prims) and dscal (``tail_field_errors``)
 against the plain K10 and ``_grads_from_bwd``.
+
+    python3 spt_tpu_torch/tools/wf_ablate.py --k11 --k7m [--old CSRC_DIR]
+        [--reps N] [--only TAG ...] [--timeout SECONDS]
+
+times K11 and K11g, the fused bounce, and K7m, the matmul-form shade, on
+config 5's bounces 0 and 1 with either sky (the stream and the lists made
+by the package's kernels and glue as chip_smoke.py makes them), built
+from the package's sources and from copies with one edit
+(``K11_VARIANTS``: ``__launch_bounds__`` of 2-6 blocks an SM, the bounce
+called; ``K7M_VARIANTS``: as built) and, with ``--old``, an earlier
+design's sources with one edit (``K11_OLD_VARIANTS``: the bounce inlined,
+launch bounds, the package's list sweep culled per ray by the leaf boxes;
+``K7M_OLD_VARIANTS``: launch bounds, the table read slot-major, both).  K11 is timed with the lists (culled per ray by the
+leaf boxes), the lists unculled (a null box table, where the build takes
+one) and the walk, K11g at bounce 0; K7m as built is its
+verdict pass and K7b's kernel (``pass_ms``: the pass alone), an earlier
+K7m its sweep inside the bounce.  Each build runs in a process of its own
+(``faulted``, ``hung`` past ``--timeout``), the reference first and again
+last, and prints its registers, spills and blocks an SM, and per case the
+least of ``--reps`` launches' milliseconds and the lanes whose state
+differs from the package's own launch on the same inputs (K11's with the
+boxes, so the unculled forms' differing lanes are the cull's).
 """
 
 from __future__ import annotations
@@ -263,11 +285,11 @@ def ptxas(lines, kernel):
 
 # The kernels reported per build: ptxas name, occupancy index.
 KERNELS = {"k6": ("isect_kernelILb0", 0),
-           "k7": ("shade_kernelILb0ELb0ELb1E", 1),
+           "k7": ("shade_kernelILb0ELb1E", 1),
            "k11": ("bounce_kernelILb0", 2), "k8l": ("anyhit_kernel", 3),
            "k10": ("bounce_bwd_kernel", 4),
-           "k8": ("shade_kernelILb0ELb0ELb0E", 5),
-           "k7b": ("shade_kernelILb0ELb1E", 6)}
+           "k8": ("shade_kernelILb0ELb0E", 5),
+           "k7b": ("shade_kernelILb1ELb1E", 6)}
 
 
 def main() -> int:
@@ -279,12 +301,20 @@ def main() -> int:
                     help="time the prim-sharded path's K6 and K8")
     ap.add_argument("--k10", action="store_true",
                     help="time K10, the bounce's adjoint, in its builds")
+    ap.add_argument("--k11", action="store_true",
+                    help="time K11 and K11g, the fused bounce, in its builds")
+    ap.add_argument("--k7m", action="store_true",
+                    help="time K7m, the matmul-form shade, in its builds")
     ap.add_argument("--old", type=Path, default=None,
-                    help="with --k10: csrc directory of an earlier K10")
+                    help="with --k10, --k11, --k7m: csrc directory of an "
+                         "earlier design")
     ap.add_argument("--timeout", type=float, default=300.0,
-                    help="seconds a K10 build's process may take")
+                    help="seconds a build's timing process may take")
     # --time-k10 TAG OLD: one K10 build's launches (time_k10)
     ap.add_argument("--time-k10", nargs=2, default=None,
+                    help=argparse.SUPPRESS)
+    # --time-fused KIND TAG: one K11 or K7m build's launches (time_fused)
+    ap.add_argument("--time-fused", nargs=2, default=None,
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -296,8 +326,14 @@ def main() -> int:
         print(json.dumps(time_k10(args.time_k10[0], args.time_k10[1] == "1",
                                   args.reps)))
         return 0
+    if args.time_fused:
+        print(json.dumps(time_fused(*args.time_fused, args.reps)))
+        return 0
     if args.k10:
         return main_k10(args)
+    if args.k11 or args.k7m:
+        return main_fused(args, [k for k in ("k11", "k7m")
+                                 if getattr(args, k)])
     import chip_smoke as cs
     import spt_tpu_torch as T
     from spt_tpu_torch.kernels import _build, megakernel_bvh as mb
@@ -852,6 +888,420 @@ def main_k10(args) -> int:
             else:
                 row.update(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(row), flush=True)
+    print(json.dumps(dict(seconds=time.perf_counter() - t0)), flush=True)
+    return 0
+
+# ---------------------------------------------------------------------------
+# K11, K11g and K7m
+# ---------------------------------------------------------------------------
+
+_OLD_CALL = "    const bool missed = wf_bounce(sc, geo, p, (uint32_t)prm.ids[i],\n"
+_OLD_K11 = ("__global__ void __launch_bounds__(kThreadsWf) bounce_kernel("
+            "BounceParams prm) {")
+_OLD_K7M = "                                  kMxu || kVerdict ? 1\n"
+_OLD_COLUMN = """  __device__ __forceinline__ float column(int c) const {
+    float sum = __ldg(cb + c) * a[0];
+    for (int r = 1; r < 8; ++r) sum = sum + __ldg(cb + r * 2 * block + c) * a[r];
+    return sum;
+  }
+"""
+# Column c of the slot-major table (n_blocks, 2 block, 8): two 16-byte
+# loads, its 8 products summed in the same order.
+_SLOT_COLUMN = """  __device__ __forceinline__ float column(int c) const {
+    const float4* q = reinterpret_cast<const float4*>(cb + 8 * c);
+    const float4 u = __ldg(q), v = __ldg(q + 1);
+    float sum = u.x * a[0];
+    sum = sum + u.y * a[1];
+    sum = sum + u.z * a[2];
+    sum = sum + u.w * a[3];
+    sum = sum + v.x * a[4];
+    sum = sum + v.y * a[5];
+    sum = sum + v.z * a[6];
+    sum = sum + v.w * a[7];
+    return sum;
+  }
+"""
+_SHADOW_DOC = ("// Whether a shadow ray is blocked before tmax: the list in "
+               "order, stopping\n")
+
+
+def _package_cull() -> str:
+    """The package's ``box_hit`` and box-taking ``list_nearest`` as its
+    ``wavefront.cu`` has them, for an earlier design's sources: there the
+    6-argument ``list_nearest`` overloads that design's own."""
+    text = (ROOT / "spt_tpu_torch" / "csrc" / "wavefront.cu").read_text()
+    start = text.index("// A leaf block's box, row blk of `boxes`")
+    return text[start:text.index(_SHADOW_DOC, start)]
+
+
+def _old_cull() -> list:
+    """The edits that give an earlier K11 (before the boxes) the package's
+    culled list sweep, its box table passed after ctn."""
+    return [
+        ("wavefront.cu", _SHADOW_DOC, _package_cull() + _SHADOW_DOC),
+        ("wavefront.cu", "  float* res;           // K11g: (8, n_lanes) "
+         "residual; K11: null\n", "  const float* boxes;   // precull: "
+         "(n_blocks, 8)\n  float* res;           // K11g: (8, n_lanes) "
+         "residual; K11: null\n"),
+        ("wavefront.cu", "  const float* tl;      // its entry bounds\n",
+         "  const float* tl;      // its entry bounds\n  const float* "
+         "boxes;\n"),
+        ("wavefront.cu", "      const int win_blk = list_nearest(cl, tl, "
+         "slots, t, win_j);\n", "      const int win_blk = list_nearest(cl, "
+         "tl, boxes, slots, t, win_j);\n"),
+        ("wavefront.cu", "        prm.precull ? prm.ctn + (size_t)tile * "
+         "prm.n_blocks : nullptr};\n", "        prm.precull ? prm.ctn + "
+         "(size_t)tile * prm.n_blocks : nullptr,\n        prm.boxes};\n"),
+        ("wavefront.cu", "    const void* mtypes, const void* cand, const "
+         "void* ctn, void* res,\n", "    const void* mtypes, const void* "
+         "cand, const void* ctn, const void* boxes,\n    void* res,\n"),
+        ("wavefront.cu", "  prm.ctn = static_cast<const float*>(ctn);\n  "
+         "prm.res = static_cast<float*>(res);\n", "  prm.ctn = "
+         "static_cast<const float*>(ctn);\n  prm.boxes = static_cast<const "
+         "float*>(boxes);\n  prm.res = static_cast<float*>(res);\n"),
+    ]
+
+
+# Appended to every build: blocks an SM of K11 (0), K11g (1) and, in a
+# build before K7m's verdict pass, K7m (2), with `smem` bytes of dynamic
+# shared memory, by the occupancy calculator.
+_OCC_FN = """
+extern "C" int spt_ablate_blocks_per_sm(int which, int smem) {
+  using namespace spt;
+  const void* fn =
+      which == 0 ? reinterpret_cast<const void*>(bounce_kernel<false>)
+                 : reinterpret_cast<const void*>(bounce_kernel<true>);
+  KERNEL_K7M
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreadsWf,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+"""
+_OCC_K7M = ("if (which == 2)\n    fn = reinterpret_cast<const void*>("
+            "shade_kernel<true, false>);")
+
+# tag -> [(file, old, new)] on an earlier design's sources (--old): K11
+# and K11g (bounce_kernel) as built, its bounce inlined, built for b
+# blocks an SM, and with the package's culled list sweep.
+K11_OLD_VARIANTS = {
+    "old": [],
+    "old_inline": [("wavefront.cu", _OLD_CALL,
+                    _OLD_CALL.replace("wf_bounce", "trace_bounce"))],
+    **{f"old_lb_{b}": [("wavefront.cu", _OLD_K11, _OLD_K11.replace(
+        "(kThreadsWf)", f"(kThreadsWf, {b})"))] for b in (2, 3, 4, 5, 6)},
+    "old_cull": _old_cull(),
+}
+# K7m (shade_kernel<true, false>) as built, built for b blocks an SM, read
+# from the slot-major copy of the table, and both.
+K7M_OLD_VARIANTS = {
+    "old": [],
+    **{f"old_lb_{b}": [("wavefront.cu", _OLD_K7M, _OLD_K7M.replace(
+        "kMxu || kVerdict ? 1", f"kMxu ? {b} : kVerdict ? 1"))]
+       for b in (2, 3, 4)},
+    "old_slot": [("wavefront.cu", _OLD_COLUMN, _SLOT_COLUMN)],
+    **{f"old_slot_lb_{b}": [("wavefront.cu", _OLD_COLUMN, _SLOT_COLUMN),
+                            ("wavefront.cu", _OLD_K7M, _OLD_K7M.replace(
+                                "kMxu || kVerdict ? 1",
+                                f"kMxu ? {b} : kVerdict ? 1"))]
+       for b in (2, 3, 4)},
+}
+_K11_BLOCKS = "constexpr int kBounceMinBlocks = 5;"
+_INLINE = "    const bool missed = trace_bounce(sc, geo, p, (uint32_t)prm.ids[i],\n"
+# tag -> [(file, old, new)] on the package's sources: K11 and K11g built
+# for b blocks an SM, and with the bounce called (wf_bounce, __noinline__)
+# as before; K7m (its verdict pass and K7b's kernel) as built.  Each K11
+# build is also timed with its list sweep unculled (a null box table).
+K11_VARIANTS = {
+    "k11": [],
+    **{f"k11_lb_{b}": [("wavefront.cu", _K11_BLOCKS, _K11_BLOCKS.replace(
+        "5;", f"{b};"))] for b in (2, 3, 4, 6)},
+    "k11_called": [("wavefront.cu", _INLINE,
+                    _INLINE.replace("trace_bounce", "wf_bounce"))],
+}
+K7M_VARIANTS = {"k7m": []}
+FUSED = {"k11": (K11_VARIANTS, K11_OLD_VARIANTS),
+         "k7m": (K7M_VARIANTS, K7M_OLD_VARIANTS)}
+
+
+def _fused_dir(kind: str, tag: str) -> Path:
+    from spt_tpu_torch.kernels import _build
+    return _build.BUILD_DIR / f"wf{kind}_{tag}"
+
+
+def build_fused(kind: str, tag: str, csrc: Path, edits) -> tuple:
+    """Copy ``csrc``, apply ``edits`` (and the occupancy entry), build the
+    wavefront's kernels -> (tag, ptxas facts of K11 and K11g, or K7m)."""
+    from spt_tpu_torch.kernels import _build
+    src = _fused_dir(kind, tag)
+    shutil.rmtree(src, ignore_errors=True)
+    shutil.copytree(csrc, src)
+    for name, old, new in edits:
+        text = (src / name).read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"{tag}: {name} has no single {old!r}")
+        (src / name).write_text(text.replace(old, new))
+    verdict_pass = "mxu_verdict_kernel" in (src / "wavefront.cu").read_text()
+    with open(src / "wavefront.cu", "a") as f:
+        f.write(_OCC_FN.replace("KERNEL_K7M", "" if verdict_pass
+                                else _OCC_K7M))
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
+                           str(src / "lib.so"), str(src / "wavefront.cu")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tag}: nvcc failed\n{proc.stderr[-3000:]}")
+    lines = (proc.stdout + proc.stderr).splitlines()
+    if kind == "k11":
+        return tag, dict(k11=ptxas(lines, "bounce_kernelILb0"),
+                         k11g=ptxas(lines, "bounce_kernelILb1"))
+    if verdict_pass:     # K7m: the verdict pass, then K7b's kernel
+        return tag, dict(k7mv=ptxas(lines, "mxu_verdict_kernel"),
+                         k7m=ptxas(lines, "shade_kernelILb1ELb1E"))
+    return tag, dict(k7m=ptxas(lines, "shade_kernelILb1ELb0"))
+
+
+def _fused_inputs(torch, cs, T, wf, mb, dev):
+    """Config 5 with each sky: (sky, scene, packed tensors, static, meta)."""
+    sd10 = cs.scene_10k(T).compile(device=dev)
+    scene_env = cs.scene_10k(T)
+    scene_env.set_environment_map(cs.env_gradient())
+    sd_env = scene_env.compile(device=dev)
+    cam = T.Camera.look_at(device=dev, **cs.CAM_10K)
+    out = []
+    for sky, sd in (("gradient", sd10), ("envmap", sd_env)):
+        out.append((sky, sd, *cs.wf_inputs(torch, wf, mb, sd, cam,
+                                            cs.BIG_SEED)))
+    return out
+
+
+def time_fused(kind: str, tag: str, reps: int) -> dict:
+    """One build's K11 and K11g (``kind`` "k11") or K7m launches on config
+    5's bounces 0 and 1 with either sky, in a process of its own; the
+    stream made by the package's kernels as chip_smoke.py's checks make it.
+    Each state is compared with the package's own launch on the same
+    inputs (lanes whose bits differ)."""
+    import torch
+    import chip_smoke as cs
+    import spt_tpu_torch as T
+    from spt_tpu_torch.kernels import _build, megakernel_bvh as mb
+    from spt_tpu_torch.kernels import wavefront as wf
+    dev = torch.device("cuda")
+    src_dir = _fused_dir(kind, tag)
+    text = (src_dir / "wavefront.cu").read_text()
+    lib = ctypes.CDLL(str(src_dir / "lib.so"))
+    fn_b = lib.spt_ablate_blocks_per_sm
+    fn_b.argtypes = [_I, _I]
+    boxes_arg = "const void* boxes" in text
+    slot_major = "cb + 8 * c" in text
+    verdict_pass = "mxu_verdict_kernel" in text
+    stream = torch.cuda.current_stream().cuda_stream
+    row = {}
+    for sky, sd, t, stc, meta in _fused_inputs(torch, cs, T, wf, mb, dev):
+        block, n_mats, nls = stc["block"], stc["n_mats"], stc["n_light_slots"]
+        prims = t["prims"]
+        nb = prims.numel() // (5 * block)
+        smem = 4 * (t["blob"].numel() + 8 + 6 + 3 + n_mats)
+        lob, hib = wf._leaf_block_bounds(prims.reshape(-1, 5, block))
+        boxes = wf.leaf_boxes(lob, hib)
+        if kind == "k11":
+            row["blocks_per_sm"] = dict(k11=fn_b(0, smem), k11g=fn_b(1, smem))
+        else:
+            if verdict_pass:
+                lib.spt_wavefront_blocks_per_sm.argtypes = [_I, _I]
+                fn_v = lib.spt_wavefront_mxu_verdicts_blocks_per_sm
+                fn_v.argtypes = [_I]
+                row["blocks_per_sm"] = dict(
+                    k7m=lib.spt_wavefront_blocks_per_sm(6, smem - 32),
+                    k7mv=fn_v(block))
+            else:
+                row["blocks_per_sm"] = dict(k7m=fn_b(2, smem - 32))
+            cmat, bctr, cslot = wf.mxu_tables(dict(prims=prims), block)
+            table = cslot if slot_major else cmat
+        b = cs.wf_bounce(torch, wf, t, stc, meta, cs.BIG_W, cs.BIG_H, 0,
+                         cs.BIG_SEED)
+        for k in (0, 1):
+            if k:
+                b = cs.wf_advance(torch, wf, t, stc, meta, b, 0, cs.BIG_SEED,
+                                  sd.sky_mode)
+            n, st, ids, base = b["n"], b["st"], b["ids"], b["buf"].clone()
+            kw = dict(k=k, block=block, n_mats=n_mats, n_light_slots=nls,
+                      rr_depth=cs.RR, use_nee=True, use_mis=True,
+                      sky_mode=sd.sky_mode)
+            ints = [n, nb, block, n_mats, nls, k, cs.RR, 1, 1, sd.sky_mode]
+            work = base.clone()
+            w_st, w_ids = cs.stream_of(torch, wf, work)
+
+            def run(case, launch, package):
+                ms = []
+                for _ in range(reps):
+                    work.copy_(base)
+                    ms.append(cs.cuda_ms(torch, launch)[1])
+                got = work[:wf.N_CH, :n].clone()
+                work.copy_(base)
+                package()
+                row[f"{sky}_bounce{k}_{case}"] = dict(
+                    lanes=n, ms=min(ms), ms_all=ms,
+                    lanes_differ_from_package=cs.bits_differ(
+                        torch, got, work[:wf.N_CH, :n]))
+
+            if kind == "k11":
+                fn = lib.spt_wavefront_bounce
+                fn.argtypes = [_P] * (13 if boxes_arg else 12) + [_I] * 13 \
+                    + [_P]
+                fn.restype = ctypes.c_int
+                forms = [("lists", True, True), ("walk", False, False)]
+                if boxes_arg:
+                    forms.append(("lists_unculled", True, False))
+                for form, precull, cull in forms:
+                    recs = (False, True) if (sky, k) == ("gradient", 0) \
+                        and form != "lists_unculled" else (False,)
+                    for rec in recs:
+                        res = torch.empty((8, n), device=dev) if rec else None
+                        ptrs = [a.data_ptr() for a in (
+                            w_st, w_ids, t["blob"], meta, t["lsb"],
+                            t["nodef"], t["nodei"], prims, t["mtypes"],
+                            b["cand"], b["ctn"])]
+                        if boxes_arg:
+                            ptrs.append(boxes.data_ptr() if cull else 0)
+                        ptrs.append(0 if res is None else res.data_ptr())
+                        args_k = (*ptrs, w_st.shape[1], n,
+                                  t["nodef"].numel() // 64, *ints[1:],
+                                  int(precull), stream)
+
+                        def launch(args_k=args_k):
+                            err = fn(*args_k)
+                            if err:
+                                raise RuntimeError(f"{tag}: launch {err}")
+
+                        def package(precull=precull):
+                            wf.bounce(t["blob"], meta, t["lsb"], t["nodef"],
+                                      t["nodei"], prims, t["mtypes"],
+                                      b["cand"], b["ctn"], w_st, w_ids, n,
+                                      precull=precull, boxes=boxes, **kw)
+                        run(form + ("_k11g" if rec else ""), launch, package)
+                        del res
+            else:
+                fn = lib.spt_wavefront_shade
+                fn.argtypes = [_P] * (13 if verdict_pass else 15) \
+                    + [_I] * 14 + [_P]
+                fn.restype = ctypes.c_int
+                lists = wf.precull_tiles(
+                    tuple(st[c, :n] for c in range(3)),
+                    tuple(st[c, :n] for c in range(3, 6)),
+                    st[wf.C_ALIVE, :n], None, lob, hib, per_row=True)
+                res = wf.isect_mxu(prims, cmat, bctr, *lists, st, n,
+                                   block=block)
+                so3, sd3, stmax, sneed = wf.shadow_rays(
+                    st[:, :n], ids[:, :n], res, t["blob"], t["lsb"], nls,
+                    k=k, seed=cs.BIG_SEED, n_mats=n_mats,
+                    mtypes=stc["mtypes"], n_light_slots=nls)
+                scand, sctn = wf.precull_tiles(so3, sd3, sneed, stmax, lob,
+                                               hib, per_row=True)
+                sray = torch.stack([*so3, *sd3, stmax, sneed])
+                res_v = res.clone()
+
+                def package():
+                    wf.shade_mxu(t["blob"], meta, t["lsb"], prims, cslot,
+                                 bctr, t["mtypes"], scand, sctn, w_st, w_ids,
+                                 res_v, n, sray=sray, **kw)
+                if verdict_pass:
+                    # The verdict pass, then K7b's kernel reading them.
+                    fn_p = lib.spt_wavefront_mxu_verdicts
+                    fn_p.argtypes = [_P] * 6 + [_I] * 3 + [_P]
+                    fn_p.restype = ctypes.c_int
+                    ptrs_v = (res_v[7].data_ptr(), sray.data_ptr(),
+                              table.data_ptr(), bctr.data_ptr(),
+                              scand.data_ptr(), sctn.data_ptr(), n, nb,
+                              block, stream)
+                    ptrs_b = [a.data_ptr() for a in (
+                        w_st, w_ids, res_v, t["blob"], meta, t["lsb"],
+                        prims, t["mtypes"])]
+                    args_b = (*ptrs_b, 0, 0, 0, 0, 0, w_st.shape[1],
+                              *ints, 1, 0, 1, stream)
+
+                    def pass_only():
+                        err = fn_p(*ptrs_v)
+                        if err:
+                            raise RuntimeError(f"{tag}: verdicts {err}")
+
+                    def launch():
+                        pass_only()
+                        err = fn(*args_b)
+                        if err:
+                            raise RuntimeError(f"{tag}: K7b launch {err}")
+                    run("verdict_pass", launch, package)
+                    row[f"{sky}_bounce{k}_verdict_pass"]["pass_ms"] = min(
+                        cs.cuda_ms(torch, pass_only)[1] for _ in range(reps))
+                else:
+                    # An earlier K7m: the sweep inside the bounce.
+                    ptrs = [a.data_ptr() for a in (
+                        w_st, w_ids, res, t["blob"], meta, t["lsb"], prims,
+                        t["mtypes"], scand, sctn)]
+                    args_k = (*ptrs, 0, table.data_ptr(), bctr.data_ptr(), 0,
+                              0, w_st.shape[1], *ints, 0, 0, 1, stream)
+
+                    def launch():
+                        err = fn(*args_k)
+                        if err:
+                            raise RuntimeError(f"{tag}: launch {err}")
+                    run("lists", launch, package)
+                del lists, res, res_v, scand, sctn, sray
+            del base, work
+        del b
+        torch.cuda.empty_cache()
+    return row
+
+
+def main_fused(args, kinds) -> int:
+    """Build K11's or K7m's variants, then time each build in a process of
+    its own, the reference first and again last."""
+    from spt_tpu_torch.kernels import _build
+    t0 = time.perf_counter()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    _build.build("wavefront")       # the package's, which makes the stream
+    jobs = []
+    for kind in kinds:
+        ours, old = FUSED[kind]
+        jobs += [(kind, tag, _build.CSRC, edits)
+                 for tag, edits in ours.items()]
+        if args.old is not None:
+            jobs += [(kind, tag, args.old, edits)
+                     for tag, edits in old.items()]
+    if args.only:
+        jobs = [j for j in jobs if j[1] in args.only]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        facts = {(kind, tag): f for (kind, *_), (tag, f) in zip(
+            jobs, pool.map(lambda j: build_fused(*j), jobs))}
+    print(json.dumps(dict(phase="build", seconds=time.perf_counter() - t0,
+                          builds=[f"{k}:{t}" for k, t in facts])), flush=True)
+    for kind in kinds:
+        tags = [t for k, t in facts if k == kind]
+        if not tags:
+            continue
+        ref = tags[0]
+        for n, tag in enumerate([ref] + tags[1:] + [ref]):
+            row = dict(kernel=kind, variant=tag, card=card, run=n,
+                       **facts[kind, tag])
+            try:
+                proc = subprocess.run(
+                    [sys.executable, __file__, "--reps", str(args.reps),
+                     "--time-fused", kind, tag],
+                    capture_output=True, text=True, timeout=args.timeout)
+            except subprocess.TimeoutExpired as e:
+                row.update(hung=True, log=str(e.stdout)[-800:])
+            else:
+                if proc.returncode != 0:
+                    row.update(faulted=True,
+                               log=(proc.stdout + proc.stderr)[-1500:])
+                else:
+                    row.update(json.loads(
+                        proc.stdout.strip().splitlines()[-1]))
+            print(json.dumps(row), flush=True)
     print(json.dumps(dict(seconds=time.perf_counter() - t0)), flush=True)
     return 0
 

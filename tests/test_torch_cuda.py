@@ -821,45 +821,87 @@ def _fresh(wf, base):
 @pytest.mark.parametrize("case", ["scene200", "padding"])
 @pytest.mark.parametrize("precull", [True, False])
 def test_k11_matches_plain_and_split(cuda, case, precull):
-    """K11 against its plain version at K1's bar and K11g's record equal
-    to the plain K11g's; K11 and K11g give one state bit for bit; on the
-    200-sphere scene, where no ray wins a padding slot, K11 equals K6+K7
-    bit for bit and K11g's record K6's residual and K9's verdict."""
+    """K11 in the render's form (the list sweep culled by the leaf blocks'
+    boxes, or the walk) against its plain version at K1's bar and K11g's
+    record equal to the plain K11g's; K11 and K11g give one state bit for
+    bit; on the 200-sphere scene, where no ray wins a padding slot, K11
+    equals K6+K7 bit for bit and K11g's record K6's residual and K9's
+    verdict."""
     from spt_tpu_torch.kernels import wavefront_grad as wg
     wf, t, meta, b, kw, args, base = _fused_bounce(cuda, case)
     n = b["n"]
+    kw = dict(kw, precull=precull, boxes=wf.leaf_boxes(
+        *wf._leaf_block_bounds(t["prims"].reshape(-1, 5, kw["block"]))))
     fargs = (t["blob"], meta, t["lsb"], t["nodef"], t["nodei"], t["prims"],
              t["mtypes"], b["cand"], b["ctn"])
     st, ids = _fresh(wf, base)
     before = dict(mk.LAUNCHES)
-    wf.bounce(*fargs, st, ids, n, precull=precull, **kw)
-    out_g, res_g = wg.bounce_fwd(*fargs, *_fresh(wf, base), n,
-                                 precull=precull, **kw)
+    wf.bounce(*fargs, st, ids, n, **kw)
+    out_g, res_g = wg.bounce_fwd(*fargs, *_fresh(wf, base), n, **kw)
     assert mk.LAUNCHES == dict(before, k11=before["k11"] + 1,
                                k11g=before["k11g"] + 1)
     assert torch.equal(out_g.view(torch.int32), st.view(torch.int32))
     st_p, ids_p = _fresh(wf, base)
-    wf.bounce_plain(*fargs, st_p, ids_p, n, precull=precull, **kw)
-    _, res_p = wg.bounce_fwd_plain(*fargs, *_fresh(wf, base), n,
-                                   precull=precull, **kw)
-    assert torch.equal(res_g, res_p)
+    wf.bounce_plain(*fargs, st_p, ids_p, n, **kw)
+    _, res_p = wg.bounce_fwd_plain(*fargs, *_fresh(wf, base), n, **kw)
+    assert torch.equal(res_g.view(torch.int32), res_p.view(torch.int32))
     got, want = st.cpu().numpy(), st_p.cpu().numpy()
     assert np.isfinite(got).all()
     assert np.isclose(got, want, rtol=RTOL, atol=ATOL).mean() >= MIN_CLOSE
     padding = int(((b["res"][4] < 0) & (b["res"][5] >= 0)).sum())
     assert (padding > 0) == (case == "padding")
     if case == "scene200":
+        kw7 = {a: v for a, v in kw.items() if a not in ("precull", "boxes")}
         st7, ids7 = _fresh(wf, base)
-        out9, blocked = wg.shade_fwd(*args, st7, ids7, b["res"], n, **kw)
-        wf.shade(*args, st7, ids7, b["res"], n, **kw)
+        out9, blocked = wg.shade_fwd(*args, st7, ids7, b["res"], n, **kw7)
+        wf.shade(*args, st7, ids7, b["res"], n, **kw7)
         assert torch.equal(st.view(torch.int32), st7.view(torch.int32))
         assert torch.equal(res_g[:7], b["res"][:7])
         assert torch.equal(res_g[7], blocked) and float(blocked.sum()) > 0
 
 
+@pytest.mark.parametrize("case", ["scene200", "padding"])
+def test_k11_culled_sweep_matches_plain(cuda, case):
+    """K11 and K11g with the list sweep culled by the leaf blocks' boxes
+    (the render's form) against their plain versions with the same boxes:
+    the record bit for bit, the state at K1's bar; against the plain
+    unculled sweep, lanes part only where a winner ties exactly in t or is
+    a padding slot.  Given the lists without the boxes, K11 refuses."""
+    from spt_tpu_torch.kernels import wavefront_grad as wg
+    wf, t, meta, b, kw, _, base = _fused_bounce(cuda, case)
+    n = b["n"]
+    boxes = wf.leaf_boxes(*wf._leaf_block_bounds(
+        t["prims"].reshape(-1, 5, kw["block"])))
+    fargs = (t["blob"], meta, t["lsb"], t["nodef"], t["nodei"], t["prims"],
+             t["mtypes"], b["cand"], b["ctn"])
+    st, ids = _fresh(wf, base)
+    wf.bounce(*fargs, st, ids, n, precull=True, boxes=boxes, **kw)
+    out_g, res_g = wg.bounce_fwd(*fargs, *_fresh(wf, base), n, precull=True,
+                                 boxes=boxes, **kw)
+    assert torch.equal(out_g.view(torch.int32), st.view(torch.int32))
+    st_p, ids_p = _fresh(wf, base)
+    wf.bounce_plain(*fargs, st_p, ids_p, n, precull=True, boxes=boxes, **kw)
+    _, res_p = wg.bounce_fwd_plain(*fargs, *_fresh(wf, base), n,
+                                   precull=True, boxes=boxes, **kw)
+    assert torch.equal(res_g.view(torch.int32), res_p.view(torch.int32))
+    got, want = st.cpu().numpy(), st_p.cpu().numpy()
+    assert np.isclose(got, want, rtol=RTOL, atol=ATOL).mean() >= MIN_CLOSE
+    _, res_u = wg.bounce_fwd_plain(*fargs, *_fresh(wf, base), n,
+                                   precull=True, **kw)
+    with pytest.raises(ValueError, match="boxes"):
+        wf.bounce(*fargs, *_fresh(wf, base), n, precull=True, **kw)
+    head = base[:wf.N_CH, :n]
+    pad = ((res_u[4] < 0) & (res_u[5] >= 0)) | ((res_g[4] < 0)
+                                                & (res_g[5] >= 0))
+    tie = (wf.winner_t(head, res_u) == wf.winner_t(head, res_g)) & ~pad
+    differ = (res_u.view(torch.int32) != res_g.view(torch.int32)).any(0)
+    assert not bool((differ & ~pad & ~tie).any())
+
+
 def test_k6m_k7m_match_plain(cuda):
     """K6m's residual equals the plain K6m's bit for bit on a bounce's
-    per-row lists; K7m's state meets K1's bar against the plain K7m's."""
+    per-row lists; K7m's verdict pass equals the plain pass's verdicts bit
+    for bit, and K7m's state meets K1's bar against the plain K7m's."""
     wf, t, meta, b, kw, _, base = _fused_bounce(cuda, "scene200")
     n, st, ids, prims = b["n"], b["st"], b["ids"], t["prims"]
     block = kw["block"]
@@ -868,7 +910,7 @@ def test_k6m_k7m_match_plain(cuda):
         tuple(st[c, :n] for c in range(3)),
         tuple(st[c, :n] for c in range(3, 6)), st[wf.C_ALIVE, :n], None,
         lob, hib, per_row=True)
-    cmat, bctr = wf.build_cmat(prims.reshape(-1, 5, block))
+    cmat, bctr, cslot = wf.mxu_tables(dict(prims=prims), block)
     before = dict(mk.LAUNCHES)
     res = wf.isect_mxu(prims, cmat, bctr, cand, ctn, st, n, block=block)
     assert mk.LAUNCHES == dict(before, k6m=before["k6m"] + 1)
@@ -882,13 +924,17 @@ def test_k6m_k7m_match_plain(cuda):
         n_light_slots=kw["n_light_slots"])
     scand, sctn = wf.precull_tiles(so3, sd3, sneed, stmax, lob, hib,
                                    per_row=True)
-    args = (t["blob"], meta, t["lsb"], prims, cmat, bctr, t["mtypes"], scand,
+    args = (t["blob"], meta, t["lsb"], prims, cslot, bctr, t["mtypes"], scand,
             sctn)
+    sray = torch.stack([*so3, *sd3, stmax, sneed])
     st_k, ids_k = _fresh(wf, base)
-    wf.shade_mxu(*args, st_k, ids_k, res, n, **kw)
+    res_k, res_p = res.clone(), res.clone()
+    wf.shade_mxu(*args, st_k, ids_k, res_k, n, sray=sray, **kw)
     assert mk.LAUNCHES["k7m"] == before["k7m"] + 1
+    assert mk.LAUNCHES["k7mv"] == before["k7mv"] + 1
     st_p, ids_p = _fresh(wf, base)
-    wf.shade_mxu_plain(*args, st_p, ids_p, res, n, **kw)
+    wf.shade_mxu_plain(*args, st_p, ids_p, res_p, n, sray=sray, **kw)
+    assert torch.equal(res_k, res_p) and float(res_k[7].sum()) > 0
     got, want = st_k.cpu().numpy(), st_p.cpu().numpy()
     assert np.isfinite(got).all()
     assert np.isclose(got, want, rtol=RTOL, atol=ATOL).mean() >= MIN_CLOSE
@@ -909,7 +955,7 @@ def test_fused_and_mxu_renders_match_plain(cuda, mode):
     before = dict(mk.LAUNCHES)
     got = wf.render_wavefront(sd, cam, 48, 40, 0, 2, **kw)
     runs = {k: mk.LAUNCHES[k] - before[k] for k in before}
-    want_k = ("k6m", "k7m") if mode == "mxu" else ("k11",)
+    want_k = ("k6m", "k7m", "k7mv") if mode == "mxu" else ("k11",)
     assert all(runs[k] > 0 for k in want_k) and runs["plain"] == 0
     assert all(v == 0 for k, v in runs.items() if k not in want_k + ("k5",))
     want = wf._render(sd, cam, 48, 40, 0, 2, stages=wf.PLAIN, **kw)

@@ -23,6 +23,15 @@ K7m): their plain versions and glue, within the port, on the CPU.
 * Which paths build lists: the split path (forward and gradient) and the
   fused walk none, the fused bounce with ``precull`` the nearest-hit lists,
   the matmul form those and the shadow lists.
+* The fused bounce's list sweep culled by the leaf blocks' boxes (the
+  render's) against the unculled sweep, on bounces 0 and 1 of the 300-sphere
+  scene and bounce 0 of the padding scene: the same state and record bit
+  for bit but on lanes whose winner ties exactly in t or is a padding slot.
+* K7m's slot-major copy of ``build_cmat``'s tables holds its columns bit
+  for bit, built once a packing.
+* K7m's verdict pass: its plain version's verdicts equal ``_sweep_anyhit``'s
+  with ``mxu=`` on the glue's shadow rays, and the plain K7m (the pass,
+  then the bounce reading residual row 7) writes them there.
 
 Config 5 cut to 300 spheres (160 for the gradients), leaf block 8, at most
 32x32 pixels, depth 3.  Whole renders against JAX's are in
@@ -41,7 +50,7 @@ from spt_tpu_torch.kernels import megakernel as tmega
 from spt_tpu_torch.kernels import wavefront as twf
 from spt_tpu_torch.kernels import wavefront_grad as twg
 from chip_smoke import (CAM_10K, PAD_CAM, env_gradient, padding_scene,
-                        scene_10k, wf_bounce, wf_inputs)
+                        scene_10k, wf_advance, wf_bounce, wf_inputs)
 
 # One intra-op thread: these tests trace small tensors, where torch's
 # idle OpenMP workers would only spin against the other test processes.
@@ -243,3 +252,123 @@ def test_which_paths_build_lists(path, precull, shadow):
     bounces = 2
     assert calls == {"precull": bounces * precull,
                      "shadow_rays": bounces * shadow}, calls
+
+
+@pytest.mark.parametrize("case", ["config5_300", "padding"])
+def test_culled_sweep_equals_unculled(case):
+    """K11's plain version with the leaf blocks' boxes (each lane skips a
+    candidate its ray misses or enters past its nearest t) against it
+    without them (every candidate taken is swept): the state and K11g's
+    record equal bit for bit but on lanes where the two winners tie
+    exactly in t or one is a padding slot, which the boxes leave out."""
+    if case == "padding":
+        sd = padding_scene(spt_tpu_torch).compile(device=CPU)
+        cam = spt_tpu_torch.Camera.look_at(device=CPU, **PAD_CAM)
+        seed, bounces = 4, (0,)
+    else:
+        sd, cam, seed, bounces = _scene(300), _camera(), 5, (0, 1)
+    t, stc, meta = wf_inputs(torch, twf, twf, sd, cam, seed)
+    boxes = twf.leaf_boxes(*twf._leaf_block_bounds(
+        t["prims"].reshape(-1, 5, stc["block"])))
+    b = wf_bounce(torch, twf, t, stc, meta, 16, 16, 0, seed)
+    culled = 0
+    for k in bounces:
+        if k:
+            b = wf_advance(torch, twf, t, stc, meta, b, k - 1, seed,
+                           sd.sky_mode)
+        n, ids = b["n"], b["ids"]
+        kw = dict(k=k, block=stc["block"], n_mats=stc["n_mats"],
+                  n_light_slots=stc["n_light_slots"], rr_depth=2,
+                  use_nee=True, use_mis=True, sky_mode=sd.sky_mode,
+                  precull=True)
+        outs = []
+        for bx in (None, boxes):
+            stats = {}
+            st, rec = twg.bounce_fwd_plain(
+                t["blob"], meta, t["lsb"], t["nodef"], t["nodei"],
+                t["prims"], t["mtypes"], b["cand"], b["ctn"], b["st"], ids,
+                n, boxes=bx, stats=stats, **kw)
+            outs.append((st[:, :n], rec, stats))
+        (st_u, rec_u, s_u), (st_c, rec_c, s_c) = outs
+        culled += s_c["culled_blocks"]
+        # The unculled sweep takes the same candidates: the culled ones and
+        # the ones swept add up to them.
+        assert s_c["blocks"] + s_c["culled_blocks"] == s_u["blocks"]
+        assert "culled_blocks" not in s_u
+        head = b["st"][:, :n]
+        pad = ((rec_u[4] < 0) & (rec_u[5] >= 0)) | ((rec_c[4] < 0)
+                                                    & (rec_c[5] >= 0))
+        tie = (twf.winner_t(head, rec_u) == twf.winner_t(head, rec_c)) & ~pad
+        differ = ((st_u.view(torch.int32) != st_c.view(torch.int32)).any(0)
+                  | (rec_u.view(torch.int32)
+                     != rec_c.view(torch.int32)).any(0))
+        assert not bool((differ & ~pad & ~tie).any()), \
+            f"bounce {k}: {int((differ & ~pad & ~tie).sum())} lanes differ"
+        if case == "config5_300":
+            assert int(differ.sum()) == 0
+    if case == "config5_300":
+        assert culled > 0
+
+
+def test_slot_major_table():
+    """``mxu_tables``: ``build_cmat``'s tables and K7m's slot-major copy,
+    column c of block b the 8 floats of ``cmat[b, :, c]`` bit for bit,
+    built once and kept with the packing."""
+    t, stc, _ = wf_inputs(torch, twf, twf, _scene(160), _camera(), 5)
+    t = dict(t)
+    cmat, bctr, cslot = twf.mxu_tables(t, stc["block"])
+    want, want_c = twf.build_cmat(t["prims"].reshape(-1, 5, stc["block"]))
+    assert torch.equal(cmat, want) and torch.equal(bctr, want_c)
+    nb, block = cmat.shape[0], stc["block"]
+    assert cslot.shape == (nb, 2 * block, 8) and cslot.is_contiguous()
+    assert torch.equal(cslot.view(torch.int32),
+                       cmat.transpose(1, 2).contiguous().view(torch.int32))
+    assert torch.equal(cslot[1, 2 * block - 1], cmat[1, :, 2 * block - 1])
+    assert twf.mxu_tables(t, block)[2] is cslot
+
+
+def test_mxu_verdict_pass_plain():
+    """The plain K7m on a bounce of the 300-sphere scene: the verdicts its
+    pass sweeps (``mxu_verdicts_plain``, reading the slot-major copy) are
+    ``_sweep_anyhit``'s with ``mxu=`` on ``build_cmat``'s tables, on the
+    glue's shadow rays over the per-row lists; they fill every lane, land in
+    residual row 7, and some rays are blocked and some not; without the
+    rays it refuses to shade with NEE."""
+    sd = _scene(300)
+    t, stc, meta = wf_inputs(torch, twf, twf, sd, _camera(), 5)
+    b = wf_bounce(torch, twf, t, stc, meta, 16, 16, 0, 5)
+    n, st, ids, block = b["n"], b["st"], b["ids"], stc["block"]
+    cmat, bctr, cslot = twf.mxu_tables(dict(prims=t["prims"]), block)
+    lob, hib = twf._leaf_block_bounds(t["prims"].reshape(-1, 5, block))
+    cand, ctn = twf.precull_tiles(
+        tuple(st[c, :n] for c in range(3)),
+        tuple(st[c, :n] for c in range(3, 6)), st[twf.C_ALIVE, :n], None,
+        lob, hib, per_row=True)
+    res = twf.isect_mxu(t["prims"], cmat, bctr, cand, ctn, st, n, block=block)
+    nls = stc["n_light_slots"]
+    so3, sd3, stmax, sneed = twf.shadow_rays(
+        st[:, :n], ids[:, :n], res, t["blob"], t["lsb"], nls, k=0, seed=5,
+        n_mats=stc["n_mats"], mtypes=stc["mtypes"], n_light_slots=nls)
+    scand, sctn = twf.precull_tiles(so3, sd3, sneed, stmax, lob, hib,
+                                    per_row=True)
+    sray = torch.stack([*so3, *sd3, stmax, sneed])
+    got = torch.full((n,), -1.0)
+    twf.mxu_verdicts_plain(t["prims"], cslot, bctr, scand, sctn, sray, got, n,
+                           block=block)
+    want = twf._sweep_anyhit(t["prims"].reshape(-1, 5, block), scand, sctn,
+                             so3, sd3, stmax, sneed > 0.5,
+                             mxu=(cmat, bctr))
+    assert torch.equal(got, want.to(torch.float32))
+    assert 0 < int(got.sum()) < int((sneed > 0.5).sum())
+    kw = dict(k=0, block=block, n_mats=stc["n_mats"], n_light_slots=nls,
+              rr_depth=2, use_nee=True, use_mis=True, sky_mode=sd.sky_mode)
+    buf, rec = b["buf"].clone(), res.clone()
+    twf.shade_mxu(t["blob"], meta, t["lsb"], t["prims"], cslot, bctr,
+                  t["mtypes"], scand, sctn, buf[:twf.N_CH],
+                  buf[twf.N_CH:].view(torch.int32), rec, n, sray=sray, **kw)
+    assert torch.equal(rec[7], got) and torch.equal(rec[:7], res[:7])
+    with pytest.raises(ValueError, match="sray"):
+        twf.shade_mxu(t["blob"], meta, t["lsb"], t["prims"], cslot, bctr,
+                      t["mtypes"], scand, sctn, buf[:twf.N_CH],
+                      buf[twf.N_CH:].view(torch.int32), rec, n, sray=None,
+                      **kw)
