@@ -22,7 +22,9 @@ spawned gloo ranks on the one card prim-sharded, sample-sharded and its
 data-parallel gradient; and config 5 through the wavefront's other bounce
 forms, each against the split form: the fused bounce K11 with the
 precull's lists (culled per ray by the leaf boxes) and with the walk, the
-matmul-form sweeps K6m and K7m (its verdict pass, then K7b's kernel), and
+matmul-form sweeps K6m (its row lists culled per ray by the leaf boxes,
+held against the unculled sweep too) and K7m (its verdict pass, then
+K7b's kernel), and
 the fused gradient, K11g forward and K10 backward), and times the kernels
 and the wavefront's glue.
 Each phase prints one JSON line; any
@@ -1393,6 +1395,30 @@ def route_differ(torch, wf, st, res_t, res_l):
                 other=int((differ & ~tie & ~pad).sum()))
 
 
+def cull_differ(torch, wf, st, res_u, res_c, boxes):
+    """Lanes where a sweep culled by the leaf ``boxes`` (residual
+    ``res_c``) parts from the unculled one (``res_u``) over the same
+    lists, by cause: an exact tie (both winners at the same rebuilt t), a
+    padding winner on either side, or a box edge (the unculled winner's
+    hit lies outside its block's box by float error: the box test at that
+    t fails); ``other`` counts the rest (none may be).  ``st`` (17, n)."""
+    differ = (res_u.view(torch.int32) != res_c.view(torch.int32)).any(0)
+    pad = ((res_u[4] < 0) & (res_u[5] >= 0)) | ((res_c[4] < 0)
+                                                 & (res_c[5] >= 0))
+    t_u = wf.winner_t(st, res_u)
+    tie = (t_u == wf.winner_t(st, res_c)) & ~pad
+    lanes = torch.arange(st.shape[1], device=st.device)
+    inside = wf._box_cull(boxes, tuple(st[c] for c in range(3)),
+                          tuple(st[c] for c in range(3, 6)))(
+        lanes, res_u[5].long().clamp_min(0),
+        torch.nextafter(t_u, torch.full_like(t_u, wf.BIG)))
+    edge = (res_u[5] >= 0) & ~inside & ~tie & ~pad
+    return dict(lanes=int(differ.sum()), ties=int((differ & tie).sum()),
+                padding=int((differ & pad).sum()),
+                box_edge=int((differ & edge).sum()),
+                other=int((differ & ~tie & ~pad & ~edge).sum()))
+
+
 def shadow_sray(torch, wf, t, stc, b, k, seed):
     """A bounce's shadow rays as K8 takes them: (8, n), pox poy poz ldx
     ldy ldz tmax need."""
@@ -1701,7 +1727,7 @@ def run_wf_phases(torch, T, mk, dev, card, k3) -> dict:
               k7_ms={k: v["k7_ms"] for k, v in nums.items()},
               k6_lists_ms=k6l_ms,
               k6=dict(ptxas_of(_build.BUILD_INFO, "wavefront",
-                               "isect_kernelILb0"),
+                               "12isect_kernel"),
                       **{k: out["k6"][k] for k in ("fp32_ops", "bytes",
                                                    "bound_ms", "bound_by")}),
               k7=dict(ptxas_of(_build.BUILD_INFO, "wavefront",
@@ -2991,11 +3017,13 @@ def k11_case(torch, wf, wg, t, stc, meta, b, k, precull, sky, reps,
                      res_g=res_g, err=res["max_abs_err"])
 
 
-def k6m_k7m_case(torch, wf, t, stc, meta, b, k, sky, cmat, bctr, cslot,
-                 reps):
-    """K6m and K7m on one config-5 bounce, on per-row lists made from its
-    stream, against their plain versions (K6m's residual bit for bit,
-    K7m's state at K1's bar) and against K6 and K7."""
+def k6m_case(torch, wf, t, stc, b, cslot, bctr, boxes, reps, label):
+    """K6m on one bounce's stream, on per-row lists made from it, culling
+    by the leaf ``boxes`` as the render runs it: its residual against the
+    plain K6m with the same boxes (bit for bit) and against the plain
+    unculled sweep (``cull_differ``: ties and box edges counted, no other
+    lane), and against K6's list mode.  Returns (row, residual, lists,
+    numbers)."""
     block, prims, n, st = stc["block"], t["prims"], b["n"], b["st"]
     lob, hib = wf._leaf_block_bounds(prims.reshape(-1, 5, block))
     cand, ctn = wf.precull_tiles(
@@ -3003,13 +3031,49 @@ def k6m_k7m_case(torch, wf, t, stc, meta, b, k, sky, cmat, bctr, cslot,
         tuple(st[c, :n] for c in range(3, 6)), st[wf.C_ALIVE, :n], None,
         lob, hib, per_row=True)
     ms6 = [cuda_ms(torch, lambda: wf.isect_mxu(
-        prims, cmat, bctr, cand, ctn, st, n, block=block))[1]
+        prims, cslot, bctr, cand, ctn, st, n, block=block, boxes=boxes))[1]
         for _ in range(reps)]
-    res = wf.isect_mxu(prims, cmat, bctr, cand, ctn, st, n, block=block)
-    s6 = {}
+    res = wf.isect_mxu(prims, cslot, bctr, cand, ctn, st, n, block=block,
+                       boxes=boxes)
+    s6, s6u = {}, {}
     with torch.inference_mode():
         res_p, p6_ms = cuda_ms(torch, lambda: wf.isect_mxu_plain(
-            prims, cmat, bctr, cand, ctn, st, n, block=block, stats=s6))
+            prims, cslot, bctr, cand, ctn, st, n, block=block, boxes=boxes,
+            stats=s6))
+        res_u = wf.isect_mxu_plain(prims, cslot, bctr, cand, ctn, st, n,
+                                   block=block, stats=s6u)
+    alive = max(s6["alive"], 1)
+    why = cull_differ(torch, wf, st[:, :n], res_u, res, boxes)
+    row = dict(lanes=n, alive=s6["alive"],
+               lanes_differ=bits_differ(torch, res, res_p),
+               hits=int((res[4] >= 0).sum()),
+               lanes_differ_from_unculled=why,
+               winner_lanes_differ_from_k6=bits_differ(
+                   torch, res[:7], b["res"][:7]),
+               rows_candidates=float(cand[:, :, 0].double().mean()),
+               tile_candidates=float(b["cand"][:, 0, 0].double().mean()),
+               blocks_swept_per_lane=s6["blocks"] / alive,
+               blocks_culled_per_lane=s6["culled_blocks"] / alive,
+               unculled_blocks_per_lane=s6u["blocks"] / alive,
+               k6m_ms=ms6, plain_ms=p6_ms)
+    check(row["lanes_differ"] == 0,
+          f"K6m {label}: {row['lanes_differ']} residual lanes differ")
+    check(row["hits"] > 0, f"K6m {label}: no hit")
+    check(why["other"] == 0, f"K6m {label}: {why} lanes part from the "
+                             "unculled sweep at no tie, box edge or padding "
+                             "winner")
+    return row, res, (lob, hib), dict(s6=s6, s6u=s6u, n=n, ms6=min(ms6),
+                                      p6_ms=p6_ms)
+
+
+def k6m_k7m_case(torch, wf, t, stc, meta, b, k, sky, cslot, bctr, boxes,
+                 reps):
+    """K6m and K7m on one config-5 bounce, on per-row lists made from its
+    stream, against their plain versions (``k6m_case``; K7m's state at
+    K1's bar) and against K6 and K7."""
+    block, prims, n, st = stc["block"], t["prims"], b["n"], b["st"]
+    row6, res, (lob, hib), nums6 = k6m_case(
+        torch, wf, t, stc, b, cslot, bctr, boxes, reps, f"at bounce {k}")
     nls = stc["n_light_slots"]
     so3, sd3, stmax, sneed = wf.shadow_rays(
         st[:, :n], b["ids"][:, :n], res, t["blob"], t["lsb"], nls, k=k,
@@ -3063,14 +3127,6 @@ def k6m_k7m_case(torch, wf, t, stc, meta, b, k, sky, cmat, bctr, cslot,
              b["sctn"], *stream_of(torch, wf, k7), b["res"], n, **kw)
     a, c = got[:wf.N_CH, :n], plain[:wf.N_CH, :n]
     res7 = state_close(torch, wf, a, c)
-    row6 = dict(lanes=n, lanes_differ=bits_differ(torch, res, res_p),
-                hits=int((res[4] >= 0).sum()),
-                winner_lanes_differ_from_k6=bits_differ(
-                    torch, res[:7], b["res"][:7]),
-                rows_candidates=float(cand[:, :, 0].double().mean()),
-                tile_candidates=float(b["cand"][:, 0, 0].double().mean()),
-                blocks_swept_per_lane=s6["blocks"] / n, k6m_ms=ms6,
-                plain_ms=p6_ms)
     row7 = dict(lanes=n, lanes_differ=bits_differ(torch, a, c),
                 lanes_differ_from_k7=bits_differ(torch, a, k7[:wf.N_CH, :n]),
                 verdicts_differ=int((verdict != verdict_p).sum()),
@@ -3082,9 +3138,6 @@ def k6m_k7m_case(torch, wf, t, stc, meta, b, k, sky, cmat, bctr, cslot,
                 / max(s7["shadow"], 1), k7m_ms=ms7, verdict_pass_ms=msv,
                 bounce_ms=msb, plain_ms=p7_ms, verdict_pass_plain_ms=pv_ms,
                 bounce_plain_ms=pb_ms, **res7)
-    check(row6["lanes_differ"] == 0,
-          f"K6m at bounce {k}: {row6['lanes_differ']} residual lanes differ")
-    check(row6["hits"] > 0, f"K6m at bounce {k}: no hit")
     check_state(res7, f"K7m at bounce {k}")
     check(row7["verdicts_differ"] == 0 and row7["render_verdicts_differ"] == 0,
           f"K7m's verdict pass at bounce {k}: {row7['verdicts_differ']} / "
@@ -3092,10 +3145,10 @@ def k6m_k7m_case(torch, wf, t, stc, meta, b, k, sky, cmat, bctr, cslot,
           "pass's")
     check(row7["bounce_only_lanes_differ"] == 0,
           f"K7m at bounce {k}: its bounce alone parts from the entry's")
-    return row6, row7, dict(s6=s6, s7=s7, sv=sv, sb=sb, ms6=min(ms6),
-                            ms7=min(ms7), msv=min(msv), msb=min(msb),
-                            p6_ms=p6_ms, p7_ms=p7_ms, pv_ms=pv_ms,
-                            pb_ms=pb_ms, err=res7["max_abs_err"])
+    return row6, row7, dict(nums6, s7=s7, sv=sv, sb=sb, ms7=min(ms7),
+                            msv=min(msv), msb=min(msb), p7_ms=p7_ms,
+                            pv_ms=pv_ms, pb_ms=pb_ms,
+                            err=res7["max_abs_err"])
 
 
 def run_fused_phases(torch, T, mk, dev, card, k3) -> dict:
@@ -3119,9 +3172,12 @@ def run_fused_phases(torch, T, mk, dev, card, k3) -> dict:
     uniform_bytes = 4 * (t["blob"].numel() + t["lsb"].numel() + meta.numel()
                          + stc["n_mats"])
     tree_words = sum(t[k].numel() for k in ("nodef", "nodei", "prims"))
-    cmat, bctr, cslot = wf.mxu_tables(t, block)
+    bctr, cslot = wf.mxu_tables(t, block)
     boxes = wf.leaf_boxes(*wf._leaf_block_bounds(
         t["prims"].reshape(-1, 5, block)))
+    scene_env = scene_10k(T)
+    scene_env.set_environment_map(env_gradient())
+    sd_env = scene_env.compile(device=dev)
 
     # 33. K11, K11g (with either nearest hit), K6m and K7m on config-5
     # bounces 0 and 1, each against its plain version ------------------
@@ -3138,7 +3194,7 @@ def run_fused_phases(torch, T, mk, dev, card, k3) -> dict:
             emit(dict(phase="k11_vs_plain", case=f"config5_bounce{k}",
                       precull=precull, **row))
         row6, row7, nums[k, "mxu"] = k6m_k7m_case(
-            torch, wf, t, stc, meta, b, k, sky, cmat, bctr, cslot, reps)
+            torch, wf, t, stc, meta, b, k, sky, cslot, bctr, boxes, reps)
         emit(dict(phase="k6m_vs_plain", case=f"config5_bounce{k}", **row6))
         emit(dict(phase="k7m_vs_plain", case=f"config5_bounce{k}", **row7))
         if k == 0:
@@ -3157,22 +3213,56 @@ def run_fused_phases(torch, T, mk, dev, card, k3) -> dict:
             del res8, ctb
     del b
     torch.cuda.empty_cache()
+    # K6m with the env map's sky (bounces 0 and 1) and on the padding
+    # scene (bounce 0, 240x136), against its plain versions as above
+    t_e, stc_e, meta_e = wf_inputs(torch, wf, mb, sd_env, cam10, BIG_SEED)
+    bctr_e, cslot_e = wf.mxu_tables(t_e, block)
+    boxes_e = wf.leaf_boxes(*wf._leaf_block_bounds(
+        t_e["prims"].reshape(-1, 5, block)))
+    b = wf_bounce(torch, wf, t_e, stc_e, meta_e, BIG_W, BIG_H, 0, BIG_SEED)
+    for k in (0, 1):
+        if k:
+            b = wf_advance(torch, wf, t_e, stc_e, meta_e, b, 0, BIG_SEED,
+                           wf.SKY_ENVMAP)
+        row6, *_, nums[k, "mxu_env"] = k6m_case(
+            torch, wf, t_e, stc_e, b, cslot_e, bctr_e, boxes_e, 1,
+            f"with the env map at bounce {k}")
+        emit(dict(phase="k6m_vs_plain", case=f"config5_envmap_bounce{k}",
+                  **row6))
+    del b, t_e
+    sdpad = padding_scene(T).compile(device=dev)
+    tp, stp, metap = wf_inputs(torch, wf, mb, sdpad, T.Camera.look_at(
+        device=dev, **PAD_CAM), BIG_SEED)
+    bctr_p, cslot_p = wf.mxu_tables(tp, block)
+    boxes_p = wf.leaf_boxes(*wf._leaf_block_bounds(
+        tp["prims"].reshape(-1, 5, block)))
+    bp = wf_bounce(torch, wf, tp, stp, metap, 240, 136, 0, BIG_SEED)
+    row6, *_ = k6m_case(torch, wf, tp, stp, bp, cslot_p, bctr_p, boxes_p, 1,
+                        "on the padding scene")
+    emit(dict(phase="k6m_vs_plain", case="padding_bounce0",
+              padding_winners=int(((bp["res_t"][4] < 0)
+                                   & (bp["res_t"][5] >= 0)).sum()), **row6))
+    del bp, tp
+    torch.cuda.empty_cache()
     s11, s11w, sm = nums[0, True], nums[0, False], nums[0, "mxu"]
     for key, st_, ms, p_ms, record in (("k11", s11, s11["ms"], s11["p_ms"],
                                         False),
                                        ("k11g", s11, s11["ms_g"],
                                         s11["p_ms"], True)):
-        ops = wf.k11_op_count(st_["stats"])
+        # The bound counts the culled sweep's work, what the function
+        # needs; the unculled sweep's beside it.
+        ops = wf.k11_op_count(st_["stats"], culled=True)
         n_bytes = wf.k11_byte_count(st_["stats"], n0, tree_words,
                                     record) + uniform_bytes
         out[key] = dict(ms=ms, plain_ms=p_ms, max_abs_err=st_["err"],
                         plain_size=f"{n0} lanes (config 5, bounce 0, "
                                    "the precull's lists, counting its "
                                    "work)",
-                        fp32_ops=ops, bytes=n_bytes)
+                        fp32_ops=ops, bytes=n_bytes,
+                        unculled_fp32_ops=wf.k11_op_count(st_["stats"]))
         out[key]["bound_ms"], out[key]["bound_by"] = bound(ops, n_bytes)
     walk_ops = wf.k11_op_count(s11w["stats"])
-    culled_ops = wf.k11_op_count(s11["stats"], culled=True)
+    unculled_ops = out["k11"]["unculled_fp32_ops"]
     lib = _build.load_library("wavefront")
     smem11 = 4 * (t["blob"].numel() + 8 + 6 + 3 + stc["n_mats"])
     emit(dict(phase="k11_timing", card=card, k11_ms=s11["ms"],
@@ -3181,11 +3271,12 @@ def run_fused_phases(torch, T, mk, dev, card, k3) -> dict:
               k11_walk_bounce1_ms=nums[1, False]["ms"],
               k11g_bounce1_ms=nums[1, True]["ms_g"],
               k11g_walk_bounce1_ms=nums[1, False]["ms_g"],
-              culled_fp32_ops=culled_ops,
-              culled_bound_ms=bound(culled_ops, out["k11"]["bytes"])[0],
-              culled_fp32_ops_bounce1=wf.k11_op_count(nums[1, True]["stats"],
-                                                      culled=True),
-              fp32_ops_bounce1=wf.k11_op_count(nums[1, True]["stats"]),
+              unculled_fp32_ops=unculled_ops,
+              unculled_bound_ms=bound(unculled_ops, out["k11"]["bytes"])[0],
+              fp32_ops_bounce1=wf.k11_op_count(nums[1, True]["stats"],
+                                               culled=True),
+              unculled_fp32_ops_bounce1=wf.k11_op_count(
+                  nums[1, True]["stats"]),
               walk_fp32_ops=walk_ops,
               walk_bound_ms=bound(walk_ops, wf.k11_byte_count(
                   s11w["stats"], n0, tree_words) + uniform_bytes)[0],
@@ -3199,7 +3290,11 @@ def run_fused_phases(torch, T, mk, dev, card, k3) -> dict:
                             7, smem11)),
               **{k: out["k11"][k] for k in ("fp32_ops", "bytes", "bound_ms",
                                             "bound_by", "plain_ms")}))
-    ops6 = wf.k6m_op_count(sm["s6"], block)
+    ops6 = wf.k6m_op_count(sm["s6"], block, culled=True)
+    unculled6 = wf.k6m_op_count(sm["s6"], block)
+    ops6_1 = wf.k6m_op_count(nums[1, "mxu"]["s6"], block, culled=True)
+    bytes6_1 = wf.k6m_byte_count(nums[1, "mxu"]["s6"], nums[1, "mxu"]["n"],
+                                 block)
     bytes6 = wf.k6m_byte_count(sm["s6"], n0, block)
     ops7 = wf.k7b_op_count(sm["sb"])
     bytes7 = wf.k7b_byte_count(sm["sb"], n0) + uniform_bytes
@@ -3209,7 +3304,8 @@ def run_fused_phases(torch, T, mk, dev, card, k3) -> dict:
     out["k6m"] = dict(ms=sm["ms6"], plain_ms=sm["p6_ms"], max_abs_err=0.0,
                       plain_size=f"{n0} rays (config 5, bounce 0, per-row "
                                  "lists, counting its work)",
-                      fp32_ops=ops6, bytes=bytes6)
+                      fp32_ops=ops6, bytes=bytes6,
+                      unculled_fp32_ops=unculled6)
     # K7m's two launches, each beside its own plain step: the bounce (K7b's
     # kernel on the verdicts) and the verdict pass.
     out["k7m"] = dict(ms=sm["msb"], plain_ms=sm["pb_ms"],
@@ -3226,13 +3322,23 @@ def run_fused_phases(torch, T, mk, dev, card, k3) -> dict:
         out[key]["bound_ms"], out[key]["bound_by"] = bound(ops, n_bytes)
     emit(dict(phase="k6m_k7m_timing", card=card, k6m_ms=sm["ms6"],
               k7m_ms=sm["ms7"], k6m_bounce1_ms=nums[1, "mxu"]["ms6"],
+              k6m_envmap_ms=nums[0, "mxu_env"]["ms6"],
+              k6m_envmap_bounce1_ms=nums[1, "mxu_env"]["ms6"],
+              k6m_unculled_fp32_ops=unculled6,
+              k6m_unculled_bound_ms=bound(unculled6, bytes6)[0],
+              k6m_fp32_ops_bounce1=ops6_1, k6m_bytes_bounce1=bytes6_1,
+              k6m_bound_bounce1=bound(ops6_1, bytes6_1),
+              k6m_unculled_fp32_ops_bounce1=wf.k6m_op_count(
+                  nums[1, "mxu"]["s6"], block),
               k7m_bounce1_ms=nums[1, "mxu"]["ms7"],
               k7m_verdict_pass_ms=sm["msv"], k7m_bounce_ms=sm["msb"],
               k7m_verdict_pass_bounce1_ms=nums[1, "mxu"]["msv"],
               k7m_bounce_bounce1_ms=nums[1, "mxu"]["msb"],
               k7m_plain_ms=sm["p7_ms"],
               k6m=dict(ptxas_of(_build.BUILD_INFO, "wavefront",
-                                "isect_kernelILb1"),
+                                "isect_mxu_kernel"),
+                       blocks_of_128_per_sm=lib
+                       .spt_wavefront_isect_mxu_blocks_per_sm(block),
                        **{k: out["k6m"][k] for k in (
                            "fp32_ops", "bytes", "bound_ms", "bound_by")}),
               k7m=dict(ptxas_of(_build.BUILD_INFO, "wavefront",
@@ -3247,6 +3353,13 @@ def run_fused_phases(torch, T, mk, dev, card, k3) -> dict:
                         .spt_wavefront_mxu_verdicts_blocks_per_sm(block),
                         **{k: out["k7mv"][k] for k in (
                             "fp32_ops", "bytes", "bound_ms", "bound_by")})))
+    # K7b's kernel as K7m's bounce (on K7m's verdicts), its build
+    emit(dict(phase="k7b_timing", card=card, case="as K7m's bounce",
+              bounce0_ms=sm["msb"], bounce1_ms=nums[1, "mxu"]["msb"],
+              **ptxas_of(_build.BUILD_INFO, "wavefront",
+                         "shade_kernelILb1ELb1E"),
+              blocks_per_sm=lib.spt_wavefront_blocks_per_sm(
+                  6, smem11 - 32)))
     del nums, s11, s11w, sm
     torch.cuda.empty_cache()
 
@@ -3256,9 +3369,6 @@ def run_fused_phases(torch, T, mk, dev, card, k3) -> dict:
     # against the split render of the same samples; the stage times of
     # each on the gradient sky ----------------------------------------
     kw = dict(max_bounces=DEPTH, rr_depth=RR, seed=BIG_SEED)
-    scene_env = scene_10k(T)
-    scene_env.set_environment_map(env_gradient())
-    sd_env = scene_env.compile(device=dev)
     out["launches"] = {m: {k: 0 for k in mk.LAUNCHES}
                        for m in ("fused", "mxu")}
     want_k = {"fused": ("k5", "k11"), "fused_walk": ("k5", "k11"),

@@ -61,12 +61,15 @@
 //   One thread per ray, its state in registers; the scene uniforms sit in
 //   shared memory.
 //
-//   With blocked_in_res (K7's mode for the prim-sharded render, the TPU
-//   kernel's blocked_in_res=True, launched at spt_tpu/parallel/
-//   wavefront_prim.py:214) nothing is swept: each shadow verdict is read
-//   from residual row 7, where the glue put the MAX over the prim shards of
-//   K8's verdicts.  Bound: K7's bytes less the tree, plus 4 bytes a shadow
-//   ray.
+//   With blocked_in_res (K7b: K7's mode for the prim-sharded render, the
+//   TPU kernel's blocked_in_res=True, launched at spt_tpu/parallel/
+//   wavefront_prim.py:214; also K7m's bounce) nothing is swept: each
+//   shadow verdict is read from residual row 7, where the glue put the MAX
+//   over the prim shards of K8's verdicts (or K7m's verdict pass wrote
+//   them).  Bound: K7's bytes less the tree, plus 4 bytes a shadow ray.
+//   With no sweep left, what it waits on is the bounce itself: K7b inlines
+//   it (trace_bounce, as K3, K4 and K11 do), where K7, K8 and K9 call
+//   wf_bounce, and is built for kShadeReadMinBlocks blocks an SM.
 // * K8 replaces wavefront.py::_anyhit_kernel (launched at spt_tpu/parallel/
 //   wavefront_prim.py:195): the occlusion verdicts of one prim shard's
 //   leaf blocks.  The TPU kernel took shadow rays that XLA glue rebuilt
@@ -118,11 +121,25 @@
 //   in float32 on the CUDA cores, in the plain version's order, and reads
 //   the winner from prims: the same values, bit for bit with the plain
 //   version.  Tensor cores would round to TF32 (ROADMAP.md, item 14).
-//   Bound: fp32 operations of the expanded tests.  K6m is K6's kernel, the
-//   form a template parameter.  K7m is two launches: a verdict pass
-//   (mxu_verdict_kernel), writing K6m's residual row 7, and K7b's kernel
-//   reading its verdicts there.  Swept
-//   inside the bounce, as K7's lists are, the shadow test was bound by
+//   Bound: fp32 operations of the expanded tests, the culled sweep's (the
+//   blocks a lane sweeps and a slab test a candidate it takes).
+//   K6m (isect_mxu_kernel) is a block of 128 threads a row, a thread a
+//   ray.  A row's list is the union over its 128 rays, and after bounce 0
+//   their directions scatter: a ray swept every slot of blocks its own ray
+//   misses.  So, as K11's list sweep does, each lane tests each
+//   candidate's leaf box (the boxes the glue culls with) against its own
+//   ray first and skips a block it misses or enters at or past its
+//   nearest t so far (the plain version skips the same blocks).  The
+//   row's lanes go through the list together, each candidate's table
+//   staged once by cp.async from the slot-major copy (two 16-byte reads a
+//   column, where build_cmat's layout took 8 loads 2 block floats apart),
+//   as K7m's verdict pass stages its own; measured against a lane sweeping
+//   its list alone, reading the same copy from global memory, staging was
+//   24% faster at config-5 bounce 0 and 9% at bounce 1, with the culled
+//   lanes idle (tools/wf_ablate.py --k6m; PERF.md).  K7m is two launches:
+//   a verdict pass (mxu_verdict_kernel), writing K6m's residual row 7, and
+//   K7b's kernel reading its verdicts there.  Swept inside the bounce, as
+//   K7's lists are, the shadow test was bound by
 //   latency: the row's lanes reached it at different points of a
 //   divergent bounce, each slot's columns 16 dependent loads 2 block
 //   floats apart, one block of 154 registers an SM.  The pass takes the
@@ -180,9 +197,16 @@ constexpr int kThreadsWf = 256;
 // Blocks an SM that K7 and K9 (shade_kernel<false, true>) are built for:
 // 64 registers with 132 B of spills, where the compiler alone takes 120
 // registers and 2 blocks; on an H100 23% faster over a config-5 chunk,
-// the same bits (tools/wf_ablate.py's k7_lb_* builds; PERF.md).  K7
-// reading its verdicts runs 2.6 times slower so built, and is not.
+// the same bits (tools/wf_ablate.py's k7_lb_* builds; PERF.md).
 constexpr int kShadeMinBlocks = 4;
+// Blocks an SM that K7b and K7m's bounce (shade_kernel<true>, the bounce
+// inlined) are built for: 3, 80 registers with 12 B of spills; on an
+// H100 at config-5 bounces 0 / 1 0.295 / 0.200 ms, where 2 blocks (90
+// registers) took 0.354 / 0.250, 4 took 0.314 / 0.207, 5 and 6 0.525 and
+// 0.730 at bounce 0, and the called bounce (116 registers, 2 blocks)
+// 0.518 / 0.334; every build the same bits (tools/wf_ablate.py --k7b;
+// PERF.md).
+constexpr int kShadeReadMinBlocks = 3;
 // Blocks an SM that K8 (shade_kernel<false, false>) is built for.
 constexpr int kVerdictMinBlocks = 4;
 // Blocks an SM that K10 (bounce_bwd_kernel) is built for: 2, 128
@@ -277,15 +301,12 @@ struct CompactSlots {
 // and A = (dx, dy, dz, 0, o'x, o'y, o'z, 1), column c of the block's
 // (8, 2 block) table (build_cmat) dotted with A, its 8 products summed in
 // order, is b + d.o' (c = j) and cterm - |o'|^2 (c = block + j).  Float32
-// on the CUDA cores, in the plain version's order.  kStaged (K7m's
-// verdict pass): the block's table is begun where the pass staged it in
-// shared memory, from the table's slot-major copy, (n_blocks, 2 block,
-// 8): a column is 8 adjacent floats, two 16-byte reads, where
-// build_cmat's layout (K6m's, read from global memory) puts them 2 block
-// floats apart.
-template <bool kStaged>
+// on the CUDA cores, in the plain version's order.  The table is the
+// slot-major copy of build_cmat's, (n_blocks, 2 block, 8), a block's
+// staged in shared memory by the sweep (K6m, K7m's verdict pass): a column
+// is 8 adjacent floats, two 16-byte reads, where build_cmat's layout puts
+// them 2 block floats apart (16 dependent strided loads a slot).
 struct ExpandedSlots {
-  const float* cmat;    // K6m: (n_blocks, 8, 2 block); staged: unread
   const float* bctr;    // (n_blocks, 3)
   int block;
   float ox, oy, oz, dx, dy, dz;
@@ -293,10 +314,7 @@ struct ExpandedSlots {
   float a[8];
   float dor, o2;
 
-  __device__ __forceinline__ void begin(int blk) {
-    begin_at(cmat + (size_t)blk * 16 * block, blk);
-  }
-  // Block blk, its table read at `table`.
+  // Block blk, its table staged at `table`.
   __device__ __forceinline__ void begin_at(const float* table, int blk) {
     cb = table;
     const float opx = ox - __ldg(bctr + 3 * blk);
@@ -314,24 +332,17 @@ struct ExpandedSlots {
     o2 = opx * opx + opy * opy + opz * opz;
   }
   __device__ __forceinline__ float column(int c) const {
-    if constexpr (kStaged) {
-      const float4* q = reinterpret_cast<const float4*>(cb + 8 * c);
-      const float4 u = q[0], v = q[1];
-      float sum = u.x * a[0];
-      sum = sum + u.y * a[1];
-      sum = sum + u.z * a[2];
-      sum = sum + u.w * a[3];
-      sum = sum + v.x * a[4];
-      sum = sum + v.y * a[5];
-      sum = sum + v.z * a[6];
-      sum = sum + v.w * a[7];
-      return sum;
-    } else {
-      float sum = __ldg(cb + c) * a[0];
-      for (int r = 1; r < 8; ++r)
-        sum = sum + __ldg(cb + r * 2 * block + c) * a[r];
-      return sum;
-    }
+    const float4* q = reinterpret_cast<const float4*>(cb + 8 * c);
+    const float4 u = q[0], v = q[1];
+    float sum = u.x * a[0];
+    sum = sum + u.y * a[1];
+    sum = sum + u.z * a[2];
+    sum = sum + u.w * a[3];
+    sum = sum + v.x * a[4];
+    sum = sum + v.y * a[5];
+    sum = sum + v.z * a[6];
+    sum = sum + v.w * a[7];
+    return sum;
   }
   __device__ __forceinline__ bool hit(int j, float& tj) const {
     const float b = column(j) - dor;
@@ -358,6 +369,36 @@ struct ExpandedSlots {
     return disc > 0.0f && ((t0_gt && t0_lt) || (!t0_gt && t1_ok));
   }
 };
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// Candidate c of a row list (cl: count, block ids) staged for the
+// expanded sweeps: its table, 4 block float4s of the slot-major copy
+// cslot, copied by cp.async into buffer c & 1 of s_tab by the block's
+// threads together, one commit group.
+__device__ __forceinline__ void stage_table(float4* s_tab, const float* cslot,
+                                            const int* cl, int c, int block) {
+  const int quads = 4 * block;
+  const float4* src = reinterpret_cast<const float4*>(cslot) +
+                      (size_t)__ldg(cl + 1 + c) * quads;
+  float4* dst = s_tab + (c & 1) * quads;
+  for (int a = threadIdx.x; a < quads; a += blockDim.x)
+    cp_async16(dst + a, src + a);
+  cp_async_commit();
+}
 
 // A leaf block's box, row blk of `boxes` (8 floats a row: lo xyz, hi xyz,
 // 2 pad, as a tree node's row), against the ray: BvhWalk::node's slab
@@ -387,13 +428,14 @@ __device__ __forceinline__ bool box_hit(const float* boxes, int blk,
 // nearest distance so far (a later block cannot hold a nearer hit: t >=
 // box entry >= bound >= t_lane).  t: kBig or less in, the nearest out.
 // Returns the winner's block, -1 for none, and its slot in win_j.
-// With boxes (K11's sweep) each candidate's box is tested against the
-// lane's own ray first, and a block the ray misses, or enters at or past
-// the nearest t so far, is skipped: the winner stays the same but where
-// the float slab test and quadratic disagree at a box's edge, or a padding
-// slot (outside its block's box) would have won.  A warp skips a block
-// that none of its lanes needs.  Without boxes (null: K6's and K6m's
-// lists) the box test compiles away.
+// With boxes (K11's sweep; K6m's row sweep culls the same way) each
+// candidate's box is tested
+// against the lane's own ray first, and a block the ray misses, or enters
+// at or past the nearest t so far, is skipped: the winner stays the same
+// but where the float slab test and quadratic disagree at a box's edge, or
+// a padding slot (outside its block's box) would have won.  A warp skips a
+// block that none of its lanes needs.  Without boxes (null: K6l's lists)
+// every candidate taken is swept.
 template <class Slots>
 __device__ __forceinline__ int list_nearest(const int* cl, const float* tl,
                                             const float* boxes, Slots& s,
@@ -487,44 +529,18 @@ struct IsectParams {
   const float* prims;   // (n_blocks, 5, block)
   const int* cand;      // (groups, n_blocks + 1): count, block ids
   const float* ctn;     // (groups, n_blocks): entry bounds, nondecreasing
-  const float* cmat;    // K6m: (n_blocks, 8, 2 block); K6: null
+  const float* cslot;   // K6m: (n_blocks, 2 block, 8); K6: null
   const float* bctr;    // K6m: (n_blocks, 3)
+  const float* boxes;   // K6m: (n_blocks, 8) leaf boxes
   const float* nodef;   // K6's tree mode: 8 tables x n_nodes rows of 8;
   const int* nodei;     //   cand, ctn unread.  Null: the lists
   int stride, n_lanes, n_blocks, block, n_nodes;
 };
 
-// K6 (kMxu false: the tree, or a list a tile, the compact form) and K6m (a
-// list a row, the expanded form): the winner's attributes read from prims
-// either way.
-template <bool kMxu>
-__global__ void __launch_bounds__(kThreadsWf) isect_kernel(IsectParams prm) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= prm.n_lanes) return;
-  const size_t s = (size_t)prm.stride;
-  const float* st = prm.st + i;
-  float t = kBig;
-  int win_blk = -1, win_j = 0;
-  if (st[kChAlive * s] > 0.5f) {
-    const float ox = st[0], oy = st[s], oz = st[2 * s];
-    const float dx = st[3 * s], dy = st[4 * s], dz = st[5 * s];
-    const int group = kMxu ? i / kRow : i / kTile;
-    const int* cl = prm.cand + (size_t)group * (prm.n_blocks + 1);
-    const float* tl = prm.ctn + (size_t)group * prm.n_blocks;
-    if constexpr (kMxu) {
-      ExpandedSlots<false> slots{prm.cmat, prm.bctr, prm.block, ox, oy, oz,
-                                 dx, dy, dz};
-      win_blk = list_nearest(cl, tl, nullptr, slots, t, win_j);
-    } else if (prm.nodef) {
-      const BvhWalk<false> walk{prm.nodef, prm.nodei, prm.prims, nullptr,
-                                nullptr, nullptr, nullptr, prm.n_nodes,
-                                prm.block, nullptr};
-      win_blk = walk.nearest_slot(ox, oy, oz, dx, dy, dz, t, win_j);
-    } else {
-      CompactSlots slots{prm.prims, prm.block, ox, oy, oz, dx, dy, dz};
-      win_blk = list_nearest(cl, tl, nullptr, slots, t, win_j);
-    }
-  }
+// Lane i's residual: its winner's centre, radius and material id, its
+// block and slot, and a zero row 7; 0 0 0 0 -1 -1 -1 0 with none.
+__device__ __forceinline__ void store_winner(const IsectParams& prm, int i,
+                                             int win_blk, int win_j) {
   const size_t n = (size_t)prm.n_lanes;
   float* out = prm.res + i;
   if (win_blk >= 0) {
@@ -540,6 +556,92 @@ __global__ void __launch_bounds__(kThreadsWf) isect_kernel(IsectParams prm) {
     out[6 * n] = -1.0f;
   }
   out[7 * n] = 0.0f;
+}
+
+// K6: the tree, or a list a tile, the compact form; the winner's
+// attributes read from prims.
+__global__ void __launch_bounds__(kThreadsWf) isect_kernel(IsectParams prm) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= prm.n_lanes) return;
+  const size_t s = (size_t)prm.stride;
+  const float* st = prm.st + i;
+  float t = kBig;
+  int win_blk = -1, win_j = 0;
+  if (st[kChAlive * s] > 0.5f) {
+    const float ox = st[0], oy = st[s], oz = st[2 * s];
+    const float dx = st[3 * s], dy = st[4 * s], dz = st[5 * s];
+    const int* cl = prm.cand + (size_t)(i / kTile) * (prm.n_blocks + 1);
+    const float* tl = prm.ctn + (size_t)(i / kTile) * prm.n_blocks;
+    if (prm.nodef) {
+      const BvhWalk<false> walk{prm.nodef, prm.nodei, prm.prims, nullptr,
+                                nullptr, nullptr, nullptr, prm.n_nodes,
+                                prm.block, nullptr};
+      win_blk = walk.nearest_slot(ox, oy, oz, dx, dy, dz, t, win_j);
+    } else {
+      CompactSlots slots{prm.prims, prm.block, ox, oy, oz, dx, dy, dz};
+      win_blk = list_nearest(cl, tl, nullptr, slots, t, win_j);
+    }
+  }
+  store_winner(prm, i, win_blk, win_j);
+}
+
+// K6m: one block a 128-lane row, a thread a lane.  The row's lanes go
+// through its list together, each candidate's table staged once in shared
+// memory by cp.async for the row's four warps, the next candidate's copy
+// in flight while the lanes test this one (two buffers).  Each lane, as
+// list_nearest: the candidates in order, stopping once the next bound
+// reaches its nearest t; a candidate whose leaf box its ray misses or
+// enters at or past that t skipped; a block's slots in order with a
+// strict '<'.  The row stops when every lane has.  So each lane's winner
+// is list_nearest's with the boxes, the same bits.
+__global__ void __launch_bounds__(kRow) isect_mxu_kernel(IsectParams prm) {
+  extern __shared__ float4 s_tab[];                   // 2 x 4 block
+  const int row = blockIdx.x;
+  const int i = row * kRow + threadIdx.x;
+  const size_t s = (size_t)prm.stride;
+  const float* st = prm.st + i;
+  const bool alive = st[kChAlive * s] > 0.5f;
+  const float ox = alive ? st[0] : 0.0f, oy = alive ? st[s] : 0.0f,
+              oz = alive ? st[2 * s] : 0.0f;
+  const float dx = alive ? st[3 * s] : 1.0f, dy = alive ? st[4 * s] : 1.0f,
+              dz = alive ? st[5 * s] : 1.0f;
+  ExpandedSlots slots{prm.bctr, prm.block, ox, oy, oz, dx, dy, dz};
+  const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
+  const int* cl = prm.cand + (size_t)row * (prm.n_blocks + 1);
+  const float* tl = prm.ctn + (size_t)row * prm.n_blocks;
+  const int ncand = __ldg(cl);
+  const int quads = 4 * prm.block;                    // a table's float4s
+  float t = kBig;
+  int win_blk = -1, win_j = 0;
+  bool done = !alive;
+  if (ncand > 0) stage_table(s_tab, prm.cslot, cl, 0, prm.block);
+  for (int c = 0; c < ncand; ++c) {
+    if (!done && __ldg(tl + c) >= t) done = true;
+    // Every lane is past candidate c - 1, so its buffer may be refilled.
+    if (!__syncthreads_or(!done)) break;
+    if (c + 1 < ncand) {
+      stage_table(s_tab, prm.cslot, cl, c + 1, prm.block);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                                  // candidate c staged
+    const int blk = __ldg(cl + 1 + c);
+    if (!done && box_hit(prm.boxes, blk, ox, oy, oz, ivx, ivy, ivz, t)) {
+      slots.begin_at(reinterpret_cast<const float*>(s_tab + (c & 1) * quads),
+                     blk);
+      for (int j = 0; j < prm.block; ++j) {
+        float tj;
+        if (slots.hit(j, tj) && tj < t) {
+          t = tj;
+          win_blk = blk;
+          win_j = j;
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  store_winner(prm, i, win_blk, win_j);
 }
 
 // ---------------------------------------------------------------------------
@@ -617,12 +719,14 @@ struct WavefrontGeometry {
   }
 };
 
-// One bounce, called rather than inlined, by shade_kernel (K7, K7b, K7m,
-// K8, K9): K8 traces the shadow rays K7b's bounce would, bit for bit,
-// through this same call, and K7's list form sweeps lists the glue culled
-// for its shadow rays.  K11 and K11g inline their bounce, as K3 and K4
-// do; each is held bit for bit against its plain version and the split
-// bounce (chip_smoke.py).
+// One bounce, called rather than inlined, by shade_kernel's K7, K8 and
+// K9: K8 traces the shadow rays K7's and K9's bounce would, bit for bit,
+// through this same call (the prim-sharded render's K8 and K7b agree on
+// the rays: K7b inlines the same trace_bounce, held bit for bit against K7
+// walking by chip_smoke.py), and K7's list form sweeps lists the glue
+// culled for its shadow rays.  K7b (and K7m's bounce), K11 and K11g
+// inline their bounce, as K3 and K4 do; each is held bit for bit against
+// its plain version and the split bounce (chip_smoke.py).
 template <class Geometry>
 __device__ __noinline__ bool wf_bounce(const SceneView& sc,
                                        const Geometry& geo, Path& p,
@@ -658,7 +762,7 @@ struct ShadeParams {
 // read and not written).
 template <bool kVerdict, bool kStore = true>
 __global__ void __launch_bounds__(kThreadsWf,
-                                  kVerdict ? 1
+                                  kVerdict ? kShadeReadMinBlocks
                                   : kStore ? kShadeMinBlocks
                                            : kVerdictMinBlocks)
     shade_kernel(ShadeParams prm) {
@@ -705,9 +809,13 @@ __global__ void __launch_bounds__(kThreadsWf,
                      prm.sky_mode};
   const uint32_t pid = (uint32_t)prm.ids[i];
   const uint32_t sample = (uint32_t)prm.ids[s + i];
-  const bool missed = wf_bounce(sc, geo, p, pid, sample, (uint32_t)s_meta[1],
-                                prm.k, prm.rr_depth, prm.use_nee,
-                                prm.use_mis);
+  bool missed;
+  if constexpr (kVerdict)
+    missed = trace_bounce(sc, geo, p, pid, sample, (uint32_t)s_meta[1], prm.k,
+                          prm.rr_depth, prm.use_nee, prm.use_mis);
+  else
+    missed = wf_bounce(sc, geo, p, pid, sample, (uint32_t)s_meta[1], prm.k,
+                       prm.rr_depth, prm.use_nee, prm.use_mis);
   if constexpr (kStore) store_path(st, s, p, missed, prm.sky_mode);
 }
 
@@ -757,21 +865,6 @@ struct MxuVerdictParams {
   int n_lanes, n_blocks, block;
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
 // One block a 128-lane row: the row's lanes sweep its shadow list together,
 // each candidate's table staged once in shared memory by cp.async for the
 // row's four warps, the next candidate's copy in flight while the lanes
@@ -788,27 +881,19 @@ __global__ void __launch_bounds__(kRow) mxu_verdict_kernel(
   const float* r = prm.sray + i;
   const float tmax = r[6 * n];
   bool done = !(r[7 * n] > 0.5f), hit = false;
-  ExpandedSlots<true> slots{nullptr,  prm.bctr, prm.block, r[0],    r[n],
-                            r[2 * n], r[3 * n], r[4 * n],  r[5 * n]};
+  ExpandedSlots slots{prm.bctr, prm.block, r[0],    r[n],
+                      r[2 * n],  r[3 * n],  r[4 * n], r[5 * n]};
   const int* cl = prm.scand + (size_t)row * (prm.n_blocks + 1);
   const float* tl = prm.sctn + (size_t)row * prm.n_blocks;
   const int ncand = __ldg(cl);
   const int quads = 4 * prm.block;                    // a table's float4s
-  auto stage = [&](int c) {
-    const float4* src = reinterpret_cast<const float4*>(prm.cslot) +
-                        (size_t)__ldg(cl + 1 + c) * quads;
-    float4* dst = s_tab + (c & 1) * quads;
-    for (int a = threadIdx.x; a < quads; a += blockDim.x)
-      cp_async16(dst + a, src + a);
-    cp_async_commit();
-  };
-  if (ncand > 0) stage(0);
+  if (ncand > 0) stage_table(s_tab, prm.cslot, cl, 0, prm.block);
   for (int c = 0; c < ncand; ++c) {
     if (!done && __ldg(tl + c) >= tmax) done = true;
     // Every lane is past candidate c - 1, so its buffer may be refilled.
     if (!__syncthreads_or(!done)) break;
     if (c + 1 < ncand) {
-      stage(c + 1);
+      stage_table(s_tab, prm.cslot, cl, c + 1, prm.block);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -1095,21 +1180,25 @@ extern "C" int spt_wavefront_raygen(void* st, void* ids, const void* blob,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K6 (tree: nodef, nodei; lists: cand, ctn) and K6m (cslot non-null: the
+// per-row lists, the slot-major table, its centres and the leaf boxes,
+// which K6m always culls by).
 extern "C" int spt_wavefront_isect(void* res, const void* st,
                                    const void* prims, const void* cand,
-                                   const void* ctn, const void* cmat,
-                                   const void* bctr, const void* nodef,
-                                   const void* nodei, int stride, int n_lanes,
-                                   int n_blocks, int block, int n_nodes,
-                                   void* stream) {
+                                   const void* ctn, const void* cslot,
+                                   const void* bctr, const void* boxes,
+                                   const void* nodef, const void* nodei,
+                                   int stride, int n_lanes, int n_blocks,
+                                   int block, int n_nodes, void* stream) {
   spt::IsectParams prm;
   prm.res = static_cast<float*>(res);
   prm.st = static_cast<const float*>(st);
   prm.prims = static_cast<const float*>(prims);
   prm.cand = static_cast<const int*>(cand);
   prm.ctn = static_cast<const float*>(ctn);
-  prm.cmat = static_cast<const float*>(cmat);
+  prm.cslot = static_cast<const float*>(cslot);
   prm.bctr = static_cast<const float*>(bctr);
+  prm.boxes = static_cast<const float*>(boxes);
   prm.nodef = static_cast<const float*>(nodef);
   prm.nodei = static_cast<const int*>(nodei);
   prm.stride = stride;
@@ -1119,13 +1208,27 @@ extern "C" int spt_wavefront_isect(void* res, const void* st,
   prm.n_nodes = n_nodes;
   if (n_lanes <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cmat)
-    spt::isect_kernel<true><<<spt::blocks_for(n_lanes), spt::kThreadsWf, 0,
-                              s>>>(prm);
-  else
-    spt::isect_kernel<false><<<spt::blocks_for(n_lanes), spt::kThreadsWf, 0,
-                               s>>>(prm);
+  if (!cslot) {
+    spt::isect_kernel<<<spt::blocks_for(n_lanes), spt::kThreadsWf, 0, s>>>(
+        prm);
+  } else {
+    if (n_lanes % spt::kRow || !bctr || !boxes)
+      return static_cast<int>(cudaErrorInvalidValue);
+    spt::isect_mxu_kernel<<<n_lanes / spt::kRow, spt::kRow,
+                            2 * 16 * block * sizeof(float), s>>>(prm);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of kRow threads an SM holds of K6m, for leaf blocks of `block`
+// slots (two staged tables), by the occupancy calculator.
+extern "C" int spt_wavefront_isect_mxu_blocks_per_sm(int block) {
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, spt::isect_mxu_kernel, spt::kRow,
+          2 * 16 * block * sizeof(float)) != cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 extern "C" int spt_wavefront_shade(
@@ -1352,7 +1455,7 @@ extern "C" int spt_wavefront_blocks_per_sm(int which, int smem) {
   using namespace spt;
   const void* fn = nullptr;
   switch (which) {
-    case 0: fn = reinterpret_cast<const void*>(isect_kernel<false>); break;
+    case 0: fn = reinterpret_cast<const void*>(isect_kernel); break;
     case 1: fn = reinterpret_cast<const void*>(shade_kernel<false>); break;
     case 2: fn = reinterpret_cast<const void*>(bounce_kernel<false>); break;
     case 3: fn = reinterpret_cast<const void*>(anyhit_kernel); break;

@@ -67,10 +67,12 @@ ENTRIES = {
         # st, ids, blob, meta, width, height, tiles_x, tiles_per_img,
         # n_tiles, n_lanes, dof, inv_w, inv_h, aspect, stream
         "spt_wavefront_raygen": [_P] * 4 + [_I] * 7 + [_F, _F, _F, _P],
-        # res, st, prims, cand, ctn, cmat, bctr (K6m; null for K6), nodef,
-        # nodei (K6's tree mode; null for the lists), stride, n_lanes,
-        # n_blocks, block, n_nodes, stream
-        "spt_wavefront_isect": [_P] * 9 + [_I] * 5 + [_P],
+        # res, st, prims, cand, ctn, cslot, bctr, boxes (K6m; null for
+        # K6), nodef, nodei (K6's tree mode; null for the lists), stride,
+        # n_lanes, n_blocks, block, n_nodes, stream
+        "spt_wavefront_isect": [_P] * 10 + [_I] * 5 + [_P],
+        # block -> K6m's blocks of 128 threads an SM
+        "spt_wavefront_isect_mxu_blocks_per_sm": [_I],
         # st, ids, res, blob, meta, lsb, prims, mtypes, scand, sctn,
         # blocked (K9 and K8; null for K7), nodef, nodei (the shadow walks;
         # null for the lists), stride, n_lanes, n_blocks, block, n_mats,

@@ -44,9 +44,10 @@ Two other forms of a bounce, as in the JAX package (neither the default):
 * ``mxu=True``: K6m and K7m in place of K6 and K7, over per-row lists
   (``precull_tiles(per_row=True)``, a list a 128-lane row) with the
   sphere quadratic in the expanded, block-centred form the TPU ran as a
-  matmul (``build_cmat``'s tables, with K7m's slot-major copy, built once
-  a packing by ``mxu_tables``; K7m's shadow test without a square root,
-  ``_seg_blocked``).
+  matmul (``build_cmat``'s tables, read from their slot-major copy, built
+  once a packing by ``mxu_tables``; K7m's shadow test without a square
+  root, ``_seg_blocked``).  K6m's sweep skips each candidate whose leaf
+  box its lane's ray misses, as K11's does.
 
 Each kernel has a wrapper and a plain PyTorch version: ``raygen`` /
 ``raygen_plain`` (K5), ``isect`` / ``isect_plain`` (K6), ``shade`` /
@@ -691,7 +692,7 @@ def _isect_launch(name, prims, cand, ctn, st, n_lanes: int, block: int,
                   mxu, tree=None) -> torch.Tensor:
     """Checks and launches K6's kernel on CUDA tensors (its tree mode with
     ``tree`` = (nodef, nodei); K6m's, on per-row lists, with ``mxu`` =
-    (cmat, bctr)) -> the residual (8, n_lanes)."""
+    (cslot, bctr, boxes)) -> the residual (8, n_lanes)."""
     if st.device.type != "cuda":
         raise NotImplementedError(f"{name} has no kernel for {st.device}")
     inputs = (prims, *((cand, ctn) if tree is None else tree), *(mxu or ()))
@@ -711,14 +712,20 @@ def _isect_launch(name, prims, cand, ctn, st, n_lanes: int, block: int,
         _check_lists(cand, ctn, n_lanes // (TILE if mxu is None else ROW),
                      nb)
     if mxu is not None:
-        _check_cmat(*mxu, nb, block)
+        cslot, bctr, boxes = mxu
+        _check(cslot, "cslot", torch.float32, nb * 16 * block)
+        _check(bctr, "bctr", torch.float32, nb * 3)
+        _check(boxes, "boxes", torch.float32, 8 * nb)
+        if cslot.data_ptr() % 16 or boxes.data_ptr() % 16:
+            raise ValueError(f"{name} reads cslot and boxes as float4: both "
+                             "must be 16-byte aligned")
     res = torch.empty((N_RES, n_lanes), dtype=torch.float32, device=st.device)
     from ._build import load_library
     lib = load_library("wavefront")
     with torch.cuda.device(st.device):
         err = lib.spt_wavefront_isect(
             *(_ptr(a) for a in (res, st, prims, cand, ctn,
-                                *(mxu or (None, None)),
+                                *(mxu or (None, None, None)),
                                 *(tree or (None, None)))),
             st.shape[1], n_lanes, nb, block, n_nodes,
             torch.cuda.current_stream().cuda_stream)
@@ -1212,21 +1219,22 @@ def build_cmat(prims: torch.Tensor):
 
 
 def slot_major(cmat: torch.Tensor) -> torch.Tensor:
-    """K7m's copy of ``build_cmat``'s tables, (n_blocks, 2 block, 8): slot
-    column c of block b at row (b, c), its 8 floats adjacent, so the kernel
-    reads a column in two 16-byte loads.  The same floats."""
+    """K6m's and K7m's copy of ``build_cmat``'s tables, (n_blocks, 2 block,
+    8): slot column c of block b at row (b, c), its 8 floats adjacent, so
+    the kernels read a column in two 16-byte loads.  The same floats."""
     return cmat.transpose(1, 2).contiguous()
 
 
 def mxu_tables(t: dict, block: int):
-    """(cmat, bctr, cslot) of the packed leaf blocks ``t["prims"]``:
-    ``build_cmat``'s tables and K7m's ``slot_major`` copy, built together
-    on first use and kept in the packing's tensors ``t`` (``packed``'s,
+    """(bctr, cslot) of the packed leaf blocks ``t["prims"]``: the centres
+    and the ``slot_major`` copy of ``build_cmat``'s tables, which K6m and
+    K7m read (``_cmat_of`` gives back ``build_cmat``'s layout), built on
+    first use and kept in the packing's tensors ``t`` (``packed``'s,
     cached by the scene's content)."""
     if "cslot" not in t:
         cmat, bctr = build_cmat(t["prims"].reshape(-1, _N_PRIM_ATTRS, block))
-        t.update(cmat=cmat, bctr=bctr, cslot=slot_major(cmat))
-    return t["cmat"], t["bctr"], t["cslot"]
+        t.update(bctr=bctr, cslot=slot_major(cmat))
+    return t["bctr"], t["cslot"]
 
 
 def _expanded_quadratic(cm, ctr, o, d):
@@ -1282,38 +1290,52 @@ def _seg_blocked(b, cterm, tmax):
     return pos & ((t0_gt & t0_lt) | (~t0_gt & t1_ok))
 
 
-def _check_cmat(cmat, bctr, nb: int, block: int) -> None:
-    _check(cmat, "cmat", torch.float32, nb * 8 * 2 * block)
-    _check(bctr, "bctr", torch.float32, nb * 3)
+def _cmat_of(cslot: torch.Tensor, block: int) -> torch.Tensor:
+    """``build_cmat``'s (n_blocks, 8, 2 block) layout of its ``slot_major``
+    copy: the same floats, a view."""
+    return cslot.reshape(-1, 2 * block, 8).transpose(1, 2)
 
 
-def isect_mxu_plain(prims: torch.Tensor, cmat: torch.Tensor,
+def isect_mxu_plain(prims: torch.Tensor, cslot: torch.Tensor,
                     bctr: torch.Tensor, cand: torch.Tensor, ctn: torch.Tensor,
                     st: torch.Tensor, n_lanes: int, *, block: int,
+                    boxes: torch.Tensor | None = None,
                     stats: dict | None = None) -> torch.Tensor:
     """Plain version of K6m -> K6's residual (8, n_lanes): ``isect_plain``
     over each lane's row list (``precull_tiles(per_row=True)``), a slot's
-    distance by the expanded quadratic on ``build_cmat``'s tables; the
-    winner's attributes read from ``prims``.  ``stats`` as K6's."""
+    distance by the expanded quadratic on ``build_cmat``'s tables (read
+    back from their slot-major copy ``cslot``, ``mxu_tables``'); the
+    winner's attributes read from ``prims``.  With ``boxes``
+    (``leaf_boxes``, the render's) a lane skips each candidate whose box
+    its ray misses or enters at or past its nearest distance so far
+    (``_box_cull``, K11's cull), without them it sweeps every candidate it
+    takes.  ``stats`` as K6's, with ``boxes`` also ``_nearest_sweep``'s
+    ``"culled_blocks"`` and ``"culled_spheres"``."""
     LAUNCHES["plain"] += 1
     n = n_lanes
     o = tuple(st[c, :n] for c in (C_OX, C_OY, C_OZ))
     d = tuple(st[c, :n] for c in (C_DX, C_DY, C_DZ))
-    cmat = cmat.reshape(-1, 8, 2 * block)
-    return _isect_lanes(_expanded_test(cmat, bctr.reshape(-1, 3), o, d),
-                        prims, cand, ctn, st, n, block, ROW, stats)[1]
+    return _isect_lanes(_expanded_test(_cmat_of(cslot, block),
+                                       bctr.reshape(-1, 3), o, d),
+                        prims, cand, ctn, st, n, block, ROW, stats,
+                        None if boxes is None else _box_cull(boxes, o, d))[1]
 
 
-def isect_mxu(prims: torch.Tensor, cmat: torch.Tensor, bctr: torch.Tensor,
+def isect_mxu(prims: torch.Tensor, cslot: torch.Tensor, bctr: torch.Tensor,
               cand: torch.Tensor, ctn: torch.Tensor, st: torch.Tensor,
-              n_lanes: int, *, block: int) -> torch.Tensor:
+              n_lanes: int, *, block: int,
+              boxes: torch.Tensor | None = None) -> torch.Tensor:
     """K6m's wrapper: ``isect_mxu_plain``'s residual on the stream's
-    device."""
+    device.  On the card it needs the leaf blocks' ``boxes``: its sweep
+    always culls by them."""
     if st.device.type == "cpu":
-        return isect_mxu_plain(prims, cmat, bctr, cand, ctn, st, n_lanes,
-                               block=block)
+        return isect_mxu_plain(prims, cslot, bctr, cand, ctn, st, n_lanes,
+                               block=block, boxes=boxes)
+    if boxes is None:
+        raise ValueError("K6m's sweep culls by the leaf blocks' boxes: give "
+                         "boxes")
     return _isect_launch("K6m", prims, cand, ctn, st, n_lanes, block,
-                         (cmat, bctr))
+                         (cslot, bctr, boxes))
 
 
 def mxu_verdicts_plain(prims, cslot, bctr, scand, sctn, sray, out,
@@ -1331,8 +1353,8 @@ def mxu_verdicts_plain(prims, cslot, bctr, scand, sctn, sray, out,
         prims.reshape(-1, _N_PRIM_ATTRS, block), scand, sctn,
         tuple(sray[a, :n] for a in range(3)),
         tuple(sray[a, :n] for a in range(3, 6)), sray[6, :n],
-        sray[7, :n] > 0.5, stats, (cslot.reshape(-1, 2 * block, 8)
-                                   .transpose(1, 2), bctr.reshape(-1, 3)))
+        sray[7, :n] > 0.5, stats, (_cmat_of(cslot, block),
+                                   bctr.reshape(-1, 3)))
 
 
 def mxu_verdicts(prims, cslot, bctr, scand, sctn, sray, out, n_lanes: int,
@@ -1658,7 +1680,7 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
         lob, hib = _leaf_block_bounds(prims.reshape(-1, _N_PRIM_ATTRS, block))
         boxes = leaf_boxes(lob, hib)
     if mxu:
-        cmat, bctr, cslot = mxu_tables(t, block)
+        bctr, cslot = mxu_tables(t, block)
     nl = int(_np(meta[2]))
     seed = int(_np(meta[1])) & rng.MASK32
     shadows = use_nee and n_light_slots > 0
@@ -1692,7 +1714,8 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
                     precull=precull, boxes=boxes, **kw)
         elif mxu:
             with clock("k6m"):
-                res = k6m(prims, cmat, bctr, cand, ctn, st, n, block=block)
+                res = k6m(prims, cslot, bctr, cand, ctn, st, n,
+                          block=block, boxes=boxes)
             scand, sctn = none_i, none_f
             if shadows:
                 with clock("shadow"):
@@ -1943,19 +1966,31 @@ def k7_byte_count(stats: dict, n_lanes: int, block: int,
                 + tree_words)
 
 
-def k6m_op_count(stats: dict, block: int) -> int:
+def k6m_op_count(stats: dict, block: int, culled: bool = False) -> int:
     """Lower count of K6m's fp32 operations for ``isect_mxu_plain``'s
-    stats: every slot of each block a lane takes, in the expanded form."""
-    return stats["blocks"] * (WF_OPS["block"] + MXU_OPS["block"]
-                              + block * MXU_OPS["slot"])
+    stats: every slot of each block a lane sweeps, in the expanded form.
+    ``culled`` counts the culled sweep's work, the least the function
+    needs and what K6m's bound counts: the blocks it sweeps and a slab
+    test (K3's node test) a candidate taken.  Else the unculled sweep's
+    (the culled candidates added back), the work K6m did before it
+    culled."""
+    per_block = WF_OPS["block"] + MXU_OPS["block"] + block * MXU_OPS["slot"]
+    skipped = stats.get("culled_blocks", 0)
+    if culled:
+        return (stats["blocks"] * per_block
+                + (stats["blocks"] + skipped) * K3_OPS["node_test"])
+    return (stats["blocks"] + skipped) * per_block
 
 
 def k6m_byte_count(stats: dict, n_lanes: int, block: int) -> int:
     """Bytes K6m must move, each word once: K6's, with each distinct block
-    swept read as its (8, 2 block) table and centre in place of its slots
-    (a lower count: the winners' rows of ``prims`` are left out)."""
+    taken read as its (8, 2 block) table and centre in place of its slots,
+    and its leaf box where the sweep culls (a lower count: the winners'
+    rows of ``prims`` are left out)."""
+    box = 8 if "culled_blocks" in stats else 0
     return 4 * ((1 + N_RES) * n_lanes + 6 * stats["alive"]
-                + stats["list_words"] + (16 * block + 3) * stats["blocks_read"])
+                + stats["list_words"]
+                + (16 * block + 3 + box) * stats["blocks_read"])
 
 
 def k7mv_op_count(stats: dict, block: int) -> int:
@@ -1983,9 +2018,10 @@ def k11_op_count(stats: dict, culled: bool = False) -> int:
     by K6's sweep or by K3's walk (per lane the walk's setup, per node the
     slab test), and every shadow ray's walk.  A sweep culled by the boxes
     is counted unculled (each candidate taken swept, the culled ones
-    added back), the work every earlier K11 did and its bound counts;
-    ``culled`` counts the culled sweep's own work instead: the blocks it
-    sweeps and a slab test a candidate taken."""
+    added back), the work every earlier K11 did; ``culled`` counts the
+    culled sweep's own work, the least the function needs and what K11's
+    bound counts: the blocks it sweeps and a slab test a candidate
+    taken."""
     walk = K3_OPS["walk_setup"]
     skipped = stats.get("culled_blocks", 0)
     if "nodes" in stats:

@@ -95,6 +95,19 @@ last, and prints its registers, spills and blocks an SM, and per case the
 least of ``--reps`` launches' milliseconds and the lanes whose state
 differs from the package's own launch on the same inputs (K11's with the
 boxes, so the unculled forms' differing lanes are the cull's).
+
+    python3 spt_tpu_torch/tools/wf_ablate.py --k6m --k7b
+        [--reps N] [--only TAG ...] [--timeout SECONDS]
+
+times K6m, the matmul-form intersect, and K7b, shade reading its verdicts
+(blocked_in_res, also K7m's bounce), on config 5's bounces 0 and 1 with
+either sky, the same way (``--old`` takes no build of theirs): K6m on the
+per-row lists and the leaf boxes, K7b on K9's verdicts of the tree walk.
+Builds: ``K6M_VARIANTS`` (built for b blocks of 128 an SM; the box test
+taken out, ``k6m_unculled``, whose differing lanes are the cull's) and
+``K7B_VARIANTS`` (built for b blocks an SM; the bounce called).  Each
+output is compared with the package's own launch on the same inputs, and
+K7b's state also with K7 walking (``lanes_differ_from_k7``).
 """
 
 from __future__ import annotations
@@ -114,9 +127,9 @@ ROOT = Path(__file__).resolve().parents[2]
 _SHADE_BLOCKS = "constexpr int kShadeMinBlocks = 4;"
 _VERDICT_BLOCKS = "constexpr int kVerdictMinBlocks = 4;"
 _ISECT = "__global__ void __launch_bounds__(kThreadsWf) isect_kernel("
-_ISECT_LAUNCH = """  else
-    spt::isect_kernel<false><<<spt::blocks_for(n_lanes), spt::kThreadsWf, 0,
-                               s>>>(prm);
+_ISECT_LAUNCH = """  if (!cslot) {
+    spt::isect_kernel<<<spt::blocks_for(n_lanes), spt::kThreadsWf, 0, s>>>(
+        prm);
 """
 _BLOCKS_FOR = "inline unsigned blocks_for(int n) {"
 _SWEEP = "                : sweep(ox, oy, oz, dx, dy, dz, tmax);"
@@ -124,7 +137,7 @@ _WALK = """        : nodef ? BvhWalk<false>{nodef, nodei, prims, nullptr, nullpt
                                  nullptr, nullptr, n_nodes, block, nullptr}
                       .any_hit(ox, oy, oz, dx, dy, dz, tmax)
 """
-_OCC_K6 = "case 0: fn = reinterpret_cast<const void*>(isect_kernel<false>);"
+_OCC_K6 = "case 0: fn = reinterpret_cast<const void*>(isect_kernel);"
 
 # K6's tree mode with the block's octant table in shared memory: the
 # octant of the block's first lane (the sort is octant-major), its n_nodes
@@ -236,7 +249,7 @@ def _verdict_bounds(blocks: int):
 def _isect_bounds(blocks: int):
     """K6 built for ``blocks`` blocks an SM (as built: no bound)."""
     return [("wavefront.cu", _ISECT, _ISECT.replace(
-        "(kThreadsWf)", f"(kThreadsWf, kMxu ? 1 : {blocks})"))]
+        "(kThreadsWf)", f"(kThreadsWf, {blocks})"))]
 
 
 # tag -> [(file, old, new)] on the package's sources
@@ -245,11 +258,11 @@ VARIANTS = {
     "k6_smem": [
         ("wavefront.cu", _BLOCKS_FOR, _SMEM_KERNEL + _BLOCKS_FOR),
         ("wavefront.cu", _ISECT_LAUNCH,
-         "  else if (nodef)\n"
+         "  if (!cslot && nodef) {\n"
          "    spt::isect_tree_smem_kernel<<<spt::blocks_for(n_lanes),\n"
          "                                  spt::kThreadsWf,\n"
          "                                  40 * n_nodes, s>>>(prm);\n"
-         + _ISECT_LAUNCH),
+         "  } else " + _ISECT_LAUNCH[2:]),
         ("wavefront.cu", _OCC_K6,
          "case 0: fn = reinterpret_cast<const void*>("
          "isect_tree_smem_kernel);")],
@@ -284,7 +297,7 @@ def ptxas(lines, kernel):
 
 
 # The kernels reported per build: ptxas name, occupancy index.
-KERNELS = {"k6": ("isect_kernelILb0", 0),
+KERNELS = {"k6": ("12isect_kernel", 0),
            "k7": ("shade_kernelILb0ELb1E", 1),
            "k11": ("bounce_kernelILb0", 2), "k8l": ("anyhit_kernel", 3),
            "k10": ("bounce_bwd_kernel", 4),
@@ -305,6 +318,11 @@ def main() -> int:
                     help="time K11 and K11g, the fused bounce, in its builds")
     ap.add_argument("--k7m", action="store_true",
                     help="time K7m, the matmul-form shade, in its builds")
+    ap.add_argument("--k6m", action="store_true",
+                    help="time K6m, the matmul-form intersect, in its builds")
+    ap.add_argument("--k7b", action="store_true",
+                    help="time K7b, shade reading its verdicts, in its "
+                         "builds")
     ap.add_argument("--old", type=Path, default=None,
                     help="with --k10, --k11, --k7m: csrc directory of an "
                          "earlier design")
@@ -331,8 +349,8 @@ def main() -> int:
         return 0
     if args.k10:
         return main_k10(args)
-    if args.k11 or args.k7m:
-        return main_fused(args, [k for k in ("k11", "k7m")
+    if args.k11 or args.k7m or args.k6m or args.k7b:
+        return main_fused(args, [k for k in ("k11", "k7m", "k6m", "k7b")
                                  if getattr(args, k)])
     import chip_smoke as cs
     import spt_tpu_torch as T
@@ -1021,8 +1039,53 @@ K11_VARIANTS = {
                     _INLINE.replace("trace_bounce", "wf_bounce"))],
 }
 K7M_VARIANTS = {"k7m": []}
+
+# K7b's bounce inlined (trace_bounce), K7, K8 and K9 keeping the call.
+_K7B_INLINE = """  bool missed;
+  if constexpr (kVerdict)
+    missed = trace_bounce(sc, geo, p, pid, sample, (uint32_t)s_meta[1], prm.k,
+                          prm.rr_depth, prm.use_nee, prm.use_mis);
+  else
+    missed = wf_bounce(sc, geo, p, pid, sample, (uint32_t)s_meta[1], prm.k,
+                       prm.rr_depth, prm.use_nee, prm.use_mis);
+"""
+_K6M_BOUND = "__global__ void __launch_bounds__(kRow) isect_mxu_kernel("
+_K6M_CULL = ("    if (!done && box_hit(prm.boxes, blk, ox, oy, oz, ivx, ivy, "
+             "ivz, t)) {\n")
+_K7B_BLOCKS = "constexpr int kShadeReadMinBlocks = 3;"
+
+
+def _blocks_edit(anchor: str, b: int):
+    return [("wavefront.cu", anchor, anchor.replace(
+        anchor.split("= ")[1], f"{b};"))]
+
+
+# tag -> [(file, old, new)] on the package's sources: K6m as built (a
+# block a row, the tables staged, culled by the boxes), built for b blocks
+# of 128 an SM, and with the box test taken out (every candidate taken
+# swept); K7b as built (the bounce inlined), built for b blocks an SM, and
+# with the bounce called (wf_bounce).
+K6M_VARIANTS = {
+    "k6m": [],
+    **{f"k6m_lb_{b}": [("wavefront.cu", _K6M_BOUND, _K6M_BOUND.replace(
+        "(kRow)", f"(kRow, {b})"))] for b in (8, 12, 16)},
+    "k6m_unculled": [("wavefront.cu", _K6M_CULL, "    if (!done) {\n")],
+}
+K7B_VARIANTS = {
+    "k7b": [],
+    **{f"k7b_lb_{b}": _blocks_edit(_K7B_BLOCKS, b) for b in range(1, 7)
+       if f"= {b};" not in _K7B_BLOCKS},
+    "k7b_called": [("wavefront.cu", _K7B_INLINE,
+                    "  const bool missed = wf_bounce(sc, geo, p, pid, "
+                    "sample, (uint32_t)s_meta[1],\n"
+                    "                                prm.k, prm.rr_depth, "
+                    "prm.use_nee,\n                                "
+                    "prm.use_mis);\n")],
+}
 FUSED = {"k11": (K11_VARIANTS, K11_OLD_VARIANTS),
-         "k7m": (K7M_VARIANTS, K7M_OLD_VARIANTS)}
+         "k7m": (K7M_VARIANTS, K7M_OLD_VARIANTS),
+         "k6m": (K6M_VARIANTS, {}),
+         "k7b": (K7B_VARIANTS, {})}
 
 
 def _fused_dir(kind: str, tag: str) -> Path:
@@ -1052,6 +1115,10 @@ def build_fused(kind: str, tag: str, csrc: Path, edits) -> tuple:
     if proc.returncode != 0:
         raise RuntimeError(f"{tag}: nvcc failed\n{proc.stderr[-3000:]}")
     lines = (proc.stdout + proc.stderr).splitlines()
+    if kind == "k6m":
+        return tag, dict(k6m=ptxas(lines, "16isect_mxu_kernel"))
+    if kind == "k7b":
+        return tag, dict(k7b=ptxas(lines, "shade_kernelILb1ELb1E"))
     if kind == "k11":
         return tag, dict(k11=ptxas(lines, "bounce_kernelILb0"),
                          k11g=ptxas(lines, "bounce_kernelILb1"))
@@ -1076,16 +1143,18 @@ def _fused_inputs(torch, cs, T, wf, mb, dev):
 
 
 def time_fused(kind: str, tag: str, reps: int) -> dict:
-    """One build's K11 and K11g (``kind`` "k11") or K7m launches on config
-    5's bounces 0 and 1 with either sky, in a process of its own; the
-    stream made by the package's kernels as chip_smoke.py's checks make it.
-    Each state is compared with the package's own launch on the same
-    inputs (lanes whose bits differ)."""
+    """One build's K11 and K11g (``kind`` "k11"), K7m, K6m or K7b launches
+    on config 5's bounces 0 and 1 with either sky, in a process of its own;
+    the stream made by the package's kernels as chip_smoke.py's checks make
+    it.  Each output (the state; K6m's residual) is compared with the
+    package's own launch on the same inputs (lanes whose bits differ), K7b's
+    state also with K7 walking the tree."""
     import torch
     import chip_smoke as cs
     import spt_tpu_torch as T
     from spt_tpu_torch.kernels import _build, megakernel_bvh as mb
     from spt_tpu_torch.kernels import wavefront as wf
+    from spt_tpu_torch.kernels import wavefront_grad as wg
     dev = torch.device("cuda")
     src_dir = _fused_dir(kind, tag)
     text = (src_dir / "wavefront.cu").read_text()
@@ -1106,6 +1175,14 @@ def time_fused(kind: str, tag: str, reps: int) -> dict:
         boxes = wf.leaf_boxes(lob, hib)
         if kind == "k11":
             row["blocks_per_sm"] = dict(k11=fn_b(0, smem), k11g=fn_b(1, smem))
+        elif kind == "k6m":
+            fn_s = lib.spt_wavefront_isect_mxu_blocks_per_sm
+            fn_s.argtypes = [_I]
+            row["blocks_per_sm"] = dict(blocks_of_128=fn_s(block))
+        elif kind == "k7b":
+            lib.spt_wavefront_blocks_per_sm.argtypes = [_I, _I]
+            row["blocks_per_sm"] = lib.spt_wavefront_blocks_per_sm(
+                6, smem - 32)
         else:
             if verdict_pass:
                 lib.spt_wavefront_blocks_per_sm.argtypes = [_I, _I]
@@ -1116,8 +1193,10 @@ def time_fused(kind: str, tag: str, reps: int) -> dict:
                     k7mv=fn_v(block))
             else:
                 row["blocks_per_sm"] = dict(k7m=fn_b(2, smem - 32))
-            cmat, bctr, cslot = wf.mxu_tables(dict(prims=prims), block)
-            table = cslot if slot_major else cmat
+        if kind != "k11":
+            bctr, cslot = wf.mxu_tables(dict(prims=prims), block)
+            table = cslot if slot_major else wf.build_cmat(
+                prims.reshape(-1, 5, block))[0]
         b = cs.wf_bounce(torch, wf, t, stc, meta, cs.BIG_W, cs.BIG_H, 0,
                          cs.BIG_SEED)
         for k in (0, 1):
@@ -1132,18 +1211,23 @@ def time_fused(kind: str, tag: str, reps: int) -> dict:
             work = base.clone()
             w_st, w_ids = cs.stream_of(torch, wf, work)
 
-            def run(case, launch, package):
+            def run(case, launch, package, out=None):
+                """Times ``launch``; its output (the state, or ``out``
+                where it writes that) against ``package``'s (the state, or
+                what it returns with ``out``) -> the output."""
                 ms = []
                 for _ in range(reps):
                     work.copy_(base)
                     ms.append(cs.cuda_ms(torch, launch)[1])
-                got = work[:wf.N_CH, :n].clone()
+                got = (work[:wf.N_CH, :n] if out is None else out).clone()
                 work.copy_(base)
-                package()
+                want = package()
                 row[f"{sky}_bounce{k}_{case}"] = dict(
                     lanes=n, ms=min(ms), ms_all=ms,
                     lanes_differ_from_package=cs.bits_differ(
-                        torch, got, work[:wf.N_CH, :n]))
+                        torch, got, work[:wf.N_CH, :n] if out is None
+                        else want))
+                return got
 
             if kind == "k11":
                 fn = lib.spt_wavefront_bounce
@@ -1181,6 +1265,57 @@ def time_fused(kind: str, tag: str, reps: int) -> dict:
                                       precull=precull, boxes=boxes, **kw)
                         run(form + ("_k11g" if rec else ""), launch, package)
                         del res
+            elif kind == "k6m":
+                # The per-row lists, culled by the leaf boxes.
+                fn = lib.spt_wavefront_isect
+                fn.argtypes = [_P] * 10 + [_I] * 5 + [_P]
+                fn.restype = ctypes.c_int
+                cand, ctn = wf.precull_tiles(
+                    tuple(st[c, :n] for c in range(3)),
+                    tuple(st[c, :n] for c in range(3, 6)),
+                    st[wf.C_ALIVE, :n], None, lob, hib, per_row=True)
+                res = torch.empty((8, n), device=dev)
+                args_k = (*(a.data_ptr() for a in (
+                    res, st, prims, cand, ctn, cslot, bctr, boxes)), 0, 0,
+                    st.shape[1], n, nb, block, 0, stream)
+
+                def launch():
+                    err = fn(*args_k)
+                    if err:
+                        raise RuntimeError(f"{tag}: launch {err}")
+                run("lists", launch, lambda: wf.isect_mxu(
+                    prims, cslot, bctr, cand, ctn, st, n, block=block,
+                    boxes=boxes), out=res)
+                del cand, ctn, res
+            elif kind == "k7b":
+                # K9's verdicts of the tree walk in residual row 7.
+                fn = lib.spt_wavefront_shade
+                fn.argtypes = [_P] * 13 + [_I] * 14 + [_P]
+                fn.restype = ctypes.c_int
+                args7 = (t["blob"], meta, t["lsb"], prims, t["mtypes"], None,
+                         None)
+                _, blocked = wg.shade_fwd(
+                    *args7, *cs.stream_of(torch, wf, base.clone()),
+                    b["res_t"], n, tree=b["tree"], **kw)
+                res8 = b["res_t"].clone()
+                res8[7] = blocked
+                walk = base.clone()
+                wf.shade(*args7, *cs.stream_of(torch, wf, walk), b["res_t"],
+                         n, tree=b["tree"], **kw)
+                args_k = (*(a.data_ptr() for a in (
+                    w_st, w_ids, res8, t["blob"], meta, t["lsb"], prims,
+                    t["mtypes"])), 0, 0, 0, 0, 0, w_st.shape[1], *ints, 1, 0,
+                    1, stream)
+
+                def launch():
+                    err = fn(*args_k)
+                    if err:
+                        raise RuntimeError(f"{tag}: launch {err}")
+                got = run("verdicts", launch, lambda: wf.shade(
+                    *args7, w_st, w_ids, res8, n, blocked_in_res=True, **kw))
+                row[f"{sky}_bounce{k}_verdicts"]["lanes_differ_from_k7"] = \
+                    cs.bits_differ(torch, got, walk[:wf.N_CH, :n])
+                del res8, blocked, walk, got
             else:
                 fn = lib.spt_wavefront_shade
                 fn.argtypes = [_P] * (13 if verdict_pass else 15) \
@@ -1190,8 +1325,8 @@ def time_fused(kind: str, tag: str, reps: int) -> dict:
                     tuple(st[c, :n] for c in range(3)),
                     tuple(st[c, :n] for c in range(3, 6)),
                     st[wf.C_ALIVE, :n], None, lob, hib, per_row=True)
-                res = wf.isect_mxu(prims, cmat, bctr, *lists, st, n,
-                                   block=block)
+                res = wf.isect_mxu(prims, cslot, bctr, *lists, st, n,
+                                   block=block, boxes=boxes)
                 so3, sd3, stmax, sneed = wf.shadow_rays(
                     st[:, :n], ids[:, :n], res, t["blob"], t["lsb"], nls,
                     k=k, seed=cs.BIG_SEED, n_mats=n_mats,

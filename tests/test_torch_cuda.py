@@ -34,7 +34,10 @@ field bar against its plain stages.  Rays that win padding slots (the
 padding scene) take no geometry gradient in K4 and K10.  K8's verdicts
 equal its plain version's bit for bit, on a whole leaf table and on each
 half, and the halves' MAX equals the whole's and K9's; K7 reading K9's
-verdict (``blocked_in_res``) equals K7 sweeping bit for bit.  An
+verdict (``blocked_in_res``) equals K7 sweeping bit for bit, and reading
+K9's walked verdicts K7 walking.  K6m, culling its per-row lists by the
+leaf boxes, equals its plain version bit for bit and parts from the
+unculled sweep only at exact ties and box edges.  An
 environment-map scene's gradient takes the wavefront.
 """
 
@@ -45,8 +48,8 @@ import torch
 import spt_tpu_torch as T
 from chip_smoke import (ATOL, ENCLOSURE_CAM, K2_CAPACITY_CAM, MAX_MEAN_REL,
                         MIN_CLOSE, PAD_CAM, RAGGED, RTOL, VJP_ATOL_REL,
-                        VJP_MIN_CLOSE, VJP_RTOL, cornell, enclosure_scene,
-                        env_gradient,
+                        VJP_MIN_CLOSE, VJP_RTOL, cornell, cull_differ,
+                        enclosure_scene, env_gradient,
                         grad_errors, grad_scene, k2_capacity_scene, k3_inputs,
                         lanes_close, padding_scene, raw_fields, scene_200,
                         route_differ, shadow_sray, tail_field_errors,
@@ -627,9 +630,11 @@ def test_k8l_matches_plain(cuda, case):
 
 @pytest.mark.parametrize("case", ["scene200", "padding"])
 def test_k7_reading_the_verdict_matches_k7(cuda, case):
-    """K7 with ``blocked_in_res``, fed K9's verdict in residual row 7,
-    equals K7 sweeping the lists on every lane bit for bit, and meets K1's
-    bar against its plain version."""
+    """K7 with ``blocked_in_res`` (K7b, its bounce inlined), fed K9's
+    verdict in residual row 7, equals K7 sweeping the lists on every lane
+    bit for bit, and fed K9's walked verdicts on K6's tree-mode winner K7
+    walking the tree (the split path's); it meets K1's bar against its
+    plain version."""
     from spt_tpu_torch.kernels import wavefront_grad as wg
     wf, t, meta, b, kw, args = _grad_bounce(cuda, case)
     st, ids, n, res = b["st"], b["ids"], b["n"], b["res"]
@@ -653,6 +658,16 @@ def test_k7_reading_the_verdict_matches_k7(cuda, case):
     got, want = read.cpu().numpy(), plain.cpu().numpy()
     assert np.isfinite(got).all()
     assert np.isclose(got, want, rtol=RTOL, atol=ATOL).mean() >= MIN_CLOSE
+    walk, read_t = b["buf"].clone(), b["buf"].clone()
+    _, blocked_t = wg.shade_fwd(*args[:5], None, None, *stream(
+        b["buf"].clone()), b["res_t"], n, tree=b["tree"], **kw)
+    res8t = b["res_t"].clone()
+    res8t[7] = blocked_t
+    wf.shade(*args[:5], None, None, *stream(walk), b["res_t"], n,
+             tree=b["tree"], **kw)
+    wf.shade(*args[:5], none.int(), none, *stream(read_t), res8t, n,
+             blocked_in_res=True, **kw)
+    assert torch.equal(read_t.view(torch.int32), walk.view(torch.int32))
 
 
 @pytest.mark.parametrize("case", ["scene200", "padding"])
@@ -899,9 +914,12 @@ def test_k11_culled_sweep_matches_plain(cuda, case):
 
 
 def test_k6m_k7m_match_plain(cuda):
-    """K6m's residual equals the plain K6m's bit for bit on a bounce's
-    per-row lists; K7m's verdict pass equals the plain pass's verdicts bit
-    for bit, and K7m's state meets K1's bar against the plain K7m's."""
+    """K6m's residual, its sweep culled by the leaf boxes, equals the
+    plain K6m's with the same boxes bit for bit on a bounce's per-row
+    lists, and parts from the plain unculled sweep only at exact ties and
+    box edges; without the boxes K6m refuses.  K7m's verdict pass equals
+    the plain pass's verdicts bit for bit, and K7m's state meets K1's bar
+    against the plain K7m's."""
     wf, t, meta, b, kw, _, base = _fused_bounce(cuda, "scene200")
     n, st, ids, prims = b["n"], b["st"], b["ids"], t["prims"]
     block = kw["block"]
@@ -910,13 +928,22 @@ def test_k6m_k7m_match_plain(cuda):
         tuple(st[c, :n] for c in range(3)),
         tuple(st[c, :n] for c in range(3, 6)), st[wf.C_ALIVE, :n], None,
         lob, hib, per_row=True)
-    cmat, bctr, cslot = wf.mxu_tables(dict(prims=prims), block)
+    bctr, cslot = wf.mxu_tables(dict(prims=prims), block)
+    boxes = wf.leaf_boxes(lob, hib)
     before = dict(mk.LAUNCHES)
-    res = wf.isect_mxu(prims, cmat, bctr, cand, ctn, st, n, block=block)
+    res = wf.isect_mxu(prims, cslot, bctr, cand, ctn, st, n, block=block,
+                       boxes=boxes)
     assert mk.LAUNCHES == dict(before, k6m=before["k6m"] + 1)
-    assert torch.equal(res, wf.isect_mxu_plain(prims, cmat, bctr, cand, ctn,
-                                               st, n, block=block))
+    assert torch.equal(res.view(torch.int32), wf.isect_mxu_plain(
+        prims, cslot, bctr, cand, ctn, st, n, block=block,
+        boxes=boxes).view(torch.int32))
     assert int((res[4] >= 0).sum()) > 0
+    res_u = wf.isect_mxu_plain(prims, cslot, bctr, cand, ctn, st, n,
+                               block=block)
+    why = cull_differ(torch, wf, st[:, :n], res_u, res, boxes)
+    assert why["other"] == why["padding"] == 0, why
+    with pytest.raises(ValueError, match="boxes"):
+        wf.isect_mxu(prims, cslot, bctr, cand, ctn, st, n, block=block)
     so3, sd3, stmax, sneed = wf.shadow_rays(
         st[:, :n], ids[:, :n], res, t["blob"], t["lsb"], kw["n_light_slots"],
         k=kw["k"], seed=3, n_mats=kw["n_mats"],

@@ -23,12 +23,15 @@ K7m): their plain versions and glue, within the port, on the CPU.
 * Which paths build lists: the split path (forward and gradient) and the
   fused walk none, the fused bounce with ``precull`` the nearest-hit lists,
   the matmul form those and the shadow lists.
-* The fused bounce's list sweep culled by the leaf blocks' boxes (the
-  render's) against the unculled sweep, on bounces 0 and 1 of the 300-sphere
-  scene and bounce 0 of the padding scene: the same state and record bit
-  for bit but on lanes whose winner ties exactly in t or is a padding slot.
-* K7m's slot-major copy of ``build_cmat``'s tables holds its columns bit
-  for bit, built once a packing.
+* The fused bounce's and K6m's list sweeps culled by the leaf blocks' boxes
+  (the render's) against the unculled sweeps, on bounces 0 and 1 of the
+  300-sphere scene and bounce 0 of the padding scene: the same state and
+  record (K11) or residual (K6m, over per-row lists) bit for bit but on
+  lanes whose winner ties exactly in t, is a padding slot, or lies outside
+  its block's box by float error.
+* K6m's and K7m's slot-major copy of ``build_cmat``'s tables holds its
+  columns bit for bit, built once a packing, and the plain K6m reads it to
+  the residual the tables themselves give.
 * K7m's verdict pass: its plain version's verdicts equal ``_sweep_anyhit``'s
   with ``mxu=`` on the glue's shadow rays, and the plain K7m (the pass,
   then the bounce reading residual row 7) writes them there.
@@ -49,8 +52,9 @@ from spt_tpu_torch.diff import gradients as TG
 from spt_tpu_torch.kernels import megakernel as tmega
 from spt_tpu_torch.kernels import wavefront as twf
 from spt_tpu_torch.kernels import wavefront_grad as twg
-from chip_smoke import (CAM_10K, PAD_CAM, env_gradient, padding_scene,
-                        scene_10k, wf_advance, wf_bounce, wf_inputs)
+from chip_smoke import (CAM_10K, PAD_CAM, cull_differ, env_gradient,
+                        padding_scene, scene_10k, wf_advance, wf_bounce,
+                        wf_inputs)
 
 # One intra-op thread: these tests trace small tensors, where torch's
 # idle OpenMP workers would only spin against the other test processes.
@@ -254,13 +258,36 @@ def test_which_paths_build_lists(path, precull, shadow):
                      "shadow_rays": bounces * shadow}, calls
 
 
+def _mxu_sweeps(t, block, b, boxes):
+    """The plain K6m on bounce ``b``'s per-row lists, unculled and culled by
+    ``boxes``: ((residual, stats) unculled, (residual, stats) culled)."""
+    bctr, cslot = twf.mxu_tables(dict(prims=t["prims"]), block)
+    st, n = b["st"], b["n"]
+    cand, ctn = twf.precull_tiles(
+        tuple(st[c, :n] for c in range(3)),
+        tuple(st[c, :n] for c in range(3, 6)), st[twf.C_ALIVE, :n], None,
+        *twf._leaf_block_bounds(t["prims"].reshape(-1, 5, block)),
+        per_row=True)
+    outs = []
+    for bx in (None, boxes):
+        stats = {}
+        outs.append((twf.isect_mxu_plain(t["prims"], cslot, bctr, cand, ctn,
+                                         st, n, block=block, boxes=bx,
+                                         stats=stats), stats))
+    return outs
+
+
+@pytest.mark.parametrize("mxu", [False, True])
 @pytest.mark.parametrize("case", ["config5_300", "padding"])
-def test_culled_sweep_equals_unculled(case):
+def test_culled_sweep_equals_unculled(case, mxu):
     """K11's plain version with the leaf blocks' boxes (each lane skips a
     candidate its ray misses or enters past its nearest t) against it
     without them (every candidate taken is swept): the state and K11g's
     record equal bit for bit but on lanes where the two winners tie
-    exactly in t or one is a padding slot, which the boxes leave out."""
+    exactly in t or one is a padding slot, which the boxes leave out.
+    With ``mxu`` the same for the plain K6m over per-row lists: its
+    residual equal bit for bit but at exact ties and box edges
+    (``cull_differ``; it never takes a padding slot)."""
     if case == "padding":
         sd = padding_scene(spt_tpu_torch).compile(device=CPU)
         cam = spt_tpu_torch.Camera.look_at(device=CPU, **PAD_CAM)
@@ -277,6 +304,18 @@ def test_culled_sweep_equals_unculled(case):
             b = wf_advance(torch, twf, t, stc, meta, b, k - 1, seed,
                            sd.sky_mode)
         n, ids = b["n"], b["ids"]
+        if mxu:
+            (res_u, s_u), (res_c, s_c) = _mxu_sweeps(t, stc["block"], b,
+                                                     boxes)
+            culled += s_c["culled_blocks"]
+            assert s_c["blocks"] + s_c["culled_blocks"] == s_u["blocks"]
+            assert "culled_blocks" not in s_u
+            why = cull_differ(torch, twf, b["st"][:, :n], res_u, res_c,
+                              boxes)
+            assert why["other"] == why["padding"] == 0, f"bounce {k}: {why}"
+            if case == "config5_300":
+                assert why["lanes"] == 0
+            continue
         kw = dict(k=k, block=stc["block"], n_mats=stc["n_mats"],
                   n_light_slots=stc["n_light_slots"], rr_depth=2,
                   use_nee=True, use_mis=True, sky_mode=sd.sky_mode,
@@ -311,20 +350,51 @@ def test_culled_sweep_equals_unculled(case):
 
 
 def test_slot_major_table():
-    """``mxu_tables``: ``build_cmat``'s tables and K7m's slot-major copy,
-    column c of block b the 8 floats of ``cmat[b, :, c]`` bit for bit,
-    built once and kept with the packing."""
+    """``mxu_tables``: ``build_cmat``'s centres and K6m's and K7m's
+    slot-major copy of its tables, column c of block b the 8 floats of
+    ``cmat[b, :, c]`` bit for bit (``_cmat_of`` gives the tables back),
+    built once and kept with the packing, ``cmat`` itself not kept."""
     t, stc, _ = wf_inputs(torch, twf, twf, _scene(160), _camera(), 5)
     t = dict(t)
-    cmat, bctr, cslot = twf.mxu_tables(t, stc["block"])
-    want, want_c = twf.build_cmat(t["prims"].reshape(-1, 5, stc["block"]))
-    assert torch.equal(cmat, want) and torch.equal(bctr, want_c)
+    bctr, cslot = twf.mxu_tables(t, stc["block"])
+    cmat, want_c = twf.build_cmat(t["prims"].reshape(-1, 5, stc["block"]))
+    assert torch.equal(bctr, want_c)
     nb, block = cmat.shape[0], stc["block"]
     assert cslot.shape == (nb, 2 * block, 8) and cslot.is_contiguous()
     assert torch.equal(cslot.view(torch.int32),
                        cmat.transpose(1, 2).contiguous().view(torch.int32))
     assert torch.equal(cslot[1, 2 * block - 1], cmat[1, :, 2 * block - 1])
-    assert twf.mxu_tables(t, block)[2] is cslot
+    assert torch.equal(twf._cmat_of(cslot, block).view(torch.int32),
+                       cmat.view(torch.int32))
+    assert twf.mxu_tables(t, block)[1] is cslot and "cmat" not in t
+
+
+def test_isect_mxu_plain_reads_cslot():
+    """The plain K6m reads the slot-major copy ``cslot`` to the residual
+    that ``build_cmat``'s own layout gives (the same sweep on ``cmat``),
+    bit for bit, on a bounce of the 300-sphere scene, unculled and with
+    the boxes."""
+    sd = _scene(300)
+    t, stc, meta = wf_inputs(torch, twf, twf, sd, _camera(), 5)
+    b = wf_bounce(torch, twf, t, stc, meta, 16, 16, 0, 5)
+    n, st, block = b["n"], b["st"], stc["block"]
+    bctr, cslot = twf.mxu_tables(dict(prims=t["prims"]), block)
+    cmat, _ = twf.build_cmat(t["prims"].reshape(-1, 5, block))
+    lob, hib = twf._leaf_block_bounds(t["prims"].reshape(-1, 5, block))
+    boxes = twf.leaf_boxes(lob, hib)
+    o = tuple(st[c, :n] for c in range(3))
+    d = tuple(st[c, :n] for c in range(3, 6))
+    cand, ctn = twf.precull_tiles(o, d, st[twf.C_ALIVE, :n], None, lob, hib,
+                                  per_row=True)
+    for bx in (None, boxes):
+        got = twf.isect_mxu_plain(t["prims"], cslot, bctr, cand, ctn, st, n,
+                                  block=block, boxes=bx)
+        want = twf._isect_lanes(
+            twf._expanded_test(cmat, bctr, o, d), t["prims"], cand, ctn, st,
+            n, block, twf.ROW, None,
+            None if bx is None else twf._box_cull(bx, o, d))[1]
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert int((got[4] >= 0).sum()) > 0
 
 
 def test_mxu_verdict_pass_plain():
@@ -338,13 +408,15 @@ def test_mxu_verdict_pass_plain():
     t, stc, meta = wf_inputs(torch, twf, twf, sd, _camera(), 5)
     b = wf_bounce(torch, twf, t, stc, meta, 16, 16, 0, 5)
     n, st, ids, block = b["n"], b["st"], b["ids"], stc["block"]
-    cmat, bctr, cslot = twf.mxu_tables(dict(prims=t["prims"]), block)
+    bctr, cslot = twf.mxu_tables(dict(prims=t["prims"]), block)
+    cmat, _ = twf.build_cmat(t["prims"].reshape(-1, 5, block))
     lob, hib = twf._leaf_block_bounds(t["prims"].reshape(-1, 5, block))
     cand, ctn = twf.precull_tiles(
         tuple(st[c, :n] for c in range(3)),
         tuple(st[c, :n] for c in range(3, 6)), st[twf.C_ALIVE, :n], None,
         lob, hib, per_row=True)
-    res = twf.isect_mxu(t["prims"], cmat, bctr, cand, ctn, st, n, block=block)
+    res = twf.isect_mxu(t["prims"], cslot, bctr, cand, ctn, st, n,
+                        block=block, boxes=twf.leaf_boxes(lob, hib))
     nls = stc["n_light_slots"]
     so3, sd3, stmax, sneed = twf.shadow_rays(
         st[:, :n], ids[:, :n], res, t["blob"], t["lsb"], nls, k=0, seed=5,
