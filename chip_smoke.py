@@ -26,7 +26,16 @@ matmul-form sweeps K6m (its row lists culled per ray by the leaf boxes,
 held against the unculled sweep too) and K7m (its verdict pass, then
 K7b's kernel), and
 the fused gradient, K11g forward and K10 backward), and times the kernels
-and the wavefront's glue.
+and the wavefront's glue.  Last it drives the applications: the CLI
+renderer (``python -m spt_tpu_torch.apps.render_cli``, in process through
+``main(argv)`` and once as a fresh process) on ``scenes/cornell.json`` at
+the file's settings (K1; checkpoint and resume, the image formats, a
+torch.profiler trace), on ``scenes/demo38.json`` (K1) and on scenes saved
+with ``save_scene`` and loaded back (200 spheres through K3; config 5 with
+its environment map through the wavefront), each image equal to the
+facade's; the inverse-render app at its defaults (K1 forward, K2
+backward); and the facade's "reference" integrator (torch ops) on demo38,
+its frames held against the CPU at the JAX parity bar.
 Each phase prints one JSON line; any
 failure exits nonzero and prints no result.  The last two lines are the
 kernels table and ``{"ok": true, "device": {...}}``.
@@ -733,6 +742,7 @@ def run() -> int:
     pr = run_prim_phases(torch, T, mk, dev, card, k3)
     ds = run_dist_phases(torch, T, mk, dev, card, k3, pr)
     fu = run_fused_phases(torch, T, mk, dev, card, k3)
+    ap = run_app_phases(torch, T, mk, dev, card)
     paths = {"render": counts, "train": k2["launches"],
              "bvh": k3["launches"], "wavefront": wf["launches"],
              "grad_bvh": gr["launches"]["bvh"],
@@ -740,7 +750,7 @@ def run() -> int:
              "prim": pr["launches"], "dist": ds["launches"],
              "fused": fu["launches"]["fused"],
              "fused_grad": fu["launches"]["fused_grad"],
-             "mxu": fu["launches"]["mxu"]}
+             "mxu": fu["launches"]["mxu"], **ap["launches"]}
 
     def by_path(key):
         return {path: c[key] for path, c in paths.items()}
@@ -3483,6 +3493,336 @@ def run_fused_phases(torch, T, mk, dev, card, k3) -> dict:
     del runs, fused, split
     torch.cuda.empty_cache()
     return out
+
+
+# The applications and the reference integrator: the CLI renderer on the
+# repo's scene files and on scenes saved with ``save_scene``, the
+# inverse-render demo at its defaults, and the facade's "reference"
+# integrator.  The CLI renders in chunks of CLI_CHUNK spp.
+CLI_CHUNK = 32
+# An RGBE (.hdr) value lies within 1/128 of its pixel's largest channel.
+RGBE_REL = 1.0 / 128.0 + 1e-3
+# The JAX parity bar of the reference integrator
+# (tests/test_reference_parity.py): every value within 2e-3, and 99.5% of
+# pixels within 1e-4 on every channel.
+REF_ATOL, REF_TIGHT, REF_MIN_TIGHT = 2e-3, 1e-4, 0.995
+
+
+def read_png_rgb8(path):
+    """(H, W, 3) uint8 of an 8-bit RGB PNG whose rows all use filter 0, as
+    the port's PNG writers (native and pure Python) write them."""
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        buf = f.read()
+    check(buf[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: no PNG signature")
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(buf):
+        (n,) = struct.unpack(">I", buf[pos:pos + 4])
+        tag, data = buf[pos + 4:pos + 8], buf[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", data[:10])
+            check(depth == 8 and ctype == 2, f"{path}: not 8-bit RGB")
+        elif tag == b"IDAT":
+            idat += data
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    check(bool((raw[:, 0] == 0).all()), f"{path}: a row filter is not 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def facade_of(T, dev, path):
+    """The facade's image of a scene file: ``load_scene``, then
+    ``render_to_completion`` in CLI_CHUNK-spp chunks, the CLI's loop."""
+    from spt_tpu_torch.io.scene_json import load_scene
+    scene, camera, settings = load_scene(path, device=dev)
+    tracer = T.create_path_tracer("cuda", device=dev)
+    tracer.set_scene(scene)
+    tracer.set_settings(settings)
+    if camera is not None:
+        tracer.set_camera(camera)
+    tracer.render_to_completion(chunk_spp=CLI_CHUNK)
+    return tracer.get_render_result().image_f32.cpu().numpy()
+
+
+def ref_parity(got, want):
+    """The reference integrator's parity numbers of two (H, W, 3) frames."""
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    err = np.abs(got - want)
+    return dict(max_abs_err=float(err.max()),
+                frac_tight=float(np.all(err < REF_TIGHT, axis=-1).mean()),
+                mean=float(want.mean()), finite=bool(np.isfinite(got).all()))
+
+
+def check_ref(res, label):
+    check(res["finite"], f"{label}: not finite")
+    check(res["max_abs_err"] <= REF_ATOL,
+          f"{label}: {res['max_abs_err']} above {REF_ATOL}")
+    check(res["frac_tight"] > REF_MIN_TIGHT,
+          f"{label}: {res['frac_tight']} of pixels within {REF_TIGHT}")
+    check(res["mean"] > 0.01, f"{label}: the frame is black")
+
+
+def run_app_phases(torch, T, mk, dev, card) -> dict:
+    """The CLI (``cli_main_path``, scene files, profile, a fresh process),
+    the inverse-render app (``inverse_main_path``) and the reference
+    integrator (``reference_main_path``).  Each run through an entry point
+    starts with every launch count at 0 and is read right after."""
+    import glob
+    import gzip
+    import os
+    import tempfile
+    from spt_tpu_torch.apps import inverse_render, render_cli
+    from spt_tpu_torch.engine import integrator
+    from spt_tpu_torch.io import exr, hdr, native_display
+    from spt_tpu_torch.io.image import to_uint8, write_image
+    from spt_tpu_torch.io.scene_json import save_scene
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cornell_json = os.path.join(root, "scenes", "cornell.json")
+    demo_json = os.path.join(root, "scenes", "demo38.json")
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def out(name):
+            return os.path.join(tmp, name)
+
+        def cli(args, label, quiet=True):
+            stats = {}
+            mk.reset_launch_counts()
+            code = render_cli.main(
+                args + ["--chunk", str(CLI_CHUNK)] + (["-q"] if quiet else []),
+                stats=stats)
+            counts = dict(mk.LAUNCHES)
+            check(code == 0, f"{label}: the CLI exited {code}")
+            return stats, counts
+
+        def others(counts, *keys):
+            return sum(v for k, v in counts.items() if k not in keys)
+
+        # 1. Cornell at the file's settings, uninterrupted; resumed; the
+        # facade; the image formats.
+        full, launches["cli"] = cli([cornell_json, "-o", out("full.npy")],
+                                    "cornell")
+        img = np.load(out("full.npy"))
+        t_half = time.perf_counter()
+        half, c_half = cli([cornell_json, "-o", out("half.npy"), "--spp",
+                            "128", "--checkpoint", out("state.npz")],
+                           "cornell to 128 spp")
+        resumed, c_res = cli([cornell_json, "-o", out("resumed.npy"),
+                              "--resume", out("state.npz")],
+                             "cornell resumed")
+        resume_wall = time.perf_counter() - t_half
+        got = np.load(out("resumed.npy"))
+        resume_close = bool(np.allclose(got, img, rtol=1e-6, atol=1e-7))
+        resume_differ = int((got != img).sum())
+        facade_differ = int((facade_of(T, dev, cornell_json) != img).sum())
+        formats = {}
+        image_f32 = full["tracer"].get_render_result().image_f32
+        for ext in ("png", "npy", "hdr", "exr"):
+            path = out(f"cornell.{ext}")
+            write_image(path, image_f32)
+            if ext == "png":
+                formats["png_values_differ"] = int(
+                    (read_png_rgb8(path) != to_uint8(img)).sum())
+            elif ext == "npy":
+                formats["npy_values_differ"] = int((np.load(path) != img)
+                                                   .sum())
+            elif ext == "exr":
+                formats["exr_values_differ"] = int(
+                    (exr.read_exr(path) != img).sum())
+            else:
+                rel = np.abs(hdr.read_hdr(path) - img) / np.maximum(
+                    img.max(-1, keepdims=True), 1e-9)
+                formats["hdr_max_rel_err"] = float(rel.max())
+        emit(dict(phase="cli_main_path", scene="scenes/cornell.json",
+                  size=f"{img.shape[1]}x{img.shape[0]}",
+                  spp=full["tracer"].frame_count, chunk_spp=CLI_CHUNK,
+                  launches=launches["cli"], chunk_s=full["chunk_s"],
+                  wall_s=full["total_s"], resume_wall_s=resume_wall,
+                  resume_launches=dict(half=c_half["k1"], resumed=c_res["k1"]),
+                  resumed_from=half["tracer"].frame_count,
+                  resume_close=resume_close,
+                  resume_values_differ=resume_differ,
+                  facade_values_differ=facade_differ,
+                  native_display=native_display.available(),
+                  mean=float(img.mean()), **formats))
+        check(full["tracer"].frame_count == SPP and img.shape == (H, W, 3),
+              "cornell: spp or shape")
+        check(launches["cli"]["k1"] == SPP // CLI_CHUNK
+              and others(launches["cli"], "k1") == 0,
+              f"cornell: launches {launches['cli']}")
+        check(c_half["k1"] == 4 and c_res["k1"] == 4,
+              "the resumed run did not continue at 128 spp")
+        check(resume_close, "the resumed render is not the uninterrupted one")
+        check(facade_differ == 0,
+              f"cornell: {facade_differ} values differ from the facade")
+        check(formats["png_values_differ"] == 0
+              and formats["npy_values_differ"] == 0
+              and formats["exr_values_differ"] == 0, f"formats {formats}")
+        check(formats["hdr_max_rel_err"] < RGBE_REL, "hdr beyond RGBE")
+        check(bool(np.isfinite(img).all()) and img.mean() > 0.01,
+              "cornell image")
+
+        # 2. More scene files: demo38 (K1); scene_200 through save_scene
+        # (K3); config 5 with its environment map through save_scene (the
+        # .envmap.hdr beside it; the wavefront).
+        files = []
+        p200 = out("scene200.json")
+        s = T.RenderSettings()
+        s.set_resolution(W, H)
+        s.samples_per_pixel, s.max_bounces, s.seed = 16, DEPTH, SEED
+        save_scene(p200, scene_200(T), T.Camera.look_at(
+            (0, 2.0, -4.0), (0, 1.0, 14.0), fov_degrees=60, aperture=0.3,
+            focus_dist=14.0, device=dev), s)
+        p5 = out("config5.json")
+        t0 = time.perf_counter()
+        sc5 = scene_10k(T)
+        sc5.set_environment_map(env_gradient())
+        s = T.RenderSettings()
+        s.set_resolution(BIG_W, BIG_H)
+        s.samples_per_pixel, s.max_bounces, s.seed = BIG_SPP, DEPTH, BIG_SEED
+        save_scene(p5, sc5, T.Camera.look_at(device=dev, **CAM_10K), s)
+        save5_s = time.perf_counter() - t0
+        check(os.path.exists(p5 + ".envmap.hdr"), "no .envmap.hdr written")
+        for key, label, path, route in (
+                ("cli_demo38", "demo38", demo_json, ("k1",)),
+                ("cli_bvh", "scene_200 saved", p200, ("k3",)),
+                ("cli_envmap", "config5 env map saved", p5,
+                 ("k5", "k6", "k7"))):
+            stats, counts = cli([path, "-o", out("scene.npy")], label)
+            got = np.load(out("scene.npy"))
+            differ = int((facade_of(T, dev, path) != got).sum())
+            launches[key] = counts
+            files.append(dict(scene=label, size=f"{got.shape[1]}x"
+                              f"{got.shape[0]}",
+                              spp=stats["tracer"].frame_count,
+                              launches=counts, chunk_s=stats["chunk_s"],
+                              wall_s=stats["total_s"],
+                              facade_values_differ=differ,
+                              mean=float(got.mean())))
+            check(all(counts[k] > 0 for k in route)
+                  and others(counts, *route) == 0,
+                  f"{label}: launches {counts}")
+            check(differ == 0, f"{label}: {differ} values differ from the "
+                               "facade")
+            check(bool(np.isfinite(got).all()) and got.mean() > 0.01,
+                  f"{label}: image")
+        emit(dict(phase="cli_scene_files", files=files,
+                  config5_build_and_save_s=save5_s))
+
+        # 3. A profiled run: the trace names the chunk span and K1.
+        pdir = out("profile")
+        prof, c_prof = cli([cornell_json, "-o", out("prof.png"), "--spp",
+                            "32", "--profile", pdir], "profile", quiet=False)
+        traces = glob.glob(os.path.join(pdir, "*.pt.trace.json*"))
+        check(len(traces) == 1, f"profile: {len(traces)} trace files")
+        opener = gzip.open if traces[0].endswith(".gz") else open
+        with opener(traces[0], "rt") as f:
+            text = f.read()
+        occ = prof["occupancy"]
+        emit(dict(phase="cli_profile", trace_bytes=len(text),
+                  names_chunk_span="render_chunk_0" in text,
+                  names_k1="megakernel_fwd_kernel" in text,
+                  occupancy_per_bounce=occ, launches=c_prof,
+                  wall_s=prof["total_s"]))
+        check("render_chunk_0" in text and "megakernel_fwd_kernel" in text,
+              "profile: the trace lacks the chunk span or K1")
+        check(len(occ) == DEPTH and all(0.0 <= x <= 1.0 for x in occ)
+              and all(a >= b for a, b in zip(occ, occ[1:])),
+              f"profile: occupancy {occ}")
+
+        # 4. A fresh process through ``python -m``.
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "spt_tpu_torch.apps.render_cli",
+             "scenes/cornell.json", "-o", out("fresh.png"), "--spp", "16"],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        fresh_s = time.perf_counter() - t0
+        emit(dict(phase="cli_fresh_process", returncode=r.returncode,
+                  wall_s=fresh_s, last_line=r.stdout.strip()[-200:]))
+        check(r.returncode == 0, f"fresh process: {r.stderr[-2000:]}")
+        read_png_rgb8(out("fresh.png"))
+
+    # 5. The inverse-render app at its defaults (K1 forward, K2 backward).
+    stats = {}
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    code = inverse_render.main([], stats=stats)
+    wall = time.perf_counter() - t0
+    launches["inverse"] = dict(mk.LAUNCHES)
+    losses = stats.get("losses", [])
+    step_ms = sorted(1e3 * x for x in stats.get("step_s", []))
+    emit(dict(phase="inverse_main_path", spheres=32, size="96x72", spp=8,
+              target_spp=64, steps=len(losses),
+              launches=launches["inverse"],
+              first_loss=losses[0] if losses else None,
+              last_loss=losses[-1] if losses else None,
+              loss_before=stats.get("loss_before"),
+              loss_after=stats.get("loss_after"),
+              err_start=stats.get("err_start"), err_end=stats.get("err_end"),
+              step_ms_median=step_ms[len(step_ms) // 2] if step_ms else None,
+              step_ms_mean=sum(step_ms) / len(step_ms) if step_ms else None,
+              wall_s=wall))
+    check(code == 0 and len(losses) == 200, "inverse app")
+    check(launches["inverse"]["k1"] > 0 and launches["inverse"]["k2"] == 200
+          and launches["inverse"]["plain"] == 0,
+          f"inverse app launches {launches['inverse']}")
+    # A step's loss is over fresh samples, whose noise at 8 spp outweighs
+    # the parameters' error (on an H100: first 0.02316, last 0.02323 while
+    # the albedo error fell 29%); the loss of the start and of the result
+    # on the same 16 samples is held instead.
+    check(bool(np.isfinite(losses).all())
+          and stats["loss_after"] < stats["loss_before"],
+          "the inverse app's loss did not fall")
+
+    # 6. The reference integrator through the facade on the card; frames
+    # 0 and 3 against the same function on the CPU; one frame of scene_200
+    # through the BVH walk.
+    tracer = T.create_path_tracer("cuda")
+    tracer.set_scene(T.demo_scene_38_spheres())
+    s = T.RenderSettings()
+    s.set_resolution(W, H)
+    s.integrator = "reference"
+    tracer.set_settings(s)
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        tracer.render()
+    img = tracer.get_render_result().image_f32
+    torch.cuda.synchronize()
+    frames_s = time.perf_counter() - t0
+    launches["reference"] = dict(mk.LAUNCHES)
+    sd_c = T.demo_scene_38_spheres().compile(device=dev)
+    sd_h = T.demo_scene_38_spheres().compile(device="cpu")
+    frame_ms = min(cuda_ms(torch, lambda: integrator.render_reference_sample(
+        sd_c, W, H, 5))[1] for _ in range(3))
+    frames = {}
+    for f in (0, 3):
+        frames[f] = ref_parity(
+            integrator.render_reference_sample(sd_c, W, H, f),
+            integrator.render_reference_sample(sd_h, W, H, f))
+    sd_c = scene_200(T).compile(device=dev, use_bvh=True)
+    sd_h = scene_200(T).compile(device="cpu", use_bvh=True)
+    got, bvh_ms = cuda_ms(torch, lambda: integrator.render_reference_sample(
+        sd_c, 128, 128, 0))
+    bvh = ref_parity(got, integrator.render_reference_sample(sd_h, 128, 128,
+                                                             0))
+    emit(dict(phase="reference_main_path", scene="demo38", size=f"{W}x{H}",
+              frames=tracer.frame_count, wall_s=frames_s,
+              ms_per_frame=1e3 * frames_s / 8, frame_ms_cuda_events=frame_ms,
+              launches=launches["reference"], mean=float(img.mean()),
+              vs_cpu=frames, bvh_scene_200=dict(size="128x128", frame_ms=bvh_ms,
+                                                nodes=sd_c.bvh.n_nodes, **bvh)))
+    check(tracer.frame_count == 8 and tuple(img.shape) == (H, W, 3),
+          "reference: frames or shape")
+    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0.01,
+          "reference: image")
+    check(sum(launches["reference"].values()) == 0,
+          "the reference integrator launched a kernel")
+    for f, res in frames.items():
+        check_ref(res, f"reference frame {f}")
+    check_ref(bvh, "reference scene_200 (BVH walk)")
+    return dict(launches=launches)
 
 
 def main() -> int:

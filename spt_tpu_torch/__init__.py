@@ -23,10 +23,24 @@ beside its plain PyTorch version for the CPU:
 * slice 6: distribution over ``torch.distributed`` (``parallel``): the
   sample-sharded wavefront and its data-parallel gradient, and the
   primitive-sharded wavefront over K8 (any-hit) and K7 reading the shadow
-  verdict merged over the shards; ``tools/dist_worker.py`` spawns ranks.
+  verdict merged over the shards; ``tools/dist_worker.py`` spawns ranks;
+* slice 7: the wavefront's other bounce forms, the fused bounce K11 (K11g
+  under grad) and the matmul-form sweeps K6m and K7m;
+* PRs 8-14 redesigned the kernels for Hopper (K1 and K3 persistent and
+  regenerating paths, K2, K4 and K10 summing by warp, K6 and K7/K9 and K8
+  walking the tree, K6m, K7m, K11 and K11g culling per ray, K7b inlined);
+* the I/O, utilities and applications: scene files (``io.scene_json``),
+  image writers (``io.image``, ``io.hdr``, ``io.exr``, the native display
+  bridge ``io.native_display``), checkpoints (``io.checkpoint``),
+  profiling on torch.profiler (``utils.profiling``), invariant checks
+  (``utils.assertions``), the CLI renderer and the inverse-render demo
+  (``python -m spt_tpu_torch.apps.render_cli`` / ``.inverse_render``);
+  and the ``"reference"`` integrator (``engine.integrator``, torch ops over
+  ``core.sampling``, ``core.intersect`` and ``core.bvh.intersect_bvh``),
+  which the facade runs for ``RenderSettings.integrator = "reference"``.
 
-Entry points run on the card unless the caller passes ``device="cpu"``.
-See ROADMAP.md for what comes next.
+Entry points run on the card unless the caller passes ``device="cpu"``
+(the applications: ``--device cpu``).  See ROADMAP.md for what comes next.
 """
 
 from .core.camera import Camera, ReferenceCamera

@@ -14,20 +14,26 @@ torch tensors.
   subtree, where a ray goes when it misses the node's box or leaves a leaf:
   a walk needs one node pointer per ray and no stack.
 
-The traversal lives in the kernels (``kernels/megakernel_bvh.py`` and the
-CUDA kernel K3), which walk the packed octant tables built from this tree.
+The renders' traversals live in the kernels (``kernels/megakernel_bvh.py``
+and the CUDA kernel K3), which walk the packed octant tables built from
+this tree.  ``intersect_bvh`` walks the tree itself, as torch ops over all
+rays in lockstep: the nearest hit of the reference integrator
+(``engine/integrator.py``) on a scene compiled with a BVH.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 import os
 import sys
 import time
 
 import numpy as np
 import torch
+
+from .sampling import _sum3
 
 MAX_LEAF = 4  # primitives per leaf of SceneData.bvh
 
@@ -258,3 +264,111 @@ def refit_bvh(bvh: BVH, centers, radii) -> BVH:
     return dataclasses.replace(
         bvh, node_min=_range_reduce(lo_k, rows, end, torch.minimum),
         node_max=_range_reduce(hi_k, rows, end, torch.maximum))
+
+
+# ---------------------------------------------------------------------------
+# Stackless traversal in lockstep over all rays (torch ops).
+#
+# Hit selection is discrete, so the walk runs on detached values and
+# returns only the winner's id; ``intersect_bvh`` then recomputes the hit
+# distance from the winning sphere's quadratic, so gradients flow to the
+# ray and the winner's geometry as in the brute-force path.
+# ---------------------------------------------------------------------------
+
+
+def _traverse(o, d, centers, radii, bvh: BVH, tmin, tmax):
+    """Detached skip-link traversal -> (t_best, hit_id); not differentiable.
+
+    The port of ``spt_tpu/core/bvh.py::_traverse``: every ray holds one
+    node pointer; each step tests the node's box (slab test against the
+    ray's best t), sweeps a leaf's spheres, and moves to the first child or
+    the skip link, until every pointer has left the tree (one host read a
+    step)."""
+    o, d = o.detach(), d.detach()
+    centers, radii = centers.detach(), radii.detach()
+    dev = o.device
+    n_rays = o.shape[0]
+    end = bvh.n_nodes
+    big = torch.full((), 1e30, dtype=torch.float32, device=dev)
+    inv_d = torch.where(torch.abs(d) > 1e-20, torch.reciprocal(d),
+                        big * torch.sign(d) + big * (d == 0).to(d.dtype))
+    node_min, node_max = bvh.node_min.to(dev), bvh.node_max.to(dev)
+    node_skip = bvh.node_skip.to(dev).long()
+    node_first = bvh.node_first.to(dev).long()
+    node_count = bvh.node_count.to(dev).long()
+    prim_idx = bvh.prim_idx.to(dev).long()
+    a = _sum3(d * d)[..., 0]
+    inv_a = torch.reciprocal(a)
+
+    def slab_hit(node, t_best):
+        t0 = (node_min[node] - o) * inv_d
+        t1 = (node_max[node] - o) * inv_d
+        t_near = torch.amax(torch.minimum(t0, t1), dim=-1)
+        t_far = torch.amin(torch.maximum(t0, t1), dim=-1)
+        return (t_near <= t_far) & (t_far > tmin) & (t_near < t_best)
+
+    def prim_test(pid, t_best, hit_id, mask):
+        oc = centers[pid] - o
+        r = radii[pid]
+        b = _sum3(d * oc)[..., 0]
+        cterm = _sum3(oc * oc)[..., 0] - r * r
+        disc = b * b - a * cterm
+        pos = disc > 0.0
+        sq = torch.where(pos, torch.sqrt(torch.where(
+            pos, disc, torch.ones_like(disc))), torch.zeros_like(disc))
+        t0 = (b - sq) * inv_a
+        t1 = (b + sq) * inv_a
+        t = torch.where(t0 > tmin, t0, t1)
+        ok = mask & pos & (t > tmin) & (t < t_best)
+        return torch.where(ok, t, t_best), torch.where(ok, pid, hit_id)
+
+    node = torch.zeros((n_rays,), dtype=torch.long, device=dev)
+    t_best = torch.as_tensor(tmax, dtype=torch.float32,
+                             device=dev).expand(n_rays).clone()
+    hit_id = torch.full((n_rays,), -1, dtype=torch.long, device=dev)
+    while bool((node < end).any()):
+        live = node < end
+        node_c = torch.clamp_max(node, end - 1)
+        hit_box = slab_hit(node_c, t_best) & live
+        count = node_count[node_c]
+        first = node_first[node_c]
+        is_leaf = count > 0
+        do_leaf = hit_box & is_leaf
+        for k in range(bvh.max_leaf):
+            slot = torch.clamp_max(first + k, prim_idx.shape[0] - 1)
+            t_best, hit_id = prim_test(prim_idx[slot], t_best, hit_id,
+                                       do_leaf & (k < count))
+        descend = hit_box & ~is_leaf
+        nxt = torch.where(descend, node_c + 1, node_skip[node_c])
+        node = torch.where(live, nxt, node)
+    return t_best, hit_id.to(torch.int32)
+
+
+def intersect_bvh(o, d, centers, radii, bvh: BVH, tmin: float = 1e-3,
+                  tmax=math.inf):
+    """Nearest hit by skip-link BVH traversal: the contract of
+    ``core.intersect.intersect_spheres`` (t = inf, hit_id = -1 on a miss)
+    for (R, 3) rays.
+
+    Differentiable: the winner is found by the detached traversal, then
+    ``t`` is recomputed from that sphere's quadratic (the grazing floor of
+    ``intersect._quadratic_t``), so autograd reaches the rays and the
+    winner's centre and radius as in the brute-force path.
+    """
+    _, hit_id = _traverse(o, d, centers, radii, bvh, tmin, tmax)
+    hid = torch.clamp_min(hit_id, 0).long()
+    oc = centers[hid] - o
+    r = radii[hid]
+    a = _sum3(d * d)[..., 0]
+    b = _sum3(d * oc)[..., 0]
+    cterm = _sum3(oc * oc)[..., 0] - r * r
+    disc = b * b - a * cterm
+    pos = disc > 0.0
+    one = torch.ones_like(disc)
+    sq = torch.where(pos, torch.sqrt(torch.maximum(
+        torch.where(pos, disc, one), one * 1e-12)), torch.zeros_like(disc))
+    inv_a = torch.reciprocal(a)
+    t0 = (b - sq) * inv_a
+    t1 = (b + sq) * inv_a
+    t = torch.where(t0 > tmin, t0, t1)
+    return torch.where(hit_id >= 0, t, torch.full_like(t, math.inf)), hit_id

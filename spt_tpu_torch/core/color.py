@@ -78,3 +78,7 @@ def pack_rgba8(rgb, alpha=None) -> torch.Tensor:
         a = quantize_u8(alpha).to(torch.int64)
     return rgba_to_uint32(r, g, b, a)
 
+
+def to_u8_array(rgb) -> torch.Tensor:
+    """(H,W,3) float [0,1] -> (H,W,3) uint8 for image writers."""
+    return quantize_u8(rgb).to(torch.uint8)

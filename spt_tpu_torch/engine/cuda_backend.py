@@ -7,7 +7,10 @@ sorted wavefront (``wavefront.render_wavefront``: K5-K7); capacities from
 129 to 2048 to ``megakernel_bvh.render_tiles_bvh`` (K3, the BVH walk); the
 rest to ``megakernel.render_tiles`` (K1).  On the card each runs its CUDA
 kernels, on the CPU their plain versions.  The ``"reference"`` integrator
-raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+(the reference renderer's semantics: fixed camera, 0.7 albedo, sky light
+only) sums ``engine.integrator.render_reference_sample`` over the chunk's
+frames, torch ops on the scene's device, as the JAX package's ``"jax"``
+backend does (``spt_tpu/engine/api.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 
 from ..core.scene import SKY_ENVMAP
 from ..kernels import megakernel, megakernel_bvh, wavefront
+from . import integrator
 from .api import PathTracerBase, camera_has_dof, register_backend
 
 # Above this capacity scenes go to the wavefront, as in the JAX package
@@ -31,9 +35,11 @@ class CudaPathTracer(PathTracerBase):
         s = self._settings
         sd = self._scene_data
         if s.integrator == "reference":
-            raise NotImplementedError(
-                "integrator='reference' is not ported yet: ROADMAP.md "
-                "item 13, 'The \"reference\" integrator mode'")
+            out = self._zeros(s)
+            for f in range(start_sample, start_sample + spp):
+                out = out + integrator.render_reference_sample(
+                    sd, s.width, s.height, f)
+            return out
         camera = self._camera or self._default_camera()
         if sd.sky_mode == SKY_ENVMAP or sd.capacity > WAVEFRONT_MIN_PRIMS:
             render = wavefront.render_wavefront

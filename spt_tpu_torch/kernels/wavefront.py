@@ -1655,12 +1655,13 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
                       rr_depth: int, use_nee: bool, use_mis: bool,
                       sky_mode: int, dof: bool, compact: bool,
                       sort_min_rays: int, split: bool, precull: bool,
-                      mxu: bool, stages: tuple,
-                      times: dict | None) -> torch.Tensor:
+                      mxu: bool, stages: tuple, times: dict | None,
+                      alive: list | None = None) -> torch.Tensor:
     """One chunk of ``chunk_spp`` images -> (H, W, 3) radiance sum.  The
     split bounce walks the tree (K6's tree mode, K7's shadow walks) and
     builds no lists; the lists are built for ``mxu`` and for the fused
-    bounce with ``precull``."""
+    bounce with ``precull``.  ``alive[k]``, if given, gains the lanes alive
+    when bounce k starts."""
     k5, k6, k7, k11, k6m, k7m = stages
     block, n_mats = static["block"], static["n_mats"]
     n_light_slots = static["n_light_slots"]
@@ -1700,6 +1701,8 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
         if nalive == 0:
             break
         n = nalive * TILE
+        if alive is not None:
+            alive[k] += int((st[C_ALIVE, :n] > 0.5).sum())
         cand, ctn = none_i, none_f
         if lists:
             with clock("precull"):
@@ -1765,7 +1768,8 @@ def render_wavefront(scene: SceneData, camera, width: int, height: int,
                      dof=None, block: int = BLOCK, compact: bool = True,
                      precull: bool = True, split: bool = True,
                      mxu: bool = False, sort_min_rays: int = 1 << 17,
-                     chunk_rays: int = 4 << 20) -> torch.Tensor:
+                     chunk_rays: int = 4 << 20,
+                     alive: list | None = None) -> torch.Tensor:
     """Render ``spp`` samples with the sorted wavefront; returns the (H, W,
     3) radiance sum.
 
@@ -1789,13 +1793,17 @@ def render_wavefront(scene: SceneData, camera, width: int, height: int,
     find the same winners but where two spheres tie exactly in t; the
     fused bounce equals the split one bit for bit where no ray wins a
     leaf's padding slot (the fused bounce shades such a winner, the split
-    one takes the sky); the matmul form rounds otherwise."""
+    one takes the sky); the matmul form rounds otherwise.
+
+    ``alive``, if given (a list), is set to ``max_bounces`` counts: the
+    lanes alive when each bounce starts, summed over the chunks (one host
+    read a bounce; ``utils.profiling.measure_occupancy`` reads them)."""
     return _render(scene, camera, width, height, start_sample, spp,
                    max_bounces=max_bounces, rr_depth=rr_depth,
                    use_nee=use_nee, use_mis=use_mis, seed=seed, dof=dof,
                    block=block, compact=compact, precull=precull, split=split,
                    mxu=mxu, sort_min_rays=sort_min_rays,
-                   chunk_rays=chunk_rays)
+                   chunk_rays=chunk_rays, alive=alive)
 
 
 KERNELS = (raygen, isect, shade, bounce, isect_mxu, shade_mxu)
@@ -1809,12 +1817,15 @@ def _render(scene: SceneData, camera, width: int, height: int,
             use_nee=True, use_mis=True, seed=0, dof=None, block: int = BLOCK,
             compact: bool = True, precull: bool = True, split: bool = True,
             mxu: bool = False, sort_min_rays: int = 1 << 17,
-            chunk_rays: int = 4 << 20) -> torch.Tensor:
+            chunk_rays: int = 4 << 20,
+            alive: list | None = None) -> torch.Tensor:
     """``render_wavefront`` with its stages given (``KERNELS``, or
     ``PLAIN`` to run the plain versions on either device, to hold the
     kernels against them on the card).  ``times``, if given, gets each
     stage's device milliseconds (CUDA events; it synchronizes after every
-    stage)."""
+    stage); ``alive`` as in ``render_wavefront``."""
+    if alive is not None:
+        alive[:] = [0] * max_bounces
     t, static = packed(scene, camera, block)
     if dof is None:
         dof = bool(float(_np(camera.aperture)) > 0.0)
@@ -1836,7 +1847,8 @@ def _render(scene: SceneData, camera, width: int, height: int,
             max_bounces=max_bounces, rr_depth=rr_depth, use_nee=bool(use_nee),
             use_mis=bool(use_mis), sky_mode=scene.sky_mode, dof=bool(dof),
             compact=compact, sort_min_rays=sort_min_rays, split=bool(split),
-            precull=bool(precull), mxu=bool(mxu), stages=stages, times=times)
+            precull=bool(precull), mxu=bool(mxu), stages=stages, times=times,
+            alive=alive)
         img = part if img is None else img + part
         s += n
     return img

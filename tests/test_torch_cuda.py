@@ -38,7 +38,11 @@ verdict (``blocked_in_res``) equals K7 sweeping bit for bit, and reading
 K9's walked verdicts K7 walking.  K6m, culling its per-row lists by the
 leaf boxes, equals its plain version bit for bit and parts from the
 unculled sweep only at exact ties and box edges.  An
-environment-map scene's gradient takes the wavefront.
+environment-map scene's gradient takes the wavefront.  The applications
+and the reference integrator on the card: the CLI's resumed render equals
+an uninterrupted one (rtol 1e-6, atol 1e-7, the JAX CLI's bar),
+reference-mode frames meet the JAX parity bar against the CPU (atol 2e-3,
+99.5% of pixels within 1e-4), and the inverse-render app's loss falls.
 """
 
 import numpy as np
@@ -1035,3 +1039,68 @@ def test_fused_wavefront_grad_matches_plain(cuda):
     for k in grads:
         torch.testing.assert_close(grads[k], grads_s[k], rtol=1e-5,
                                    atol=1e-7)
+
+
+def test_cli_resume_on_the_card(cuda, tmp_path):
+    """The CLI through K1: 16 spp with a checkpoint, resumed to 32, equals
+    an uninterrupted 32-spp run (rtol 1e-6, atol 1e-7, as the JAX CLI's
+    test)."""
+    from pathlib import Path
+
+    from spt_tpu_torch.apps import render_cli
+    scene = str(Path(__file__).resolve().parent.parent / "scenes"
+                / "cornell.json")
+    kw = ["--size", "64", "64", "--chunk", "8", "-q"]
+    direct, resumed = str(tmp_path / "d.npy"), str(tmp_path / "r.npy")
+    state = str(tmp_path / "s.npz")
+    before = mk.LAUNCHES["k1"]
+    assert render_cli.main([scene, "-o", direct, "--spp", "32", *kw]) == 0
+    assert render_cli.main([scene, "-o", str(tmp_path / "p.npy"), "--spp",
+                            "16", "--checkpoint", state, *kw]) == 0
+    assert render_cli.main([scene, "-o", resumed, "--spp", "32", "--resume",
+                            state, *kw]) == 0
+    assert mk.LAUNCHES["k1"] - before == 4 + 2 + 2
+    np.testing.assert_allclose(np.load(resumed), np.load(direct), rtol=1e-6,
+                               atol=1e-7)
+
+
+def test_reference_mode_on_the_card_matches_cpu(cuda):
+    """The reference integrator on demo38 at 64x48, frames 0-3, on the card
+    against the CPU at the JAX parity bar (each frame: atol 2e-3, 99.5% of
+    pixels within 1e-4); the facade's reference mode launches no kernel."""
+    from spt_tpu_torch.engine.integrator import render_reference_sample
+    sd_c = T.demo_scene_38_spheres().compile(device=cuda)
+    sd_h = T.demo_scene_38_spheres().compile(device="cpu")
+    for frame in range(4):
+        got = render_reference_sample(sd_c, 64, 48, frame).cpu().numpy()
+        want = render_reference_sample(sd_h, 64, 48, frame).numpy()
+        np.testing.assert_allclose(got, want, atol=2e-3, rtol=0)
+        assert np.all(np.abs(got - want) < 1e-4, axis=-1).mean() > 0.995
+        assert want.mean() > 0.1
+    tr = T.create_path_tracer("cuda", device=cuda)
+    tr.set_scene(T.demo_scene_38_spheres())
+    s = T.RenderSettings()
+    s.set_resolution(64, 48)
+    s.integrator = "reference"
+    tr.set_settings(s)
+    before = dict(mk.LAUNCHES)
+    tr.render(spp=4)
+    assert dict(mk.LAUNCHES) == before
+    assert tr.get_state()["accum"].device.type == "cuda"
+
+
+def test_inverse_app_loss_falls_on_the_card(cuda):
+    """The inverse-render app at its default scene and size, 60 steps:
+    K1 forward and K2 backward each step, and the loss falls: the image
+    loss of the result below the start's on the same 16 samples (a step's
+    loss is over fresh samples, whose noise outweighs the parameters'
+    error)."""
+    from spt_tpu_torch.apps import inverse_render
+    stats = {}
+    before = dict(mk.LAUNCHES)
+    assert inverse_render.main(["--steps", "60"], stats=stats) == 0
+    runs = {k: mk.LAUNCHES[k] - before[k] for k in before}
+    assert runs["k2"] == 60 and runs["k1"] >= 60 and runs["plain"] == 0
+    losses = np.asarray(stats["losses"])
+    assert np.isfinite(losses).all()
+    assert stats["loss_after"] < stats["loss_before"]

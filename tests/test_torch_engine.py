@@ -146,19 +146,40 @@ def _many_spheres(n):
 @pytest.mark.parametrize("route", ["capacity", "envmap", "reference", "bvh",
                                    "large"])
 def test_unported_routes_raise_not_implemented(route):
-    """The reference integrator raises, naming its ROADMAP.md item (the
-    name is older than the routes that now render).  Scenes above K1's 128
-    spheres ("capacity") and above the BVH threshold ("bvh") render through
-    the plain K3; environment-map skies ("envmap") and scenes above 2048
-    spheres ("large") through the plain wavefront (K5-K7)."""
+    """Every route renders (the name is older than the routes).  The
+    reference integrator ("reference") renders demo38 through
+    ``engine/integrator.py``, torch ops that launch no kernel, and its
+    display image meets the JAX parity bar (``tests/
+    test_reference_parity.py``: atol 2e-3, 99.5% of pixels within 1e-4)
+    against the JAX package's "jax" facade in reference mode.  Scenes above
+    K1's 128 spheres ("capacity") and above the BVH threshold ("bvh")
+    render through the plain K3; environment-map skies ("envmap") and
+    scenes above 2048 spheres ("large") through the plain wavefront
+    (K5-K7)."""
     n = dict(capacity=130, bvh=600, large=2100).get(route)
-    tr = _tracer(_many_spheres(n) if n else None)
+    tr = _tracer(spt_tpu_torch.demo_scene_38_spheres() if route == "reference"
+                 else _many_spheres(n) if n else None)
     if route == "envmap":
         tr._scene.set_environment_map(np.ones((4, 8, 3), np.float32))
     if route == "reference":
         tr.get_settings().integrator = "reference"
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tr.render()
+        before = dict(tmega.LAUNCHES)
+        tr.render()
+        tr.render()
+        assert tmega.LAUNCHES == before and tr.frame_count == 2
+        tj = spt_tpu.create_path_tracer("jax")
+        tj.set_scene(spt_tpu.demo_scene_38_spheres())
+        s = spt_tpu.RenderSettings()
+        s.set_resolution(8, 8)
+        s.integrator = "reference"
+        tj.set_settings(s)
+        tj.render()
+        tj.render()
+        got = tr.get_render_result().image_f32.numpy()
+        want = np.asarray(tj.get_render_result().image_f32)
+        assert got.shape == (8, 8, 3) and want.mean() > 0.05
+        np.testing.assert_allclose(got, want, atol=2e-3, rtol=0)
+        assert np.all(np.abs(got - want) < 1e-4, axis=-1).mean() > 0.995
         return
     before = dict(tmega.LAUNCHES)
     tr.render()
