@@ -26,7 +26,14 @@ matmul-form sweeps K6m (its row lists culled per ray by the leaf boxes,
 held against the unculled sweep too) and K7m (its verdict pass, then
 K7b's kernel), and
 the fused gradient, K11g forward and K10 backward), and times the kernels
-and the wavefront's glue.  Last it drives the applications: the CLI
+and the wavefront's glue.  Then the bands and the sharded renders: K1, K3
+and K5 rendering a band of rows from an offset that is not a multiple of
+4 against their plain versions and the full render's rows;
+``render_and_grad_bvh`` at 2,000 spheres (K4) against the autograd route;
+and ``parallel.sharding``'s renders on 2 gloo ranks on the card (Cornell
+and the 2,000-sphere scene pixel-sharded, config 5 with either sky
+pixel-, sample- and prim-sharded by gather and by the ring), each against
+the unsharded route.  Last it drives the applications: the CLI
 renderer (``python -m spt_tpu_torch.apps.render_cli``, in process through
 ``main(argv)`` and once as a fresh process) on ``scenes/cornell.json`` at
 the file's settings (K1; checkpoint and resume, the image formats, a
@@ -350,9 +357,9 @@ def field_errors(got: dict, want: dict):
         w = w.double().cpu().numpy()
         norm, err = np.linalg.norm(w), np.linalg.norm(g - w)
         out[key] = dict(rel=err / norm if norm > 0 else None, abs=err,
-                        ok=bool(np.isfinite(g).all()) and (
+                        ok=bool(np.isfinite(g).all() and (
                             err <= GRAD_REL * norm if norm > 0
-                            else err <= GRAD_ABS))
+                            else err <= GRAD_ABS)))
         if g.size:
             worst = max(worst, float(np.abs(g - w).max()))
     return out, worst
@@ -741,6 +748,7 @@ def run() -> int:
     gr = run_grad_phases(torch, T, mk, dev, card, k3)
     pr = run_prim_phases(torch, T, mk, dev, card, k3)
     ds = run_dist_phases(torch, T, mk, dev, card, k3, pr)
+    sh = run_shard_phases(torch, T, mk, dev, card, k3, pr)
     fu = run_fused_phases(torch, T, mk, dev, card, k3)
     ap = run_app_phases(torch, T, mk, dev, card)
     paths = {"render": counts, "train": k2["launches"],
@@ -748,6 +756,8 @@ def run() -> int:
              "grad_bvh": gr["launches"]["bvh"],
              "grad_wavefront": gr["launches"]["wavefront"],
              "prim": pr["launches"], "dist": ds["launches"],
+             "shard": sh["launches"],
+             "render_and_grad_bvh": sh["render_and_grad_bvh"],
              "fused": fu["launches"]["fused"],
              "fused_grad": fu["launches"]["fused_grad"],
              "mxu": fu["launches"]["mxu"], **ap["launches"]}
@@ -2890,6 +2900,264 @@ def run_dist_phases(torch, T, mk, dev, card, k3, prim) -> dict:
     del render, params, img
     torch.cuda.empty_cache()
     return dict(launches=launches)
+
+
+# The band of rows K1, K3 and K5 render in ``band_vs_plain``: an offset and
+# a height that are not multiples of the regen batch's 4 rows.
+BAND_OFFSET, BAND_ROWS = 13, 101
+SHARD_TIMEOUT = 600.0
+
+
+def same_bits(torch, a, b) -> int:
+    """Values of two float tensors that differ in any bit."""
+    return int((a.contiguous().view(torch.int32)
+                != b.contiguous().view(torch.int32)).sum())
+
+
+def run_shard_phases(torch, T, mk, dev, card, k3, prim) -> dict:
+    """The bands, render_and_grad_bvh and parallel.sharding's five renders.
+
+    ``band_vs_plain``: K1 (Cornell 512 wide, 4 spp), K3 (config 5 cut to
+    2,000 spheres, 1920 wide, 1 spp) and K5 (config 5, 1920 wide, a chunk
+    of 2 images) render rows [BAND_OFFSET, BAND_OFFSET + BAND_ROWS) of the
+    full image: each band equals its plain version at the same offset and
+    the same rows of the kernel's full render bit for bit (K5: its stream
+    against the plain K5's, and the whole wavefront's band against the full
+    render's rows).  ``render_and_grad_bvh``: 2,000 spheres at 1920x1080 x
+    4 spp, timed, its image equal to K3's and its gradients against
+    ``make_cuda_render_fn``'s K3/K4 route for the same cotangent (GRAD_REL
+    a field).  ``shard_main_path``: 2 gloo ranks on the one card
+    (``tools/dist_worker``): Cornell 512x512 x 256 spp and the 2,000-sphere
+    scene at 1080p x 4 spp pixel-sharded (data=2), bit for bit against the
+    unsharded route; config 5 at 1080p x 4 spp with either sky
+    pixel-sharded (data=2), sample-sharded (data=2, 2 a rank), ``"auto"``
+    (data=1, prim=2: must pick gather) and the ring (data=1, prim=2),
+    against the unsharded wavefront (run twice to see whether it repeats
+    itself bit for bit).  Returns the launch counts of the shard path and
+    of render_and_grad_bvh."""
+    from spt_tpu_torch.diff import cuda_diff
+    from spt_tpu_torch.diff import gradients as G
+    from spt_tpu_torch.engine.cuda_backend import render_route
+    from spt_tpu_torch.kernels import megakernel_bvh as mb
+    from spt_tpu_torch.kernels import megakernel_bvh_grad as mbg
+    from spt_tpu_torch.kernels import wavefront as wf
+    from spt_tpu_torch.tools import dist_worker
+
+    sd10, cam10 = k3["sd10"], k3["cam10"]
+    sd_env = prim["facade"]["config5_envmap"][1]
+    sd2k = scene_10k(T, n=K3_MAIN_SPHERES).compile(device=dev)
+    cam_cornell = T.Camera.look_at(device=dev, position=(0, 1.0, -1.5),
+                                   target=(0, 1.0, 3.0), fov_degrees=55)
+    sd_cornell = cornell(T).compile(device=dev)
+    band = dict(row_offset=BAND_OFFSET, full_height=None)
+    rows = slice(BAND_OFFSET, BAND_OFFSET + BAND_ROWS)
+
+    # band_vs_plain: K1 and K3 ---------------------------------------------
+    for label, (w, h, spp) in (("k1", (W, H, 4)), ("k3", (BIG_W, BIG_H, 1))):
+        if label == "k1":
+            blob, meta, lsb, static = mk.pack_uniforms(sd_cornell,
+                                                       cam_cornell, 0, SEED)
+            args = (blob, meta, lsb)
+            kw = dict(width=w, spp=spp, max_bounces=DEPTH, rr_depth=RR,
+                      use_nee=True, use_mis=True,
+                      sky_mode=sd_cornell.sky_mode, dof=False, **static)
+            kernel, plain = mk.megakernel_fwd, mk.render_tiles_plain
+        else:
+            args, k3kw, _ = k3_inputs(torch, mb, sd2k, cam10, BIG_SEED)
+            kw = dict(width=w, spp=spp, max_bounces=DEPTH, rr_depth=RR,
+                      use_nee=True, use_mis=True, sky_mode=sd2k.sky_mode,
+                      dof=False, **k3kw)
+            kernel, plain = mb.megakernel_bvh_fwd, mb.render_tiles_bvh_plain
+        full = kernel(*args, height=h, **kw)
+        bkw = dict(kw, height=BAND_ROWS, **dict(band, full_height=h))
+        got, k_ms = cuda_ms(torch, lambda: kernel(*args, **bkw))
+        want, p_ms = cuda_ms(torch, lambda: plain(*args, **bkw))
+        vs_plain = same_bits(torch, got, want)
+        vs_full = same_bits(torch, got, full[rows])
+        emit(dict(phase="band_vs_plain", kernel=label, width=w, height=h,
+                  spp=spp, row_offset=BAND_OFFSET, rows=BAND_ROWS,
+                  band_ms=k_ms, plain_ms=p_ms, values_differ_plain=vs_plain,
+                  values_differ_full_rows=vs_full,
+                  mean=float(got.mean())))
+        check(vs_plain == 0 and vs_full == 0,
+              f"band_vs_plain {label}: {vs_plain} values differ from the "
+              f"plain band, {vs_full} from the full render's rows")
+        check(float(got.mean()) > 0.01, f"band_vs_plain {label}: black")
+
+    # band_vs_plain: K5, and the wavefront's band against its full render --
+    kw5 = dict(max_bounces=DEPTH, rr_depth=RR, seed=BIG_SEED)
+    t, static = mb.packed(sd10, cam10, mb.BLOCK)
+    meta = torch.tensor([0, BIG_SEED, static["n_light_slots"]],
+                        dtype=torch.int32, device=dev)
+    rkw = dict(width=BIG_W, height=BAND_ROWS, chunk_spp=2, dof=False,
+               row_offset=BAND_OFFSET, full_height=BIG_H)
+    wf.raygen(t["blob"], meta, **rkw)                           # warm-up
+    (st_k, ids_k), k5_ms = cuda_ms(torch, lambda: wf.raygen(t["blob"], meta,
+                                                             **rkw))
+    st_p, ids_p = wf.raygen_plain(t["blob"], meta, **rkw)
+    k5_differ = bits_differ(torch, wf._stream_buffer(st_k, ids_k),
+                            wf._stream_buffer(st_p, ids_p))
+    unsharded = {}
+    for label, sd in (("config5", sd10), ("config5_envmap", sd_env)):
+        first = render_route(sd)(sd, cam10, BIG_W, BIG_H, 0, BIG_SPP, **kw5)
+        again = render_route(sd)(sd, cam10, BIG_W, BIG_H, 0, BIG_SPP, **kw5)
+        unsharded[label] = (first, same_bits(torch, first, again))
+    got = wf.render_wavefront(sd10, cam10, BIG_W, BAND_ROWS, 0, BIG_SPP,
+                              row_offset=BAND_OFFSET, full_height=BIG_H,
+                              **kw5)
+    wf_differ = same_bits(torch, got, unsharded["config5"][0][rows])
+    emit(dict(phase="band_vs_plain", kernel="k5", width=BIG_W, height=BIG_H,
+              chunk_spp=2, row_offset=BAND_OFFSET, rows=BAND_ROWS,
+              band_ms=k5_ms, lanes_differ_plain=k5_differ,
+              wavefront_band_values_differ_full_rows=wf_differ,
+              unsharded_repeat_values_differ={
+                  k: v[1] for k, v in unsharded.items()}))
+    check(k5_differ == 0, f"band_vs_plain k5: {k5_differ} lanes differ")
+    check(wf_differ == 0, f"band_vs_plain: the wavefront's band differs "
+                          f"from the full render's rows in {wf_differ} "
+                          f"values")
+    del st_k, ids_k, st_p, ids_p, got
+
+    # render_and_grad_bvh at 2,000 spheres, 1080p x 4 spp ------------------
+    ct = ct_image(torch, dev, BIG_W, BIG_H)
+    gkw = dict(max_bounces=DEPTH, rr_depth=RR, seed=BIG_SEED)
+    mbg.render_and_grad_bvh(sd2k, cam10, BIG_W, BIG_H, 0, BIG_SPP,
+                            ct_image=ct, **gkw)                 # warm-up
+    mk.reset_launch_counts()
+    (img, grads), rg_ms = cuda_ms(torch, lambda: mbg.render_and_grad_bvh(
+        sd2k, cam10, BIG_W, BIG_H, 0, BIG_SPP, ct_image=ct, **gkw))
+    rg_launches = dict(mk.LAUNCHES)
+    rg_ms = min([rg_ms] + [cuda_ms(torch, lambda: mbg.render_and_grad_bvh(
+        sd2k, cam10, BIG_W, BIG_H, 0, BIG_SPP, ct_image=ct, **gkw))[1]
+        for _ in range(2)])
+    k3_img = render_route(sd2k)(sd2k, cam10, BIG_W, BIG_H, 0, BIG_SPP, **gkw)
+    render = cuda_diff.make_cuda_render_fn(sd2k, cam10, BIG_W, BIG_H,
+                                           spp=BIG_SPP, **gkw)
+    params = {k: v.clone().requires_grad_(True)
+              for k, v in G.get_params(sd2k, GRAD_KEYS).items()}
+    ((render(params, 0) * ct).sum() * BIG_SPP).backward()
+    errs, g_err = field_errors({k: grads[k] for k in GRAD_KEYS},
+                               {k: p.grad for k, p in params.items()})
+    img_differ = same_bits(torch, img, k3_img)
+    emit(dict(phase="render_and_grad_bvh", card=card, spheres=K3_MAIN_SPHERES,
+              size=f"{BIG_W}x{BIG_H}", spp=BIG_SPP, ms=rg_ms,
+              launches=rg_launches, image_values_differ_k3=img_differ,
+              keys=sorted(grads), grad_max_abs_err=g_err, grad=errs,
+              not_in_autograd_route={k: float(grads[k].abs().sum())
+                                     for k in ("ior", "sky_params")}))
+    check(rg_launches["k4"] == 1 and rg_launches["plain"] == 0,
+          f"render_and_grad_bvh launches: {rg_launches}")
+    check(sorted(grads) == sorted(GRAD_KEYS + ("ior", "sky_params")),
+          f"render_and_grad_bvh keys: {sorted(grads)}")
+    check(img_differ == 0, f"render_and_grad_bvh: {img_differ} image "
+                           f"values differ from K3's")
+    check(all(e["ok"] for e in errs.values()),
+          f"render_and_grad_bvh against the autograd route: {errs}")
+    del render, params, img, grads, k3_img
+
+    # shard_main_path: the five renders on 2 gloo ranks on the card ---------
+    big = dict(width=BIG_W, height=BIG_H, spp=BIG_SPP, kw=gkw)
+    cases = {"cornell_pixel": dict(case="pixel", data=2, prim=1,
+                                   scene="cornell", width=W, height=H,
+                                   spp=SPP, kw=dict(max_bounces=DEPTH,
+                                                    rr_depth=RR, seed=SEED)),
+             "k3_2000_pixel": dict(case="pixel", data=2, prim=1,
+                                   scene="k3_2000", **big)}
+    for sky in ("config5", "config5_envmap"):
+        cases[f"{sky}_pixel"] = dict(case="pixel", data=2, prim=1,
+                                     scene=sky, **big)
+        cases[f"{sky}_sample"] = dict(case="sample", data=2, prim=1,
+                                      scene=sky, **big)
+        cases[f"{sky}_prim_auto"] = dict(case="prim_auto", data=1, prim=2,
+                                         scene=sky, **big)
+        cases[f"{sky}_prim_ring"] = dict(case="prim_ring", data=1, prim=2,
+                                         scene=sky, **big)
+    refs = {"cornell": render_route(sd_cornell)(
+                sd_cornell, cam_cornell, W, H, 0, SPP, max_bounces=DEPTH,
+                rr_depth=RR, seed=SEED),
+            "k3_2000": render_route(sd2k)(sd2k, cam10, BIG_W, BIG_H, 0,
+                                          BIG_SPP, **gkw),
+            "config5": unsharded["config5"][0],
+            "config5_envmap": unsharded["config5_envmap"][0]}
+    repeats = {"cornell": 0, "k3_2000": 0,
+               **{k: v[1] for k, v in unsharded.items()}}
+    t0 = time.perf_counter()
+    try:
+        reports = dict(zip(cases, dist_worker.launch(
+            list(cases.values()), DIST_RANKS,
+            scenes={"cornell": (sd_cornell, cam_cornell),
+                    "k3_2000": (sd2k, cam10), "config5": (sd10, cam10),
+                    "config5_envmap": (sd_env, cam10)},
+            backend="gloo", device="cuda", timeout=SHARD_TIMEOUT)))
+    except (RuntimeError, TimeoutError) as e:
+        raise PhaseFailed(f"shard_main_path: {e}") from e
+    wall_s = time.perf_counter() - t0
+    launches = {k: 0 for k in mk.LAUNCHES}
+    route_kernels = {"cornell": ("k1",), "k3_2000": ("k3",),
+                     "config5": ("k5", "k6", "k7"),
+                     "config5_envmap": ("k5", "k6", "k7")}
+    for label, rep in reports.items():
+        case = cases[label]
+        for k, v in rep["launches"].items():
+            launches[k] += v
+        want = refs[case["scene"]].cpu().numpy()
+        got = rep["image"]
+        differ = np.flatnonzero((got != want).any(-1))
+        not_ties = sorted(set(differ.tolist())
+                          - set(rep.get("tie_pixels", [])))
+        res = compare(torch.from_numpy(got), torch.from_numpy(want))
+        emit(dict(phase="shard_main_path", case=label, render=case["case"],
+                  backend=rep["backend"], ranks=DIST_RANKS,
+                  data=case["data"], prim=case["prim"],
+                  size=f"{case['width']}x{case['height']}", spp=case["spp"],
+                  strategy=rep.get("strategy"), walls_s=rep["walls_s"],
+                  peak_memory_gb=rep["peak_memory_gb"],
+                  collectives=rep.get("collectives"),
+                  collective_ms=rep.get("collective_ms"),
+                  collective_mb=[b / 1e6 for b in
+                                 rep.get("collective_bytes", [])],
+                  launches=rep["launches"], glue_calls=rep["glue_calls"],
+                  pixels_differ=len(differ),
+                  tie_pixels=len(rep.get("tie_pixels", [])),
+                  tie_lanes=rep.get("tie_lanes"),
+                  differing_pixels_without_a_tie=len(not_ties),
+                  unsharded_repeats_values_differ=repeats[case["scene"]],
+                  vs_unsharded=res))
+        check(rep["backend"] == "gloo" and rep["device"].startswith("cuda"),
+              f"{label}: ran on {rep['backend']} / {rep['device']}")
+        check(rep["launches"]["plain"] == 0, f"{label}: a plain version ran")
+        check(tuple(got.shape) == (case["height"], case["width"], 3)
+              and res["finite"], f"{label}: image shape or values")
+        check(not any(rep["glue_calls"].values()),
+              f"{label}: lists were built: {rep['glue_calls']}")
+        if case["case"] == "prim_ring":
+            used = PRIM_KERNELS
+        else:
+            used = route_kernels[case["scene"]]
+        check(all(rep["launches"][k] > 0 for k in used)
+              and all(v == 0 for k, v in rep["launches"].items()
+                      if k not in used),
+              f"{label}: launches {rep['launches']}, want {used} only")
+        if case["case"] == "prim_auto":
+            check(rep["strategy"] == ["gather"] * DIST_RANKS,
+                  f"{label}: auto picked {rep['strategy']}")
+        if case["case"] == "sample" or (case["case"] == "pixel"
+                                        and repeats[case["scene"]]):
+            check(res["frac_close"] >= MIN_CLOSE
+                  and res["mean_rel"] <= MAX_MEAN_REL,
+                  f"{label}: against the unsharded render {res}")
+        elif case["case"] == "pixel":
+            check(res["values_differ"] == 0,
+                  f"{label}: {res['values_differ']} values differ from the "
+                  f"unsharded render")
+        else:
+            check(not not_ties, f"{label}: {len(not_ties)} of {len(differ)} "
+                                f"differing pixels had no cross-shard tie")
+    emit(dict(phase="shard_wall", seconds=wall_s, backend="gloo",
+              ranks=DIST_RANKS, device=card))
+    torch.cuda.empty_cache()
+    return dict(launches=launches, render_and_grad_bvh=rg_launches,
+                render_and_grad_bvh_ms=rg_ms)
 
 
 # The fused bounce (K11, K11g) and the matmul-form sweeps (K6m, K7m),

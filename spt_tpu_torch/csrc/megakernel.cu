@@ -121,14 +121,16 @@ extern "C" int spt_megakernel_fwd_threads() { return spt::kThreads; }
 
 // next: one uint32 of scratch (zeroed here, on the stream); counts: null,
 // or two uint64 that the counting instantiation adds its lanes to;
-// max_blocks: the grid the card holds, SMs x blocks an SM (the caller asks
-// spt_megakernel_fwd_blocks_per_sm once).
+// row_offset: the first row of the band that out holds (inv_h and aspect
+// are the full image's); max_blocks: the grid the card holds, SMs x
+// blocks an SM (the caller asks spt_megakernel_fwd_blocks_per_sm once).
 extern "C" int spt_megakernel_fwd(void* out, const void* blob, const void* meta,
                                   const void* lsb, void* next, void* counts,
                                   int width, int height, int spp, int n_prims,
                                   int n_light_slots, int max_bounces,
                                   int rr_depth, int use_nee, int use_mis,
-                                  int sky_mode, int dof, int max_blocks,
+                                  int sky_mode, int dof, int row_offset,
+                                  int max_blocks,
                                   float inv_w, float inv_h, float aspect,
                                   void* stream) {
   spt::K1Params prm;
@@ -140,6 +142,7 @@ extern "C" int spt_megakernel_fwd(void* out, const void* blob, const void* meta,
   prm.run.spp = spp;
   prm.run.max_bounces = max_bounces;
   prm.run.dof = dof != 0;
+  prm.run.row_offset = row_offset;
   prm.run.inv_w = inv_w;
   prm.run.inv_h = inv_h;
   prm.run.aspect = aspect;

@@ -144,16 +144,18 @@ extern "C" int spt_megakernel_bvh_fwd_threads() { return spt::kThreadsBvh; }
 
 // next: one uint32 of scratch (zeroed here, on the stream); counts: null,
 // or two uint64 that the counting instantiation adds its lanes to;
-// max_blocks: the grid the card holds, SMs x blocks an SM (the caller asks
-// spt_megakernel_bvh_fwd_blocks_per_sm once).
+// row_offset: the first row of the band that out holds (inv_h and aspect
+// are the full image's); max_blocks: the grid the card holds, SMs x
+// blocks an SM (the caller asks spt_megakernel_bvh_fwd_blocks_per_sm
+// once).
 extern "C" int spt_megakernel_bvh_fwd(
     void* out, const void* blob, const void* meta, const void* lsb,
     const void* nodef, const void* nodei, const void* prims,
     const void* mtypes, void* next, void* counts, int width, int height,
     int spp, int n_nodes, int block, int n_mats, int n_light_slots,
     int max_bounces, int rr_depth, int use_nee, int use_mis, int sky_mode,
-    int dof, int max_blocks, float inv_w, float inv_h, float aspect,
-    void* stream) {
+    int dof, int row_offset, int max_blocks, float inv_w, float inv_h,
+    float aspect, void* stream) {
   spt::K3Params prm;
   prm.run.out = static_cast<float*>(out);
   prm.run.next = static_cast<unsigned*>(next);
@@ -163,6 +165,7 @@ extern "C" int spt_megakernel_bvh_fwd(
   prm.run.spp = spp;
   prm.run.max_bounces = max_bounces;
   prm.run.dof = dof != 0;
+  prm.run.row_offset = row_offset;
   prm.run.inv_w = inv_w;
   prm.run.inv_h = inv_h;
   prm.run.aspect = aspect;

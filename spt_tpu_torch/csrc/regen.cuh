@@ -19,6 +19,13 @@
 // (raygen, then bounces k = 0.. while the path lives and k < max_bounces)
 // and one lane adds a pixel's samples in order s = 0..spp-1, so the image
 // is the same to the bit.  No atomics touch the image.
+//
+// A launch may render a band of a taller image: `height` rows starting at
+// row `row_offset` of a `full_height`-row image (the caller's inv_h and
+// aspect are the full image's).  Batches tile the band; a lane keys its
+// random numbers and its camera ray on the global pixel id
+// (y + row_offset) * width + x and stores the band's local pixel, so a
+// band equals the same rows of the full render to the bit.
 #pragma once
 
 #include <cstdint>
@@ -35,8 +42,10 @@ struct RegenArgs {
   unsigned* next;         // the next batch to hand out
   unsigned long long* counts;  // kCount: lane slots, busy lanes
   int width, height, spp, max_bounces;
+  int row_offset;         // the band's first row in the full image
   bool dof;
-  float inv_w, inv_h, aspect;  // f32(1/width), f32(1/height), f32(W/H)
+  float inv_w, inv_h, aspect;  // f32(1/width), f32(1/full_height),
+                               // f32(width/full_height)
 };
 
 // Runs every pixel of the image: `bounce(p, pid, sample, k)` is one bounce
@@ -55,7 +64,7 @@ __device__ __forceinline__ void regen_paths(const RegenArgs& a,
   // lane), and whether the counter has run out.
   int batch = 0, handed = 32;
   bool exhausted = false;
-  // The lane's pixel (-1: none), its sample, the path's bounce.
+  // The lane's global pixel id (-1: none), its sample, the path's bounce.
   int pix = -1, s = 0, k = 0;
   float px = 0.0f, py = 0.0f;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
@@ -82,9 +91,10 @@ __device__ __forceinline__ void regen_paths(const RegenArgs& a,
       acc_b += p.rad_b;
       live = false;
       if (++s >= a.spp) {
-        a.out[3 * pix + 0] = acc_r;
-        a.out[3 * pix + 1] = acc_g;
-        a.out[3 * pix + 2] = acc_b;
+        const int local = pix - a.row_offset * a.width;
+        a.out[3 * local + 0] = acc_r;
+        a.out[3 * local + 1] = acc_g;
+        a.out[3 * local + 2] = acc_b;
         pix = -1;
       }
     }
@@ -109,9 +119,9 @@ __device__ __forceinline__ void regen_paths(const RegenArgs& a,
         const int x = (batch % tiles_x) * kBatchW + (slot & (kBatchW - 1));
         const int y = (batch / tiles_x) * kBatchH + slot / kBatchW;
         if (x < a.width && y < a.height) {
-          pix = y * a.width + x;
+          pix = (y + a.row_offset) * a.width + x;
           px = (float)x;
-          py = (float)y;
+          py = (float)(y + a.row_offset);
           s = 0;
           acc_r = acc_g = acc_b = 0.0f;
         }

@@ -24,7 +24,10 @@
 //   _raygen_launch): the initial state of every lane of chunk_spp images
 //   in 32x32 swizzled pixel tiles, plus one all-pad tile.  One thread per
 //   lane.  Bound: bytes, the 76 bytes it writes per lane.  Neighbouring
-//   threads store neighbouring addresses of each channel.
+//   threads store neighbouring addresses of each channel.  The images may
+//   be a band of a taller one (row_offset; the caller's inv_h and aspect
+//   the full image's): a lane's pixel id and camera row are global, its
+//   tile and in-image test the band's.
 // * K6 replaces wavefront.py::_isect_kernel (and the sweep it calls,
 //   megakernel_bvh.py::_cand_sweep_nearest): every ray's nearest hit,
 //   written as an 8-channel residual (hcx hcy hcz hr hmid hblk hslot 0;
@@ -237,6 +240,7 @@ struct RaygenParams {
   const float* blob;    // camera at 0..14
   const int* meta;      // start_sample, seed, n_lights
   int width, height, tiles_x, tiles_per_img, n_tiles, n_lanes;
+  int row_offset;       // the band's first row in the full image
   bool dof;
   float inv_w, inv_h, aspect;
 };
@@ -251,7 +255,8 @@ __global__ void __launch_bounds__(kThreadsWf) raygen_kernel(RaygenParams prm) {
   const int py = (timg / prm.tiles_x) * kTileW + lin / kTileW;
   const bool in_image =
       px < prm.width && py < prm.height && tile < prm.n_tiles;
-  const int pxc = min(px, prm.width - 1), pyc = min(py, prm.height - 1);
+  const int pxc = min(px, prm.width - 1);
+  const int pyc = min(py, prm.height - 1) + prm.row_offset;   // global
   const uint32_t pid = (uint32_t)(pyc * prm.width + pxc);
   const uint32_t sample = (uint32_t)(__ldg(prm.meta) + s_idx);
   const uint32_t seed = (uint32_t)__ldg(prm.meta + 1);
@@ -1157,7 +1162,8 @@ extern "C" int spt_wavefront_raygen(void* st, void* ids, const void* blob,
                                     const void* meta, int width, int height,
                                     int tiles_x, int tiles_per_img,
                                     int n_tiles, int n_lanes, int dof,
-                                    float inv_w, float inv_h, float aspect,
+                                    int row_offset, float inv_w, float inv_h,
+                                    float aspect,
                                     void* stream) {
   spt::RaygenParams prm;
   prm.st = static_cast<float*>(st);
@@ -1171,6 +1177,7 @@ extern "C" int spt_wavefront_raygen(void* st, void* ids, const void* blob,
   prm.n_tiles = n_tiles;
   prm.n_lanes = n_lanes;
   prm.dof = dof != 0;
+  prm.row_offset = row_offset;
   prm.inv_w = inv_w;
   prm.inv_h = inv_h;
   prm.aspect = aspect;

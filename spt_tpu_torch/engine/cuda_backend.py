@@ -28,6 +28,23 @@ from .api import PathTracerBase, camera_has_dof, register_backend
 WAVEFRONT_MIN_PRIMS = 2048
 
 
+def render_route(scene):
+    """The forward render the facade routes ``scene`` to: every
+    environment-map scene and every capacity above ``WAVEFRONT_MIN_PRIMS``
+    to ``wavefront.render_wavefront``, capacities above
+    ``megakernel.MAX_PRIMS`` (128) to ``megakernel_bvh.render_tiles_bvh``,
+    the rest to ``megakernel.render_tiles``.  Each takes ``(scene, camera,
+    width, height, start_sample, spp, *, max_bounces, rr_depth, use_nee,
+    use_mis, seed, dof, row_offset, full_height)`` and returns the (H, W,
+    3) radiance sum; the sharded renders (``parallel.sharding``) route
+    their bands and sample windows through it too."""
+    if scene.sky_mode == SKY_ENVMAP or scene.capacity > WAVEFRONT_MIN_PRIMS:
+        return wavefront.render_wavefront
+    if scene.capacity > megakernel.MAX_PRIMS:
+        return megakernel_bvh.render_tiles_bvh
+    return megakernel.render_tiles
+
+
 class CudaPathTracer(PathTracerBase):
     backend_name = "cuda"
 
@@ -41,13 +58,7 @@ class CudaPathTracer(PathTracerBase):
                     sd, s.width, s.height, f)
             return out
         camera = self._camera or self._default_camera()
-        if sd.sky_mode == SKY_ENVMAP or sd.capacity > WAVEFRONT_MIN_PRIMS:
-            render = wavefront.render_wavefront
-        elif sd.capacity > megakernel.MAX_PRIMS:
-            render = megakernel_bvh.render_tiles_bvh
-        else:
-            render = megakernel.render_tiles
-        return render(
+        return render_route(sd)(
             sd, camera, s.width, s.height, start_sample, spp,
             max_bounces=s.max_bounces, rr_depth=s.russian_roulette_depth,
             use_nee=s.use_nee, use_mis=s.use_mis, seed=s.seed,

@@ -32,9 +32,9 @@ ENTRIES = {
     "megakernel": {
         # out, blob, meta, lsb, next (scratch), counts (null: not counting),
         # width, height, spp, n_prims, n_light_slots, max_bounces, rr_depth,
-        # use_nee, use_mis, sky_mode, dof, max_blocks, inv_w, inv_h, aspect,
-        # stream
-        "spt_megakernel_fwd": [_P] * 6 + [_I] * 12 + [_F, _F, _F, _P],
+        # use_nee, use_mis, sky_mode, dof, row_offset, max_blocks, inv_w,
+        # inv_h, aspect, stream
+        "spt_megakernel_fwd": [_P] * 6 + [_I] * 13 + [_F, _F, _F, _P],
         # n_prims, n_light_slots -> blocks an SM
         "spt_megakernel_fwd_blocks_per_sm": [_I, _I],
         "spt_megakernel_fwd_threads": [],
@@ -57,16 +57,16 @@ ENTRIES = {
         # out, blob, meta, lsb, nodef, nodei, prims, mtypes, next (scratch),
         # counts (null: not counting), width, height, spp, n_nodes, block,
         # n_mats, n_light_slots, max_bounces, rr_depth, use_nee, use_mis,
-        # sky_mode, dof, max_blocks, inv_w, inv_h, aspect, stream
-        "spt_megakernel_bvh_fwd": [_P] * 10 + [_I] * 14 + [_F, _F, _F, _P],
+        # sky_mode, dof, row_offset, max_blocks, inv_w, inv_h, aspect, stream
+        "spt_megakernel_bvh_fwd": [_P] * 10 + [_I] * 15 + [_F, _F, _F, _P],
         # n_mats, n_light_slots -> blocks an SM
         "spt_megakernel_bvh_fwd_blocks_per_sm": [_I, _I],
         "spt_megakernel_bvh_fwd_threads": [],
     },
     "wavefront": {
         # st, ids, blob, meta, width, height, tiles_x, tiles_per_img,
-        # n_tiles, n_lanes, dof, inv_w, inv_h, aspect, stream
-        "spt_wavefront_raygen": [_P] * 4 + [_I] * 7 + [_F, _F, _F, _P],
+        # n_tiles, n_lanes, dof, row_offset, inv_w, inv_h, aspect, stream
+        "spt_wavefront_raygen": [_P] * 4 + [_I] * 8 + [_F, _F, _F, _P],
         # res, st, prims, cand, ctn, cslot, bctr, boxes (K6m; null for
         # K6), nodef, nodei (K6's tree mode; null for the lists), stride,
         # n_lanes, n_blocks, block, n_nodes, stream

@@ -226,16 +226,35 @@ def camera_rays(blob, pid, px, py, sample, *, width: int, height: int,
     return ox, oy, oz, dx, dy, dz
 
 
+def band_height(height: int, row_offset: int,
+                full_height: int | None) -> int:
+    """The full image's height for a band of ``height`` rows from row
+    ``row_offset`` (``full_height`` None: the band is the image).  Raises
+    ValueError where the band does not lie inside the image."""
+    full = height if full_height is None else int(full_height)
+    if row_offset < 0 or height < 0 or row_offset + height > full:
+        raise ValueError(f"rows {row_offset}..{row_offset + height - 1} do "
+                         f"not lie in an image of {full} rows")
+    return full
+
+
 def camera_paths(blob, sample: int, *, width: int, height: int, seed: int,
-                 dof: bool):
+                 dof: bool, row_offset: int = 0,
+                 full_height: int | None = None):
     """Entry state and masks of bounce 0 for every pixel of one sample:
-    K1's jittered pinhole or thin-lens raygen.  Returns (pid, state, aux)."""
+    K1's jittered pinhole or thin-lens raygen.  Returns (pid, state, aux).
+    With ``row_offset`` and ``full_height`` the pixels are the band of
+    ``height`` rows from row ``row_offset`` of a ``full_height``-row image:
+    ``pid`` is the global pixel id, and the camera takes the full image's
+    rows."""
+    full = band_height(height, row_offset, full_height)
     dev = blob.device
     n_pix = width * height
-    pid = torch.arange(n_pix, dtype=torch.int64, device=dev)
+    pid = torch.arange(n_pix, dtype=torch.int64, device=dev) \
+        + row_offset * width
     px = (pid % width).to(torch.float32)
     py = (pid // width).to(torch.float32)
-    rays = camera_rays(blob, pid, px, py, sample, width=width, height=height,
+    rays = camera_rays(blob, pid, px, py, sample, width=width, height=full,
                        seed=seed, dof=dof)
     ones = torch.ones_like(rays[3])
     zero = torch.zeros_like(rays[3])
@@ -250,9 +269,12 @@ def render_samples_plain(blob: torch.Tensor, meta: torch.Tensor,
                          height: int, n_prims: int, n_light_slots: int,
                          max_bounces: int, rr_depth: int, use_nee: bool,
                          use_mis: bool, sky_mode: int, dof: bool,
+                         row_offset: int = 0, full_height: int | None = None,
                          stats: dict | None = None) -> torch.Tensor:
     """Plain PyTorch version of K1 over the given sample ids (uint32 values)
-    -> (H, W, 3) radiance sum, samples added in the order given.
+    -> (H, W, 3) radiance sum, samples added in the order given.  With
+    ``row_offset`` and ``full_height``: the band of ``height`` rows from
+    row ``row_offset`` of a ``full_height``-row image (``camera_paths``).
 
     Differentiable with ``torch.autograd`` with respect to ``blob``.
     ``stats``, if given, receives per-bounce counts summed over the samples
@@ -268,20 +290,23 @@ def render_samples_plain(blob: torch.Tensor, meta: torch.Tensor,
         blob, sc, samples, width=width, height=height,
         n_light_slots=n_light_slots, max_bounces=max_bounces,
         rr_depth=rr_depth, use_nee=use_nee, use_mis=use_mis,
-        sky_mode=sky_mode, dof=dof, stats=stats)
+        sky_mode=sky_mode, dof=dof, row_offset=row_offset,
+        full_height=full_height, stats=stats)
 
 
 def render_paths_plain(blob: torch.Tensor, sc: PlainScene, samples, *,
                        width: int, height: int, n_light_slots: int,
                        max_bounces: int, rr_depth: int, use_nee: bool,
                        use_mis: bool, sky_mode: int, dof: bool,
+                       row_offset: int = 0, full_height: int | None = None,
                        stats: dict | None = None,
                        geometry=None) -> torch.Tensor:
     """The render loop of the plain versions: camera paths of every sample
     id, ``max_bounces`` bounces of ``physics.trace_bounce`` each, summed in
     the order given -> (H, W, 3).  ``geometry(k)``, where given, returns
     bounce k's ``(intersect_fn, occluded_fn)``; without it the bounce tests
-    ``sc``'s sphere list.  ``stats`` as ``render_samples_plain``."""
+    ``sc``'s sphere list.  ``row_offset``, ``full_height``: a band
+    (``camera_paths``).  ``stats`` as ``render_samples_plain``."""
     n_pix = width * height
     acc = torch.zeros(3, n_pix, dtype=torch.float32, device=blob.device)
     counts = None if stats is None else torch.zeros(
@@ -292,7 +317,9 @@ def render_paths_plain(blob: torch.Tensor, sc: PlainScene, samples, *,
     for i, s in enumerate(samples):
         sample = int(s) & rng.MASK32
         pid, state, aux = camera_paths(blob, sample, width=width,
-                                       height=height, seed=sc.seed, dof=dof)
+                                       height=height, seed=sc.seed, dof=dof,
+                                       row_offset=row_offset,
+                                       full_height=full_height)
         for k in range(max_bounces):
             cfg = physics.BounceCfg(
                 mtypes=sc.mtypes, k=k, rr_depth=rr_depth, use_nee=use_nee,
@@ -400,15 +427,21 @@ def megakernel_fwd(blob: torch.Tensor, meta: torch.Tensor, lsb: torch.Tensor,
                    *, width: int, height: int, spp: int, n_prims: int,
                    n_light_slots: int, max_bounces: int, rr_depth: int,
                    use_nee: bool, use_mis: bool, sky_mode: int,
-                   dof: bool) -> torch.Tensor:
+                   dof: bool, row_offset: int = 0,
+                   full_height: int | None = None) -> torch.Tensor:
     """K1's wrapper: (H, W, 3) float32 radiance sum over ``spp`` samples.
+    With ``row_offset`` and ``full_height``: the band of ``height`` rows
+    from row ``row_offset`` of a ``full_height``-row image, its pixels
+    keyed and its rays cast as the full render's (``camera_paths``).
 
     CUDA tensors launch the CUDA kernel on the current stream; CPU tensors
     take ``render_tiles_plain``."""
+    band_height(height, row_offset, full_height)
     kw = dict(width=width, height=height, spp=spp, n_prims=n_prims,
               n_light_slots=n_light_slots, max_bounces=max_bounces,
               rr_depth=rr_depth, use_nee=use_nee, use_mis=use_mis,
-              sky_mode=sky_mode, dof=dof)
+              sky_mode=sky_mode, dof=dof, row_offset=row_offset,
+              full_height=full_height)
     if blob.device.type == "cpu":
         return render_tiles_plain(blob, meta, lsb, **kw)
     if blob.device.type != "cuda":
@@ -473,11 +506,15 @@ def batch_counter(device) -> torch.Tensor:
 def launch(lib, blob, meta, lsb, *, width: int, height: int, spp: int,
            n_prims: int, n_light_slots: int, max_bounces: int, rr_depth: int,
            use_nee: bool, use_mis: bool, sky_mode: int, dof: bool,
+           row_offset: int = 0, full_height: int | None = None,
            counts: torch.Tensor | None = None) -> torch.Tensor:
     """One launch of K1 from the library ``lib`` (the package's build, or a
-    tool's build of other sources) on the current stream -> (H, W, 3).
-    ``counts`` (two int64 on the card), where given, takes the counting
-    instantiation's lane slots and busy lanes (``lane_counts``)."""
+    tool's build of other sources) on the current stream -> (H, W, 3), the
+    band from row ``row_offset`` of a ``full_height``-row image (None: the
+    band is the image).  ``counts`` (two int64 on the card), where given,
+    takes the counting instantiation's lane slots and busy lanes
+    (``lane_counts``)."""
+    full = band_height(height, row_offset, full_height)
     dev = blob.device
     out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     grid = launch_config(lib, dev, n_prims=n_prims,
@@ -489,10 +526,10 @@ def launch(lib, blob, meta, lsb, *, width: int, height: int, spp: int,
             None if counts is None else counts.data_ptr(),
             width, height, spp, n_prims, n_light_slots, max_bounces,
             rr_depth, int(bool(use_nee)), int(bool(use_mis)), int(sky_mode),
-            int(bool(dof)), grid["blocks"],
+            int(bool(dof)), int(row_offset), grid["blocks"],
             ctypes.c_float(_f32(1.0 / width)),
-            ctypes.c_float(_f32(1.0 / height)),
-            ctypes.c_float(_f32(width / height)),
+            ctypes.c_float(_f32(1.0 / full)),
+            ctypes.c_float(_f32(width / full)),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")
@@ -565,8 +602,13 @@ def pack_uniforms(scene: SceneData, camera, start_sample: int, seed: int):
 
 def render_tiles(scene: SceneData, camera, width: int, height: int,
                  start_sample: int, spp: int, *, max_bounces=8, rr_depth=3,
-                 use_nee=True, use_mis=True, seed=0, dof=None) -> torch.Tensor:
-    """Render ``spp`` samples with K1; returns the (H, W, 3) radiance sum.
+                 use_nee=True, use_mis=True, seed=0, dof=None,
+                 row_offset: int = 0,
+                 full_height: int | None = None) -> torch.Tensor:
+    """Render ``spp`` samples with K1; returns the (H, W, 3) radiance sum,
+    or with ``row_offset`` and ``full_height`` that of the band of
+    ``height`` rows from row ``row_offset`` of a ``full_height``-row image
+    (the same rows of the full render, bit for bit).
 
     Runs on the scene's device: the CUDA kernel for a scene on the card,
     the plain version for a scene on the CPU."""
@@ -577,4 +619,4 @@ def render_tiles(scene: SceneData, camera, width: int, height: int,
         blob, meta, lsb, width=width, height=height, spp=spp,
         max_bounces=max_bounces, rr_depth=rr_depth, use_nee=bool(use_nee),
         use_mis=bool(use_mis), sky_mode=scene.sky_mode, dof=bool(dof),
-        **static)
+        row_offset=row_offset, full_height=full_height, **static)

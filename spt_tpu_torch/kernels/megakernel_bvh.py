@@ -46,7 +46,7 @@ from ..core.materials import DIELECTRIC, LAMBERT, METAL
 from ..core.scene import SceneData
 from . import physics
 from .megakernel import (K1_OPS, LAUNCHES, PlainScene, _SKY_OFF, _check, _f32,
-                         _np, batch_counter, grid_config,
+                         _np, band_height, batch_counter, grid_config,
                          render_paths_plain)
 
 BLOCK = 32       # spheres per BVH leaf block
@@ -513,10 +513,13 @@ def render_tiles_bvh_plain(blob: torch.Tensor, meta: torch.Tensor,
                            spp: int, block: int, n_mats: int,
                            n_light_slots: int, max_bounces: int,
                            rr_depth: int, use_nee: bool, use_mis: bool,
-                           sky_mode: int, dof: bool,
+                           sky_mode: int, dof: bool, row_offset: int = 0,
+                           full_height: int | None = None,
                            stats: dict | None = None) -> torch.Tensor:
     """Plain PyTorch version of K3 -> (H, W, 3) radiance sum of samples
-    ``meta[0] .. meta[0] + spp - 1``.
+    ``meta[0] .. meta[0] + spp - 1``; with ``row_offset`` and
+    ``full_height`` of that band of a taller image
+    (``megakernel.camera_paths``).
 
     ``stats``, if given, receives ``render_samples_plain``'s counts and, per
     bounce, ``"nodes"`` and ``"spheres"`` tested by the nearest-hit walks
@@ -553,7 +556,8 @@ def render_tiles_bvh_plain(blob: torch.Tensor, meta: torch.Tensor,
         blob, sc, [start + s for s in range(spp)], width=width,
         height=height, n_light_slots=n_light_slots, max_bounces=max_bounces,
         rr_depth=rr_depth, use_nee=use_nee, use_mis=use_mis,
-        sky_mode=sky_mode, dof=dof, stats=stats, geometry=geometry)
+        sky_mode=sky_mode, dof=dof, row_offset=row_offset,
+        full_height=full_height, stats=stats, geometry=geometry)
     if stats is not None:
         stats.update(work)
     return img
@@ -589,16 +593,21 @@ def megakernel_bvh_fwd(blob: torch.Tensor, meta: torch.Tensor,
                        mtypes: torch.Tensor, *, width: int, height: int,
                        spp: int, block: int, n_mats: int, n_light_slots: int,
                        max_bounces: int, rr_depth: int, use_nee: bool,
-                       use_mis: bool, sky_mode: int,
-                       dof: bool) -> torch.Tensor:
-    """K3's wrapper: (H, W, 3) float32 radiance sum over ``spp`` samples.
+                       use_mis: bool, sky_mode: int, dof: bool,
+                       row_offset: int = 0,
+                       full_height: int | None = None) -> torch.Tensor:
+    """K3's wrapper: (H, W, 3) float32 radiance sum over ``spp`` samples;
+    with ``row_offset`` and ``full_height``, of the band of ``height`` rows
+    from row ``row_offset`` of a ``full_height``-row image.
 
     CUDA tensors launch the CUDA kernel on the current stream; CPU tensors
     take ``render_tiles_bvh_plain``."""
+    band_height(height, row_offset, full_height)
     kw = dict(width=width, height=height, spp=spp, block=block,
               n_mats=n_mats, n_light_slots=n_light_slots,
               max_bounces=max_bounces, rr_depth=rr_depth, use_nee=use_nee,
-              use_mis=use_mis, sky_mode=sky_mode, dof=dof)
+              use_mis=use_mis, sky_mode=sky_mode, dof=dof,
+              row_offset=row_offset, full_height=full_height)
     args = (blob, meta, lsb, nodef, nodei, prims, mtypes)
     if blob.device.type == "cpu":
         return render_tiles_bvh_plain(*args, **kw)
@@ -633,10 +642,13 @@ def launch(lib, blob, meta, lsb, nodef, nodei, prims, mtypes, *, width: int,
            height: int, spp: int, block: int, n_mats: int,
            n_light_slots: int, max_bounces: int, rr_depth: int,
            use_nee: bool, use_mis: bool, sky_mode: int, dof: bool,
+           row_offset: int = 0, full_height: int | None = None,
            counts: torch.Tensor | None = None) -> torch.Tensor:
     """One launch of K3 from the library ``lib`` (the package's build, or a
-    tool's build of other sources) on the current stream -> (H, W, 3).
-    ``counts`` as ``megakernel.launch``'s."""
+    tool's build of other sources) on the current stream -> (H, W, 3), the
+    band as ``megakernel.launch``'s.  ``counts`` as
+    ``megakernel.launch``'s."""
+    full = band_height(height, row_offset, full_height)
     dev = blob.device
     out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     grid = launch_config(lib, dev, n_mats=n_mats,
@@ -650,9 +662,10 @@ def launch(lib, blob, meta, lsb, nodef, nodei, prims, mtypes, *, width: int,
             width, height, spp, nodef.numel() // 64, block, n_mats,
             n_light_slots, max_bounces, rr_depth, int(bool(use_nee)),
             int(bool(use_mis)), int(sky_mode), int(bool(dof)),
-            grid["blocks"], ctypes.c_float(_f32(1.0 / width)),
-            ctypes.c_float(_f32(1.0 / height)),
-            ctypes.c_float(_f32(width / height)),
+            int(row_offset), grid["blocks"],
+            ctypes.c_float(_f32(1.0 / width)),
+            ctypes.c_float(_f32(1.0 / full)),
+            ctypes.c_float(_f32(width / full)),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {err}")
@@ -709,8 +722,12 @@ def packed(scene: SceneData, camera, block: int = BLOCK):
 def render_tiles_bvh(scene: SceneData, camera, width: int, height: int,
                      start_sample: int, spp: int, *, max_bounces=8,
                      rr_depth=3, use_nee=True, use_mis=True, seed=0,
-                     dof=None, block: int = BLOCK) -> torch.Tensor:
-    """Render ``spp`` samples with K3; returns the (H, W, 3) radiance sum.
+                     dof=None, block: int = BLOCK, row_offset: int = 0,
+                     full_height: int | None = None) -> torch.Tensor:
+    """Render ``spp`` samples with K3; returns the (H, W, 3) radiance sum,
+    or with ``row_offset`` and ``full_height`` that of the band of
+    ``height`` rows from row ``row_offset`` of a ``full_height``-row image
+    (the same rows of the full render, bit for bit).
 
     Runs on the scene's device: the CUDA kernel for a scene on the card,
     the plain version for a scene on the CPU.  ``dof=None`` takes the
@@ -725,4 +742,5 @@ def render_tiles_bvh(scene: SceneData, camera, width: int, height: int,
         t["mtypes"], width=width, height=height, spp=spp, block=block,
         n_mats=static["n_mats"], n_light_slots=static["n_light_slots"],
         max_bounces=max_bounces, rr_depth=rr_depth, use_nee=bool(use_nee),
-        use_mis=bool(use_mis), sky_mode=scene.sky_mode, dof=bool(dof))
+        use_mis=bool(use_mis), sky_mode=scene.sky_mode, dof=bool(dof),
+        row_offset=row_offset, full_height=full_height)

@@ -20,13 +20,14 @@ gets no geometry gradient.
 * ``megakernel_bvh_grad`` is the kernel's wrapper.  On CUDA tensors it
   launches ``csrc/megakernel_bvh_grad.cu`` and raises if it cannot; on CPU
   tensors it runs ``render_and_grad_bvh_plain``.
-* The raw gradients reach the scene's parameters by autograd through
-  the packers (``diff/cuda_diff.py``, ``megakernel_bvh.pack_blob_torch``
-  and ``pack_prims_torch``), which undo the leaf gather and fold each
-  light slot into its sphere and material.  So JAX's hand-written
-  ``map_raw_grads`` and its ``render_and_grad_bvh`` have no counterpart
-  here: ``make_cuda_render_fn(..., engine="fused")`` and ``.backward()``
-  give those gradients.
+* ``render_and_grad_bvh`` runs it on a scene and a camera and maps the raw
+  gradients to the scene's parameters by hand (``map_raw_grads``: the
+  leaf slots back to their spheres, each light slot folded into its
+  sphere and its material's emission), as JAX's does.  Under autograd the
+  raw gradients reach the parameters through the packers instead
+  (``diff/cuda_diff.py``, ``megakernel_bvh.pack_blob_torch`` and
+  ``pack_prims_torch``): ``make_cuda_render_fn(..., engine="fused")`` and
+  ``.backward()``.
 * ``swizzle_ct`` lays an (H, W, 3) cotangent out in the kernel's 32x32
   pixel tiles, as JAX's does.
 
@@ -41,11 +42,13 @@ import ctypes
 import torch
 
 from ..core import rng
+from ..core.scene import SKY_ENVMAP, SceneData
 from . import physics
 from .megakernel import (K1_OPS, LAUNCHES, PlainScene, _check, _f32,
                          camera_paths)
-from .megakernel_bvh import (BIG, _LIGHT_STRIDE, _MAT_OFF, _MAT_STRIDE,
-                             _N_PRIM_ATTRS, _Walk, k3_op_count)
+from .megakernel_bvh import (BIG, BLOCK, _LIGHT_STRIDE, _MAT_OFF,
+                             _MAT_STRIDE, _N_PRIM_ATTRS, _Walk, k3_op_count,
+                             packed)
 from .megakernel_grad import K2_OPS, MAX_DEPTH, N_SKY_ATTRS, N_STATE
 from .physics_adjoint import rebuilt_bounce_vjp, winner_tables
 
@@ -267,6 +270,75 @@ def megakernel_bvh_grad(blob: torch.Tensor, meta: torch.Tensor,
         raise RuntimeError(f"K4 launch failed: CUDA error {err}")
     LAUNCHES["k4"] += 1
     return img, grad_s, grad_g
+
+
+def render_and_grad_bvh(scene: SceneData, camera, width: int, height: int,
+                        start_sample: int, spp: int, *, ct_image=None,
+                        max_bounces: int = 8, rr_depth: int = 3,
+                        use_nee: bool = True, use_mis: bool = True,
+                        seed: int = 0, dof=None, block: int = BLOCK):
+    """K3's render and K4's backward in one launch on the scene's device
+    -> (radiance sum (H, W, 3), grads): the gradients of ``sum(ct_image *
+    radiance_sum)`` (``ct_image`` (H, W, 3), ones by default), keyed as
+    JAX's: ``"centers"`` (P, 3), ``"radii"`` (P,), ``"albedo"`` and
+    ``"emission"`` (M, 3), ``"roughness"`` and ``"ior"`` (M,),
+    ``"sky_params"`` (2, 3).  ``dof=None`` takes the thin lens iff the
+    camera has an aperture.  On the CPU the plain version runs.
+
+    K3 and K4 shade a miss by the sky's formula: a scene under an
+    environment map raises ValueError (JAX's K4 drops the map)."""
+    if scene.sky_mode == SKY_ENVMAP:
+        raise ValueError("render_and_grad_bvh cannot render an environment-"
+                         "map sky: K3 and K4 shade a miss by the sky's "
+                         "formula; make_cuda_render_fn routes such a scene "
+                         "to the differentiable wavefront")
+    t, static = packed(scene, camera, block)
+    if dof is None:
+        dof = bool(float(camera.aperture) > 0.0)
+    dev = scene.device
+    meta = torch.tensor([start_sample, seed, static["n_light_slots"]],
+                        dtype=torch.int32).to(dev)
+    if ct_image is None:
+        ct_image = torch.ones((height, width, 3), dtype=torch.float32)
+    ct = swizzle_ct(torch.as_tensor(ct_image).to(dev), width, height)
+    img, grad_s, grad_g = megakernel_bvh_grad(
+        t["blob"], meta, t["lsb"], t["nodef"], t["nodei"], t["prims"],
+        t["mtypes"], ct, width=width, height=height, spp=spp, block=block,
+        n_mats=static["n_mats"], n_light_slots=static["n_light_slots"],
+        max_bounces=max_bounces, rr_depth=rr_depth, use_nee=bool(use_nee),
+        use_mis=bool(use_mis), sky_mode=scene.sky_mode, dof=bool(dof))
+    return img, map_raw_grads(scene, static, grad_s, grad_g)
+
+
+def map_raw_grads(scene: SceneData, static: dict, grad_s: torch.Tensor,
+                  grad_g: torch.Tensor) -> dict:
+    """K4's raw gradients -> the scene parameters' (JAX's
+    ``map_raw_grads``): the sky and material rows of ``grad_s`` as they
+    lie; each filled leaf slot's centre and radius of ``grad_g`` added to
+    its sphere (``static["block_prim_ids"]``); each light slot's centre
+    and radius added to its sphere and its emission to its material's."""
+    n_mats, n_l = static["n_mats"], static["n_light_slots"]
+    dev = grad_s.device
+    sky = grad_s[:N_SKY_ATTRS].reshape(2, 3)
+    mats = grad_s[N_SKY_ATTRS:N_SKY_ATTRS + _MAT_STRIDE * n_mats].reshape(
+        n_mats, _MAT_STRIDE)
+    emission = mats[:, 3:6].clone()
+    ids = torch.as_tensor(static["block_prim_ids"], dtype=torch.int64,
+                          device=dev).reshape(-1)
+    ok = ids >= 0
+    geo = grad_g[:, 0:4].permute(0, 2, 1).reshape(-1, 4)[ok]
+    per_prim = torch.zeros((scene.capacity, 4), dtype=torch.float32,
+                           device=dev).index_add_(0, ids[ok], geo)
+    if n_l:
+        lights = grad_s[N_SKY_ATTRS + _MAT_STRIDE * n_mats:].reshape(
+            n_l, _LIGHT_STRIDE)
+        prims = torch.as_tensor(static["light_prims"], dtype=torch.int64,
+                                device=dev)
+        per_prim.index_add_(0, prims, lights[:, 0:4])
+        emission.index_add_(0, scene.mat_id[prims].long(), lights[:, 4:7])
+    return {"centers": per_prim[:, 0:3], "radii": per_prim[:, 3],
+            "albedo": mats[:, 0:3], "emission": emission,
+            "roughness": mats[:, 6], "ior": mats[:, 7], "sky_params": sky}
 
 
 # fp32 operations of K4 (csrc/megakernel_bvh_grad.cu), counted by hand as

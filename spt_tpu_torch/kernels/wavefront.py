@@ -100,7 +100,7 @@ from ..core.materials import DIELECTRIC, LAMBERT, METAL
 from ..core.scene import SKY_ENVMAP, SceneData
 from . import physics
 from .megakernel import (K1_OPS, LAUNCHES, PlainScene, _check, _f32, _np,
-                         camera_rays)
+                         band_height, camera_rays)
 from .megakernel_bvh import (BLOCK, K3_OPS, _LIGHT_STRIDE, _MAT_OFF,
                              _MAT_STRIDE, _N_PRIM_ATTRS, _Walk, _leaf_t,
                              _safe_inv, _slab, packed)
@@ -185,12 +185,18 @@ def _new_stream(n_lanes: int, device):
 
 
 def raygen_plain(blob: torch.Tensor, meta: torch.Tensor, *, width: int,
-                 height: int, chunk_spp: int, dof: bool):
+                 height: int, chunk_spp: int, dof: bool, row_offset: int = 0,
+                 full_height: int | None = None):
     """Plain version of K5 -> (st (17, R), ids (2, R) int32), views of one
     (19, R) buffer.  Tile ``t`` of the stream is pixel tile ``t %
     tiles_per_img`` of sample ``meta[0] + t // tiles_per_img``; lane ``l``
     of a tile is its pixel (l % 32, l // 32).  The last tile pads: no lane
-    of it, nor any lane off the image, is alive or in the image."""
+    of it, nor any lane off the image, is alive or in the image.  With
+    ``row_offset`` and ``full_height`` the images are the band of
+    ``height`` rows from row ``row_offset`` of a ``full_height``-row image:
+    tiles cover the band, and a lane's pixel id (``ids[0]``) and camera ray
+    are the full image's."""
+    full = band_height(height, row_offset, full_height)
     LAUNCHES["plain"] += 1
     dev = blob.device
     tiles_x, tiles_per_img, n_tiles = stream_tiles(width, height, chunk_spp)
@@ -203,12 +209,12 @@ def raygen_plain(blob: torch.Tensor, meta: torch.Tensor, *, width: int,
     py = (timg // tiles_x) * TH + lin // TW
     in_image = (px < width) & (py < height) & (tile < n_tiles)
     pxc = torch.clamp_max(px, width - 1)
-    pyc = torch.clamp_max(py, height - 1)
+    pyc = torch.clamp_max(py, height - 1) + row_offset
     pid = pyc * width + pxc
     sample = (int(meta_h[0]) + tile // tiles_per_img) & rng.MASK32
     rays = camera_rays(blob, pid, pxc.to(torch.float32),
                        pyc.to(torch.float32), sample, width=width,
-                       height=height, seed=int(meta_h[1]) & rng.MASK32,
+                       height=full, seed=int(meta_h[1]) & rng.MASK32,
                        dof=dof)
     st, ids = _new_stream(n, dev)
     img = in_image.to(torch.float32)
@@ -222,9 +228,13 @@ def raygen_plain(blob: torch.Tensor, meta: torch.Tensor, *, width: int,
 
 
 def raygen(blob: torch.Tensor, meta: torch.Tensor, *, width: int,
-           height: int, chunk_spp: int, dof: bool):
-    """K5's wrapper: ``raygen_plain``'s stream, on the blob's device."""
-    kw = dict(width=width, height=height, chunk_spp=chunk_spp, dof=dof)
+           height: int, chunk_spp: int, dof: bool, row_offset: int = 0,
+           full_height: int | None = None):
+    """K5's wrapper: ``raygen_plain``'s stream, on the blob's device (a
+    band with ``row_offset`` and ``full_height``, as there)."""
+    full = band_height(height, row_offset, full_height)
+    kw = dict(width=width, height=height, chunk_spp=chunk_spp, dof=dof,
+              row_offset=row_offset, full_height=full_height)
     if blob.device.type == "cpu":
         return raygen_plain(blob, meta, **kw)
     if blob.device.type != "cuda":
@@ -245,9 +255,9 @@ def raygen(blob: torch.Tensor, meta: torch.Tensor, *, width: int,
         err = lib.spt_wavefront_raygen(
             st.data_ptr(), ids.data_ptr(), blob.data_ptr(), meta.data_ptr(),
             width, height, tiles_x, tiles_per_img, n_tiles, n,
-            int(bool(dof)), ctypes.c_float(_f32(1.0 / width)),
-            ctypes.c_float(_f32(1.0 / height)),
-            ctypes.c_float(_f32(width / height)),
+            int(bool(dof)), int(row_offset), ctypes.c_float(_f32(1.0 / width)),
+            ctypes.c_float(_f32(1.0 / full)),
+            ctypes.c_float(_f32(width / full)),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K5 launch failed: CUDA error {err}")
@@ -1635,10 +1645,13 @@ def _add_env_radiance(st: torch.Tensor, env: torch.Tensor) -> None:
     st[C_MISS] = 0.0
 
 
-def _scatter_image(st, ids, width: int, height: int) -> torch.Tensor:
-    """(H, W, 3) sum of the stream's radiance by pixel id; lanes off the
-    image add into a discard slot."""
-    idx = torch.where(st[C_INIMG] > 0.5, ids[0].long(), width * height)
+def _scatter_image(st, ids, width: int, height: int,
+                   row_offset: int = 0) -> torch.Tensor:
+    """(H, W, 3) sum of the stream's radiance by pixel id, less the band's
+    first id (``row_offset * width``); lanes off the image add into a
+    discard slot."""
+    idx = torch.where(st[C_INIMG] > 0.5, ids[0].long() - row_offset * width,
+                      width * height)
     rad = torch.stack([st[C_LR], st[C_LG], st[C_LB]], dim=-1)
     img = torch.zeros((width * height + 1, 3), dtype=torch.float32,
                       device=st.device).index_add_(0, idx, rad)
@@ -1656,8 +1669,10 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
                       sky_mode: int, dof: bool, compact: bool,
                       sort_min_rays: int, split: bool, precull: bool,
                       mxu: bool, stages: tuple, times: dict | None,
-                      alive: list | None = None) -> torch.Tensor:
-    """One chunk of ``chunk_spp`` images -> (H, W, 3) radiance sum.  The
+                      alive: list | None = None, row_offset: int = 0,
+                      full_height: int | None = None) -> torch.Tensor:
+    """One chunk of ``chunk_spp`` images -> (H, W, 3) radiance sum (of the
+    band from row ``row_offset`` of a ``full_height``-row image).  The
     split bounce walks the tree (K6's tree mode, K7's shadow walks) and
     builds no lists; the lists are built for ``mxu`` and for the fused
     bounce with ``precull``.  ``alive[k]``, if given, gains the lanes alive
@@ -1670,7 +1685,8 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
     clock = functools.partial(_timed, times, device=blob.device)
     with clock("raygen"):
         st, ids = k5(blob, meta, width=width, height=height,
-                     chunk_spp=chunk_spp, dof=dof)
+                     chunk_spp=chunk_spp, dof=dof, row_offset=row_offset,
+                     full_height=full_height)
     buf = _stream_buffer(st, ids)
     n_tiles = st.shape[1] // TILE - 1
     lo, ext = _scene_sort_bounds(t["nodef"])
@@ -1743,7 +1759,21 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
             with clock("env"):
                 _add_env_radiance(st[:, :n], env)
     with clock("scatter"):
-        return _scatter_image(st, ids, width, height)
+        return _scatter_image(st, ids, width, height, row_offset)
+
+
+def band_chunk_spp(width: int, height: int, spp: int, chunk_rays: int,
+                   row_offset: int = 0, full_height: int | None = None) -> int:
+    """The samples a chunk of the render holds: as many whole images of
+    the full image's stream (``full_height`` rows) as ``chunk_rays``
+    holds, so a band groups each pixel's samples into the chunks the
+    unsharded render groups them into.  On the card the scatter adds a
+    chunk's lanes by atomics, in no fixed order: with at most two samples
+    of a pixel in a chunk, 0 + a + b is the same float either way, and the
+    band's pixels equal the full render's bit for bit."""
+    full = band_height(height, row_offset, full_height)
+    rays_per_img = stream_tiles(width, full, 1)[2] * TILE
+    return max(1, min(spp, chunk_rays // rays_per_img))
 
 
 @contextlib.contextmanager
@@ -1769,13 +1799,17 @@ def render_wavefront(scene: SceneData, camera, width: int, height: int,
                      precull: bool = True, split: bool = True,
                      mxu: bool = False, sort_min_rays: int = 1 << 17,
                      chunk_rays: int = 4 << 20,
-                     alive: list | None = None) -> torch.Tensor:
+                     alive: list | None = None, row_offset: int = 0,
+                     full_height: int | None = None) -> torch.Tensor:
     """Render ``spp`` samples with the sorted wavefront; returns the (H, W,
-    3) radiance sum.
+    3) radiance sum.  With ``row_offset`` and ``full_height``: that of the
+    band of ``height`` rows from row ``row_offset`` of a
+    ``full_height``-row image (K5 keys each lane on its global pixel id).
 
     Runs on the scene's device: the kernels for a scene on the card, their
     plain versions for a scene on the CPU.  The stream holds at most
-    ``chunk_rays`` rays: samples go in chunks of as many whole images.  A
+    ``chunk_rays`` rays: samples go in chunks of as many whole images (of
+    the full image, for a band: ``band_chunk_spp``).  A
     sort runs before bounces 1.. while more than ``sort_min_rays`` rays
     were alive; ``compact=False`` keeps every lane in every launch and
     sorts the whole stream (for tests).  ``dof=None`` takes the thin lens
@@ -1803,7 +1837,8 @@ def render_wavefront(scene: SceneData, camera, width: int, height: int,
                    use_nee=use_nee, use_mis=use_mis, seed=seed, dof=dof,
                    block=block, compact=compact, precull=precull, split=split,
                    mxu=mxu, sort_min_rays=sort_min_rays,
-                   chunk_rays=chunk_rays, alive=alive)
+                   chunk_rays=chunk_rays, alive=alive, row_offset=row_offset,
+                   full_height=full_height)
 
 
 KERNELS = (raygen, isect, shade, bounce, isect_mxu, shade_mxu)
@@ -1817,8 +1852,9 @@ def _render(scene: SceneData, camera, width: int, height: int,
             use_nee=True, use_mis=True, seed=0, dof=None, block: int = BLOCK,
             compact: bool = True, precull: bool = True, split: bool = True,
             mxu: bool = False, sort_min_rays: int = 1 << 17,
-            chunk_rays: int = 4 << 20,
-            alive: list | None = None) -> torch.Tensor:
+            chunk_rays: int = 4 << 20, alive: list | None = None,
+            row_offset: int = 0,
+            full_height: int | None = None) -> torch.Tensor:
     """``render_wavefront`` with its stages given (``KERNELS``, or
     ``PLAIN`` to run the plain versions on either device, to hold the
     kernels against them on the card).  ``times``, if given, gets each
@@ -1834,8 +1870,8 @@ def _render(scene: SceneData, camera, width: int, height: int,
         env = None
     elif env.device != scene.device:
         env = env.to(scene.device)
-    rays_per_img = stream_tiles(width, height, 1)[2] * TILE
-    chunk_spp = max(1, min(spp, chunk_rays // rays_per_img))
+    chunk_spp = band_chunk_spp(width, height, spp, chunk_rays, row_offset,
+                               full_height)
     img = None
     s = 0
     while s < spp:
@@ -1848,7 +1884,7 @@ def _render(scene: SceneData, camera, width: int, height: int,
             use_mis=bool(use_mis), sky_mode=scene.sky_mode, dof=bool(dof),
             compact=compact, sort_min_rays=sort_min_rays, split=bool(split),
             precull=bool(precull), mxu=bool(mxu), stages=stages, times=times,
-            alive=alive)
+            alive=alive, row_offset=row_offset, full_height=full_height)
         img = part if img is None else img + part
         s += n
     return img

@@ -11,6 +11,10 @@ and holds the process group of each axis:
 * ``prim`` shards the scene's leaf blocks (``wavefront_prim``): the nearest
   hit is min-reduced and the shadow verdicts max-reduced over it.
 
+The collectives (``all_reduce``, ``all_gather``, ``ppermute``) take a
+group and the backend; under gloo a tensor on the card goes through host
+copies, so that ranks sharing one card (which NCCL refuses) still run.
+
 ``init_distributed`` wraps ``dist.init_process_group``; nothing here reads a
 cluster's environment, so the caller gives the rendezvous (``file://`` or
 ``tcp://`` address), the world size and the rank.  The JAX module's
@@ -95,7 +99,8 @@ class RenderMesh:
     the ranks that share its prim index (they hold other samples);
     ``prim_group``: the ranks that share its data index (they hold other
     leaf blocks); ``device``: where it renders; ``backend``: the groups'
-    backend ("nccl" or "gloo")."""
+    backend ("nccl" or "gloo"); ``group``: every rank of the grid, in the
+    order of ``data_idx * prim + prim_idx``."""
 
     data: int
     prim: int
@@ -105,6 +110,7 @@ class RenderMesh:
     prim_group: object
     device: torch.device
     backend: str
+    group: object = None
 
     def check_member(self) -> None:
         if self.data_idx is None:
@@ -128,7 +134,8 @@ def make_render_mesh(data: int | None = None, prim: int = 1,
     (``rank_grid``'s layout).  Every rank of the world must call it, with
     the same arguments and in the same order as its other
     ``make_render_mesh`` calls: each creates one group per grid row and per
-    grid column (``dist.new_group``, which every rank enters).  ``device``
+    grid column and one of the whole grid (``dist.new_group``, which every
+    rank enters).  ``device``
     defaults to the card."""
     if not dist.is_initialized():
         raise RuntimeError("call init_distributed first")
@@ -141,13 +148,14 @@ def make_render_mesh(data: int | None = None, prim: int = 1,
                    for i in range(n_data)]
     data_groups = [dist.new_group(ranks=grid[:, j].tolist())
                    for j in range(n_prim)]
+    everyone = dist.new_group(ranks=grid.reshape(-1).tolist())
     where = np.argwhere(grid == rank)
     if not len(where):
         return RenderMesh(n_data, n_prim, None, None, None, None, device,
                           backend)
     i, j = (int(v) for v in where[0])
     return RenderMesh(n_data, n_prim, i, j, data_groups[j], prim_groups[i],
-                      device, backend)
+                      device, backend, everyone)
 
 
 def all_reduce(t: torch.Tensor, op, group, backend: str,
@@ -158,22 +166,87 @@ def all_reduce(t: torch.Tensor, op, group, backend: str,
     ``stats``, if given, gets the collective's host-clock milliseconds
     appended to ``"collective_ms"`` (the card synchronized on both sides)
     and its bytes added to ``"collective_bytes"``."""
-    if stats is not None:
-        _sync(t)
-        t0 = time.perf_counter()
+    t0 = _start(t, stats)
     if backend == "gloo" and t.device.type == "cuda":
         host = t.cpu()
         dist.all_reduce(host, op=op, group=group)
         t.copy_(host)
     else:
         dist.all_reduce(t, op=op, group=group)
-    if stats is not None:
-        _sync(t)
-        stats.setdefault("collective_ms", []).append(
-            1e3 * (time.perf_counter() - t0))
-        stats["collective_bytes"] = stats.get("collective_bytes", 0) \
-            + t.numel() * t.element_size()
+    _record(t, t0, stats)
     return t
+
+
+def all_gather(t: torch.Tensor, group, backend: str,
+               stats: dict | None = None) -> torch.Tensor:
+    """Every group rank's ``t`` (one shape and type on all of them) ->
+    (group size, *t.shape) on ``t``'s device, in the group's rank order
+    (``new_group`` sorts its ranks, so the order of the global ranks).
+    Under gloo a tensor on the card goes through host copies.  ``stats``
+    as ``all_reduce``'s, with the bytes received."""
+    t0 = _start(t, stats)
+    n = dist.get_world_size(group)
+    if backend == "gloo":
+        host = t.detach().cpu().contiguous()
+        parts = [torch.empty_like(host) for _ in range(n)]
+        dist.all_gather(parts, host, group=group)
+        out = torch.stack(parts).to(t.device)
+    else:
+        out = torch.empty(n * t.numel(), dtype=t.dtype, device=t.device)
+        dist.all_gather_into_tensor(out, t.detach().contiguous().reshape(-1),
+                                    group=group)
+        out = out.view(n, *t.shape)
+    _record(out, t0, stats)
+    return out
+
+
+def ppermute(t: torch.Tensor, group, backend: str, shift: int = 1,
+             stats: dict | None = None) -> torch.Tensor:
+    """The ring step of ``jax.lax.ppermute``: this rank's ``t`` goes to the
+    group rank ``shift`` places on, and the tensor of the rank ``shift``
+    places back is returned (one shape and type on every rank), by one
+    ``dist.batch_isend_irecv`` of a send and a receive.  A group of one
+    returns a copy.  Under gloo a tensor on the card goes through host
+    copies.  ``stats`` as ``all_reduce``'s, with the bytes received."""
+    t0 = _start(t, stats)
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    if n == 1:
+        out = t.clone()
+    else:
+        host = backend == "gloo" and t.device.type == "cuda"
+        send = (t.detach().cpu() if host else t).contiguous()
+        recv = torch.empty_like(send)
+        ops = [dist.P2POp(dist.isend, send,
+                          dist.get_global_rank(group, (me + shift) % n),
+                          group),
+               dist.P2POp(dist.irecv, recv,
+                          dist.get_global_rank(group, (me - shift) % n),
+                          group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        out = recv.to(t.device) if host else recv
+    _record(out, t0, stats)
+    return out
+
+
+def _start(t: torch.Tensor, stats: dict | None):
+    """The host clock at a collective's start, the card synchronized, where
+    ``stats`` is given."""
+    if stats is None:
+        return None
+    _sync(t)
+    return time.perf_counter()
+
+
+def _record(out: torch.Tensor, t0, stats: dict | None) -> None:
+    if stats is None:
+        return
+    _sync(out)
+    stats.setdefault("collective_ms", []).append(
+        1e3 * (time.perf_counter() - t0))
+    stats["collective_bytes"] = stats.get("collective_bytes", 0) \
+        + out.numel() * out.element_size()
 
 
 def _sync(t: torch.Tensor) -> None:

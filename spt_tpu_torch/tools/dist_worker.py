@@ -14,7 +14,10 @@ The port's counterpart of ``tools/run_multiprocess.py`` and
 run the kernel paths (``parallel.wavefront_sharded``,
 ``parallel.wavefront_prim``, ``parallel.sharding``).
 
-A case is a dict: ``"case"`` (a key of ``CASES``), the mesh (``"data"``,
+A case is a dict: ``"case"`` (a key of ``CASES``: ``"forward"``,
+``"prim_forward"``, ``"dp_grad"``, ``"dp_step"``, and ``sharding``'s
+five renders ``"pixel"``, ``"sample"``, ``"prim_gather"``,
+``"prim_ring"``, ``"prim_auto"``), the mesh (``"data"``,
 ``"prim"``: ranks past ``data * prim`` sit it out), ``"scene"`` (a key of
 ``scenes``), ``"width"``, ``"height"``, ``"spp"``, ``"start"`` and
 ``"kw"`` (the render's options), and what the case reads besides.  Each
@@ -297,8 +300,37 @@ def _case_dp_step(ctx, case, mesh, scene, camera):
     return {"loss": float(loss)}, {f"grad.{k}": g for k, g in grads.items()}
 
 
+def _sharded(fn_name: str):
+    """A case of one of ``parallel.sharding``'s renders: the image, and the
+    rank's collectives (and the ring's ties, the strategy that ran) in
+    ``ctx["stats"]``.  The case's ``"spp"`` sample ids from ``"start"``;
+    ``render_sample_sharded`` takes ``spp / data`` a rank."""
+
+    def case_fn(ctx, case, mesh, scene, camera):
+        from spt_tpu_torch.parallel import sharding
+        fn = getattr(sharding, fn_name)
+        stats = {}
+        start, spp = case.get("start", 0), case["spp"]
+        if fn_name == "render_sample_sharded":
+            args = (mesh.samples_per_rank(spp), mesh, start)
+        else:
+            args = (range(start, start + spp), mesh)
+        img = fn(scene, camera, case["width"], case["height"], *args,
+                 stats=stats, **case.get("kw", {}))
+        ctx["stats"] = stats
+        return {}, {"image": img}
+
+    case_fn.__doc__ = f"``sharding.{fn_name}``."
+    return case_fn
+
+
 CASES = {"forward": _case_forward, "prim_forward": _case_prim_forward,
-         "dp_grad": _case_dp_grad, "dp_step": _case_dp_step}
+         "dp_grad": _case_dp_grad, "dp_step": _case_dp_step,
+         "pixel": _sharded("render_pixel_sharded"),
+         "sample": _sharded("render_sample_sharded"),
+         "prim_gather": _sharded("render_prim_sharded_gather"),
+         "prim_ring": _sharded("render_prim_sharded_ring"),
+         "prim_auto": _sharded("render_prim_sharded")}
 
 
 def _run_case(case, scenes, device):
@@ -349,9 +381,11 @@ def _run_case(case, scenes, device):
     stats = [r["stats"] for r in members if r["stats"] is not None]
     if stats:
         out["tie_pixels"] = sorted({p for s in stats
-                                    for p in s["tie_pixels"]})
+                                    for p in s.get("tie_pixels", [])})
         for key in ("tie_lanes", "stream_checks", "collective_bytes"):
             out[key] = [s.get(key, 0) for s in stats]
+        if "strategy" in stats[0]:
+            out["strategy"] = [s["strategy"] for s in stats]
         out["collectives"] = [len(s.get("collective_ms", [])) for s in stats]
         out["collective_ms"] = [sum(s.get("collective_ms", [])) for s in stats]
     return out, arrays

@@ -1104,3 +1104,69 @@ def test_inverse_app_loss_falls_on_the_card(cuda):
     losses = np.asarray(stats["losses"])
     assert np.isfinite(losses).all()
     assert stats["loss_after"] < stats["loss_before"]
+
+
+# The bands (the row offset): K1, K3 and K5 rendering rows [13, 13 + 21)
+# of the image equal their plain versions' bands and the same rows of the
+# kernel's full render, value for value (an offset and a height that are
+# not multiples of the regen batch's 4 rows).
+@pytest.mark.parametrize("kernel", ["k1", "k3", "k5"])
+def test_band_kernels_match_plain_and_full_rows(cuda, kernel):
+    from spt_tpu_torch.kernels import wavefront as wf
+    w, h, off, rows = 64, 48, 13, 21
+    band = dict(height=rows, row_offset=off, full_height=h)
+    if kernel == "k5":
+        sd = scene_200(T).compile(device=cuda)
+        t, static = mb.packed(sd, _scene200_camera(cuda, False), mb.BLOCK)
+        meta = torch.tensor([2, 3, static["n_light_slots"]],
+                            dtype=torch.int32, device=cuda)
+        kw = dict(width=w, chunk_spp=2, dof=False, **band)
+        got = wf._stream_buffer(*wf.raygen(t["blob"], meta, **kw))
+        want = wf._stream_buffer(*wf.raygen_plain(t["blob"], meta, **kw))
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        ids = got[wf.N_CH:].view(torch.int32)
+        inimg = got[wf.C_INIMG] > 0.5
+        assert int(ids[0][inimg].min()) == off * w
+        assert int(ids[0][inimg].max()) == (off + rows) * w - 1
+        return
+    if kernel == "k1":
+        sd = cornell(T).compile(device=cuda)
+        cam = T.Camera.look_at(device=cuda, position=(0, 1.0, -1.5),
+                               target=(0, 1.0, 3.0), fov_degrees=55)
+        blob, meta, lsb, static = mk.pack_uniforms(sd, cam, 3, 3)
+        args, fn, plain = (blob, meta, lsb), mk.megakernel_fwd, \
+            mk.render_tiles_plain
+    else:
+        sd = scene_200(T).compile(device=cuda)
+        args, static, _ = k3_inputs(torch, mb, sd,
+                                    _scene200_camera(cuda, True), 3)
+        fn, plain = mb.megakernel_bvh_fwd, mb.render_tiles_bvh_plain
+    kw = dict(width=w, spp=3, max_bounces=8, rr_depth=3, use_nee=True,
+              use_mis=True, sky_mode=sd.sky_mode, dof=kernel == "k3",
+              **static)
+    full = fn(*args, height=h, **kw)
+    got = fn(*args, **kw, **band)
+    assert torch.equal(got, plain(*args, **kw, **band))
+    assert torch.equal(got, full[off:off + rows])
+    assert float(got.mean()) > 0.01
+
+
+def test_pixel_sharded_k1_on_the_card(cuda):
+    """``render_pixel_sharded`` on two gloo ranks sharing the card (data=2,
+    ``tools/dist_worker``): K1's bands gathered equal the unsharded K1
+    render bit for bit."""
+    from spt_tpu_torch.engine.cuda_backend import render_route
+    from spt_tpu_torch.tools import dist_worker
+    sd = cornell(T).compile(device=cuda)
+    cam = T.Camera.look_at(device=cuda, position=(0, 1.0, -1.5),
+                           target=(0, 1.0, 3.0), fov_degrees=55)
+    kw = dict(max_bounces=8, rr_depth=3, seed=3)
+    rep, = dist_worker.launch(
+        [dict(case="pixel", data=2, prim=1, scene="cornell", width=64,
+              height=64, spp=8, start=4, kw=kw)], 2,
+        scenes={"cornell": (sd, cam)}, backend="gloo", device="cuda",
+        timeout=300.0)
+    want = render_route(sd)(sd, cam, 64, 64, 4, 8, **kw).cpu().numpy()
+    assert rep["launches"]["k1"] == 2 and rep["launches"]["plain"] == 0
+    np.testing.assert_array_equal(rep["image"], want)
+    assert want.mean() > 0.01

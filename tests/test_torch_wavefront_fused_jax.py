@@ -128,7 +128,10 @@ def test_padding_winners_follow_jax():
     kw = dict(KW, max_bounces=1)
     del kw["seed"]
 
-    def jax_raygen(_blob, _meta, *, width, height, chunk_spp, dof):
+    def jax_raygen(_blob, _meta, *, width, height, chunk_spp, dof,
+                   row_offset, full_height):
+        # K5's stage signature; the whole image, as JAX's raygen renders.
+        assert row_offset == 0 and full_height is None
         st_j, ids_j, _ = jwf._raygen_launch(
             jnp.asarray(meta, jnp.int32), blob, width=width, height=height,
             chunk_spp=chunk_spp, dof=dof, interpret=True)
