@@ -33,7 +33,14 @@ and K5 rendering a band of rows from an offset that is not a multiple of
 and ``parallel.sharding``'s renders on 2 gloo ranks on the card (Cornell
 and the 2,000-sphere scene pixel-sharded, config 5 with either sky
 pixel-, sample- and prim-sharded by gather and by the ring), each against
-the unsharded route.  Last it drives the applications: the CLI
+the unsharded route.  Then the wavefront's A/B knobs (JAX's
+``render_wavefront`` keywords): K6l, K6m, K11 and K11g without their t
+exits (``tcull=False``) against their plain versions on config-5 bounces
+0 and 1; K3, K6, K7, K11, K6m and K7m at leaf blocks of 128 (JAX's TPU
+width) against theirs; each knob's config-5 render (1920x1080 x 2 spp)
+against its route's default, counted and timed; and the differentiable
+wavefront with ``sort_every=0`` and ``dir_major=False`` against its
+default.  Last it drives the applications: the CLI
 renderer (``python -m spt_tpu_torch.apps.render_cli``, in process through
 ``main(argv)`` and once as a fresh process) on ``scenes/cornell.json`` at
 the file's settings (K1; checkpoint and resume, the image formats, a
@@ -52,6 +59,7 @@ Exits nonzero without a CUDA device, and when the package is not beside it.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -467,6 +475,63 @@ def cuda_ms(torch, fn):
     return out, start.elapsed_time(end)
 
 
+def raygen_launcher(torch, wf, lib, blob, meta, width, height, chunk_spp,
+                    old=False):
+    """(call, buffer): ``call()`` launches K5 through the library ``lib``'s
+    ``spt_wavefront_raygen`` (``old``: an earlier entry, without the row
+    offset) into one preallocated stream, whose (19, R) buffer is returned;
+    K5 without its wrapper's host work (allocation, checks)."""
+    tiles_x, tiles_per_img, n_tiles = wf.stream_tiles(width, height,
+                                                      chunk_spp)
+    n = (n_tiles + 1) * wf.TILE
+    st, ids = wf._new_stream(n, blob.device)
+    floats = [ctypes.c_float(float(np.float32(v)))
+              for v in (1.0 / width, 1.0 / height, width / height)]
+
+    def call():
+        err = lib.spt_wavefront_raygen(
+            st.data_ptr(), ids.data_ptr(), blob.data_ptr(), meta.data_ptr(),
+            width, height, tiles_x, tiles_per_img, n_tiles, n, 0,
+            *(() if old else (0,)), *floats,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"K5: CUDA error {err}")
+    return call, wf._stream_buffer(st, ids)
+
+
+def launch_device_ms(torch, fn, kernel, reps=10):
+    """The device time of one launch of the kernel named ``kernel`` over
+    ``reps`` calls of fn(): from torch.profiler, each launch's span on the
+    card's timeline (the least and the median in ms, and the launches the
+    trace kept), unlike ``cuda_ms`` around a wrapper counting no host
+    time; where the trace kept none, CUDA events around ``reps`` calls back
+    to back, over ``reps`` (the queue kept full, so the host's time between
+    launches hides behind the kernels').  ``method`` says which."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = sorted(1e-3 * (e.time_range.end - e.time_range.start)
+                for e in prof.events()
+                if e.device_type == DeviceType.CUDA and kernel in e.name)
+    if ms:
+        return dict(min_ms=ms[0], median_ms=ms[len(ms) // 2],
+                    launches=len(ms), method="profiler events")
+
+    def back_to_back():
+        for _ in range(reps):
+            fn()
+    per = min(cuda_ms(torch, back_to_back)[1] for _ in range(3)) / reps
+    return dict(min_ms=per, median_ms=per, launches=reps,
+                method="events back to back")
+
+
 def profiled(torch, fn, kernel):
     """fn() under torch.profiler: its wall, the device time (the sum of the
     self times of the events that ran on the card: kernels and copies; a
@@ -750,6 +815,7 @@ def run() -> int:
     ds = run_dist_phases(torch, T, mk, dev, card, k3, pr)
     sh = run_shard_phases(torch, T, mk, dev, card, k3, pr)
     fu = run_fused_phases(torch, T, mk, dev, card, k3)
+    kn = run_knob_phases(torch, T, mk, dev, card, k3)
     ap = run_app_phases(torch, T, mk, dev, card)
     paths = {"render": counts, "train": k2["launches"],
              "bvh": k3["launches"], "wavefront": wf["launches"],
@@ -760,7 +826,8 @@ def run() -> int:
              "render_and_grad_bvh": sh["render_and_grad_bvh"],
              "fused": fu["launches"]["fused"],
              "fused_grad": fu["launches"]["fused_grad"],
-             "mxu": fu["launches"]["mxu"], **ap["launches"]}
+             "mxu": fu["launches"]["mxu"], "knobs": kn["launches"],
+             **ap["launches"]}
 
     def by_path(key):
         return {path: c[key] for path, c in paths.items()}
@@ -1338,10 +1405,11 @@ def env_gradient(he=ENV_H, we=ENV_W):
     return np.stack([r, g, b], axis=-1)
 
 
-def wf_inputs(torch, wf, mb, sd, cam, seed):
+def wf_inputs(torch, wf, mb, sd, cam, seed, block=None):
     """The wavefront's packed tensors, static dict and meta (samples from
-    0) for a compiled scene and camera."""
-    t, st = mb.packed(sd, cam, wf.BLOCK)
+    0) for a compiled scene and camera (leaf blocks of ``block`` slots,
+    the package's by default)."""
+    t, st = mb.packed(sd, cam, block or wf.BLOCK)
     meta = torch.tensor([0, seed, st["n_light_slots"]], dtype=torch.int32,
                         device=sd.device)
     return t, st, meta
@@ -1454,10 +1522,13 @@ def sort_rays_unstable(torch, wf):
     """``wavefront._sort_rays`` with ``torch.sort(stable=False)``: the
     coherence sort as the wavefront ran it before every path sorted
     stably.  Equal keys may land in any order."""
-    def sort(buf, n_lanes, lo, ext):
+    def sort(buf, n_lanes, lo, ext, qbits=wf.Q_BITS, dir_major=True,
+             dbits=wf.D_BITS, rowsort=False):
+        assert not rowsort
         part = buf[:, :n_lanes]
-        key = wf._coherence_key(part, lo, ext)
-        n_alive = int((key < wf._dead_key(wf.Q_BITS)).sum())
+        key = wf._coherence_key(part, lo, ext, qbits, dir_major, dbits)
+        n_alive = int((key < wf._dead_key(
+            qbits, dbits if dir_major else 0)).sum())
         order = torch.sort(key, stable=False).indices
         part.copy_(part.index_select(1, order))
         return -(-n_alive // wf.TILE)
@@ -1657,14 +1728,31 @@ def run_wf_phases(torch, T, mk, dev, card, k3) -> dict:
                   plain_ms=p_ms))
         check(differ == 0, f"{label}: K5 differs on {differ} lanes")
         if label == "config5":
+            # K5's time is its kernel's device time, the bare launch into
+            # a preallocated stream (torch.profiler's events, or CUDA
+            # events around launches back to back); the CUDA-event
+            # interval around the wrapper, which also allocates the stream
+            # and checks its arguments on the host, beside it.
             lanes = a.shape[1]
-            k5_ms = min(cuda_ms(torch, lambda: wf.raygen(
+            bare, _ = raygen_launcher(torch, wf, _build.load_library(
+                "wavefront"), t["blob"], meta, w, h, 2)
+            dev_ms = launch_device_ms(torch, bare, "raygen_kernel")
+            wrapper_ms = min(cuda_ms(torch, lambda: wf.raygen(
                 t["blob"], meta, **kw))[1] for _ in range(3))
-            out["k5"] = dict(ms=k5_ms, plain_ms=p_ms, max_abs_err=0.0,
+            out["k5"] = dict(ms=dev_ms["min_ms"], plain_ms=p_ms,
+                             max_abs_err=0.0,
                              plain_size=f"{w}x{h} x 2 spp (config 5)",
-                             lanes=lanes)
+                             lanes=lanes, device_ms=dev_ms,
+                             wrapper_events_ms=wrapper_ms)
             out["k5"]["bound_ms"], out["k5"]["bound_by"] = bound(
                 0, 4 * (wf.N_CH + wf.N_IDS) * lanes + 4 * (15 + 3))
+            emit(dict(phase="k5_timing", card=card, case=label,
+                      **{k: out["k5"][k] for k in (
+                          "ms", "device_ms", "wrapper_events_ms", "bound_ms",
+                          "bound_by", "lanes")},
+                      bound_share=out["k5"]["bound_ms"] / out["k5"]["ms"],
+                      **ptxas_of(_build.BUILD_INFO, "wavefront",
+                                 "raygen_kernel")))
         del st_k, ids_k, st_p, ids_p, a, b
 
     # 18. Config-5 bounces 0 and 1 at full size (1920x1080 x 2 spp) and a
@@ -1747,7 +1835,7 @@ def run_wf_phases(torch, T, mk, dev, card, k3) -> dict:
               k7_ms={k: v["k7_ms"] for k, v in nums.items()},
               k6_lists_ms=k6l_ms,
               k6=dict(ptxas_of(_build.BUILD_INFO, "wavefront",
-                               "12isect_kernel"),
+                               "12isect_kernelILb1E"),
                       **{k: out["k6"][k] for k in ("fp32_ops", "bytes",
                                                    "bound_ms", "bound_by")}),
               k7=dict(ptxas_of(_build.BUILD_INFO, "wavefront",
@@ -3210,22 +3298,23 @@ def check_state(res, label):
 
 
 def k11_case(torch, wf, wg, t, stc, meta, b, k, precull, sky, reps,
-             boxes):
+             boxes, tcull=True):
     """K11 and K11g on one config-5 bounce from the same state, against
     the plain K11 (its record the plain K11g's) and against the split
     bounce (K6's tree-mode winner, K7's state, K9's verdict, the shadow
     rays walking the tree); with ``precull`` their list sweep culled by
-    ``boxes``, as the render runs it.  Returns the numbers and K11g's
-    outputs."""
+    ``boxes``, as the render runs it (``tcull`` False: the sweep without
+    its t exits, the kernels' and the plain version's).  Returns the
+    numbers and K11g's outputs."""
     n, base = b["n"], b["buf"].clone()
     kw = dict(k=k, block=stc["block"], n_mats=stc["n_mats"],
               n_light_slots=stc["n_light_slots"], rr_depth=RR, use_nee=True,
-              use_mis=True, sky_mode=sky, boxes=boxes)
+              use_mis=True, sky_mode=sky, boxes=boxes, tcull=tcull)
     fargs = (t["blob"], meta, t["lsb"], t["nodef"], t["nodei"], t["prims"],
              t["mtypes"], b["cand"], b["ctn"])
     args7 = (t["blob"], meta, t["lsb"], t["prims"], t["mtypes"], None, None)
     split = base.clone()
-    kw7 = {a: v for a, v in kw.items() if a != "boxes"}
+    kw7 = {a: v for a, v in kw.items() if a not in ("boxes", "tcull")}
     wf.shade(*args7, *stream_of(torch, wf, split), b["res_t"], n,
              tree=b["tree"], **kw7)
     _, blocked9 = wg.shade_fwd(*args7, *stream_of(torch, wf, base),
@@ -3277,7 +3366,7 @@ def k11_case(torch, wf, wg, t, stc, meta, b, k, precull, sky, reps,
         / max(stats["active"], 1),
         shadow_nodes_per_ray=stats["shadow_nodes"] / max(stats["shadow"], 1),
         **res)
-    label = f"K11 at bounce {k}, precull={precull}"
+    label = f"K11 at bounce {k}, precull={precull}, tcull={tcull}"
     check_state(res, label)
     check(why["other"] == 0, f"{label}: {why} lanes differ from the plain "
                              "K11 but at no tie or padding winner")
@@ -3295,13 +3384,15 @@ def k11_case(torch, wf, wg, t, stc, meta, b, k, precull, sky, reps,
                      res_g=res_g, err=res["max_abs_err"])
 
 
-def k6m_case(torch, wf, t, stc, b, cslot, bctr, boxes, reps, label):
+def k6m_case(torch, wf, t, stc, b, cslot, bctr, boxes, reps, label,
+             tcull=True):
     """K6m on one bounce's stream, on per-row lists made from it, culling
-    by the leaf ``boxes`` as the render runs it: its residual against the
-    plain K6m with the same boxes (bit for bit) and against the plain
-    unculled sweep (``cull_differ``: ties and box edges counted, no other
-    lane), and against K6's list mode.  Returns (row, residual, lists,
-    numbers)."""
+    by the leaf ``boxes`` as the render runs it (``tcull`` False: without
+    the t exits, the kernel's and the plain version's): its residual
+    against the plain K6m with the same boxes (bit for bit) and against
+    the plain unculled sweep (``cull_differ``: ties and box edges counted,
+    no other lane), and against K6's list mode.  Returns (row, residual,
+    lists, numbers)."""
     block, prims, n, st = stc["block"], t["prims"], b["n"], b["st"]
     lob, hib = wf._leaf_block_bounds(prims.reshape(-1, 5, block))
     cand, ctn = wf.precull_tiles(
@@ -3309,15 +3400,15 @@ def k6m_case(torch, wf, t, stc, b, cslot, bctr, boxes, reps, label):
         tuple(st[c, :n] for c in range(3, 6)), st[wf.C_ALIVE, :n], None,
         lob, hib, per_row=True)
     ms6 = [cuda_ms(torch, lambda: wf.isect_mxu(
-        prims, cslot, bctr, cand, ctn, st, n, block=block, boxes=boxes))[1]
-        for _ in range(reps)]
+        prims, cslot, bctr, cand, ctn, st, n, block=block, boxes=boxes,
+        tcull=tcull))[1] for _ in range(reps)]
     res = wf.isect_mxu(prims, cslot, bctr, cand, ctn, st, n, block=block,
-                       boxes=boxes)
+                       boxes=boxes, tcull=tcull)
     s6, s6u = {}, {}
     with torch.inference_mode():
         res_p, p6_ms = cuda_ms(torch, lambda: wf.isect_mxu_plain(
             prims, cslot, bctr, cand, ctn, st, n, block=block, boxes=boxes,
-            stats=s6))
+            stats=s6, tcull=tcull))
         res_u = wf.isect_mxu_plain(prims, cslot, bctr, cand, ctn, st, n,
                                    block=block, stats=s6u)
     alive = max(s6["alive"], 1)
@@ -3559,11 +3650,11 @@ def run_fused_phases(torch, T, mk, dev, card, k3) -> dict:
               walk_bound_ms=bound(walk_ops, wf.k11_byte_count(
                   s11w["stats"], n0, tree_words) + uniform_bytes)[0],
               k11=dict(ptxas_of(_build.BUILD_INFO, "wavefront",
-                                "bounce_kernelILb0"),
+                                "bounce_kernelILb0ELb1E"),
                        blocks_per_sm=lib.spt_wavefront_blocks_per_sm(
                            2, smem11)),
               k11g=dict(ptxas_of(_build.BUILD_INFO, "wavefront",
-                                 "bounce_kernelILb1"),
+                                 "bounce_kernelILb1ELb1E"),
                         blocks_per_sm=lib.spt_wavefront_blocks_per_sm(
                             7, smem11)),
               **{k: out["k11"][k] for k in ("fp32_ops", "bytes", "bound_ms",
@@ -3614,7 +3705,7 @@ def run_fused_phases(torch, T, mk, dev, card, k3) -> dict:
               k7m_bounce_bounce1_ms=nums[1, "mxu"]["msb"],
               k7m_plain_ms=sm["p7_ms"],
               k6m=dict(ptxas_of(_build.BUILD_INFO, "wavefront",
-                                "isect_mxu_kernel"),
+                                "16isect_mxu_kernelILb1E"),
                        blocks_of_128_per_sm=lib
                        .spt_wavefront_isect_mxu_blocks_per_sm(block),
                        **{k: out["k6m"][k] for k in (
@@ -3761,6 +3852,280 @@ def run_fused_phases(torch, T, mk, dev, card, k3) -> dict:
     del runs, fused, split
     torch.cuda.empty_cache()
     return out
+
+
+# The wavefront's A/B knobs (JAX's render_wavefront keywords) on config 5,
+# 1920x1080 x KNOB_SPP spp: one chunk, so the card's atomic scatter adds
+# two samples a pixel and the image is exact whatever their order.  Each
+# case: (label, the route's default it must equal, render_wavefront's
+# options); the tcull cases and their routes' defaults run with the env
+# map too.
+KNOB_SPP = 2
+KNOB_CASES = (
+    ("default", None, {}),
+    ("sort_every=0", "default", dict(sort_every=0)),
+    ("sort_every=2", "default", dict(sort_every=2)),
+    ("rowsort", "default", dict(rowsort=True)),
+    ("dir_major=False", "default", dict(dir_major=False)),
+    ("dbits=2", "default", dict(dbits=2)),
+    ("qbits=5", "default", dict(qbits=5)),
+    ("block=128", "default", dict(block=128)),
+    ("fused", None, dict(split=False)),
+    ("fused_tcull=False", "fused", dict(split=False, tcull=False)),
+    ("mxu", None, dict(mxu=True)),
+    ("mxu_tcull=False", "mxu", dict(mxu=True, tcull=False)),
+)
+KNOB_ENVMAP = ("fused", "fused_tcull=False", "mxu", "mxu_tcull=False")
+# JAX's leaf width on the TPU (TPU_WAVEFRONT_BLOCK), run on the card by
+# the kernels that take the width at run time.
+WIDE_BLOCK = 128
+# The differentiable wavefront's knobs: 2,000 spheres, 1080p x 1 spp; the
+# gradients within this relative L2 a field of the default's (K10's
+# in-kernel sums run in another order).
+KNOB_GRAD_REL = 1e-5
+
+
+def k6l_tcull_case(torch, wf, t, stc, b, boxes, reps, label):
+    """K6l (K6's list mode) on one bounce's tile lists without its t exit
+    against its plain version (bit for bit) and against K6l with it
+    (``cull_differ``'s lanes).  Returns (row, milliseconds)."""
+    block, prims, n, st = stc["block"], t["prims"], b["n"], b["st"]
+    ms = [cuda_ms(torch, lambda: wf.isect(
+        prims, b["cand"], b["ctn"], st, n, block=block, tcull=False))[1]
+        for _ in range(reps)]
+    res = wf.isect(prims, b["cand"], b["ctn"], st, n, block=block,
+                   tcull=False)
+    stats = {}
+    with torch.inference_mode():
+        res_p, p_ms = cuda_ms(torch, lambda: wf.isect_plain(
+            prims, b["cand"], b["ctn"], st, n, block=block, stats=stats,
+            tcull=False))
+    why = cull_differ(torch, wf, st[:, :n], res, b["res"], boxes)
+    row = dict(lanes=n, lanes_differ=bits_differ(torch, res, res_p),
+               lanes_differ_from_tcull=why, k6l_ms=ms, plain_ms=p_ms,
+               blocks_swept_per_lane=stats["blocks"] / max(stats["alive"],
+                                                           1))
+    check(row["lanes_differ"] == 0, f"K6l {label} without tcull: "
+                                    f"{row['lanes_differ']} lanes differ "
+                                    "from its plain version")
+    check(why["other"] == 0, f"K6l {label}: {why} lanes part from the t "
+                             "exits' at no tie, box edge or padding winner")
+    return row, min(ms)
+
+
+def run_knob_phases(torch, T, mk, dev, card, k3) -> dict:
+    """JAX's A/B knobs on the card: K6l, K6m, K11 and K11g without their t
+    exits (tcull=False) against their plain versions on config-5 bounces 0
+    and 1; K3, the split wavefront's K6 and K7, K11 with the lists, K6m
+    and K7m at JAX's TPU leaf width (128) against their plain versions;
+    the knobs' main path (``KNOB_CASES`` through ``render_wavefront``,
+    counted), each image against its route's default, walls and sort
+    times; and the differentiable wavefront with ``sort_every=0`` and
+    ``dir_major=False`` against its default.  Returns the knobs path's
+    launch counts."""
+    from spt_tpu_torch.diff import cuda_diff, gradients as G
+    from spt_tpu_torch.kernels import megakernel_bvh as mb
+    from spt_tpu_torch.kernels import wavefront as wf
+    from spt_tpu_torch.kernels import wavefront_grad as wg
+
+    sd10, cam10 = k3["sd10"], k3["cam10"]
+    sky = sd10.sky_mode
+
+    # 36. tcull=False: K6l, K6m, K11 and K11g against their plain versions
+    # on config-5 bounces 0 and 1, and their winners against the t exits'
+    # (cull_differ) -------------------------------------------------------
+    t, stc, meta = wf_inputs(torch, wf, mb, sd10, cam10, BIG_SEED)
+    block = stc["block"]
+    bctr, cslot = wf.mxu_tables(t, block)
+    boxes = wf.leaf_boxes(*wf._leaf_block_bounds(
+        t["prims"].reshape(-1, 5, block)))
+    timing = {}
+    b = wf_bounce(torch, wf, t, stc, meta, BIG_W, BIG_H, 0, BIG_SEED)
+    for k in (0, 1):
+        if k:
+            b = wf_advance(torch, wf, t, stc, meta, b, 0, BIG_SEED, sky)
+        label = f"config5_bounce{k}"
+        row, timing[f"k6l_bounce{k}"] = k6l_tcull_case(
+            torch, wf, t, stc, b, boxes, 3, label)
+        emit(dict(phase="tcull_vs_plain", kernel="K6l", case=label, **row))
+        row6, res_u, *_, n6 = k6m_case(torch, wf, t, stc, b, cslot, bctr,
+                                       boxes, 3, f"at bounce {k}",
+                                       tcull=False)
+        _, res_c, *_, n6c = k6m_case(torch, wf, t, stc, b, cslot, bctr,
+                                     boxes, 3, f"at bounce {k}")
+        why6 = cull_differ(torch, wf, b["st"][:, :b["n"]], res_u, res_c,
+                           boxes)
+        emit(dict(phase="tcull_vs_plain", kernel="K6m", case=label,
+                  lanes_differ_from_tcull=why6, tcull_ms=n6c["ms6"], **row6))
+        check(why6["other"] == 0, f"K6m {label}: {why6} lanes part from "
+                                  "the t exits' at no tie or box edge")
+        timing[f"k6m_bounce{k}"] = n6["ms6"]
+        timing[f"k6m_tcull_bounce{k}"] = n6c["ms6"]
+        row11, n11 = k11_case(torch, wf, wg, t, stc, meta, b, k, True, sky,
+                              3, boxes, tcull=False)
+        _, n11c = k11_case(torch, wf, wg, t, stc, meta, b, k, True, sky, 3,
+                           boxes)
+        why11 = cull_differ(torch, wf, b["st"][:, :b["n"]], n11["res_g"],
+                            n11c["res_g"], boxes)
+        emit(dict(phase="tcull_vs_plain", kernel="K11, K11g", case=label,
+                  winner_lanes_differ_from_tcull=why11,
+                  tcull_k11_ms=n11c["ms"], tcull_k11g_ms=n11c["ms_g"],
+                  **row11))
+        check(why11["other"] == 0, f"K11g {label}: {why11} lanes part from "
+                                   "the t exits' at no tie or box edge")
+        check(row11["lanes_differ"] == 0,
+              f"K11 {label} without tcull: {row11['lanes_differ']} lanes "
+              "differ from its plain version")
+        timing.update({f"k11_bounce{k}": n11["ms"],
+                       f"k11g_bounce{k}": n11["ms_g"],
+                       f"k11_tcull_bounce{k}": n11c["ms"],
+                       f"k11g_tcull_bounce{k}": n11c["ms_g"]})
+        del res_u, res_c, n11, n11c
+    emit(dict(phase="tcull_timing", card=card, ms=timing))
+    del b
+    torch.cuda.empty_cache()
+
+    # 37. Leaf blocks of 128 (WIDE_BLOCK): K3 at 1080p x 1 spp, and on
+    # config-5 bounce 0 K6's walk, K7's shadow walk, K11 with the lists,
+    # K6m and K7m, each against its plain version as at 32, timed once ----
+    wide = {}
+    args, k3kw, st3 = k3_inputs(torch, mb, sd10, cam10, BIG_SEED,
+                                block=WIDE_BLOCK)
+    kw3 = dict(width=BIG_W, height=BIG_H, spp=1, max_bounces=DEPTH,
+               rr_depth=RR, use_nee=True, use_mis=True, sky_mode=sky,
+               dof=False, **k3kw)
+    mb.megakernel_bvh_fwd(*args, **kw3)
+    got, wide["k3_ms"] = cuda_ms(torch, lambda: mb.megakernel_bvh_fwd(
+        *args, **kw3))
+    with torch.inference_mode():
+        want, wide["k3_plain_ms"] = cuda_ms(
+            torch, lambda: mb.render_tiles_bvh_plain(*args, **kw3))
+    res = compare(got, want)
+    emit(dict(phase="block128_vs_plain", kernel="K3", case="config5",
+              block=WIDE_BLOCK, n_blocks=st3["n_blocks"],
+              n_nodes=st3["n_nodes"], width=BIG_W, height=BIG_H, spp=1,
+              k3_ms=wide["k3_ms"], plain_ms=wide["k3_plain_ms"], **res))
+    check(res["finite"] and res["values_differ"] == 0,
+          f"K3 at block {WIDE_BLOCK}: {res['values_differ']} values differ "
+          "from its plain version")
+    del got, want, args
+    t8, stc8, meta8 = wf_inputs(torch, wf, mb, sd10, cam10, BIG_SEED,
+                                block=WIDE_BLOCK)
+    bctr8, cslot8 = wf.mxu_tables(t8, WIDE_BLOCK)
+    boxes8 = wf.leaf_boxes(*wf._leaf_block_bounds(
+        t8["prims"].reshape(-1, 5, WIDE_BLOCK)))
+    b = wf_bounce(torch, wf, t8, stc8, meta8, BIG_W, BIG_H, 0, BIG_SEED)
+    label = f"config5_block{WIDE_BLOCK}_bounce0"
+    nums = walk_case(torch, wf, t8, stc8, meta8, b, 0, label, (sky,), 1)
+    wide.update(k6_ms=nums["k6_ms"], k7_ms=nums["k7_ms"])
+    row11, n11 = k11_case(torch, wf, wg, t8, stc8, meta8, b, 0, True, sky, 1,
+                          boxes8)
+    emit(dict(phase="k11_vs_plain", case=label, precull=True, **row11))
+    check(row11["lanes_differ"] == 0,
+          f"K11 at block {WIDE_BLOCK}: {row11['lanes_differ']} lanes differ")
+    wide.update(k11_ms=n11["ms"], k11g_ms=n11["ms_g"])
+    row6, row7, n6 = k6m_k7m_case(torch, wf, t8, stc8, meta8, b, 0, sky,
+                                  cslot8, bctr8, boxes8, 1)
+    emit(dict(phase="k6m_vs_plain", case=label, **row6))
+    emit(dict(phase="k7m_vs_plain", case=label, **row7))
+    wide.update(k6m_ms=n6["ms6"], k7m_ms=n6["ms7"],
+                k7m_verdict_pass_ms=n6["msv"], k7m_bounce_ms=n6["msb"])
+    emit(dict(phase="block128_timing", card=card, block=WIDE_BLOCK,
+              n_blocks=stc8["n_blocks"], lanes=b["n"], ms=wide))
+    del b, t8, n11, n6
+    torch.cuda.empty_cache()
+
+    # 38. Main path: the knobs through render_wavefront on config 5, each
+    # image against its route's default (0 pixels apart), counted; walls
+    # by CUDA events (least of 3) and the sort's milliseconds -------------
+    scene_env = scene_10k(T)
+    scene_env.set_environment_map(env_gradient())
+    skies = {"gradient": sd10, "envmap": scene_env.compile(device=dev)}
+    kw = dict(max_bounces=DEPTH, rr_depth=RR, seed=BIG_SEED)
+    images, rows = {}, []
+    mk.reset_launch_counts()
+    for sky_name, sd in skies.items():
+        for label, base, opts in KNOB_CASES:
+            if sky_name == "envmap" and label not in KNOB_ENVMAP:
+                continue
+            walls = []
+            for _ in range(3):
+                img, ms = cuda_ms(torch, lambda: wf.render_wavefront(
+                    sd, cam10, BIG_W, BIG_H, 0, KNOB_SPP, **kw, **opts))
+                walls.append(ms)
+            times = {}
+            wf._render(sd, cam10, BIG_W, BIG_H, 0, KNOB_SPP, times=times,
+                       **kw, **opts)
+            images[sky_name, label] = img
+            want = images[sky_name, base] if base else img
+            row = dict(phase="knobs_main_path", case=label, sky=sky_name,
+                       card=card, options=opts, size=f"{BIG_W}x{BIG_H}",
+                       spp=KNOB_SPP, wall_ms=min(walls), walls_ms=walls,
+                       sort_ms=sum(times.get("sort", [])),
+                       sorts=len(times.get("sort", [])),
+                       stage_ms={k: sum(v) for k, v in times.items()},
+                       against=base,
+                       pixels_apart=int((img != want).any(-1).sum()),
+                       mean=float(img.mean()))
+            emit(row)
+            rows.append(row)
+            check(bool(torch.isfinite(img).all()) and row["mean"] > 0.01,
+                  f"knobs {label} ({sky_name}): not finite or black")
+            check(row["pixels_apart"] == 0,
+                  f"knobs {label} ({sky_name}): {row['pixels_apart']} "
+                  f"pixels apart from {base}")
+    counts = dict(mk.LAUNCHES)
+    emit(dict(phase="knobs_launches", launches=counts))
+    want_k = ("k5", "k6", "k7", "k11", "k6m", "k7m", "k7mv")
+    check(all(counts[k] > 0 for k in want_k),
+          f"knobs: {want_k} not all launched: {counts}")
+    check(counts["plain"] == 0 and counts["k6l"] == 0,
+          f"knobs: a plain version or K6l ran: {counts}")
+    del images
+    torch.cuda.empty_cache()
+
+    # 39. The differentiable wavefront's knobs: 2,000 spheres, 1080p x 1
+    # spp, one backward each, against the default ---------------------------
+    sd2k = scene_10k(T, n=K3_MAIN_SPHERES).compile(device=dev)
+    ct = ct_image(torch, dev, BIG_W, BIG_H)
+    runs = {}
+    for label, opts in (("default", {}), ("sort_every=0", dict(sort_every=0)),
+                        ("dir_major=False", dict(dir_major=False))):
+        render = wg.make_wavefront_render_fn(
+            sd2k, cam10, BIG_W, BIG_H, spp=1, max_bounces=DEPTH, rr_depth=RR,
+            seed=BIG_SEED, **opts)
+        params = {k: v.clone().requires_grad_(True) for k, v in
+                  G.get_params(sd2k, cuda_diff.PARAM_KEYS).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render(params, 0)
+        (img * ct).sum().backward()
+        torch.cuda.synchronize()
+        runs[label] = dict(wall_s=time.perf_counter() - t0,
+                           img=img.detach(),
+                           grads={k: p.grad for k, p in params.items()})
+        del render, params, img
+    base = runs["default"]
+    for label in ("sort_every=0", "dir_major=False"):
+        r = runs[label]
+        rel = {}
+        for key, g0 in base["grads"].items():
+            norm = float(torch.linalg.norm(g0.double()))
+            err = float(torch.linalg.norm((r["grads"][key] - g0).double()))
+            rel[key] = err / norm if norm > 0 else err
+        row = dict(phase="knobs_grad", case=label, spheres=K3_MAIN_SPHERES,
+                   size=f"{BIG_W}x{BIG_H}", spp=1, wall_s=r["wall_s"],
+                   default_wall_s=base["wall_s"],
+                   pixels_apart=int((r["img"] != base["img"]).any(-1)
+                                    .sum()), grad_rel_l2=rel)
+        emit(row)
+        check(row["pixels_apart"] == 0,
+              f"knobs grad {label}: {row['pixels_apart']} pixels apart")
+        check(all(v <= KNOB_GRAD_REL for v in rel.values()),
+              f"knobs grad {label}: gradients {rel}")
+    del runs
+    torch.cuda.empty_cache()
+    return dict(launches=counts)
 
 
 # The applications and the reference integrator: the CLI renderer on the

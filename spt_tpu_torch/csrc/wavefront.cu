@@ -45,8 +45,9 @@
 //   packet's worst winner, each thread here stops on its own once the bound
 //   passes its own winner (a later block cannot hold a nearer hit: t >= box
 //   entry >= ctn[i] >= t_lane), so no thread waits for its tile and the
-//   block needs no syncs.  Bound: fp32 operations of the node and sphere
-//   tests.
+//   block needs no syncs.  The JAX package's tcull=False (kTcull false,
+//   here and in K6m, K11 and K11g) sweeps the whole list instead.
+//   Bound: fp32 operations of the node and sphere tests.
 // * K7 replaces wavefront.py::_shade_kernel: trace_bounce (physics.cuh) on
 //   every alive ray, its nearest hit rebuilt from K6's residual (the TPU's
 //   megakernel_bvh_grad.py::_rebuilt_intersect) and its shadow ray walking
@@ -441,7 +442,11 @@ __device__ __forceinline__ bool box_hit(const float* boxes, int blk,
 // a padding slot (outside its block's box) would have won.  A warp skips a
 // block that none of its lanes needs.  Without boxes (null: K6l's lists)
 // every candidate taken is swept.
-template <class Slots>
+// kTcull false (the JAX package's tcull=False) takes neither t exit: the
+// sweep goes through the whole list, and the box test keeps its miss test
+// but not its t limit (box_hit's tmax kBig), since that limit would cull
+// by t under another name.  The default build (kTcull true) is unchanged.
+template <bool kTcull = true, class Slots>
 __device__ __forceinline__ int list_nearest(const int* cl, const float* tl,
                                             const float* boxes, Slots& s,
                                             float& t, int& win_j) {
@@ -450,9 +455,10 @@ __device__ __forceinline__ int list_nearest(const int* cl, const float* tl,
   int win_blk = -1;
   const int ncand = __ldg(cl);
   for (int c = 0; c < ncand; ++c) {
-    if (__ldg(tl + c) >= t) break;        // no nearer hit in what is left
+    if (kTcull && __ldg(tl + c) >= t) break;   // no nearer hit left
     const int blk = __ldg(cl + 1 + c);
-    if (boxes && !box_hit(boxes, blk, s.ox, s.oy, s.oz, ivx, ivy, ivz, t))
+    if (boxes && !box_hit(boxes, blk, s.ox, s.oy, s.oz, ivx, ivy, ivz,
+                          kTcull ? t : kBig))
       continue;
     s.begin(blk);
     for (int j = 0; j < s.block; ++j) {
@@ -564,7 +570,9 @@ __device__ __forceinline__ void store_winner(const IsectParams& prm, int i,
 }
 
 // K6: the tree, or a list a tile, the compact form; the winner's
-// attributes read from prims.
+// attributes read from prims.  kTcull: list_nearest's (the tree mode is
+// launched with the default).
+template <bool kTcull = true>
 __global__ void __launch_bounds__(kThreadsWf) isect_kernel(IsectParams prm) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= prm.n_lanes) return;
@@ -584,7 +592,7 @@ __global__ void __launch_bounds__(kThreadsWf) isect_kernel(IsectParams prm) {
       win_blk = walk.nearest_slot(ox, oy, oz, dx, dy, dz, t, win_j);
     } else {
       CompactSlots slots{prm.prims, prm.block, ox, oy, oz, dx, dy, dz};
-      win_blk = list_nearest(cl, tl, nullptr, slots, t, win_j);
+      win_blk = list_nearest<kTcull>(cl, tl, nullptr, slots, t, win_j);
     }
   }
   store_winner(prm, i, win_blk, win_j);
@@ -598,7 +606,10 @@ __global__ void __launch_bounds__(kThreadsWf) isect_kernel(IsectParams prm) {
 // reaches its nearest t; a candidate whose leaf box its ray misses or
 // enters at or past that t skipped; a block's slots in order with a
 // strict '<'.  The row stops when every lane has.  So each lane's winner
-// is list_nearest's with the boxes, the same bits.
+// is list_nearest's with the boxes, the same bits.  kTcull false, as
+// there: no lane stops before the list's end, and the box test keeps its
+// miss test but not its t limit.
+template <bool kTcull = true>
 __global__ void __launch_bounds__(kRow) isect_mxu_kernel(IsectParams prm) {
   extern __shared__ float4 s_tab[];                   // 2 x 4 block
   const int row = blockIdx.x;
@@ -621,7 +632,7 @@ __global__ void __launch_bounds__(kRow) isect_mxu_kernel(IsectParams prm) {
   bool done = !alive;
   if (ncand > 0) stage_table(s_tab, prm.cslot, cl, 0, prm.block);
   for (int c = 0; c < ncand; ++c) {
-    if (!done && __ldg(tl + c) >= t) done = true;
+    if (kTcull && !done && __ldg(tl + c) >= t) done = true;
     // Every lane is past candidate c - 1, so its buffer may be refilled.
     if (!__syncthreads_or(!done)) break;
     if (c + 1 < ncand) {
@@ -632,7 +643,8 @@ __global__ void __launch_bounds__(kRow) isect_mxu_kernel(IsectParams prm) {
     }
     __syncthreads();                                  // candidate c staged
     const int blk = __ldg(cl + 1 + c);
-    if (!done && box_hit(prm.boxes, blk, ox, oy, oz, ivx, ivy, ivz, t)) {
+    if (!done && box_hit(prm.boxes, blk, ox, oy, oz, ivx, ivy, ivz,
+                         kTcull ? t : kBig)) {
       slots.begin_at(reinterpret_cast<const float*>(s_tab + (c & 1) * quads),
                      blk);
       for (int j = 0; j < prm.block; ++j) {
@@ -930,8 +942,9 @@ __global__ void __launch_bounds__(kRow) mxu_verdict_kernel(
 // row instead).
 // Every shadow ray walks the tree (BvhWalk::any_hit) with the tmax
 // trace_bounce gives it.  With kRecord (K11g) the walk writes the lane's
-// residual: K6's winner record, the shadow verdict at rec[7].
-template <bool kRecord>
+// residual: K6's winner record, the shadow verdict at rec[7].  kTcull:
+// list_nearest's (the walk has no list).
+template <bool kRecord, bool kTcull = true>
 struct FusedGeometry {
   static constexpr int kLightEmit = 4;
   static constexpr bool kNoMaterialHits = true;
@@ -948,7 +961,8 @@ struct FusedGeometry {
       CompactSlots slots{walk.prims, walk.block, ox, oy, oz, dx, dy, dz};
       t = kBig;
       int win_j = 0;
-      const int win_blk = list_nearest(cl, tl, boxes, slots, t, win_j);
+      const int win_blk =
+          list_nearest<kTcull>(cl, tl, boxes, slots, t, win_j);
       found = win_blk >= 0;
       if (found)
         walk.winner(win_blk, win_j, h);
@@ -994,8 +1008,9 @@ struct BounceParams {
 
 // K11 (kRecord false) and K11g (true): one bounce of every alive lane in
 // one kernel, in place; a dead lane keeps its state and has its miss flag
-// cleared (K11g: residual 0 0 0 0 -1 -1 -1 0, as K6 writes it).
-template <bool kRecord>
+// cleared (K11g: residual 0 0 0 0 -1 -1 -1 0, as K6 writes it).  kTcull
+// false: the list sweep without its t exits (list_nearest).
+template <bool kRecord, bool kTcull = true>
 __global__ void __launch_bounds__(kThreadsWf, kBounceMinBlocks)
     bounce_kernel(BounceParams prm) {
   extern __shared__ float smem[];
@@ -1026,7 +1041,7 @@ __global__ void __launch_bounds__(kThreadsWf, kBounceMinBlocks)
     load_path(st, s, p);
     const int tile = i / kTile;
     const float* mats = s_blob + kWfMatOff;
-    const FusedGeometry<kRecord> geo{
+    const FusedGeometry<kRecord, kTcull> geo{
         {prm.nodef, prm.nodei, prm.prims, mats, s_mtypes, s_invalid,
          mats + kWfMatStride * prm.n_mats, prm.n_nodes, prm.block, rec},
         prm.precull ? prm.cand + (size_t)tile * (prm.n_blocks + 1) : nullptr,
@@ -1189,14 +1204,16 @@ extern "C" int spt_wavefront_raygen(void* st, void* ids, const void* blob,
 
 // K6 (tree: nodef, nodei; lists: cand, ctn) and K6m (cslot non-null: the
 // per-row lists, the slot-major table, its centres and the leaf boxes,
-// which K6m always culls by).
+// which K6m always culls by).  tcull 0: the list sweeps without their t
+// exits (the tree mode ignores it).
 extern "C" int spt_wavefront_isect(void* res, const void* st,
                                    const void* prims, const void* cand,
                                    const void* ctn, const void* cslot,
                                    const void* bctr, const void* boxes,
                                    const void* nodef, const void* nodei,
                                    int stride, int n_lanes, int n_blocks,
-                                   int block, int n_nodes, void* stream) {
+                                   int block, int n_nodes, int tcull,
+                                   void* stream) {
   spt::IsectParams prm;
   prm.res = static_cast<float*>(res);
   prm.st = static_cast<const float*>(st);
@@ -1215,14 +1232,24 @@ extern "C" int spt_wavefront_isect(void* res, const void* st,
   prm.n_nodes = n_nodes;
   if (n_lanes <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cslot && (n_lanes % spt::kRow || !bctr || !boxes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem_mxu = 2 * 16 * block * sizeof(float);
+  if (!tcull && !nodef) {
+    if (!cslot)
+      spt::isect_kernel<false><<<spt::blocks_for(n_lanes), spt::kThreadsWf,
+                                 0, s>>>(prm);
+    else
+      spt::isect_mxu_kernel<false><<<n_lanes / spt::kRow, spt::kRow,
+                                     smem_mxu, s>>>(prm);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (!cslot) {
     spt::isect_kernel<<<spt::blocks_for(n_lanes), spt::kThreadsWf, 0, s>>>(
         prm);
   } else {
-    if (n_lanes % spt::kRow || !bctr || !boxes)
-      return static_cast<int>(cudaErrorInvalidValue);
     spt::isect_mxu_kernel<<<n_lanes / spt::kRow, spt::kRow,
-                            2 * 16 * block * sizeof(float), s>>>(prm);
+                            smem_mxu, s>>>(prm);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1232,7 +1259,7 @@ extern "C" int spt_wavefront_isect(void* res, const void* st,
 extern "C" int spt_wavefront_isect_mxu_blocks_per_sm(int block) {
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, spt::isect_mxu_kernel, spt::kRow,
+          &blocks, spt::isect_mxu_kernel<>, spt::kRow,
           2 * 16 * block * sizeof(float)) != cudaSuccess)
     return -1;
   return blocks;
@@ -1331,7 +1358,7 @@ extern "C" int spt_wavefront_bounce(
     const void* boxes, void* res,
     int stride, int n_lanes, int n_nodes, int n_blocks, int block,
     int n_mats, int n_light_slots, int k, int rr_depth, int use_nee,
-    int use_mis, int sky_mode, int precull, void* stream) {
+    int use_mis, int sky_mode, int precull, int tcull, void* stream) {
   spt::BounceParams prm;
   prm.st = static_cast<float*>(st);
   prm.ids = static_cast<const int*>(ids);
@@ -1365,6 +1392,16 @@ extern "C" int spt_wavefront_bounce(
   const size_t smem = sizeof(float) * (prm.blob_len + spt::kWfMatStride + 6 +
                                        3 + n_mats);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = spt::blocks_for(n_lanes);
+  if (!tcull && precull) {            // the list sweep without its t exits
+    if (res)
+      spt::bounce_kernel<true, false><<<grid, spt::kThreadsWf, smem, s>>>(
+          prm);
+    else
+      spt::bounce_kernel<false, false><<<grid, spt::kThreadsWf, smem, s>>>(
+          prm);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (res)
     spt::bounce_kernel<true><<<spt::blocks_for(n_lanes), spt::kThreadsWf,
                                smem, s>>>(prm);
@@ -1462,7 +1499,7 @@ extern "C" int spt_wavefront_blocks_per_sm(int which, int smem) {
   using namespace spt;
   const void* fn = nullptr;
   switch (which) {
-    case 0: fn = reinterpret_cast<const void*>(isect_kernel); break;
+    case 0: fn = reinterpret_cast<const void*>(isect_kernel<>); break;
     case 1: fn = reinterpret_cast<const void*>(shade_kernel<false>); break;
     case 2: fn = reinterpret_cast<const void*>(bounce_kernel<false>); break;
     case 3: fn = reinterpret_cast<const void*>(anyhit_kernel); break;

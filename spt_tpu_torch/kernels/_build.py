@@ -69,8 +69,8 @@ ENTRIES = {
         "spt_wavefront_raygen": [_P] * 4 + [_I] * 8 + [_F, _F, _F, _P],
         # res, st, prims, cand, ctn, cslot, bctr, boxes (K6m; null for
         # K6), nodef, nodei (K6's tree mode; null for the lists), stride,
-        # n_lanes, n_blocks, block, n_nodes, stream
-        "spt_wavefront_isect": [_P] * 10 + [_I] * 5 + [_P],
+        # n_lanes, n_blocks, block, n_nodes, tcull, stream
+        "spt_wavefront_isect": [_P] * 10 + [_I] * 6 + [_P],
         # block -> K6m's blocks of 128 threads an SM
         "spt_wavefront_isect_mxu_blocks_per_sm": [_I],
         # st, ids, res, blob, meta, lsb, prims, mtypes, scand, sctn,
@@ -84,8 +84,8 @@ ENTRIES = {
         # boxes (the list sweep's cull; null: none), res (K11g; null for
         # K11), stride, n_lanes, n_nodes, n_blocks, block, n_mats,
         # n_light_slots, k, rr_depth, use_nee, use_mis, sky_mode, precull,
-        # stream
-        "spt_wavefront_bounce": [_P] * 13 + [_I] * 13 + [_P],
+        # tcull, stream
+        "spt_wavefront_bounce": [_P] * 13 + [_I] * 14 + [_P],
         # blocked, sray, prims, scand, sctn, stride, n_lanes, n_blocks,
         # block, stream
         "spt_wavefront_anyhit": [_P] * 5 + [_I] * 4 + [_P],

@@ -28,7 +28,10 @@ of 32x32 swizzled pixels, ``chunk_spp`` images of them and one all-pad tile.
 Every random draw is keyed on the ids the ray carries, so no permutation of
 the stream changes a ray's result: the sort is invisible to the estimator.
 After a sort the alive rays form a prefix; the kernels and the preculls run
-over that prefix only, its length read to the host once per bounce.
+over that prefix only, its length read to the host once per bounce.  The
+JAX package's A/B knobs set the sort (``sort_every``, ``qbits``,
+``dir_major``, ``dbits``, ``rowsort``) and the list sweeps' t exits
+(``tcull``); none changes the image (``render_wavefront``).
 
 Two other forms of a bounce, as in the JAX package (neither the default):
 
@@ -124,7 +127,8 @@ N_IDS = 2            # pixel id, sample id (int32, rows 17 and 18 of the buffer)
 N_RES = 8            # K6's residual: hcx hcy hcz hr hmid hblk hslot 0
 
 # Sort-key bits: morton bits per origin axis, and fine direction bits (the
-# JAX package's defaults off the TPU; only 0 direction bits are ported).
+# JAX package's defaults off the TPU; ``render_wavefront``'s ``qbits`` and
+# ``dbits``).
 Q_BITS = 4
 D_BITS = 0
 
@@ -135,24 +139,38 @@ PRECULL_TILE_CHUNK = 64   # tiles per precull step: bounds the (chunk, 1024,
 GLUE_CALLS = {"precull": 0, "shadow_rays": 0}
 
 
-def _live_bits(qbits: int) -> int:
+def _live_bits(qbits: int, dbits: int = D_BITS) -> int:
     """Bits of an alive lane's key: octant, direction bits, morton code."""
-    bits = 3 * qbits + 3 + 3 * D_BITS
+    bits = 3 * qbits + 3 + 3 * dbits
     if bits + 2 > 31:
-        raise ValueError(f"sort key needs {bits}+2 bits; qbits must be <= "
-                         f"{8 - D_BITS} (got {qbits})")
+        raise ValueError(
+            f"sort key needs {bits}+2 bits; qbits+dbits must be <= 8 "
+            f"(got qbits={qbits}, dbits={dbits})")
     return bits
 
 
-def _dead_key(qbits: int) -> int:
+def _dead_key(qbits: int, dbits: int = D_BITS) -> int:
     """The key of a dead in-image lane: after every live key, whatever the
     key width, so the alive count is the number of keys below it."""
-    return 1 << _live_bits(qbits)
+    return 1 << _live_bits(qbits, dbits)
 
 
-def _pad_key(qbits: int) -> int:
+def _pad_key(qbits: int, dbits: int = D_BITS) -> int:
     """The key of an out-of-image lane: after the dead ones too."""
-    return 1 << (_live_bits(qbits) + 1)
+    return 1 << (_live_bits(qbits, dbits) + 1)
+
+
+def check_knobs(*, sort_every: int = 1, qbits: int = Q_BITS,
+                dir_major: bool = True, dbits: int = D_BITS) -> None:
+    """Raises ValueError where the sort's knobs make no key: ``sort_every``
+    below 0, ``qbits`` below 1, ``dbits`` below 0, or a key wider than 31
+    bits (``qbits + dbits > 8``; ``dbits`` counts only ``dir_major``)."""
+    if sort_every < 0:
+        raise ValueError(f"sort_every must be >= 0 (got {sort_every})")
+    if qbits < 1 or dbits < 0:
+        raise ValueError(f"qbits must be >= 1 and dbits >= 0 (got "
+                         f"qbits={qbits}, dbits={dbits})")
+    _live_bits(qbits, dbits if dir_major else 0)
 
 
 def stream_tiles(width: int, height: int, chunk_spp: int):
@@ -395,12 +413,16 @@ def _part1by2(x, nbits: int):
     return out
 
 
-def _coherence_key(stf, lo, ext, qbits: int = Q_BITS):
-    """The direction-major sort key, int32: octant (3 bits) above the
-    origin's morton code (``qbits`` per axis) for alive lanes, then
-    ``_dead_key`` for dead in-image lanes and ``_pad_key`` for the rest.
-    A tile of sorted rays then shares an octant and a run of origin cells.
-    ``lo``, ``ext``: the scene box's corner and extent (3 0-d tensors)."""
+def _coherence_key(stf, lo, ext, qbits: int = Q_BITS, dir_major: bool = True,
+                   dbits: int = D_BITS):
+    """The sort key, int32, JAX's bit for bit.  Direction-major (the
+    default): octant (3 bits), then ``dbits`` bits a direction axis of
+    ``|d|``, morton-interleaved, then the origin's morton code (``qbits``
+    per axis), for alive lanes; else ``(morton << 3) | octant``, ``dbits``
+    ignored.  Dead in-image lanes take ``_dead_key`` and the rest
+    ``_pad_key``, of the same width.  A tile of sorted rays then shares an
+    octant and a run of origin cells.  ``lo``, ``ext``: the scene box's
+    corner and extent (3 0-d tensors)."""
     n = float(1 << qbits)
     q = []
     for c, lo_a, e in zip((C_OX, C_OY, C_OZ), lo, ext):
@@ -411,37 +433,77 @@ def _coherence_key(stf, lo, ext, qbits: int = Q_BITS):
     octant = ((stf[C_DX] < 0).to(torch.int32) * 4
               + (stf[C_DY] < 0).to(torch.int32) * 2
               + (stf[C_DZ] < 0).to(torch.int32))
-    key = (octant << (3 * qbits)) | morton
+    if dir_major:
+        dirfine = torch.zeros_like(octant)
+        if dbits:
+            nd = float(1 << dbits)
+            qd = [torch.clamp(torch.abs(stf[c]) * nd, 0.0, nd - 1.0)
+                  .to(torch.int32) for c in (C_DX, C_DY, C_DZ)]
+            dirfine = ((_part1by2(qd[0], dbits) << 2)
+                       | (_part1by2(qd[1], dbits) << 1)
+                       | _part1by2(qd[2], dbits))
+        key = ((octant << (3 * dbits + 3 * qbits))
+               | (dirfine << (3 * qbits)) | morton)
+    else:
+        dbits = 0
+        key = (morton << 3) | octant
     return torch.where(stf[C_ALIVE] > 0.5, key,
-                       torch.where(stf[C_INIMG] > 0.5, _dead_key(qbits),
-                                   _pad_key(qbits)).to(torch.int32))
+                       torch.where(stf[C_INIMG] > 0.5, _dead_key(qbits, dbits),
+                                   _pad_key(qbits, dbits)).to(torch.int32))
 
 
-def _sort_rays(buf: torch.Tensor, n_lanes: int, lo, ext) -> int:
+def _sort_order(buf: torch.Tensor, n_lanes: int, lo, ext, qbits: int,
+                dir_major: bool, dbits: int, rowsort: bool):
+    """(order, alive prefix in tiles) of lanes [0, n_lanes) of the stream
+    by ``_coherence_key``: ``order`` the stable sort's lane permutation, or
+    with ``rowsort`` (JAX's, ``n_lanes`` whole rows) each ``ROW``-lane row
+    kept whole and the rows ordered by their least member key, so a row
+    with an alive lane sorts into the prefix; its alive prefix is the rows
+    below the dead key, rounded up to tiles."""
+    key = _coherence_key(buf[:, :n_lanes], lo, ext, qbits, dir_major, dbits)
+    dead = _dead_key(qbits, dbits if dir_major else 0)
+    if not rowsort:
+        n_alive = int((key < dead).sum())
+        return torch.sort(key, stable=True).indices, -(-n_alive // TILE)
+    row_key = key.reshape(-1, ROW).amin(dim=1)
+    rows = torch.sort(row_key, stable=True).indices
+    order = (rows[:, None] * ROW + torch.arange(ROW, device=key.device)) \
+        .reshape(-1)
+    n_rows = int((row_key < dead).sum())
+    return order, -(-n_rows // (TILE // ROW))
+
+
+def _sort_rays(buf: torch.Tensor, n_lanes: int, lo, ext, qbits: int = Q_BITS,
+               dir_major: bool = True, dbits: int = D_BITS,
+               rowsort: bool = False) -> int:
     """Sort lanes [0, n_lanes) of the (19, R) stream buffer by
-    ``_coherence_key``, in place: one sort of the key, then one gather of
-    all 19 rows.  Returns the alive prefix in tiles (read to the host).
-    The sort is stable: equal keys keep their lane order, so equal streams
-    sort alike wherever they are sorted (the prim-sharded render's ranks
-    rely on it)."""
+    ``_coherence_key`` (whole rows with ``rowsort``: ``_sort_order``), in
+    place: one sort of the key, then one gather of all 19 rows.  Returns
+    the alive prefix in tiles (read to the host).  The sort is stable:
+    equal keys keep their lane order, so equal streams sort alike wherever
+    they are sorted (the prim-sharded render's ranks rely on it)."""
     part = buf[:, :n_lanes]
-    key = _coherence_key(part, lo, ext)
-    n_alive = int((key < _dead_key(Q_BITS)).sum())
-    order = torch.sort(key, stable=True).indices
+    order, n_alive_tiles = _sort_order(buf, n_lanes, lo, ext, qbits,
+                                       dir_major, dbits, rowsort)
     part.copy_(part.index_select(1, order))
-    return -(-n_alive // TILE)
+    return n_alive_tiles
 
 
 def _sort_span(k: int, nalive: int, n_tiles: int, sort_min_rays: int,
-               compact: bool) -> int | None:
-    """The lanes to sort before bounce ``k``, or None for no sort: none at
-    bounce 0 or once at most ``sort_min_rays`` rays are alive; from bounce
-    2 on, once the alive prefix fits in the stream's first half or quarter,
-    only that part (the suffix is dead and stays in place)."""
-    if not k or nalive * TILE <= sort_min_rays:
+               compact: bool, sort_every: int = 1,
+               rowsort: bool = False) -> int | None:
+    """The lanes to sort before bounce ``k``, or None for no sort: a sort
+    is considered before bounces 1, 1 + sort_every, ... (none with
+    ``sort_every`` 0, as JAX's) and skipped once at most ``sort_min_rays``
+    rays are alive; after the first (always at bounce 1, so ``k > 1``),
+    once the alive prefix fits in the stream's first half or quarter, only
+    that part is sorted (the suffix is dead and stays in place), but not
+    by whole rows (JAX's tiers)."""
+    if not sort_every or not k or (k - 1) % sort_every \
+            or nalive * TILE <= sort_min_rays:
         return None
     lanes = (n_tiles + 1) * TILE
-    if compact and k > 1:
+    if compact and not rowsort and k > 1:
         t_half = max(1, (n_tiles + 1) // 2)
         t_quarter = max(1, (n_tiles + 1) // 4)
         if nalive <= t_quarter:
@@ -466,12 +528,13 @@ def _scene_sort_bounds(nodef: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def _sweep_lanes(cand, ctn, tile, bound, lanes, step):
+def _sweep_lanes(cand, ctn, tile, bound, lanes, step, tcull: bool = True):
     """Per-lane sweep of each lane's tile list in order: lane l takes
     candidate i while ``ctn[tile, i] < bound[l]`` and i is below its
     tile's count; ``step(idx, blk)`` tests block ``blk[m]`` for lanes
     ``idx[m]`` and returns the lanes that stop there.  ``bound`` is read
-    again at each step, so a lane whose bound drops stops sooner.
+    again at each step, so a lane whose bound drops stops sooner.  With
+    ``tcull`` False the bounds are not read: a lane takes every candidate.
 
     Returns ``(read, taken)``, (tiles,) int64: per tile, how many entry
     bounds some lane read, and how many candidates some lane took."""
@@ -481,8 +544,9 @@ def _sweep_lanes(cand, ctn, tile, bound, lanes, step):
     idx = torch.nonzero(lanes & (ncand > 0))[:, 0]
     i = 0
     while idx.numel():
-        read[tile[idx]] = i + 1
-        idx = idx[ctn[tile[idx], 0, i] < bound[idx]]
+        if tcull:
+            read[tile[idx]] = i + 1
+            idx = idx[ctn[tile[idx], 0, i] < bound[idx]]
         if not idx.numel():
             break
         taken[tile[idx]] = i + 1
@@ -522,13 +586,15 @@ def _compact_test(prims, o, d):
 
 
 def _nearest_sweep(test, prims, cand, ctn, alive, glen: int,
-                   stats: dict | None, cull=None):
+                   stats: dict | None, cull=None, tcull: bool = True):
     """Each alive lane's nearest hit over its group's list (``glen`` lanes
     a group: a tile's or a row's), candidates in order, a block's slots in
     order with a strict ``<``, stopping once the next candidate's bound
     reaches its nearest distance.  With ``cull`` (``_box_cull``: K11's
     sweep) a lane skips a candidate whose box its ray misses or enters at or
-    past its nearest distance so far.  Returns (t (n,), BIG on a miss; win
+    past its nearest distance so far.  ``tcull`` False (JAX's): neither t
+    test, every candidate swept and only a box the ray misses skipped.
+    Returns (t (n,), BIG on a miss; win
     (n,) int64, the global slot ``block_id * block + j``, -1 on a miss);
     ``prims`` (n_blocks, 5, block); ``stats`` as ``isect_plain``'s, and with
     ``cull`` also ``"culled_blocks"`` and ``"culled_spheres"``: the
@@ -545,7 +611,8 @@ def _nearest_sweep(test, prims, cand, ctn, alive, glen: int,
     def step(idx, blk):
         stop = torch.zeros_like(idx, dtype=torch.bool)   # the sweep goes on
         if cull is not None:
-            keep = cull(idx, blk, t[idx])
+            keep = cull(idx, blk, t[idx] if tcull
+                        else torch.full_like(t[idx], BIG))
             work[2] += (~keep).sum()
             work[3] += filled[blk[~keep]].sum()
             idx, blk = idx[keep], blk[keep]
@@ -560,7 +627,7 @@ def _nearest_sweep(test, prims, cand, ctn, alive, glen: int,
 
     cand, ctn = _flat_lists(cand, ctn)
     group = torch.arange(n, device=dev) // glen
-    reach = _sweep_lanes(cand, ctn, group, t, alive, step)
+    reach = _sweep_lanes(cand, ctn, group, t, alive, step, tcull)
     if stats is not None:
         stats["spheres"] = stats.get("spheres", 0) + int(work[0])
         stats["blocks"] = stats.get("blocks", 0) + int(work[1])
@@ -592,12 +659,13 @@ def _winner_res(prims, t, win, block: int) -> torch.Tensor:
 
 
 def _isect_lanes(test, prims, cand, ctn, st, n: int, block: int, glen: int,
-                 stats: dict | None, cull=None):
+                 stats: dict | None, cull=None, tcull: bool = True):
     """(t, residual) of K6's sweep (or K6m's, by ``test``; K11's, by
-    ``cull``) over lanes [0, n) of the stream."""
+    ``cull``) over lanes [0, n) of the stream (``tcull``:
+    ``_nearest_sweep``'s)."""
     prims = prims.reshape(-1, _N_PRIM_ATTRS, block)
     t, win = _nearest_sweep(test, prims, cand, ctn, st[C_ALIVE, :n] > 0.5,
-                            glen, stats, cull)
+                            glen, stats, cull, tcull)
     return t, _winner_res(prims, t, win, block)
 
 
@@ -628,7 +696,7 @@ def _walk_lanes(walk: _Walk, st, n: int, block: int, stats: dict | None):
 def isect_plain(prims: torch.Tensor, cand: torch.Tensor | None,
                 ctn: torch.Tensor | None, st: torch.Tensor, n_lanes: int, *,
                 block: int, stats: dict | None = None,
-                tree=None) -> torch.Tensor:
+                tree=None, tcull: bool = True) -> torch.Tensor:
     """Plain version of K6 -> residual (8, n_lanes) of lanes [0, n_lanes)
     of the stream ``st`` (17, R).  With ``tree`` = (nodef, nodei), K6's
     tree mode: each alive lane's nearest hit by its walk of the tree
@@ -639,7 +707,9 @@ def isect_plain(prims: torch.Tensor, cand: torch.Tensor | None,
     ``stats``, if given, gets ``"alive"`` (lanes walked or swept) and the
     walk's ``"nodes"`` and ``"spheres"``, or the sweep's ``"spheres"``
     (filled slots of the blocks tested), ``"blocks"``, ``"list_words"``
-    and ``"blocks_read"`` (``_list_reads``) added."""
+    and ``"blocks_read"`` (``_list_reads``) added.  ``tcull`` False (the
+    lists only): every candidate of the list swept, no stop by the
+    bounds."""
     LAUNCHES["plain"] += 1
     n = n_lanes
     if tree is not None:
@@ -649,7 +719,8 @@ def isect_plain(prims: torch.Tensor, cand: torch.Tensor | None,
     d = tuple(st[c, :n] for c in (C_DX, C_DY, C_DZ))
     return _isect_lanes(_compact_test(prims.reshape(-1, _N_PRIM_ATTRS, block),
                                       o, d),
-                        prims, cand, ctn, st, n, block, TILE, stats)[1]
+                        prims, cand, ctn, st, n, block, TILE, stats,
+                        tcull=tcull)[1]
 
 
 def _check_lists(cand, ctn, n_tiles, nb):
@@ -672,15 +743,15 @@ def _check_stream(st, ids=None):
 
 def isect(prims: torch.Tensor, cand: torch.Tensor | None,
           ctn: torch.Tensor | None, st: torch.Tensor, n_lanes: int, *,
-          block: int, tree=None) -> torch.Tensor:
+          block: int, tree=None, tcull: bool = True) -> torch.Tensor:
     """K6's wrapper: ``isect_plain``'s residual, on the stream's device
     (``tree`` = (nodef, nodei): the tree mode, ``cand`` and ``ctn`` unread;
-    else the lists)."""
+    else the lists, ``tcull`` as there)."""
     if st.device.type == "cpu":
         return isect_plain(prims, cand, ctn, st, n_lanes, block=block,
-                           tree=tree)
+                           tree=tree, tcull=tcull)
     return _isect_launch("K6", prims, cand, ctn, st, n_lanes, block, None,
-                         tree)
+                         tree, tcull)
 
 
 def _ptr(a) -> int:
@@ -699,10 +770,11 @@ def _check_tree(name: str, nodef, nodei) -> int:
 
 
 def _isect_launch(name, prims, cand, ctn, st, n_lanes: int, block: int,
-                  mxu, tree=None) -> torch.Tensor:
+                  mxu, tree=None, tcull: bool = True) -> torch.Tensor:
     """Checks and launches K6's kernel on CUDA tensors (its tree mode with
     ``tree`` = (nodef, nodei); K6m's, on per-row lists, with ``mxu`` =
-    (cslot, bctr, boxes)) -> the residual (8, n_lanes)."""
+    (cslot, bctr, boxes); the lists' sweeps without their t exits with
+    ``tcull`` False) -> the residual (8, n_lanes)."""
     if st.device.type != "cuda":
         raise NotImplementedError(f"{name} has no kernel for {st.device}")
     inputs = (prims, *((cand, ctn) if tree is None else tree), *(mxu or ()))
@@ -737,7 +809,7 @@ def _isect_launch(name, prims, cand, ctn, st, n_lanes: int, block: int,
             *(_ptr(a) for a in (res, st, prims, cand, ctn,
                                 *(mxu or (None, None, None)),
                                 *(tree or (None, None)))),
-            st.shape[1], n_lanes, nb, block, n_nodes,
+            st.shape[1], n_lanes, nb, block, n_nodes, int(bool(tcull)),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -1310,7 +1382,8 @@ def isect_mxu_plain(prims: torch.Tensor, cslot: torch.Tensor,
                     bctr: torch.Tensor, cand: torch.Tensor, ctn: torch.Tensor,
                     st: torch.Tensor, n_lanes: int, *, block: int,
                     boxes: torch.Tensor | None = None,
-                    stats: dict | None = None) -> torch.Tensor:
+                    stats: dict | None = None,
+                    tcull: bool = True) -> torch.Tensor:
     """Plain version of K6m -> K6's residual (8, n_lanes): ``isect_plain``
     over each lane's row list (``precull_tiles(per_row=True)``), a slot's
     distance by the expanded quadratic on ``build_cmat``'s tables (read
@@ -1320,7 +1393,9 @@ def isect_mxu_plain(prims: torch.Tensor, cslot: torch.Tensor,
     its ray misses or enters at or past its nearest distance so far
     (``_box_cull``, K11's cull), without them it sweeps every candidate it
     takes.  ``stats`` as K6's, with ``boxes`` also ``_nearest_sweep``'s
-    ``"culled_blocks"`` and ``"culled_spheres"``."""
+    ``"culled_blocks"`` and ``"culled_spheres"``.  ``tcull`` False: no
+    stop by the bounds, and the box test without its t limit
+    (``_nearest_sweep``)."""
     LAUNCHES["plain"] += 1
     n = n_lanes
     o = tuple(st[c, :n] for c in (C_OX, C_OY, C_OZ))
@@ -1328,24 +1403,26 @@ def isect_mxu_plain(prims: torch.Tensor, cslot: torch.Tensor,
     return _isect_lanes(_expanded_test(_cmat_of(cslot, block),
                                        bctr.reshape(-1, 3), o, d),
                         prims, cand, ctn, st, n, block, ROW, stats,
-                        None if boxes is None else _box_cull(boxes, o, d))[1]
+                        None if boxes is None else _box_cull(boxes, o, d),
+                        tcull)[1]
 
 
 def isect_mxu(prims: torch.Tensor, cslot: torch.Tensor, bctr: torch.Tensor,
               cand: torch.Tensor, ctn: torch.Tensor, st: torch.Tensor,
               n_lanes: int, *, block: int,
-              boxes: torch.Tensor | None = None) -> torch.Tensor:
+              boxes: torch.Tensor | None = None,
+              tcull: bool = True) -> torch.Tensor:
     """K6m's wrapper: ``isect_mxu_plain``'s residual on the stream's
-    device.  On the card it needs the leaf blocks' ``boxes``: its sweep
-    always culls by them."""
+    device (``tcull`` as there).  On the card it needs the leaf blocks'
+    ``boxes``: its sweep always culls by them."""
     if st.device.type == "cpu":
         return isect_mxu_plain(prims, cslot, bctr, cand, ctn, st, n_lanes,
-                               block=block, boxes=boxes)
+                               block=block, boxes=boxes, tcull=tcull)
     if boxes is None:
         raise ValueError("K6m's sweep culls by the leaf blocks' boxes: give "
                          "boxes")
     return _isect_launch("K6m", prims, cand, ctn, st, n_lanes, block,
-                         (cslot, bctr, boxes))
+                         (cslot, bctr, boxes), None, tcull)
 
 
 def mxu_verdicts_plain(prims, cslot, bctr, scand, sctn, sray, out,
@@ -1482,7 +1559,8 @@ def bounce_plain(blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn, st,
                  use_mis: bool, sky_mode: int, precull: bool,
                  boxes: torch.Tensor | None = None,
                  stats: dict | None = None,
-                 record: torch.Tensor | None = None) -> None:
+                 record: torch.Tensor | None = None,
+                 tcull: bool = True) -> None:
     """Plain version of K11: bounce ``k`` of lanes [0, n_lanes) of the
     stream, in place, in one step.  The nearest hit by K6's sweep of the
     tiles' lists ``cand``, ``ctn`` when ``precull``, else by K3's walk of
@@ -1490,7 +1568,9 @@ def bounce_plain(blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn, st,
     with ``boxes`` (``leaf_boxes``, the render's) the sweep skips each
     candidate whose box the lane's ray misses or enters at or past its
     nearest distance so far (``_box_cull``), without them it tests every
-    candidate it takes, as K6's list mode does.  ``trace_bounce`` on it, a
+    candidate it takes, as K6's list mode does; ``tcull`` False sweeps
+    the whole list, the box test without its t limit (``_nearest_sweep``).
+    ``trace_bounce`` on it, a
     padding winner resolved as ``_fused_intersect`` says; each shadow ray
     walks the tree and stops at its first blocker.  Dead lanes keep their
     state; the miss flag as K7's.  ``record``, if given, (8, n_lanes)
@@ -1513,7 +1593,7 @@ def bounce_plain(blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn, st,
     if precull:
         t, res = _isect_lanes(
             _compact_test(prims, o, d), prims, cand, ctn, st, n, block, TILE,
-            work, None if boxes is None else _box_cull(boxes, o, d))
+            work, None if boxes is None else _box_cull(boxes, o, d), tcull)
     else:
         t, res = _walk_lanes(walk, st, n, block, work)
     work.update(shadow_nodes=0, shadow_spheres=0)
@@ -1553,11 +1633,13 @@ def bounce(blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn, st, ids,
 def _bounce_launch(name, args, n_lanes: int, record, *, k: int, block: int,
                    n_mats: int, n_light_slots: int, rr_depth: int,
                    use_nee: bool, use_mis: bool, sky_mode: int,
-                   precull: bool, boxes: torch.Tensor | None = None) -> None:
+                   precull: bool, boxes: torch.Tensor | None = None,
+                   tcull: bool = True) -> None:
     """Checks and launches K11's kernel on CUDA tensors: K11 with
     ``record`` None, K11g (which also writes the (8, n_lanes) residual into
     ``record``) otherwise; with ``precull`` its list sweep culls by the
-    leaf blocks' ``boxes``, which it then needs."""
+    leaf blocks' ``boxes``, which it then needs (``tcull`` False: the
+    sweep without its t exits)."""
     blob, meta, lsb, nodef, nodei, prims, mtypes, cand, ctn, st, ids = args
     if st.device.type != "cuda":
         raise NotImplementedError(f"{name} has no kernel for {st.device}")
@@ -1595,7 +1677,7 @@ def _bounce_launch(name, args, n_lanes: int, record, *, k: int, block: int,
             _ptr(boxes), _ptr(record),
             st.shape[1], n_lanes, n_nodes, nb, block, n_mats, n_light_slots,
             k, rr_depth, int(bool(use_nee)), int(bool(use_mis)),
-            int(sky_mode), int(bool(precull)),
+            int(sky_mode), int(bool(precull)), int(bool(tcull)),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -1670,13 +1752,16 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
                       sort_min_rays: int, split: bool, precull: bool,
                       mxu: bool, stages: tuple, times: dict | None,
                       alive: list | None = None, row_offset: int = 0,
-                      full_height: int | None = None) -> torch.Tensor:
+                      full_height: int | None = None, sort_every: int = 1,
+                      qbits: int = Q_BITS, dir_major: bool = True,
+                      dbits: int = D_BITS, rowsort: bool = False,
+                      tcull: bool = True) -> torch.Tensor:
     """One chunk of ``chunk_spp`` images -> (H, W, 3) radiance sum (of the
     band from row ``row_offset`` of a ``full_height``-row image).  The
     split bounce walks the tree (K6's tree mode, K7's shadow walks) and
     builds no lists; the lists are built for ``mxu`` and for the fused
     bounce with ``precull``.  ``alive[k]``, if given, gains the lanes alive
-    when bounce k starts."""
+    when bounce k starts.  The knobs as ``render_wavefront``'s."""
     k5, k6, k7, k11, k6m, k7m = stages
     block, n_mats = static["block"], static["n_mats"]
     n_light_slots = static["n_light_slots"]
@@ -1708,10 +1793,12 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
               sky_mode=sky_mode)
     nalive = n_tiles
     for k in range(max_bounces):
-        lanes = _sort_span(k, nalive, n_tiles, sort_min_rays, compact)
+        lanes = _sort_span(k, nalive, n_tiles, sort_min_rays, compact,
+                           sort_every, rowsort)
         if lanes is not None:
             with clock("sort"):
-                na = _sort_rays(buf, lanes, lo, ext)
+                na = _sort_rays(buf, lanes, lo, ext, qbits, dir_major, dbits,
+                                rowsort)
             if compact:
                 nalive = na
         if nalive == 0:
@@ -1730,11 +1817,11 @@ def _launch_wavefront(t: dict, static: dict, env, meta, *, width: int,
             with clock("k11"):
                 k11(blob, meta, t["lsb"], t["nodef"], t["nodei"], prims,
                     t["mtypes"], cand, ctn, st, ids, n, k=k,
-                    precull=precull, boxes=boxes, **kw)
+                    precull=precull, boxes=boxes, tcull=tcull, **kw)
         elif mxu:
             with clock("k6m"):
                 res = k6m(prims, cslot, bctr, cand, ctn, st, n,
-                          block=block, boxes=boxes)
+                          block=block, boxes=boxes, tcull=tcull)
             scand, sctn = none_i, none_f
             if shadows:
                 with clock("shadow"):
@@ -1800,7 +1887,10 @@ def render_wavefront(scene: SceneData, camera, width: int, height: int,
                      mxu: bool = False, sort_min_rays: int = 1 << 17,
                      chunk_rays: int = 4 << 20,
                      alive: list | None = None, row_offset: int = 0,
-                     full_height: int | None = None) -> torch.Tensor:
+                     full_height: int | None = None, sort_every: int = 1,
+                     qbits: int = Q_BITS, dir_major: bool = True,
+                     dbits: int = D_BITS, rowsort: bool = False,
+                     tcull: bool = True) -> torch.Tensor:
     """Render ``spp`` samples with the sorted wavefront; returns the (H, W,
     3) radiance sum.  With ``row_offset`` and ``full_height``: that of the
     band of ``height`` rows from row ``row_offset`` of a
@@ -1831,14 +1921,31 @@ def render_wavefront(scene: SceneData, camera, width: int, height: int,
 
     ``alive``, if given (a list), is set to ``max_bounces`` counts: the
     lanes alive when each bounce starts, summed over the chunks (one host
-    read a bounce; ``utils.profiling.measure_occupancy`` reads them)."""
+    read a bounce; ``utils.profiling.measure_occupancy`` reads them).
+
+    The JAX package's A/B knobs, at its defaults off the TPU; none changes
+    the image (a permutation of the stream, or a sweep's stopping rule):
+    ``sort_every`` sorts before bounces 1, 1 + sort_every, ... (0: never;
+    the alive prefix then stays the whole stream); ``qbits`` origin bits
+    an axis of the key; ``dir_major`` puts the octant, and ``dbits``
+    direction bits an axis, above the origin's morton code (else the
+    morton code above the octant, ``dbits`` unused); ``rowsort`` permutes
+    whole 128-lane rows by their least key (no prefix sorts then).
+    ``tcull=False`` sweeps every candidate of a list, and the per-ray box
+    test keeps its miss test but not its t limit: it acts where lists are
+    swept, the fused bounce with ``precull`` (K11) and ``mxu`` (K6m); the
+    split bounce walks the tree, as the ``precull`` and ``mxu`` notes say.
+    Raises ValueError on ``sort_every < 0``, ``qbits < 1``, ``dbits < 0``
+    or ``qbits + dbits > 8`` (``check_knobs``) before any launch."""
     return _render(scene, camera, width, height, start_sample, spp,
                    max_bounces=max_bounces, rr_depth=rr_depth,
                    use_nee=use_nee, use_mis=use_mis, seed=seed, dof=dof,
                    block=block, compact=compact, precull=precull, split=split,
                    mxu=mxu, sort_min_rays=sort_min_rays,
                    chunk_rays=chunk_rays, alive=alive, row_offset=row_offset,
-                   full_height=full_height)
+                   full_height=full_height, sort_every=sort_every,
+                   qbits=qbits, dir_major=dir_major, dbits=dbits,
+                   rowsort=rowsort, tcull=tcull)
 
 
 KERNELS = (raygen, isect, shade, bounce, isect_mxu, shade_mxu)
@@ -1853,13 +1960,17 @@ def _render(scene: SceneData, camera, width: int, height: int,
             compact: bool = True, precull: bool = True, split: bool = True,
             mxu: bool = False, sort_min_rays: int = 1 << 17,
             chunk_rays: int = 4 << 20, alive: list | None = None,
-            row_offset: int = 0,
-            full_height: int | None = None) -> torch.Tensor:
+            row_offset: int = 0, full_height: int | None = None,
+            sort_every: int = 1, qbits: int = Q_BITS, dir_major: bool = True,
+            dbits: int = D_BITS, rowsort: bool = False,
+            tcull: bool = True) -> torch.Tensor:
     """``render_wavefront`` with its stages given (``KERNELS``, or
     ``PLAIN`` to run the plain versions on either device, to hold the
     kernels against them on the card).  ``times``, if given, gets each
     stage's device milliseconds (CUDA events; it synchronizes after every
     stage); ``alive`` as in ``render_wavefront``."""
+    check_knobs(sort_every=sort_every, qbits=qbits, dir_major=dir_major,
+                dbits=dbits)
     if alive is not None:
         alive[:] = [0] * max_bounces
     t, static = packed(scene, camera, block)
@@ -1884,7 +1995,10 @@ def _render(scene: SceneData, camera, width: int, height: int,
             use_mis=bool(use_mis), sky_mode=scene.sky_mode, dof=bool(dof),
             compact=compact, sort_min_rays=sort_min_rays, split=bool(split),
             precull=bool(precull), mxu=bool(mxu), stages=stages, times=times,
-            alive=alive, row_offset=row_offset, full_height=full_height)
+            alive=alive, row_offset=row_offset, full_height=full_height,
+            sort_every=int(sort_every), qbits=int(qbits),
+            dir_major=bool(dir_major), dbits=int(dbits),
+            rowsort=bool(rowsort), tcull=bool(tcull))
         img = part if img is None else img + part
         s += n
     return img

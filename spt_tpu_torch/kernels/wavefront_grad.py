@@ -64,14 +64,14 @@ from .megakernel_grad import K2_OPS, N_SKY_ATTRS, N_STATE
 from .megakernel_bvh_grad import n_scalars
 from .physics_adjoint import rebuilt_bounce_vjp
 from .wavefront import (C_ALIVE, C_DX, C_DY, C_DZ, C_LB, C_LG, C_LR,
-                        C_MISS, C_SPEC, C_TB, C_TG, C_TR, N_CH, N_IDS,
+                        C_MISS, C_SPEC, C_TB, C_TG, C_TR, D_BITS, N_CH, N_IDS,
                         N_RES, Q_BITS, TILE, WF_OPS, _bounce_launch,
-                        _check_stream, _coherence_key, _dead_key,
-                        _leaf_block_bounds, _lights, _scatter_image,
-                        _scene_sort_bounds, _shade_launch, _sort_span,
-                        bounce_plain, isect, isect_plain, leaf_boxes,
-                        precull_tiles, raygen, raygen_plain, sample_env_map,
-                        shade_plain, stream_tiles)
+                        _check_stream, _leaf_block_bounds, _lights,
+                        _scatter_image, _scene_sort_bounds, _shade_launch,
+                        _sort_order, _sort_span, bounce_plain, check_knobs,
+                        isect, isect_plain, leaf_boxes, precull_tiles, raygen,
+                        raygen_plain, sample_env_map, shade_plain,
+                        stream_tiles)
 
 # ---------------------------------------------------------------------------
 # K9: shade, recording the shadow verdict
@@ -279,22 +279,24 @@ class _PermuteLanes(torch.autograd.Function):
         return ct.index_select(1, inverse), None
 
 
-def _sort_rays_diff(st, ids, n_lanes: int, lo, ext):
+def _sort_rays_diff(st, ids, n_lanes: int, lo, ext, qbits: int = Q_BITS,
+                    dir_major: bool = True, dbits: int = D_BITS,
+                    rowsort: bool = False):
     """``wavefront._sort_rays`` out of place and under autograd: lanes [0,
     n_lanes) of ``st`` (17, R) and ``ids`` (2, R) gathered by the sort of
-    the coherence key, the rest kept.  The gather's cotangent goes back by
-    the inverse permutation (``_PermuteLanes``), so it is exact.  Returns
-    (st, ids, alive prefix in tiles)."""
+    the coherence key (the knobs ``wavefront._sort_order``'s), the rest
+    kept.  The gather's cotangent goes back by the inverse permutation
+    (``_PermuteLanes``; a row permutation is a lane permutation too), so
+    it is exact.  Returns (st, ids, alive prefix in tiles)."""
     part = st[:, :n_lanes]
-    key = _coherence_key(part.detach(), lo, ext)
-    n_alive = int((key < _dead_key(Q_BITS)).sum())
-    order = torch.sort(key, stable=True).indices
+    order, n_alive_tiles = _sort_order(part.detach(), n_lanes, lo, ext,
+                                       qbits, dir_major, dbits, rowsort)
     st_s = _PermuteLanes.apply(part, order)
     ids_s = ids[:, :n_lanes].index_select(1, order)
     if n_lanes < st.shape[1]:
         st_s = torch.cat([st_s, st[:, n_lanes:]], dim=1)
         ids_s = torch.cat([ids_s, ids[:, n_lanes:]], dim=1)
-    return st_s, ids_s, -(-n_alive // TILE)
+    return st_s, ids_s, n_alive_tiles
 
 
 def _add_env_radiance_diff(st, env, n_lanes: int):
@@ -393,11 +395,16 @@ def _run_wavefront_diff(blob, meta, nodef, nodei, prims, env, static, *,
                         max_bounces: int, rr_depth: int, use_nee: bool,
                         use_mis: bool, sky_mode: int, dof: bool,
                         sort_min_rays: int, split: bool, precull: bool,
-                        stages: tuple):
+                        stages: tuple, sort_every: int = 1,
+                        qbits: int = Q_BITS, dir_major: bool = True,
+                        dbits: int = D_BITS, compact: bool = True,
+                        tcull: bool = True):
     """One differentiable chunk of ``chunk_spp`` images -> (H, W, 3)
     radiance sum, the forward wavefront's loop with each bounce behind
     ``_BounceOp``: K6 and K9 walking the tree ``nodef``, ``nodei``
-    (``split``), or K11g with its own walk or list sweep (``precull``)."""
+    (``split``), or K11g with its own walk or list sweep (``precull``;
+    ``tcull`` as K11's).  The sort's knobs and ``compact`` as the forward
+    wavefront's (no ``rowsort``, as in JAX's)."""
     k5, k6, k9, k10 = stages[:4]
     block, n_mats = static["block"], static["n_mats"]
     n_light_slots = static["n_light_slots"]
@@ -419,9 +426,13 @@ def _run_wavefront_diff(blob, meta, nodef, nodei, prims, env, static, *,
     none_f = torch.zeros((1, 1, 1), dtype=torch.float32, device=blob.device)
     nalive = n_tiles
     for k in range(max_bounces):
-        lanes = _sort_span(k, nalive, n_tiles, sort_min_rays, True)
+        lanes = _sort_span(k, nalive, n_tiles, sort_min_rays, compact,
+                           sort_every)
         if lanes is not None:
-            st, ids, nalive = _sort_rays_diff(st, ids, lanes, lo, ext)
+            st, ids, na = _sort_rays_diff(st, ids, lanes, lo, ext, qbits,
+                                          dir_major, dbits)
+            if compact:
+                nalive = na
         if nalive == 0:
             break
         n = nalive * TILE
@@ -450,7 +461,8 @@ def _run_wavefront_diff(blob, meta, nodef, nodei, prims, env, static, *,
                         kw=kw):
                 return stages[4](blob_, meta, lsb, tree[0], nodei, prims_,
                                  mtypes, cand, ctn, st_, ids, n,
-                                 precull=precull, boxes=boxes, **kw)
+                                 precull=precull, boxes=boxes, tcull=tcull,
+                                 **kw)
         cfg = dict(forward=forward, bounce_bwd=k10, meta=meta, lsb=lsb,
                    mtypes=mtypes, ids=ids, n_lanes=n,
                    n_blocks=prims.shape[0], kw=kw)
@@ -469,7 +481,11 @@ def make_wavefront_render_fn(scene: SceneData, camera, width: int,
                              height: int, *, spp: int, max_bounces: int = 8,
                              rr_depth: int = 3, use_nee: bool = True,
                              use_mis: bool = True, seed: int = 0,
-                             split: bool = True, precull: bool = True,
+                             sort_every: int = 1, qbits: int = Q_BITS,
+                             dir_major: bool = True, dbits: int = D_BITS,
+                             block: int = BLOCK, compact: bool = True,
+                             tcull: bool = True, split: bool = True,
+                             precull: bool = True,
                              sort_min_rays: int = 1 << 17,
                              chunk_rays: int = 2 << 20):
     """render(params, start_sample) -> (H, W, 3) mean radiance of samples
@@ -486,25 +502,42 @@ def make_wavefront_render_fn(scene: SceneData, camera, width: int,
     tiles' lists, or with ``precull=False`` by a walk of the refit tree;
     its shadow rays walk the tree) and K10 backward; ``precull`` acts on
     the fused bounce only, as in the JAX package.  The two give the same
-    value and gradients but where a ray wins a leaf's padding slot."""
+    value and gradients but where a ray wins a leaf's padding slot.
+
+    JAX's knobs, at its defaults off the TPU: ``sort_every``, ``qbits``,
+    ``dir_major`` and ``dbits`` as ``wavefront.render_wavefront``'s (no
+    ``rowsort``: JAX's gradient has none), ``block`` the leaf width,
+    ``compact=False`` every lane in every launch and whole-stream sorts,
+    ``tcull`` as the forward's (K11g's list sweep: ``split=False`` with
+    ``precull``).  None changes the value; the gradients only by the order
+    of K10's sums.  Raises ValueError as ``wavefront.check_knobs`` does,
+    here."""
     return _make_render_fn(scene, camera, width, height, stages=KERNELS,
                            spp=spp, max_bounces=max_bounces,
                            rr_depth=rr_depth, use_nee=use_nee,
                            use_mis=use_mis, seed=seed, split=split,
                            precull=precull, sort_min_rays=sort_min_rays,
-                           chunk_rays=chunk_rays)
+                           chunk_rays=chunk_rays, block=block,
+                           sort_every=sort_every, qbits=qbits,
+                           dir_major=dir_major, dbits=dbits, compact=compact,
+                           tcull=tcull)
 
 
 def _make_render_fn(scene: SceneData, camera, width: int, height: int, *,
                     stages: tuple, spp: int, max_bounces: int, rr_depth: int,
                     use_nee: bool, use_mis: bool, seed: int,
                     sort_min_rays: int, chunk_rays: int, block: int = BLOCK,
-                    split: bool = True, precull: bool = True):
+                    split: bool = True, precull: bool = True,
+                    sort_every: int = 1, qbits: int = Q_BITS,
+                    dir_major: bool = True, dbits: int = D_BITS,
+                    compact: bool = True, tcull: bool = True):
     """``make_wavefront_render_fn`` with its stages given: K5, K6, K9, K10
     and K11g (``PLAIN`` runs the plain versions on either device, to hold
     the kernels against them on the card; the split bounce reads only the
     first four)."""
     from ..diff import gradients as G
+    check_knobs(sort_every=sort_every, qbits=qbits, dir_major=dir_major,
+                dbits=dbits)
     t, static = packed(scene, camera, block)
     nodef0, nodei = t["nodef"], t["nodei"]
     dof = bool(float(_np(camera.aperture)) > 0.0)
@@ -519,7 +552,10 @@ def _make_render_fn(scene: SceneData, camera, width: int, height: int, *,
               rr_depth=rr_depth, use_nee=bool(use_nee),
               use_mis=bool(use_mis), sky_mode=scene.sky_mode, dof=dof,
               sort_min_rays=sort_min_rays, split=bool(split),
-              precull=bool(precull), stages=stages)
+              precull=bool(precull), stages=stages,
+              sort_every=int(sort_every), qbits=int(qbits),
+              dir_major=bool(dir_major), dbits=int(dbits),
+              compact=bool(compact), tcull=bool(tcull))
 
     def render(params: dict, start_sample) -> torch.Tensor:
         sc = G.apply_params(scene, params)

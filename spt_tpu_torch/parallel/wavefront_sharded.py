@@ -43,20 +43,23 @@ def render_wavefront_sharded(scene: SceneData, camera, width: int,
                              use_mis: bool = True, seed: int = 0,
                              dof=None, block: int = BLOCK,
                              sort_min_rays: int = 1 << 17,
-                             chunk_rays: int = 4 << 20) -> torch.Tensor:
+                             chunk_rays: int = 4 << 20, **kw) -> torch.Tensor:
     """Sample-sharded wavefront forward; the (H, W, 3) radiance sum over
     ``spp`` samples, on every rank.
 
     ``spp`` must divide by the mesh's ``data`` axis; data index i renders
     samples [start + i*spp/N, start + (i+1)*spp/N) by
-    ``wavefront.render_wavefront`` on the scene's device."""
+    ``wavefront.render_wavefront`` on the scene's device, ``kw`` its other
+    options (the knobs ``sort_every``, ``qbits``, ``dir_major``, ``dbits``,
+    ``rowsort``, ``tcull``; ``compact``, ``precull``, ``split``, ``mxu``),
+    as JAX's passes them through."""
     spp_rank = mesh.samples_per_rank(spp)
     mesh.check_member()
     img = wf.render_wavefront(
         scene, camera, width, height, start_sample + mesh.data_idx * spp_rank,
         spp_rank, max_bounces=max_bounces, rr_depth=rr_depth,
         use_nee=use_nee, use_mis=use_mis, seed=seed, dof=dof, block=block,
-        sort_min_rays=sort_min_rays, chunk_rays=chunk_rays)
+        sort_min_rays=sort_min_rays, chunk_rays=chunk_rays, **kw)
     return all_reduce(img, dist.ReduceOp.SUM, mesh.data_group, mesh.backend)
 
 

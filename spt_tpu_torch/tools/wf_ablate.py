@@ -108,6 +108,19 @@ taken out, ``k6m_unculled``, whose differing lanes are the cull's) and
 ``K7B_VARIANTS`` (built for b blocks an SM; the bounce called).  Each
 output is compared with the package's own launch on the same inputs, and
 K7b's state also with K7 walking (``lanes_differ_from_k7``).
+
+    python3 spt_tpu_torch/tools/wf_ablate.py --k5 [--old CSRC_DIR]
+        [--reps N]
+
+times K5, raygen, at config 5 (1920x1080 x 2 spp) three ways: its device
+time alone (torch.profiler's events of the bare library call into a
+preallocated stream; also CUDA events around one bare call and around 20
+back to back), the CUDA-event interval around the wrapper ``raygen``
+(which also allocates the stream and checks its arguments on the host),
+and with ``--old`` an earlier K5's ``csrc`` (its raygen entry without the
+row offset), built beside the package's, timed the same way in the same
+process, the package's timed again after it, and its stream compared with
+the package's bit for bit.  Prints a line a build with the byte bound.
 """
 
 from __future__ import annotations
@@ -137,7 +150,7 @@ _WALK = """        : nodef ? BvhWalk<false>{nodef, nodei, prims, nullptr, nullpt
                                  nullptr, nullptr, n_nodes, block, nullptr}
                       .any_hit(ox, oy, oz, dx, dy, dz, tmax)
 """
-_OCC_K6 = "case 0: fn = reinterpret_cast<const void*>(isect_kernel);"
+_OCC_K6 = "case 0: fn = reinterpret_cast<const void*>(isect_kernel<>);"
 
 # K6's tree mode with the block's octant table in shared memory: the
 # octant of the block's first lane (the sort is octant-major), its n_nodes
@@ -297,9 +310,10 @@ def ptxas(lines, kernel):
 
 
 # The kernels reported per build: ptxas name, occupancy index.
-KERNELS = {"k6": ("12isect_kernel", 0),
+KERNELS = {"k6": ("12isect_kernelILb1E", 0),
            "k7": ("shade_kernelILb0ELb1E", 1),
-           "k11": ("bounce_kernelILb0", 2), "k8l": ("anyhit_kernel", 3),
+           "k11": ("bounce_kernelILb0ELb1E", 2),
+           "k8l": ("anyhit_kernel", 3),
            "k10": ("bounce_bwd_kernel", 4),
            "k8": ("shade_kernelILb0ELb0E", 5),
            "k7b": ("shade_kernelILb1ELb1E", 6)}
@@ -323,9 +337,11 @@ def main() -> int:
     ap.add_argument("--k7b", action="store_true",
                     help="time K7b, shade reading its verdicts, in its "
                          "builds")
+    ap.add_argument("--k5", action="store_true",
+                    help="time K5, raygen, alone and through its wrapper")
     ap.add_argument("--old", type=Path, default=None,
-                    help="with --k10, --k11, --k7m: csrc directory of an "
-                         "earlier design")
+                    help="with --k5, --k10, --k11, --k7m: csrc directory of "
+                         "an earlier design")
     ap.add_argument("--timeout", type=float, default=300.0,
                     help="seconds a build's timing process may take")
     # --time-k10 TAG OLD: one K10 build's launches (time_k10)
@@ -347,6 +363,8 @@ def main() -> int:
     if args.time_fused:
         print(json.dumps(time_fused(*args.time_fused, args.reps)))
         return 0
+    if args.k5:
+        return main_k5(args)
     if args.k10:
         return main_k10(args)
     if args.k11 or args.k7m or args.k6m or args.k7b:
@@ -767,7 +785,6 @@ def build_k10(tag: str, csrc: Path, edits) -> tuple:
 def time_k10(tag: str, old: bool, reps: int) -> dict:
     """One K10 build's launches on config 5's bounces 0 and 1, in a
     process of its own; the stream made by the package's kernels."""
-    import numpy as np
     import torch
     import chip_smoke as cs
     import spt_tpu_torch as T
@@ -1051,7 +1068,7 @@ _K7B_INLINE = """  bool missed;
 """
 _K6M_BOUND = "__global__ void __launch_bounds__(kRow) isect_mxu_kernel("
 _K6M_CULL = ("    if (!done && box_hit(prm.boxes, blk, ox, oy, oz, ivx, ivy, "
-             "ivz, t)) {\n")
+             "ivz,\n                         kTcull ? t : kBig)) {\n")
 _K7B_BLOCKS = "constexpr int kShadeReadMinBlocks = 3;"
 
 
@@ -1116,12 +1133,15 @@ def build_fused(kind: str, tag: str, csrc: Path, edits) -> tuple:
         raise RuntimeError(f"{tag}: nvcc failed\n{proc.stderr[-3000:]}")
     lines = (proc.stdout + proc.stderr).splitlines()
     if kind == "k6m":
-        return tag, dict(k6m=ptxas(lines, "16isect_mxu_kernel"))
+        return tag, dict(k6m=ptxas(lines, "16isect_mxu_kernelILb1E"))
     if kind == "k7b":
         return tag, dict(k7b=ptxas(lines, "shade_kernelILb1ELb1E"))
     if kind == "k11":
-        return tag, dict(k11=ptxas(lines, "bounce_kernelILb0"),
-                         k11g=ptxas(lines, "bounce_kernelILb1"))
+        # the tcull=False instantiations' names carry ELb0E
+        return tag, dict(k11=ptxas(lines, "bounce_kernelILb0ELb1E")
+                         or ptxas(lines, "bounce_kernelILb0"),
+                         k11g=ptxas(lines, "bounce_kernelILb1ELb1E")
+                         or ptxas(lines, "bounce_kernelILb1"))
     if verdict_pass:     # K7m: the verdict pass, then K7b's kernel
         return tag, dict(k7mv=ptxas(lines, "mxu_verdict_kernel"),
                          k7m=ptxas(lines, "shade_kernelILb1ELb1E"))
@@ -1162,6 +1182,8 @@ def time_fused(kind: str, tag: str, reps: int) -> dict:
     fn_b = lib.spt_ablate_blocks_per_sm
     fn_b.argtypes = [_I, _I]
     boxes_arg = "const void* boxes" in text
+    # the entries' tcull argument (since the knobs), 1: the t exits taken
+    tcull = [1] if "int tcull," in text else []
     slot_major = "cb + 8 * c" in text
     verdict_pass = "mxu_verdict_kernel" in text
     stream = torch.cuda.current_stream().cuda_stream
@@ -1231,8 +1253,8 @@ def time_fused(kind: str, tag: str, reps: int) -> dict:
 
             if kind == "k11":
                 fn = lib.spt_wavefront_bounce
-                fn.argtypes = [_P] * (13 if boxes_arg else 12) + [_I] * 13 \
-                    + [_P]
+                fn.argtypes = [_P] * (13 if boxes_arg else 12) + [_I] * (
+                    13 + len(tcull)) + [_P]
                 fn.restype = ctypes.c_int
                 forms = [("lists", True, True), ("walk", False, False)]
                 if boxes_arg:
@@ -1251,7 +1273,7 @@ def time_fused(kind: str, tag: str, reps: int) -> dict:
                         ptrs.append(0 if res is None else res.data_ptr())
                         args_k = (*ptrs, w_st.shape[1], n,
                                   t["nodef"].numel() // 64, *ints[1:],
-                                  int(precull), stream)
+                                  int(precull), *tcull, stream)
 
                         def launch(args_k=args_k):
                             err = fn(*args_k)
@@ -1268,7 +1290,7 @@ def time_fused(kind: str, tag: str, reps: int) -> dict:
             elif kind == "k6m":
                 # The per-row lists, culled by the leaf boxes.
                 fn = lib.spt_wavefront_isect
-                fn.argtypes = [_P] * 10 + [_I] * 5 + [_P]
+                fn.argtypes = [_P] * 10 + [_I] * (5 + len(tcull)) + [_P]
                 fn.restype = ctypes.c_int
                 cand, ctn = wf.precull_tiles(
                     tuple(st[c, :n] for c in range(3)),
@@ -1277,7 +1299,7 @@ def time_fused(kind: str, tag: str, reps: int) -> dict:
                 res = torch.empty((8, n), device=dev)
                 args_k = (*(a.data_ptr() for a in (
                     res, st, prims, cand, ctn, cslot, bctr, boxes)), 0, 0,
-                    st.shape[1], n, nb, block, 0, stream)
+                    st.shape[1], n, nb, block, 0, *tcull, stream)
 
                 def launch():
                     err = fn(*args_k)
@@ -1437,6 +1459,117 @@ def main_fused(args, kinds) -> int:
                     row.update(json.loads(
                         proc.stdout.strip().splitlines()[-1]))
             print(json.dumps(row), flush=True)
+    print(json.dumps(dict(seconds=time.perf_counter() - t0)), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# K5 alone
+# ---------------------------------------------------------------------------
+
+# The raygen entry of a K5 before the row offset: the same arguments less
+# row_offset.
+_OLD_RAYGEN_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+    + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+
+
+def main_k5(args) -> int:
+    """K5's time at config 5, 1920x1080 x 2 spp, three ways: the kernel's
+    device time alone (``chip_smoke.launch_device_ms`` on the bare library
+    call into a preallocated stream; also CUDA events around one bare call
+    and around 20 back to back), the event interval around the wrapper
+    ``wf.raygen`` (as chip_smoke.py timed it before), and with ``--old`` an
+    earlier K5's sources (a ``csrc`` directory whose raygen entry takes no
+    row offset) built beside the package's and timed the same way in this
+    process, its stream checked against the package's bit for bit."""
+    import torch
+    import chip_smoke as cs
+    import spt_tpu_torch as T
+    from spt_tpu_torch.kernels import _build, megakernel_bvh as mb
+    from spt_tpu_torch.kernels import wavefront as wf
+
+    t0 = time.perf_counter()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+
+    def build_old():
+        src = _build.BUILD_DIR / "wf_k5_old"
+        shutil.rmtree(src, ignore_errors=True)
+        shutil.copytree(args.old, src)
+        out = src / "lib.so"
+        proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
+                               str(out), str(src / "wavefront.cu")],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"old K5: nvcc failed\n{proc.stderr[-3000:]}")
+        lib = ctypes.CDLL(str(out))
+        lib.spt_wavefront_raygen.argtypes = _OLD_RAYGEN_ARGS
+        lib.spt_wavefront_raygen.restype = ctypes.c_int
+        return lib, ptxas((proc.stdout + proc.stderr).splitlines(),
+                          "raygen_kernel")
+
+    with ThreadPoolExecutor(2) as pool:
+        new = pool.submit(_build.load_library, "wavefront")
+        old = pool.submit(build_old) if args.old is not None else None
+        lib = new.result()
+        old_lib, old_ptxas = old.result() if old else (None, None)
+    print(json.dumps(dict(phase="build", seconds=time.perf_counter() - t0,
+                          old=str(args.old) if args.old else None)),
+          flush=True)
+
+    dev = torch.device("cuda")
+    sd = cs.scene_10k(T).compile(device=dev)
+    cam = T.Camera.look_at(device=dev, **cs.CAM_10K)
+    t, _, meta = cs.wf_inputs(torch, wf, mb, sd, cam, cs.BIG_SEED)
+    w, h = cs.BIG_W, cs.BIG_H
+    n = (wf.stream_tiles(w, h, 2)[2] + 1) * wf.TILE
+    blob = t["blob"]
+
+    def bare(which):
+        return cs.raygen_launcher(torch, wf, lib if which == "new" else
+                                  old_lib, blob, meta, w, h, 2,
+                                  old=which == "old")
+
+    def times(call):
+        one = min(cs.cuda_ms(torch, call)[1] for _ in range(args.reps))
+
+        def twenty():
+            for _ in range(20):
+                call()
+        back = min(cs.cuda_ms(torch, twenty)[1] for _ in range(args.reps))
+        return dict(device=cs.launch_device_ms(torch, call, "raygen_kernel",
+                                               args.reps),
+                    events_one_ms=one, events_back_to_back_ms=back / 20)
+
+    kw = dict(width=w, height=h, chunk_spp=2, dof=False)
+    wrapper = min(cs.cuda_ms(torch, lambda: wf.raygen(blob, meta, **kw))[1]
+                  for _ in range(args.reps))
+    lanes = n
+    bound_ms, bound_by = cs.bound(0, 4 * (wf.N_CH + wf.N_IDS) * lanes
+                                  + 4 * (15 + 3))
+    call_new, buf_new = bare("new")
+    rows = {"package": times(call_new)}
+    rows["package"]["wrapper_events_ms"] = wrapper
+    rows["package"]["ptxas"] = ptxas(_build.BUILD_INFO["wavefront"]["ptxas"],
+                                     "raygen_kernel")
+    if old_lib is not None:
+        call_old, buf_old = bare("old")
+        rows["old"] = dict(times(call_old), ptxas=old_ptxas)
+        rows["package_again"] = times(call_new)
+        call_new()
+        call_old()
+        torch.cuda.synchronize()
+        rows["old"]["lanes_differ"] = int(
+            (buf_new.view(torch.int32) != buf_old.view(torch.int32))
+            .any(dim=0).sum())
+    for tag, row in rows.items():
+        print(json.dumps(dict(k5=tag, card=card, lanes=lanes,
+                              size=f"{w}x{h} x 2 spp (config 5)",
+                              bound_ms=bound_ms, bound_by=bound_by, **row)),
+              flush=True)
     print(json.dumps(dict(seconds=time.perf_counter() - t0)), flush=True)
     return 0
 

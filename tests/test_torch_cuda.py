@@ -37,7 +37,10 @@ half, and the halves' MAX equals the whole's and K9's; K7 reading K9's
 verdict (``blocked_in_res``) equals K7 sweeping bit for bit, and reading
 K9's walked verdicts K7 walking.  K6m, culling its per-row lists by the
 leaf boxes, equals its plain version bit for bit and parts from the
-unculled sweep only at exact ties and box edges.  An
+unculled sweep only at exact ties and box edges.  The list sweeps without
+their t exits (``tcull=False``: K6l, K6m, K11, K11g) equal their plain
+versions as with them, and the wavefront at leaf blocks of 128 meets
+K1's bar against its plain stages.  An
 environment-map scene's gradient takes the wavefront.  The applications
 and the reference integrator on the card: the CLI's resumed render equals
 an uninterrupted one (rtol 1e-6, atol 1e-7, the JAX CLI's bar),
@@ -969,6 +972,80 @@ def test_k6m_k7m_match_plain(cuda):
     got, want = st_k.cpu().numpy(), st_p.cpu().numpy()
     assert np.isfinite(got).all()
     assert np.isclose(got, want, rtol=RTOL, atol=ATOL).mean() >= MIN_CLOSE
+
+
+@pytest.mark.parametrize("case", ["scene200", "padding"])
+def test_tcull_off_sweeps_match_plain(cuda, case):
+    """The list sweeps without their t exits (``tcull=False``): K6l's and
+    K6m's residuals and K11g's record equal their plain versions' bit for
+    bit, K11's state meets K1's bar against its plain version and equals
+    K11g's; against the sweeps with the exits, lanes part only at exact
+    ties, box edges or padding winners (``cull_differ``)."""
+    from spt_tpu_torch.kernels import wavefront_grad as wg
+    wf, t, meta, b, kw, _, base = _fused_bounce(cuda, case)
+    n, st, prims, block = b["n"], b["st"], t["prims"], kw["block"]
+    lob, hib = wf._leaf_block_bounds(prims.reshape(-1, 5, block))
+    boxes = wf.leaf_boxes(lob, hib)
+    res_l = wf.isect(prims, b["cand"], b["ctn"], st, n, block=block,
+                     tcull=False)
+    assert torch.equal(res_l.view(torch.int32), wf.isect_plain(
+        prims, b["cand"], b["ctn"], st, n, block=block,
+        tcull=False).view(torch.int32))
+    why = cull_differ(torch, wf, st[:, :n], res_l, b["res"], boxes)
+    assert why["other"] == 0, why
+    cand, ctn = wf.precull_tiles(
+        tuple(st[c, :n] for c in range(3)),
+        tuple(st[c, :n] for c in range(3, 6)), st[wf.C_ALIVE, :n], None,
+        lob, hib, per_row=True)
+    bctr, cslot = wf.mxu_tables(dict(prims=prims), block)
+    before = dict(mk.LAUNCHES)
+    res_m = wf.isect_mxu(prims, cslot, bctr, cand, ctn, st, n, block=block,
+                         boxes=boxes, tcull=False)
+    assert mk.LAUNCHES == dict(before, k6m=before["k6m"] + 1)
+    assert torch.equal(res_m.view(torch.int32), wf.isect_mxu_plain(
+        prims, cslot, bctr, cand, ctn, st, n, block=block, boxes=boxes,
+        tcull=False).view(torch.int32))
+    why = cull_differ(torch, wf, st[:, :n], res_m, wf.isect_mxu(
+        prims, cslot, bctr, cand, ctn, st, n, block=block, boxes=boxes),
+        boxes)
+    assert why["other"] == 0, why
+    fargs = (t["blob"], meta, t["lsb"], t["nodef"], t["nodei"], prims,
+             t["mtypes"], b["cand"], b["ctn"])
+    kw11 = dict(kw, precull=True, boxes=boxes)
+    st_k, ids_k = _fresh(wf, base)
+    wf.bounce(*fargs, st_k, ids_k, n, tcull=False, **kw11)
+    out_g, res_g = wg.bounce_fwd(*fargs, *_fresh(wf, base), n, tcull=False,
+                                 **kw11)
+    assert torch.equal(out_g.view(torch.int32), st_k.view(torch.int32))
+    st_p, res_p = wg.bounce_fwd_plain(*fargs, *_fresh(wf, base), n,
+                                      tcull=False, **kw11)
+    assert torch.equal(res_g.view(torch.int32), res_p.view(torch.int32))
+    got, want = st_k.cpu().numpy(), st_p.cpu().numpy()
+    assert np.isclose(got, want, rtol=RTOL, atol=ATOL).mean() >= MIN_CLOSE
+    _, res_c = wg.bounce_fwd(*fargs, *_fresh(wf, base), n, **kw11)
+    why = cull_differ(torch, wf, base[:wf.N_CH, :n], res_g, res_c, boxes)
+    assert why["other"] == 0, why
+
+
+@pytest.mark.parametrize("mode", ["split", "fused", "mxu"])
+def test_wide_leaf_blocks_match_plain(cuda, mode):
+    """The wavefront at JAX's TPU leaf width (128 spheres a block, which
+    the kernels take at run time): the render against its plain stages at
+    K1's bar, as at 32."""
+    from spt_tpu_torch.kernels import wavefront as wf
+    sd = scene_200(T).compile(device=cuda)
+    cam = _scene200_camera(cuda, False)
+    kw = dict(max_bounces=8, rr_depth=3, seed=3, sort_min_rays=0, block=128,
+              split=mode != "fused", mxu=mode == "mxu")
+    before = dict(mk.LAUNCHES)
+    got = wf.render_wavefront(sd, cam, 48, 40, 0, 2, **kw)
+    assert mk.LAUNCHES["plain"] == before["plain"]
+    want = wf._render(sd, cam, 48, 40, 0, 2, stages=wf.PLAIN, **kw)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    assert np.isfinite(got).all() and want.mean() > 0.01
+    close = np.isclose(got, want, rtol=RTOL, atol=ATOL).all(axis=-1)
+    assert close.mean() >= MIN_CLOSE
+    assert abs(got.mean() - want.mean()) <= MAX_MEAN_REL * want.mean()
 
 
 @pytest.mark.parametrize("mode", ["fused", "walk", "mxu"])
